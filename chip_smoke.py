@@ -7,9 +7,10 @@ and nothing of JAX.  Phases, in order; any failure exits non-zero before
 the result line:
 
 1. device  — name, capability, count, ``nvidia-smi`` name and power limit;
-2. build   — both fused score kernels from ``kernels/csrc`` with nvcc for
-             sm_90a, printing ptxas's registers, shared memory and spills;
-3. kernels — each kernel against its plain PyTorch version on the card at
+2. build   — every kernel source in ``kernels/csrc`` with nvcc for sm_90a,
+             one nvcc each, all started together, printing ptxas's
+             registers, shared memory and spills;
+3. kernels — each score kernel against its plain PyTorch version on the card at
              rows 1..65,536, at the paper AE and at d=130 (64, 8, 64), with
              per-row tau and a NaN row (err to rtol=atol=1e-5, flags
              exactly away from tau);
@@ -20,17 +21,36 @@ the result line:
              held against CPU plain scoring, and each kernel's launches
              must equal the service's steps plus its validation chunks;
 5. load    — an MMPP trace replayed open-loop on a virtual clock;
-6. timing  — each kernel at 128 / 1,024 / 65,536 rows beside its plain
-             version and its bound: device time per call from
+6. timing  — each score kernel at 128 / 1,024 / 65,536 rows, and the two
+             training kernels at the train-200 shapes, beside their plain
+             versions and their bounds: device time per call from
              torch.profiler (CUPTI; ``ms`` and ``plain_ms``, and the run
              fails when the profiler records no device time), and per-call
              time by CUDA events over back-to-back calls, host dispatch
-             included (``call_ms`` and ``plain_call_ms``).
+             included (``call_ms`` and ``plain_call_ms``);
+7. training kernels — ``local_train_f32`` (N 1 / 13 / 200, window 48 /
+             256, the paper AE and d=130, mu 0 / 0.01) and ``fused_agg``
+             (d 1,352 / 8,209 / 65,536, N 1 / 200 / 2,000, 20 fogs, int8 on
+             and off, zero weights and an empty fog) against their plain
+             versions on the card: survivor sets exactly, new_err to
+             atol=1e-5, fog sums to rtol=1e-5 / atol=1e-4, deltas to
+             rtol=1e-4 / atol=1e-6, losses to rtol=1e-5;
+8. training — the main path of the training slice: one ``hfl-selective``
+             trial (``launch/experiment.trial_metrics``) at full width, 200
+             sensors, 20 fogs, window 256, E = 5, batch 32, 20 rounds,
+             blockwise rho_s 0.05 int8, publishing every round to a
+             ``CheckpointStore``; the same trial on the CPU with the plain
+             versions and identical draws; per-round participation, links
+             and energies to rtol=1e-5, loss within 1%, F1 within 0.02; a
+             timed 20-round ``hfl.train`` (ms per round) and a profiled one
+             (device busy share).
 
-The launch counts reported are those of phases 4 and 5 (the counters are
-zeroed just before phase 4 and read just after phase 5).  The last line is
-``{"ok": true, "device": {...}}``; the line before it is the card's name
-and power limit, and the one before that the ``kernels`` JSON.
+The launch counts reported for the score kernels are those of phases 4
+and 5 (the counters are zeroed just before phase 4 and read just after
+phase 5), for the training kernels those of phase 8's trial (zeroed just
+before it, read just after).  The last line is ``{"ok": true, "device":
+{...}}``; the line before it is the card's name and power limit, and the
+one before that the ``kernels`` JSON.
 """
 from __future__ import annotations
 
@@ -60,6 +80,16 @@ KERNELS = {
     "fused_score_f32": "src/repro/kernels/fused_score.py:39",
     "fused_score_q8": "src/repro/kernels/fused_score.py:55",
 }
+TRAIN_KERNELS = {   # name -> (TPU kernel it replaces, CUDA source)
+    "local_train_f32": ("src/repro/kernels/fused_local_train.py:58",
+                        "src/repro_torch/kernels/csrc/local_train.cu"),
+    "fused_agg": ("src/repro/kernels/fused_agg.py:37",
+                  "src/repro_torch/kernels/csrc/fused_agg.cu"),
+}
+# train-200: paper Table II at N = 200 (synthetic defaults: window 256, val
+# 64, test 128, D = 32), M = N/10, E = 5, batch 32, T = 20, rho_s 0.05 int8.
+TRAIN_N, TRAIN_FOG, WINDOW, EPOCHS, BATCH, ROUNDS, LR = 200, 20, 256, 5, 32, 20, 0.01
+AGG_DS, AGG_NS = (1352, 8209, 65_536), (1, 200, 2000)
 
 
 class SmokeFailure(RuntimeError):
@@ -71,8 +101,11 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"\n=== {name}", flush=True)
+    print(f"\n=== {name}  (t = {time.perf_counter() - START:.1f} s)", flush=True)
 
 
 def nvidia_smi() -> str:
@@ -127,9 +160,7 @@ def work(d, hidden, rows, q8) -> tuple[int, int]:
 
 
 def bound(d, hidden, rows, q8) -> tuple[float, str]:
-    b, o = work(d, hidden, rows, q8)
-    t_bytes, t_ops = b / PEAK_BYTES_S, o / PEAK_F32_FLOP_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return bound_from(*work(d, hidden, rows, q8))
 
 
 def call_ms(fn, n: int) -> float:
@@ -220,6 +251,238 @@ def serve_fleet(mods, ds, weight_dtype, workdir):
     return svc, launched, f1s
 
 
+def train_work(dims, n, window, steps, batch, prox) -> tuple[int, int]:
+    """(bytes, operations) of one local-train call: windows, index table
+    and params read once, deltas and losses written once; per step and
+    client, matmul FMAs count 2 (forward, weight gradients, the input
+    gradients of layers 1..L-1), bias adds, tanh, the loss and output
+    gradient (4 per output), tanh' (3 per hidden unit), bias-gradient sums,
+    and the update (2 per parameter, 5 with FedProx)."""
+    layers = list(zip(dims[:-1], dims[1:]))
+    mm = sum(a * b for a, b in layers)
+    outs = sum(b for _, b in layers)
+    hidden = sum(dims[1:-1])
+    n_params = mm + outs
+    bytes_ = 4 * (n * window * dims[0] + n * steps * batch + n_params + n * n_params + n)
+    per_step = (batch * (2 * mm + outs + hidden + 4 * dims[0])
+                + batch * (2 * (mm - dims[0] * dims[1]) + 3 * hidden)
+                + batch * (2 * mm + outs)
+                + (5 if prox else 2) * n_params)
+    return bytes_, per_step * steps * n
+
+
+def agg_work(n, d, n_fog) -> tuple[int, int]:
+    """(bytes, operations) of one compress-aggregate call: deltas, error
+    buffers, fog ids and weights read once, new error buffers and fog sums
+    written once (the zero padding is counted, not loaded); per real
+    coordinate the add, |v|, 32 bisection compares and count adds, the
+    int8 round trip (divide, round, two clamps, multiply), the residual and
+    the weighted fog add (2)."""
+    return 4 * (3 * n * d + 2 * n + n_fog * d), n * d * (2 + 2 * 32 + 5 + 1 + 2)
+
+
+def bound_from(bytes_, ops) -> tuple[float, str]:
+    t_bytes, t_ops = bytes_ / PEAK_BYTES_S, ops / PEAK_F32_FLOP_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def close_on_device(got, want, rtol, atol, what) -> float:
+    """Check |got - want| <= atol + rtol |want| on the card; max |diff|."""
+    diff = (got - want).abs()
+    check(bool(torch.all(diff <= atol + rtol * want.abs())),
+          f"{what}: max |diff| {float(diff.max()):.3e} beyond rtol={rtol}, atol={atol}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def check_training_kernels(dev, lt, fa, kops, kref, ae, multi_epoch_indices) -> dict:
+    """Phase 7: each training kernel against its plain version on the
+    card; returns the max |kernel - plain| per kernel."""
+    max_err = dict.fromkeys(TRAIN_KERNELS, 0.0)
+    g = torch.Generator().manual_seed(7)
+    for n in (1, 13, TRAIN_N):
+        for window in (48, WINDOW):
+            for d, hidden in ((D, HIDDEN), WIDE):
+                for mu in (0.0, 0.01):
+                    params = ae.init(g, d, hidden, device=dev)
+                    x = torch.randn((n, window, d), generator=g).to(dev)
+                    idx = multi_epoch_indices(g, n, window, BATCH, EPOCHS).to(dev)
+                    deltas, loss = lt.train_clients(
+                        x, idx, ae.ravel(params), (d, *hidden, d), LR, mu)
+                    d_ref, l_ref = kref.local_train_ref(
+                        x, idx, tuple(p["w"] for p in params), tuple(p["b"] for p in params),
+                        LR, mu)
+                    e = close_on_device(deltas, d_ref, 1e-4, 1e-6, "local_train deltas")
+                    close_on_device(loss, l_ref, 1e-5, 0.0, "local_train loss")
+                    max_err["local_train_f32"] = max(max_err["local_train_f32"], e)
+                    print(f"  local_train_f32 N={n:4d} window={window:3d} d={d:3d} mu={mu:4.2f} "
+                          f"max|delta diff|={e:.3e}  ok")
+    k = kops.block_k(0.05)
+    for d in AGG_DS:
+        for n in AGG_NS:
+            deltas = torch.randn((n, d), generator=g).to(dev)
+            err = (0.1 * torch.randn((n, d), generator=g)).to(dev)
+            fog_id = torch.randint(0, TRAIN_FOG, (n,), generator=g, dtype=torch.int32)
+            fog_id[fog_id == 1] = 0                      # fog 1 stays empty
+            weights = torch.rand((n,), generator=g)
+            weights[::3] = 0.0                           # non-participants
+            fog_id, weights = fog_id.to(dev), weights.to(dev)
+            absv = kref.pad_blocks(deltas + err).abs()
+            for quantize in (True, False):
+                fs_k, ne_k, thr_k = fa.compress_aggregate_blocks(
+                    deltas, err, fog_id, weights, TRAIN_FOG, k, quantize)
+                fs_r, ne_r, thr_r = kref.compress_aggregate_ref(
+                    deltas, err, fog_id, weights, TRAIN_FOG, k, quantize)
+                check(torch.equal(absv > thr_k[..., None], absv > thr_r[..., None]),
+                      f"fused_agg survivor sets differ at d={d}, N={n}")
+                check(not bool(fs_k[1].any()), "the empty fog got a nonzero sum")
+                e = max(close_on_device(ne_k, ne_r, 0.0, 1e-5, "fused_agg new_err"),
+                        close_on_device(fs_k, fs_r, 1e-5, 1e-4, "fused_agg fog sums"))
+                max_err["fused_agg"] = max(max_err["fused_agg"], e)
+                print(f"  fused_agg       d={d:5d} N={n:4d} int8={quantize!s:5s} survivors equal, "
+                      f"max|diff|={e:.3e}  ok")
+            del deltas, err, absv
+    return max_err
+
+
+def time_training_kernels(dev, lt, fa, kops, kref, ae, multi_epoch_indices, name, smi) -> dict:
+    """Phase 6 for the training kernels at the train-200 shapes (the
+    compress-aggregate keep count is the round's: rho_s 0.05 of d)."""
+    from repro_torch.core.compression import blockwise_k_frac
+
+    g = torch.Generator().manual_seed(6)
+    dims = (D, *HIDDEN, D)
+    params = ae.init(g, D, HIDDEN, device=dev)
+    ws, bs = tuple(p["w"] for p in params), tuple(p["b"] for p in params)
+    theta = ae.ravel(params)
+    x = torch.randn((TRAIN_N, WINDOW, D), generator=g).to(dev)
+    idx = multi_epoch_indices(g, TRAIN_N, WINDOW, BATCH, EPOCHS).to(dev)
+    steps = int(idx.shape[1])
+    deltas, _ = lt.train_clients(x, idx, theta, dims, LR, 0.0)
+    err = (0.1 * torch.randn(tuple(deltas.shape), generator=g)).to(dev)
+    fog_id = torch.randint(0, TRAIN_FOG, (TRAIN_N,), generator=g, dtype=torch.int32).to(dev)
+    weights = torch.full((TRAIN_N,), float(WINDOW), device=dev)
+    d = int(deltas.shape[1])
+    k = kops.block_k(blockwise_k_frac(d, 0.05))
+    cases = {
+        "local_train_f32": (
+            lambda: lt.train_clients(x, idx, theta, dims, LR, 0.0),
+            lambda: kref.local_train_ref(x, idx, ws, bs, LR, 0.0),
+            train_work(dims, TRAIN_N, WINDOW, steps, BATCH, False),
+            (50, 5, 20, 3),
+            f"N={TRAIN_N} window={WINDOW} {steps} steps x {BATCH} rows, AE {dims}",
+        ),
+        "fused_agg": (
+            lambda: fa.compress_aggregate_blocks(deltas, err, fog_id, weights, TRAIN_FOG, k),
+            lambda: kref.compress_aggregate_ref(deltas, err, fog_id, weights, TRAIN_FOG, k),
+            agg_work(TRAIN_N, d, TRAIN_FOG),
+            (200, 20, 50, 5),
+            f"N={TRAIN_N} d={d} n_fog={TRAIN_FOG} k={k} int8",
+        ),
+    }
+    out = {}
+    for kname, (run_kernel, run_plain, work, (n_k, n_p, prof_k, prof_p), shape) in cases.items():
+        calls = {"call_ms": call_ms(run_kernel, n_k), "plain_call_ms": call_ms(run_plain, n_p)}
+        (ms, per_call), (plain_ms, plain_kernels) = (
+            device_ms(run_kernel, prof_k), device_ms(run_plain, prof_p))
+        bound_ms, bound_by = bound_from(*work)
+        out[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          device_ops_per_call=per_call, plain_device_ops_per_call=plain_kernels,
+                          shape=shape, bytes=work[0], operations=work[1], **calls)
+        print(f"  {kname:16s} {shape}: device time kernel {ms * 1e3:9.3f} us "
+              f"({per_call:.0f} launches per call), plain {plain_ms * 1e3:10.3f} us "
+              f"({plain_kernels:.0f} device ops); bound {bound_ms * 1e3:8.4f} us ({bound_by}); "
+              f"per call by CUDA events: kernel {calls['call_ms'] * 1e3:9.3f} us, "
+              f"plain {calls['plain_call_ms'] * 1e3:10.3f} us  on {name} ({smi})")
+    return out
+
+
+def train_fleet(mods, dev, name, smi, workdir) -> dict:
+    """Phase 8: the hfl-selective trial at full width on the card and on
+    the CPU with identical draws; a timed and a profiled ``hfl.train``."""
+    exp, hfl, ae, CheckpointStore, SensorDataset, ds, lt, fa = mods
+    cfg = exp.make_config(TRAIN_N, TRAIN_FOG, ROUNDS)
+    check((cfg.local_epochs, cfg.batch_size, cfg.lr, cfg.compressor.mode, cfg.compressor.rho_s,
+           cfg.compressor.quant_bits) == (EPOCHS, BATCH, LR, "blockwise", 0.05, 8),
+          f"unexpected train-200 config {cfg}")
+    inputs = exp.draw_trial(torch.Generator().manual_seed(0), ds, cfg)
+    store = CheckpointStore(str(workdir / "train"), keep=2)
+
+    lt.reset_launches()
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gpu = exp.trial_metrics("hfl-selective", None, ds, cfg, inputs=inputs, store=store,
+                            return_params=True)
+    torch.cuda.synchronize()
+    trial_s = time.perf_counter() - t0
+    launches = {"local_train_f32": lt.LAUNCHES["local_train_f32"],
+                "fused_agg": fa.LAUNCHES["fused_agg"]}
+    check(launches == {"local_train_f32": ROUNDS, "fused_agg": 2 * ROUNDS},
+          f"training launches {launches} for {ROUNDS} rounds")
+    check(gpu["losses"].device.type == "cuda", "the trial did not run on the card")
+    loaded, step = store.latest(gpu["params"])
+    check(step == ROUNDS and torch.equal(ae.ravel(loaded), ae.ravel(gpu["params"])),
+          "the last published step does not load back equal to the returned params")
+    cpu = exp.trial_metrics("hfl-selective", None, ds, cfg, inputs=inputs, device="cpu")
+    loss_g, loss_c = gpu["losses"].cpu().numpy(), cpu["losses"].numpy()
+    loss_rel = float(np.max(np.abs(loss_g - loss_c) / np.abs(loss_c)))
+    check(loss_rel <= 0.01, f"per-round loss differs from the CPU run by {loss_rel:.3e}")
+    f1_diff = abs(float(gpu["f1"]) - float(cpu["f1"]))
+    check(f1_diff <= 0.02, f"F1 {float(gpu['f1']):.4f} vs CPU {float(cpu['f1']):.4f}")
+    check(all(bool(torch.isfinite(v).all()) for k, v in gpu.items() if k != "params"),
+          "non-finite trial metrics")
+
+    # Per-round physics against the CPU, and ms per round, from hfl.train.
+    ds_dev = SensorDataset(*(t.to(dev) for t in ds))
+    dep_dev, draws_dev = inputs.dep.to(dev), inputs.draws.to(dev)
+    params_dev = [{k: v.to(dev) for k, v in layer.items()} for layer in inputs.params]
+
+    def train_on_card():
+        return hfl.train(params_dev, ae.loss, ds_dev, cfg, dep_dev, draws_dev)
+
+    round_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m_g = train_on_card()
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t0) * 1e3 / ROUNDS)
+    _, m_c = hfl.train(inputs.params, ae.loss, ds, cfg, inputs.dep, inputs.draws)
+    for field in ("participation", "coop_links", "e_s2f", "e_f2f", "e_f2g"):
+        got = getattr(m_g, field).cpu().to(torch.float64).numpy()
+        want = getattr(m_c, field).to(torch.float64).numpy()
+        check(np.allclose(got, want, rtol=1e-5, atol=0.0),
+              f"per-round {field} differs from the CPU run: {got} vs {want}")
+
+    train_ms, train_ops = device_ms(train_on_card, 1)
+    device_ms_round = train_ms / ROUNDS
+    best = min(round_ms)
+    summary = dict(
+        launches=launches, trial_s=trial_s, round_ms=round_ms, rounds_per_s=1e3 / best,
+        device_ms_per_round=device_ms_round, device_ops_per_round=train_ops / ROUNDS,
+        idle_share=max(0.0, 1.0 - device_ms_round / best),
+        f1=float(gpu["f1"]), precision=float(gpu["precision"]), recall=float(gpu["recall"]),
+        cpu_f1=float(cpu["f1"]), e_total=float(gpu["e_total"]),
+        participation=float(gpu["participation"]), coop_links=float(gpu["coop_links"]),
+        loss_first=float(loss_g[0]), loss_last=float(loss_g[-1]), loss_rel_vs_cpu=loss_rel,
+    )
+    print(f"  hfl-selective N={TRAIN_N} M={TRAIN_FOG} window={WINDOW} E={EPOCHS} bs={BATCH} "
+          f"T={ROUNDS} on {name} ({smi}):")
+    print(f"    trial (with publishing + evaluation) {trial_s:.3f} s; hfl.train "
+          f"{', '.join(f'{v:.3f}' for v in round_ms)} ms per round "
+          f"({summary['rounds_per_s']:.1f} rounds/s at the best)")
+    print(f"    device time {device_ms_round:.3f} ms per round in "
+          f"{summary['device_ops_per_round']:.0f} device ops; idle share "
+          f"{summary['idle_share']:.3f} of the best round")
+    print(f"    F1 {summary['f1']:.4f} precision {summary['precision']:.4f} recall "
+          f"{summary['recall']:.4f} (CPU F1 {summary['cpu_f1']:.4f}); loss "
+          f"{summary['loss_first']:.4f} -> {summary['loss_last']:.4f} (max rel vs CPU "
+          f"{loss_rel:.2e}); energy {summary['e_total']:.4f} J; participation "
+          f"{summary['participation']:.4f}; coop links {summary['coop_links']:.2f}/round")
+    print(f"    launches {launches}")
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
@@ -227,11 +490,16 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.checkpoint import CheckpointStore
-    from repro_torch.core import anomaly
-    from repro_torch.data.synthetic import SyntheticConfig, generate, normalize
+    from repro_torch.core import anomaly, hfl
+    from repro_torch.data.pipeline import multi_epoch_indices
+    from repro_torch.data.synthetic import SensorDataset, SyntheticConfig, generate, normalize
     from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_agg as fa
     from repro_torch.kernels import fused_score as fs
+    from repro_torch.kernels import local_train as lt
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
+    from repro_torch.launch import experiment as exp
     from repro_torch.loadgen import VirtualClock, gaussian_windows, mmpp_trace, replay
     from repro_torch.models import autoencoder as ae
     from repro_torch.serving import ScoringService, StreamingCalibrator
@@ -357,6 +625,21 @@ def main() -> int:
                   f"({bound_by}); per call by CUDA events: kernel "
                   f"{calls['call_ms'] * 1e3:8.3f} us, plain {calls['plain_call_ms'] * 1e3:8.3f} us"
                   f"  on {name} ({smi})")
+    train_kmods = (lt, fa, kops, kref, ae, multi_epoch_indices)
+    train_timing = time_training_kernels(dev, *train_kmods, name, smi)
+
+    phase("7. training kernels against their plain versions")
+    train_err = check_training_kernels(dev, *train_kmods)
+
+    phase("8. training (main path): hfl-selective at N=200, T=20")
+    train_ds = normalize(generate(
+        torch.Generator().manual_seed(0),
+        SyntheticConfig(n_sensors=TRAIN_N, train_len=WINDOW, val_len=VAL_LEN, test_len=TEST_LEN),
+        device="cpu",
+    ))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT / "build") as tmp:
+        training = train_fleet((exp, hfl, ae, CheckpointStore, SensorDataset, train_ds, lt, fa),
+                               dev, name, smi, Path(tmp))
 
     kernels = []
     for kname, replaces in KERNELS.items():
@@ -377,6 +660,19 @@ def main() -> int:
             "rows": HEADLINE_ROWS,
             "by_rows": {str(r): v for r, v in rows_table[kname].items()},
         })
+    for kname, (replaces, source) in TRAIN_KERNELS.items():
+        t = train_timing[kname]
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": training["launches"][kname],
+            "max_abs_err": train_err[kname],
+            "library_ms": None,
+            **t,
+        })
+    print(json.dumps({"training": training}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

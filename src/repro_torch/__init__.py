@@ -1,9 +1,12 @@
 """repro_torch: the PyTorch + CUDA (Hopper) port of ``repro``.
 
-Mirrors ``repro``'s layout module for module.  Serving is ported first:
-``repro_torch.serving`` scores telemetry with the paper autoencoder
-through two hand-written CUDA kernels (``kernels/csrc/fused_score.cu``).
-Entry points run on the CUDA card unless the caller passes
-``device="cpu"``, which selects the plain PyTorch versions.
+Mirrors ``repro``'s layout module for module.  Ported so far: the
+scoring service (``repro_torch.serving``, two CUDA score kernels in
+``kernels/csrc/fused_score.cu``) and one hierarchical federated training
+trial (``repro_torch.launch.experiment.trial_metrics`` -> ``core/hfl``,
+with the local-train and compress-aggregate kernels in
+``kernels/csrc/local_train.cu`` and ``fused_agg.cu``).  Entry points run
+on the CUDA card unless the caller passes ``device="cpu"``, which selects
+the plain PyTorch versions.
 """
 __version__ = "0.1.0"

@@ -1,0 +1,143 @@
+"""Update compression (paper Sec. V-C) on flat client updates.
+
+Two modes:
+
+- ``blockwise`` (the default here): per 8192-element block, error-feedback
+  Top-K by threshold bisection and an int8 round trip, fused with the fog
+  aggregation in ``core/aggregation`` (the ``fused_agg`` kernel on the
+  card).  This is the compressor ``repro.engine.Engine.resolve_compressor``
+  gives the round loops on every backend; the port has no Engine yet, so
+  it is the port's default.
+- ``global``: exact Top-K over the whole flat update, the paper's
+  semantics for the ~1,352-parameter autoencoder (rho_s = 0.05 -> K ~ 68),
+  in plain PyTorch (``torch.topk``).
+
+Both apply error feedback (Eq. 30) and report the acoustic payload in bits
+(Eq. 31): L_u = K (b_q + b_idx).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.kernels.ops import BLOCK_ELEMS
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressorConfig:
+    """Compression knobs.  ``fused=False`` (the per-client blockwise
+    pipeline) needs the unported ``quant8`` / ``topk_ef`` kernels and
+    raises."""
+
+    rho_s: float = 0.05          # sparsification ratio (1.0 = dense)
+    quant_bits: int = 8          # post-sparsification bit-width (32 = none)
+    mode: str = "blockwise"      # "blockwise" | "global"
+    fused: bool = True           # fuse compression into fog aggregation
+
+    def replace(self, **kw: Any) -> "CompressorConfig":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def is_sparse(self) -> bool:
+        return self.rho_s < 1.0
+
+    @property
+    def enabled(self) -> bool:
+        return self.is_sparse or self.quant_bits < 32
+
+
+UNPORTED_BLOCKWISE = (
+    "the per-client blockwise compressor needs the quant8 / topk_ef kernels, "
+    "not ported yet (ROADMAP.md queue 2 items 6-8)"
+)
+
+
+def payload_bits(d: int, cfg: CompressorConfig) -> float:
+    """Uplink payload size in bits (paper Eq. 31 / Sec. IV-B)."""
+    if not cfg.enabled:
+        return 32.0 * d
+    bits = float(cfg.quant_bits)
+    if not cfg.is_sparse:
+        return bits * d  # quantise-only: no index overhead
+    b_idx = math.ceil(math.log2(max(d, 2)))
+    k = max(1.0, round(cfg.rho_s * d))
+    return k * (bits + b_idx)
+
+
+def blockwise_k_frac(d: int, rho_s: float) -> float:
+    """Per-block keep fraction for blockwise mode on a length-``d`` vector.
+
+    rho_s is a fraction of the REAL coordinates; blocks keep a uniform k,
+    and the zero-padded tail block can contribute at most its real
+    coordinates, so when the uniform k exceeds the tail the full blocks
+    absorb the difference.
+    """
+    nb = max(1, -(-d // BLOCK_ELEMS))
+    tail = d - (nb - 1) * BLOCK_ELEMS      # real coords in the last block
+    target = max(1, round(rho_s * d))
+    k = target / nb
+    if nb > 1 and k > tail:
+        k = (target - tail) / (nb - 1)
+    return min(1.0, k / BLOCK_ELEMS)
+
+
+def validate_blockwise_bits(quant_bits: int) -> None:
+    """Blockwise compression is int8-only; reject widths it would silently
+    mis-quantise (4/16-bit configs must use mode='global')."""
+    if quant_bits not in (8,) and quant_bits < 32:
+        raise ValueError(
+            f"blockwise mode supports quant_bits 8 or >=32, got "
+            f"{quant_bits}; use mode='global' for other widths"
+        )
+
+
+def _global_topk_ef(v: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact Top-K by magnitude over the last axis (ties at the k-th
+    magnitude are all kept, as the ``>=`` mask of the reference does)."""
+    absv = torch.abs(v)
+    kth = torch.topk(absv, k, dim=-1).values[..., -1:]
+    return torch.where(absv >= kth, v, 0.0)
+
+
+def _quantize_global(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Symmetric fixed-point quantise/dequantise with one scale per row;
+    the scale is amax times f32(1/qmax), as the reference's jitted
+    ``amax / qmax`` computes it."""
+    if bits >= 32:
+        return x
+    qmax = float(2 ** (bits - 1) - 1)
+    amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    scale = amax * (1.0 / qmax)
+    safe = torch.where(scale > 0, scale, 1.0)
+    q = torch.clamp(torch.round(x / safe), -qmax, qmax)
+    return torch.where(scale > 0, q * scale, x)
+
+
+def compress_update(
+    delta: torch.Tensor, err: torch.Tensor, cfg: CompressorConfig,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compress flat client updates (..., d) with error feedback.
+
+    Returns (reconstruction the fog decodes, new error buffer), both
+    (..., d).  Only ``mode="global"`` is ported here; blockwise mode runs
+    fused with the aggregation (``core/aggregation``).
+    """
+    if not cfg.enabled:
+        return delta, err
+    if cfg.mode == "global":
+        v = delta + err
+        if cfg.is_sparse:
+            k = max(1, int(round(cfg.rho_s * v.shape[-1])))
+            sparse = _global_topk_ef(v, k)
+        else:
+            sparse = v
+        recon = _quantize_global(sparse, cfg.quant_bits)
+        return recon, v - recon
+    if cfg.mode == "blockwise":
+        validate_blockwise_bits(cfg.quant_bits)
+        raise NotImplementedError(UNPORTED_BLOCKWISE)
+    raise ValueError(f"unknown compression mode: {cfg.mode}")
+

@@ -1,0 +1,293 @@
+"""Hierarchical federated learning main loop (paper Algorithm 1).
+
+A round is a Python function over tensors that stay on one device:
+Gauss-Markov fog mobility, nearest-feasible-fog association, the
+cooperation decision, the client phase (``optim/sgd.make_client_solver``:
+the ``local_train_f32`` kernel on the card), compression fused with the
+fog sums (``core/aggregation.compress_and_accumulate``: the ``fused_agg``
+kernel on the card), cooperative mixing (Eq. 15), the gateway step
+(Eq. 16, optionally FedAdam) and the energy / latency / battery
+accounting (Eqs. 17-21).  :func:`train` loops it over the rounds.
+
+Randomness is an argument: :class:`RoundDraws` holds every round's
+mobility noise and minibatch index table, and :func:`draw_rounds` makes
+them from a ``torch.Generator`` in a fixed order, so a run on the card
+and one on the CPU see identical inputs, and a test can hand both
+packages the reference's own draws.  Faults, drift, robust aggregation,
+client chunking and the client mesh are not ported yet; the config
+leaves them out and ``client_mesh`` raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.core import aggregation as agg
+from repro_torch.core import association as assoc
+from repro_torch.core import channel as ch
+from repro_torch.core import compression as comp
+from repro_torch.core import cooperation as coop
+from repro_torch.core import energy as en
+from repro_torch.core import topology as topo
+from repro_torch.data.pipeline import multi_epoch_indices
+from repro_torch.data.synthetic import SensorDataset
+from repro_torch.models import autoencoder as ae
+from repro_torch.optim import server as srv
+from repro_torch.optim.sgd import LocalTrainConfig, make_client_solver
+
+Params = Any
+LossFn = Callable[[Params, torch.Tensor], torch.Tensor]
+
+UNPORTED_MESH = "client_mesh (sharded client axis) is not ported yet (ROADMAP.md queue 1 item 15)"
+
+
+@dataclasses.dataclass(frozen=True)
+class HFLConfig:
+    """Round-loop configuration: the reference's fields that the ported
+    path uses (faults, drift, robust aggregation and client chunking come
+    with their slices)."""
+
+    rule: coop.CoopRule = coop.CoopRule.SELECTIVE
+    rounds: int = 20
+    local_epochs: int = 5            # E
+    batch_size: int = 32
+    lr: float = 0.01                 # eta
+    prox_mu: float = 0.0             # >0 => FedProx local solver
+    server_opt: str = "sgd"          # "sgd" (FedAvg identity) | "adam" (FedAdam [34])
+    server_lr: float = 1e-2
+    local_solver: LocalTrainConfig = LocalTrainConfig()
+    compressor: comp.CompressorConfig = comp.CompressorConfig()
+    fog_mobility: bool = True
+    compute_rate_flops: float = 1e8  # embedded-DSP local compute rate
+    channel: ch.ChannelParams = ch.ChannelParams()
+    energy: en.EnergyParams = en.EnergyParams()
+    deployment: topo.DeploymentParams = topo.DeploymentParams()
+
+    def replace(self, **kw: Any) -> "HFLConfig":
+        return dataclasses.replace(self, **kw)
+
+
+class RoundMetrics(NamedTuple):
+    loss: torch.Tensor
+    e_s2f: torch.Tensor          # Eq. 17
+    e_f2f: torch.Tensor          # Eq. 18
+    e_f2g: torch.Tensor          # Eq. 19
+    e_total: torch.Tensor        # Eq. 20
+    latency_s: torch.Tensor      # Eq. 21
+    participation: torch.Tensor
+    coop_links: torch.Tensor     # number of active fog-to-fog exchanges
+    battery_min: torch.Tensor
+    n_nonfinite: torch.Tensor    # delivered deltas carrying NaN/Inf (zeroed)
+    n_erased: torch.Tensor       # packets lost to erasure (0: no faults yet)
+    global_finite: torch.Tensor  # bool — global params finite after the round
+
+
+class HFLState(NamedTuple):
+    params: Params               # global model theta^t (views of one flat vector)
+    err: torch.Tensor            # (N, d) error-feedback buffers
+    battery: torch.Tensor        # (N,) residual energy
+    dep: topo.Deployment
+    server: srv.ServerOptState   # gateway optimiser state (FedAdam)
+
+
+class RoundDraws(NamedTuple):
+    """Per-round random inputs, stacked over the rounds."""
+
+    mobility: torch.Tensor       # (T, M, 3) f32 standard-normal Gauss-Markov noise
+    batches: torch.Tensor        # (T, N, steps, bs) int32 minibatch index tables
+
+    def to(self, device: torch.device | str) -> "RoundDraws":
+        return RoundDraws(self.mobility.to(device), self.batches.to(device))
+
+
+def draw_rounds(
+    generator: torch.Generator, cfg: HFLConfig, n_clients: int, window: int,
+) -> RoundDraws:
+    """Every round's draws from ``generator`` (CPU), in this order: per
+    round t, ``randn(M, 3)`` mobility noise, then the clients' index
+    tables (``data/pipeline.multi_epoch_indices``)."""
+    if cfg.rounds < 1:
+        raise ValueError(f"a trial needs at least one round, got {cfg.rounds}")
+    noise, batches = [], []
+    for _ in range(cfg.rounds):
+        noise.append(torch.randn((cfg.deployment.n_fog, 3), generator=generator))
+        batches.append(multi_epoch_indices(
+            generator, n_clients, window, cfg.batch_size, cfg.local_epochs
+        ))
+    return RoundDraws(torch.stack(noise), torch.stack(batches))
+
+
+def init_state(params: Params, dep: topo.Deployment, cfg: HFLConfig) -> HFLState:
+    flat = ae.ravel(params)
+    n = cfg.deployment.n_sensors
+    dev = flat.device
+    return HFLState(
+        params=ae.unravel(flat.clone(), params),
+        err=torch.zeros((n, flat.shape[0]), dtype=flat.dtype, device=dev),
+        battery=torch.full((n,), cfg.energy.e_init_j, dtype=torch.float32, device=dev),
+        dep=dep,
+        server=srv.init_state(flat.shape[0], dev),
+    )
+
+
+def comm_latency_s(
+    l_u: float,
+    l_full: float,
+    active: torch.Tensor,
+    sensor_dist_m: torch.Tensor,
+    decision: coop.CoopDecision,
+    fog_active: torch.Tensor,
+    fog_gateway_dist_m: torch.Tensor,
+    channel: ch.ChannelParams,
+) -> torch.Tensor:
+    """Eq. 21 communication term: the slowest active parallel link per
+    tier (sensor->fog uplink, fog<->fog exchange, fog->gateway).  The
+    fog-to-fog tier masks on ``cooperates & fog_active``, like the Eq. 18
+    energy term: an empty fog has no model to exchange."""
+    lat_up = torch.amax(torch.where(active, en.link_latency_s(l_u, sensor_dist_m, channel), 0.0))
+    lat_ff = torch.amax(torch.where(
+        decision.cooperates & fog_active,
+        en.link_latency_s(l_full, decision.dist_m, channel), 0.0,
+    ))
+    lat_fg = torch.amax(torch.where(
+        fog_active, en.link_latency_s(l_full, fog_gateway_dist_m, channel), 0.0
+    ))
+    return torch.maximum(torch.maximum(lat_up, lat_ff), lat_fg)
+
+
+def make_round_fn(
+    loss_fn: LossFn,
+    ds: SensorDataset,
+    cfg: HFLConfig,
+    *,
+    client_mesh: Any = None,
+) -> Callable[[HFLState, torch.Tensor, torch.Tensor], tuple[HFLState, RoundMetrics]]:
+    """Build ``round_fn(state, mobility (M, 3), batches (N, steps, bs))
+    -> (state, metrics)``, one round of Algorithm 1 on ``ds``'s device."""
+    if client_mesh is not None:
+        raise NotImplementedError(UNPORTED_MESH)
+    n_fog = cfg.deployment.n_fog
+    clients_fn = make_client_solver(
+        loss_fn, batch_size=cfg.batch_size, epochs=cfg.local_epochs,
+        lr=cfg.lr, prox_mu=cfg.prox_mu, solver=cfg.local_solver,
+    )
+    n, window, dim = ds.train.shape
+    # As in the reference, the compute cost counts the paper's hidden widths.
+    flops = en.autoencoder_flops(dim, (16, 8, 16), window, cfg.local_epochs)
+    lat_comp = flops / cfg.compute_rate_flops
+    e_comp = float(en.compute_energy_j(flops, cfg.energy))   # the f32 value, on the host
+
+    def round_fn(state: HFLState, mobility: torch.Tensor, batches: torch.Tensor):
+        dep = state.dep
+        if cfg.fog_mobility:
+            dep = topo.gauss_markov_step(mobility, dep, cfg.deployment)
+
+        # --- 1. association + cooperation decisions (lines 1-7) ----------
+        fa = assoc.nearest_feasible_fog(dep, cfg.channel)
+        alive = state.battery > cfg.energy.e_min_j
+        active = fa.participates & alive
+        # Cooperation sees round-active cluster sizes (battery included).
+        c_active = torch.zeros((n_fog,), dtype=torch.int32, device=active.device)
+        c_active.index_add_(0, fa.fog_id.long(), active.to(torch.int32))
+        decision = coop.decide(cfg.rule, dep.fog_pos, c_active, cfg.channel)
+
+        # --- 2+3. local training, fused compression + fog sums -----------
+        flat0 = ae.ravel(state.params)
+        d = flat0.shape[0]
+        active_f = active.to(torch.float32)
+        weights = ds.n_samples * active_f
+        deltas, losses = clients_fn(state.params, ds.train, batches)
+        n_nonfinite = torch.sum(active & ~torch.all(torch.isfinite(deltas), dim=-1))
+        fog_sum, fog_weight, new_err = agg.compress_and_accumulate(
+            deltas, state.err, fa.fog_id, weights, n_fog, cfg.compressor,
+        )
+        fog_delta = fog_sum / torch.clamp_min(fog_weight, 1e-12)[:, None]
+        # Non-participants keep their error buffer and contribute nothing.
+        new_err = torch.where(active[:, None], new_err, state.err)
+
+        fog_model = fog_delta + flat0[None, :]                 # theta_m^{t+1/2}
+        mixed = agg.cooperative_mix(fog_model, decision)       # Eq. 15
+
+        # --- 4. global aggregation (Eq. 16, lines 19-21) -----------------
+        new_flat = agg.global_aggregate(mixed, fog_weight, prev=flat0)
+        server = state.server
+        if cfg.server_opt == "adam":
+            incr, server = srv.adam_update(new_flat - flat0, state.server, lr=cfg.server_lr)
+            new_flat = flat0 + incr
+        new_params = ae.unravel(new_flat, state.params)
+
+        # --- 5. energy / latency / battery accounting --------------------
+        l_u = comp.payload_bits(d, cfg.compressor)           # sensor uplink bits
+        l_full = 32.0 * d                                    # fog exchanges, dense
+        e_up = torch.where(active, en.tx_energy_j(l_u, fa.dist_m, cfg.channel, cfg.energy), 0.0)
+        e_s2f = torch.sum(e_up)
+        fog_active = fog_weight > 0
+        e_ff = en.tx_energy_j(l_full, decision.dist_m, cfg.channel, cfg.energy)
+        e_f2f = torch.sum(torch.where(decision.cooperates & fog_active, e_ff, 0.0))
+        e_fg = en.tx_energy_j(l_full, fa.fog_gateway_dist_m, cfg.channel, cfg.energy)
+        e_f2g = torch.sum(torch.where(fog_active & fa.fog_gateway_feasible, e_fg, 0.0))
+        lat_comm = comm_latency_s(
+            l_u, l_full, active, fa.dist_m, decision, fog_active,
+            fa.fog_gateway_dist_m, cfg.channel,
+        )
+        spent = e_up + torch.where(active, e_comp, 0.0)
+        battery, _ = en.battery_step(state.battery, spent, cfg.energy)
+
+        metrics = RoundMetrics(
+            loss=torch.sum(losses * active_f) / torch.clamp_min(torch.sum(active_f), 1.0),
+            e_s2f=e_s2f,
+            e_f2f=e_f2f,
+            e_f2g=e_f2g,
+            e_total=e_s2f + e_f2f + e_f2g,
+            latency_s=lat_comm + lat_comp,
+            participation=torch.mean(active_f),
+            coop_links=torch.sum(decision.cooperates.to(torch.int32)),
+            battery_min=torch.amin(battery),
+            n_nonfinite=n_nonfinite.to(torch.int32),
+            n_erased=torch.zeros((), dtype=torch.int32, device=active.device),
+            global_finite=torch.all(torch.isfinite(new_flat)),
+        )
+        return HFLState(new_params, new_err, battery, dep, server), metrics
+
+    return round_fn
+
+
+def train(
+    init_params: Params,
+    loss_fn: LossFn,
+    ds: SensorDataset,
+    cfg: HFLConfig,
+    dep: topo.Deployment,
+    draws: RoundDraws,
+    *,
+    client_mesh: Any = None,
+    store: Any | None = None,
+    publish_every: int = 1,
+    publish_offset: int = 0,
+) -> tuple[Params, RoundMetrics]:
+    """Run T federated rounds; returns (final params, metrics stacked over
+    rounds).  Everything runs on the device of ``ds``; ``dep`` and
+    ``draws`` (see :func:`draw_rounds`) are moved there once.
+
+    With ``store`` (a ``checkpoint.CheckpointStore``) the loop publishes
+    the global params every ``publish_every`` rounds (step = round index +
+    ``publish_offset``; the final round always publishes), which is what
+    the serving hot-swap watches.
+    """
+    dev = ds.train.device
+    if not 1 <= cfg.rounds <= draws.mobility.shape[0]:
+        raise ValueError(f"draws cover {draws.mobility.shape[0]} rounds, cfg.rounds={cfg.rounds}")
+    draws = draws.to(dev)
+    state = init_state([{k: v.to(dev) for k, v in layer.items()} for layer in init_params],
+                       dep.to(dev), cfg)
+    round_fn = make_round_fn(loss_fn, ds, cfg, client_mesh=client_mesh)
+    per_round = []
+    for t in range(cfg.rounds):
+        state, m = round_fn(state, draws.mobility[t], draws.batches[t])
+        per_round.append(m)
+        if store is not None and ((t + 1) % publish_every == 0 or t + 1 == cfg.rounds):
+            store.publish(publish_offset + t + 1, state.params)
+    metrics = RoundMetrics(*(torch.stack(v) for v in zip(*per_round)))
+    return state.params, metrics

@@ -1,0 +1,34 @@
+"""What the launch wrappers of the port share: input checks, the error
+raise after a launch and the current stream."""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
+          device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} is {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def require_cuda(t: torch.Tensor, what: str) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"the {what} kernel takes CUDA tensors, got one on {t.device}")
+    return t.device
+
+
+def raise_on(rc: int, what: str, error_string: Callable[[int], bytes]) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {rc} ({error_string(rc).decode()})")
+
+
+def stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -22,7 +22,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _launch
 
 MAX_LAYERS = 8             # kMaxLayers in csrc/fused_score.cu
 SMEM_LIMIT = 232_448       # dynamic shared memory one sm_90 block may opt in to
@@ -102,27 +102,14 @@ def layout(dims: tuple[int, ...], rows: int, n_sm: int) -> tuple[int, int, int, 
         tile //= 2
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} is {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_rows(x: torch.Tensor, tau: torch.Tensor, n_layers: int) -> torch.device:
-    if x.device.type != "cuda":
-        raise ValueError(f"the fused score kernel takes CUDA tensors, x is on {x.device}")
+    _launch.require_cuda(x, "fused score")
     if x.dim() != 2:
         raise ValueError(f"x must be (R, d), got {tuple(x.shape)}")
     if not 1 <= n_layers <= MAX_LAYERS:
         raise ValueError(f"the kernel takes 1..{MAX_LAYERS} layers, got {n_layers}")
-    _check(x, "x", torch.float32, tuple(x.shape), x.device)
-    _check(tau, "tau", torch.float32, (x.shape[0],), x.device)
+    _launch.check(x, "x", torch.float32, tuple(x.shape), x.device)
+    _launch.check(tau, "tau", torch.float32, (x.shape[0],), x.device)
     return x.device
 
 
@@ -133,7 +120,7 @@ def _dims(x: torch.Tensor, ws) -> tuple[int, ...]:
     return dims
 
 
-def _launch(fn, name: str, x, tau, dims, weight_ptrs, device):
+def _run(fn, name: str, x, tau, dims, weight_ptrs, device):
     rows = int(x.shape[0])
     err = torch.empty((rows,), dtype=torch.float32, device=device)
     flag = torch.empty((rows,), dtype=torch.bool, device=device)
@@ -143,7 +130,7 @@ def _launch(fn, name: str, x, tau, dims, weight_ptrs, device):
     n_layers = len(dims) - 1
     arrays = [(ctypes.c_void_p * n_layers)(*ptrs) for ptrs in weight_ptrs]
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+        stream = _launch.stream(device)
         rc = fn(
             x.data_ptr(), tau.data_ptr(), rows, n_layers,
             (ctypes.c_int * len(dims))(*dims), *arrays,
@@ -165,10 +152,10 @@ def score_rows(
     device = _check_rows(x, tau, len(ws))
     dims = _dims(x, ws)
     for i, (w, b) in enumerate(zip(ws, bs, strict=True)):
-        _check(w, f"ws[{i}]", torch.float32, (dims[i], dims[i + 1]), device)
-        _check(b, f"bs[{i}]", torch.float32, (dims[i + 1],), device)
+        _launch.check(w, f"ws[{i}]", torch.float32, (dims[i], dims[i + 1]), device)
+        _launch.check(b, f"bs[{i}]", torch.float32, (dims[i + 1],), device)
     lib = _library()
-    return _launch(
+    return _run(
         lib.fused_score_f32, "fused_score_f32", x, tau, dims,
         [[w.data_ptr() for w in ws], [b.data_ptr() for b in bs]], device,
     )
@@ -185,13 +172,13 @@ def score_rows_q8(
     device = _check_rows(x, tau, len(qws))
     dims = _dims(x, qws)
     for i, (q, s, b) in enumerate(zip(qws, sws, bs, strict=True)):
-        _check(q, f"qws[{i}]", torch.int8, (dims[i], dims[i + 1]), device)
-        _check(s, f"sws[{i}]", torch.float32, tuple(s.shape), device)
+        _launch.check(q, f"qws[{i}]", torch.int8, (dims[i], dims[i + 1]), device)
+        _launch.check(s, f"sws[{i}]", torch.float32, tuple(s.shape), device)
         if s.numel() != dims[i + 1]:
             raise ValueError(f"sws[{i}] has {s.numel()} scales, expected {dims[i + 1]}")
-        _check(b, f"bs[{i}]", torch.float32, (dims[i + 1],), device)
+        _launch.check(b, f"bs[{i}]", torch.float32, (dims[i + 1],), device)
     lib = _library()
-    return _launch(
+    return _run(
         lib.fused_score_q8, "fused_score_q8", x, tau, dims,
         [[q.data_ptr() for q in qws], [s.data_ptr() for s in sws],
          [b.data_ptr() for b in bs]], device,

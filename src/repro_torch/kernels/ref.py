@@ -44,3 +44,135 @@ def fused_score_q8_ref(
         for q, s in zip(qws, sws)
     )
     return fused_score_ref(x, ws, bs, tau)
+
+
+BISECT_ITERS = 32
+
+
+def bisect_threshold(
+    absx: torch.Tensor, k: int, iters: int = BISECT_ITERS,
+    hi: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Magnitude threshold t with |{i : absx_i > t}| <= k, maximal keep.
+
+    ``absx``: (..., block) non-negative; returns (..., 1).  Invariant:
+    count(> hi) <= k < count(> lo), with lo = -1 (every entry passes, the
+    zero padding included) and hi = the block max (none does).
+    """
+    lo = torch.full(absx.shape[:-1] + (1,), -1.0, dtype=absx.dtype, device=absx.device)
+    if hi is None:
+        hi = torch.amax(absx, dim=-1, keepdim=True)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        take = torch.sum(absx > mid, dim=-1, keepdim=True) > k
+        lo = torch.where(take, mid, lo)
+        hi = torch.where(take, hi, mid)
+    return hi
+
+
+BLOCK_ELEMS = 8192   # compression block of the flat updates
+
+
+def pad_blocks(x: torch.Tensor) -> torch.Tensor:
+    """Zero-pad (N, d) rows to (N, nb, BLOCK_ELEMS)."""
+    n, d = x.shape
+    nb = max(1, -(-d // BLOCK_ELEMS))
+    return torch.nn.functional.pad(x, (0, nb * BLOCK_ELEMS - d)).reshape(n, nb, BLOCK_ELEMS)
+
+
+def compress_aggregate_ref(
+    delta: torch.Tensor,      # (N, d) per-client flat updates
+    err: torch.Tensor,        # (N, d) error-feedback buffers
+    fog_id: torch.Tensor,     # (N,) cluster id per client
+    weights: torch.Tensor,    # (N,) f32, zeroed for non-participants
+    n_fog: int,
+    k_per_block: int,
+    quantize: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Error-feedback block Top-K (+ int8 round trip) per client and
+    zero-padded 8192-element block, then the weighted per-fog sums as a
+    one-hot product.
+
+    Returns (fog_sum (n_fog, d) unnormalised, new_err (N, d), threshold
+    (N, nb)).  The int8 scale is the block max of |v| times f32(1/127),
+    the product the reference's jitted oracle computes for ``amax / 127``
+    (XLA folds a division by a constant into a multiply); whenever
+    anything survives the threshold the block max does too, and when
+    nothing does the scale multiplies only zeros.
+    """
+    n, d = delta.shape
+    v = pad_blocks(delta + err)
+    absv = torch.abs(v)
+    amax = torch.amax(absv, dim=-1, keepdim=True)
+    t = bisect_threshold(absv, k_per_block, hi=amax)
+    sparse = torch.where(absv > t, v, 0.0)
+    if quantize:
+        scale = amax * (1.0 / 127.0)
+        safe = torch.where(scale > 0, scale, 1.0)
+        q = torch.clamp(torch.round(sparse / safe), -127.0, 127.0)
+        recon = torch.where(scale > 0, q * scale, 0.0)
+    else:
+        recon = sparse
+    fogs = torch.arange(n_fog, device=fog_id.device)
+    sel = torch.where(fog_id[None, :] == fogs[:, None], weights[None, :].to(torch.float32), 0.0)
+    fog_sum = torch.tensordot(sel, recon, dims=([1], [0])).reshape(n_fog, -1)[:, :d]
+    return fog_sum, (v - recon).reshape(n, -1)[:, :d], t[..., 0]
+
+
+def local_train_ref(
+    x: torch.Tensor,                  # (N, window, D) resident client windows
+    idx: torch.Tensor,                # (N, steps, bsz) minibatch row indices
+    ws: tuple[torch.Tensor, ...],     # per-layer weights, (d_in, d_out)
+    bs: tuple[torch.Tensor, ...],     # per-layer biases, (d_out,)
+    lr: float,
+    mu: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """E-epoch minibatch SGD on the autoencoder loss for every client at
+    once, each minibatch indexed out of the client's window; FedProx adds
+    ``mu * (theta - theta_anchor)`` to the gradient when ``mu != 0``.
+
+    The backward pass is written out: tanh' is ``1 - a**2`` from the stored
+    tanh output, the gradient of layer l-1 uses layer l's pre-update
+    weights, dL/dz_out = (2 / bsz) (recon - x).  Returns (deltas (N, d) =
+    trained - broadcast params in the ravel order — per layer the bias,
+    then the row-major weight — and the mean step loss (N,)).
+    """
+    n, steps, bsz = idx.shape
+    n_layers = len(ws)
+    anchor_w = [w.to(torch.float32) for w in ws]
+    anchor_b = [b.to(torch.float32) for b in bs]
+    cur_w = [w.expand(n, *w.shape).clone() for w in anchor_w]
+    cur_b = [b.expand(n, *b.shape).clone() for b in anchor_b]
+    rows = torch.arange(n, device=x.device)[:, None]
+    inv_b = 1.0 / bsz
+    loss_sum = torch.zeros((n,), dtype=torch.float32, device=x.device)
+    for s in range(steps):
+        xb = x[rows, idx[:, s].long()].to(torch.float32)         # (N, bsz, D)
+        acts = [xb]
+        h = xb
+        for li in range(n_layers):
+            h = torch.bmm(h, cur_w[li]) + cur_b[li][:, None, :]
+            if li < n_layers - 1:
+                h = torch.tanh(h)
+            acts.append(h)
+        diff = h - xb
+        loss_sum = loss_sum + torch.sum(diff * diff, dim=(1, 2)) * inv_b
+        g = (2.0 * inv_b) * diff
+        for li in range(n_layers - 1, -1, -1):
+            a_prev = acts[li]
+            dw = torch.bmm(a_prev.transpose(1, 2), g)
+            db = torch.sum(g, dim=1)
+            if li > 0:
+                g_prev = torch.bmm(g, cur_w[li].transpose(1, 2)) * (1.0 - a_prev * a_prev)
+            if mu != 0.0:
+                dw = dw + mu * (cur_w[li] - anchor_w[li])
+                db = db + mu * (cur_b[li] - anchor_b[li])
+            cur_w[li] = cur_w[li] - lr * dw
+            cur_b[li] = cur_b[li] - lr * db
+            if li > 0:
+                g = g_prev
+    deltas = torch.cat([
+        part for w, b, aw, ab in zip(cur_w, cur_b, anchor_w, anchor_b)
+        for part in ((b - ab).reshape(n, -1), (w - aw).reshape(n, -1))
+    ], dim=1)
+    return deltas, loss_sum / steps

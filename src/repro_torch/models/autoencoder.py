@@ -5,7 +5,9 @@ D=32.  Parameters keep the JAX package's tree: a list of
 ``{"w": (d_in, d_out), "b": (d_out,)}`` tensors, so checkpoints keep their
 key paths and the score kernels read the weights in that layout.
 :func:`from_numpy` / :func:`to_numpy` carry trees across the two packages
-(f32 ``{"w", "b"}`` and int8 ``{"qw", "sw", "b"}`` layers alike).
+(f32 ``{"w", "b"}`` and int8 ``{"qw", "sw", "b"}`` layers alike), and
+:func:`ravel` / :func:`unravel` the flat vector in ``ravel_pytree``'s
+order, which indexes the round loop's (N, d) error-feedback buffers.
 """
 from __future__ import annotations
 
@@ -54,6 +56,28 @@ def loss(params: Params, batch: torch.Tensor) -> torch.Tensor:
 def param_count(feature_dim: int = 32, hidden: tuple[int, ...] = (16, 8, 16)) -> int:
     dims = (feature_dim, *hidden, feature_dim)
     return sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+
+
+def ravel(params: Params) -> torch.Tensor:
+    """Flat (d,) vector in ``jax.flatten_util.ravel_pytree`` order: per
+    layer the bias, then the row-major weight (dict keys sort "b" < "w").
+    Error-feedback buffers and the kernels' deltas are indexed this way."""
+    return torch.cat([t.reshape(-1) for layer in params for t in (layer["b"], layer["w"])])
+
+
+def unravel(flat: torch.Tensor, like: Params) -> Params:
+    """Inverse of :func:`ravel`: views of ``flat`` shaped as ``like``."""
+    total = sum(layer["b"].numel() + layer["w"].numel() for layer in like)
+    if flat.shape != (total,):
+        raise ValueError(f"flat vector has shape {tuple(flat.shape)}, the tree {total} entries")
+    out, off = [], 0
+    for layer in like:
+        nb, nw = layer["b"].numel(), layer["w"].numel()
+        b = flat[off: off + nb]
+        w = flat[off + nb: off + nb + nw].view(layer["w"].shape)
+        out.append({"w": w, "b": b})
+        off += nb + nw
+    return out
 
 
 def from_numpy(tree: Params, device: torch.device | str | None = None) -> Params:

@@ -1,0 +1,258 @@
+"""Port parity for the training slice end to end: ``core/hfl`` rounds and
+``launch/experiment.trial_metrics``, PyTorch vs JAX, at the quick size
+(12 sensors, 3 fogs, 3 rounds, E = 1, blockwise compressor).
+
+The JAX reference runs its oracle path (``use_pallas=False``).  Its
+random inputs — init params, deployment, and every round's mobility noise
+and minibatch index table — are derived from its key exactly as
+``trial_metrics`` / ``hfl.train`` derive them, and handed to the port.
+The two packages' data generators differ in value, so one dataset (from
+the port's generator) goes to both.  Per-round params and every
+``RoundMetrics`` field agree to ``rtol=atol=1e-5`` (the tolerance of
+``tests/test_fused_agg.py``'s own round-loop pins); the participating
+sensors and the cooperation links exactly.
+"""
+import dataclasses
+import tempfile
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.checkpoint import CheckpointStore as JaxStore
+from repro.core import compression as jcomp
+from repro.core import hfl as jhfl
+from repro.core import topology as jtopo
+from repro.data.pipeline import multi_epoch_indices as jax_indices
+from repro.data.synthetic import SensorDataset as JaxSensorDataset
+from repro.launch import experiment as jexp
+from repro.models import autoencoder as jae
+from repro_torch.checkpoint import CheckpointStore
+from repro_torch.core import compression as tcomp
+from repro_torch.core import hfl as thfl
+from repro_torch.core import topology as ttopo
+from repro_torch.data.pipeline import multi_epoch_indices
+from repro_torch.data.synthetic import SyntheticConfig, generate, normalize
+from repro_torch.launch import experiment as texp
+from repro_torch.models import autoencoder as tae
+from repro_torch.optim.sgd import LocalTrainConfig
+
+N, M, T, E = 12, 3, 3, 1
+HIDDEN = (16, 8, 16)
+TOL = dict(rtol=1e-5, atol=1e-5)
+HFL_METHODS = ("hfl-nocoop", "hfl-selective", "hfl-nearest", "hfl-adam")
+
+
+def jax_cfg(rounds=T, **kw):
+    cc = jcomp.CompressorConfig(rho_s=0.05, quant_bits=8, mode="blockwise")
+    return jexp.make_config(n_sensors=N, n_fog=M, rounds=rounds, local_epochs=E, compressor=cc,
+                            **kw)
+
+
+def torch_cfg(rounds=T, **kw):
+    return texp.make_config(n_sensors=N, n_fog=M, rounds=rounds, local_epochs=E, **kw)
+
+
+def jax_inputs(key, ds, cfg):
+    """The random inputs ``repro.launch.experiment.trial_metrics(method,
+    key, ...)`` consumes, as the port's ``TrialInputs``."""
+    k_init, k_train = jax.random.split(key)
+    params = jae.init(k_init, ds.train.shape[-1], HIDDEN)
+    kd, k = jax.random.split(k_train)
+    dep = jtopo.sample_deployment(kd, cfg.deployment)
+    window = ds.train.shape[1]
+    noise, batches = [], []
+    for _ in range(cfg.rounds):
+        k, k_mob, k_tr = jax.random.split(k, 3)
+        noise.append(np.array(jax.random.normal(k_mob, (cfg.deployment.n_fog, 3))))
+        keys = jax.random.split(k_tr, ds.train.shape[0])
+        batches.append(np.array(jax.vmap(
+            lambda kk: jax_indices(kk, window, cfg.batch_size, cfg.local_epochs))(keys)))
+    dep_t = ttopo.Deployment(*(torch.from_numpy(np.array(a)) for a in
+                               (dep.sensor_pos, dep.fog_pos, dep.fog_vel, dep.gateway_pos)))
+    draws = thfl.RoundDraws(torch.from_numpy(np.stack(noise)), torch.from_numpy(np.stack(batches)))
+    return params, texp.TrialInputs(tae.from_numpy(params, "cpu"), dep_t, draws)
+
+
+@pytest.fixture(scope="module")
+def data():
+    dcfg = SyntheticConfig(n_sensors=N, train_len=48, val_len=24, test_len=48)
+    ds_t = normalize(generate(torch.Generator().manual_seed(0), dcfg, device="cpu"))
+    return JaxSensorDataset(*(jax.numpy.asarray(t.numpy()) for t in ds_t)), ds_t
+
+
+def _rounds_through_stores(train_fn, like):
+    """Train with a store publishing every round; (per-round params,
+    metrics)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        store = CheckpointStore(tmp, keep=T + 1)
+        params, metrics = train_fn(store)
+        per_round = [store.restore(like, step)[0] for step in range(1, T + 1)]
+    return params, metrics, per_round
+
+
+@pytest.fixture(scope="module")
+def selective_rounds(data):
+    ds, ds_t = data
+    key = jax.random.key(2)
+    cfg = jax_cfg()
+    _, k_train = jax.random.split(key)
+    params_j, inputs = jax_inputs(key, ds, cfg)
+    like = tae.from_numpy(params_j, "cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        store = JaxStore(tmp, keep=T + 1)
+        _, m_j = jhfl.train(k_train, params_j, jae.loss, ds, cfg, store=store)
+        # The two stores write the same npz keys, so the port reads both.
+        rounds_j = [CheckpointStore(tmp).restore(like, s)[0] for s in range(1, T + 1)]
+    p_t, m_t, rounds_t = _rounds_through_stores(
+        lambda store: thfl.train(inputs.params, tae.loss, ds_t, torch_cfg(), inputs.dep,
+                                 inputs.draws, store=store),
+        like,
+    )
+    return m_j, rounds_j, m_t, rounds_t, p_t
+
+
+def test_round_params_match_jax(selective_rounds):
+    _, rounds_j, _, rounds_t, p_t = selective_rounds
+    for pj, pt in zip(rounds_j, rounds_t):
+        np.testing.assert_allclose(tae.ravel(pt).numpy(), tae.ravel(pj).numpy(), **TOL)
+    np.testing.assert_array_equal(tae.ravel(p_t).numpy(), tae.ravel(rounds_t[-1]).numpy())
+    assert not np.allclose(tae.ravel(rounds_t[0]).numpy(), tae.ravel(rounds_t[-1]).numpy())
+
+
+@pytest.mark.parametrize("field", thfl.RoundMetrics._fields)
+def test_round_metrics_match_jax(selective_rounds, field):
+    m_j, _, m_t, _, _ = selective_rounds
+    got, want = getattr(m_t, field).numpy(), np.asarray(getattr(m_j, field))
+    assert got.shape == want.shape == (T,)
+    if field == "participation":     # the same sensors; the mean may round apart
+        np.testing.assert_array_equal(np.round(got * N), np.round(want * N))
+    if field in ("coop_links", "n_nonfinite", "n_erased", "global_finite"):
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.fixture(scope="module")
+def trials(data):
+    ds, ds_t = data
+    out = {}
+    for i, method in enumerate(HFL_METHODS):
+        key = jax.random.key(10 + i)
+        cfg = jax_cfg()
+        _, inputs = jax_inputs(key, ds, cfg)
+        out[method] = (
+            jexp.trial_metrics(method, key, ds, cfg),
+            texp.trial_metrics(method, None, ds_t, torch_cfg(), inputs=inputs, device="cpu"),
+        )
+    return out
+
+
+@pytest.mark.parametrize("method", HFL_METHODS)
+def test_trial_metrics_match_jax(trials, method):
+    want, got = trials[method]
+    assert set(want) == set(got)
+    for name in ("coop_links", "nonfinite_total", "erased_total", "nonfinite_rounds"):
+        np.testing.assert_array_equal(got[name].numpy(), np.asarray(want[name]), err_msg=name)
+    for name in ("participation", "e_total", "e_s2f", "e_f2f", "e_f2g", "losses", "sim_time_s",
+                 "f1", "precision", "recall"):
+        np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]), **TOL,
+                                   err_msg=name)
+
+
+def test_global_mode_compressor_round_matches_jax(data):
+    """The exact global Top-K path (``mode="global"``, plain torch.topk)
+    for one round."""
+    ds, ds_t = data
+    key = jax.random.key(5)
+    cfg_j = jax_cfg(rounds=1).replace(compressor=jcomp.CompressorConfig(mode="global"))
+    cfg_t = torch_cfg(rounds=1).replace(compressor=tcomp.CompressorConfig(mode="global"))
+    params_j, inputs = jax_inputs(key, ds, cfg_j)
+    _, k_train = jax.random.split(key)
+    pj, mj = jhfl.train(k_train, params_j, jae.loss, ds, cfg_j)
+    pt, mt = thfl.train(inputs.params, tae.loss, ds_t, cfg_t, inputs.dep, inputs.draws)
+    np.testing.assert_allclose(tae.ravel(pt).numpy(),
+                               tae.ravel(tae.from_numpy(pj, "cpu")).numpy(), **TOL)
+    for field in ("loss", "e_total", "latency_s"):
+        np.testing.assert_allclose(getattr(mt, field).numpy(), np.asarray(getattr(mj, field)),
+                                   **TOL)
+
+
+def test_global_topk_keeps_exactly_k():
+    v = torch.from_numpy(np.random.default_rng(0).standard_normal((4, 1352)).astype(np.float32))
+    recon, new_err = tcomp.compress_update(v, torch.zeros_like(v), tcomp.CompressorConfig(
+        mode="global", quant_bits=32))
+    np.testing.assert_array_equal((recon != 0).sum(-1).numpy(), 68)
+    np.testing.assert_array_equal((recon + new_err).numpy(), v.numpy())
+
+
+@pytest.mark.parametrize("n,bs,epochs", [(48, 32, 1), (70, 32, 3), (256, 32, 5), (40, 16, 2)])
+def test_multi_epoch_indices_are_truncated_permutations(n, bs, epochs):
+    idx = multi_epoch_indices(torch.Generator().manual_seed(n), 3, n, bs, epochs)
+    nb = n // bs
+    assert idx.shape == (3, epochs * nb, bs) and idx.dtype == torch.int32
+    per_epoch = idx.reshape(3, epochs, nb * bs).numpy()
+    assert (per_epoch >= 0).all() and (per_epoch < n).all()
+    for row in per_epoch.reshape(-1, nb * bs):
+        assert len(np.unique(row)) == nb * bs              # no row twice in an epoch
+    assert not np.array_equal(per_epoch[0, 0], per_epoch[1, 0])   # clients differ
+
+
+def test_draw_trial_is_reproducible_and_sized(data):
+    _, ds_t = data
+    cfg = torch_cfg()
+    a = texp.draw_trial(torch.Generator().manual_seed(4), ds_t, cfg)
+    b = texp.draw_trial(torch.Generator().manual_seed(4), ds_t, cfg)
+    assert a.draws.mobility.shape == (T, M, 3)
+    assert a.draws.batches.shape == (T, N, E * (48 // 32), 32)
+    for x, y in zip((a.dep.sensor_pos, a.draws.batches, tae.ravel(a.params)),
+                    (b.dep.sensor_pos, b.draws.batches, tae.ravel(b.params))):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+
+
+@pytest.mark.parametrize(
+    "change,match",
+    [
+        (dict(compressor=tcomp.CompressorConfig(fused=False)), "queue 2 items 6-8"),
+        (dict(compressor=tcomp.CompressorConfig(rho_s=1.0)), "queue 2 items 6-8"),
+        (dict(local_solver=LocalTrainConfig(fused=False)), "queue 1 item 5"),
+    ],
+)
+def test_unported_options_raise(data, change, match):
+    _, ds_t = data
+    cfg = torch_cfg(rounds=1, **change)
+    with pytest.raises(NotImplementedError, match=match):
+        texp.trial_metrics("hfl-selective", torch.Generator().manual_seed(0), ds_t, cfg,
+                           device="cpu")
+
+
+def test_unported_methods_and_mesh_raise(data):
+    _, ds_t = data
+    g = torch.Generator().manual_seed(0)
+    for method, item in (("fedavg", "item 10"), ("scaffold", "item 10"), ("hfl-async", "item 13")):
+        with pytest.raises(NotImplementedError, match=item):
+            texp.trial_metrics(method, g, ds_t, torch_cfg(), device="cpu")
+    with pytest.raises(ValueError):
+        texp.trial_metrics("nope", g, ds_t, torch_cfg(), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+        texp.trial_metrics("hfl-selective", g, ds_t, torch_cfg(), client_mesh=object(),
+                           device="cpu")
+
+
+def test_config_leaves_out_unported_fields():
+    names = {f.name for f in dataclasses.fields(thfl.HFLConfig)}
+    assert not names & {"faults", "drift", "robust", "trim_frac", "client_chunk"}
+    assert tcomp.CompressorConfig().mode == "blockwise"
+    assert not {"use_pallas", "interpret"} & {f.name for f in
+                                               dataclasses.fields(tcomp.CompressorConfig)}
+
+
+def test_trial_publishes_the_returned_params(data, tmp_path):
+    _, ds_t = data
+    store = CheckpointStore(str(tmp_path), keep=2)
+    out = texp.trial_metrics("hfl-selective", torch.Generator().manual_seed(1), ds_t, torch_cfg(),
+                             store=store, return_params=True, device="cpu")
+    assert store.latest_step() == T
+    loaded, _ = store.latest(out["params"])
+    np.testing.assert_array_equal(tae.ravel(loaded).numpy(), tae.ravel(out["params"]).numpy())
