@@ -43,12 +43,34 @@ the result line:
              versions and identical draws; per-round participation, links
              and energies to rtol=1e-5, loss within 1%, F1 within 0.02; a
              timed 20-round ``hfl.train`` (ms per round) and a profiled one
-             (device busy share).
+             (device busy share);
+9. robust-200 — the Byzantine-robust path: train-200 with 25% Gaussian
+             Byzantine clients at byz_scale 20 and erasure 0.3 (the
+             robustness benchmark's hardest cell), ``robust="trimmed"``,
+             trim 0.45, on the card and on the CPU with identical draws
+             (participation and erasures exactly, energies to rtol=1e-5,
+             loss within 1%, F1 within 0.02); median and mean on the card;
+             trimmed at ``client_chunk=64`` bitwise equal to unchunked;
+10. fleet-10k — the client-chunked path: N = 10,000 sensors, M = 1,000
+             fogs, T = 5, robust mean, no faults, at ``client_chunk=512``
+             (the sparse wire: ``wire_emit`` and ``wire_agg`` 20 times a
+             round each, ``fused_agg`` never) and unchunked (``fused_agg``
+             twice a round), both on the card: per-round participation and
+             energies to rtol=1e-5, loss within 1%, F1 within 0.02; ms per
+             round and peak device memory of each.
+
+Phase 6 also times ``robust_agg``, ``wire_emit`` and ``wire_agg`` at the
+shapes of phases 9 and 10, and phase 7 holds them against their plain
+versions over a grid and at fleet-10k's shapes (``fused_agg`` at N =
+10,000 into 1,000 fogs, the wire pair chunk by chunk into running sums,
+``robust_agg`` at N = 30,000 with a fog of 3,000).
 
 The launch counts reported for the score kernels are those of phases 4
 and 5 (the counters are zeroed just before phase 4 and read just after
-phase 5), for the training kernels those of phase 8's trial (zeroed just
-before it, read just after).  The last line is ``{"ok": true, "device":
+phase 5), for the training kernels those of phase 8's trial, for
+``robust_agg`` those of phase 9's trimmed trial on the card and for the
+wire kernels those of phase 10's chunked trial (each zeroed just before
+its run, read just after).  The last line is ``{"ok": true, "device":
 {...}}``; the line before it is the card's name and power limit, and the
 one before that the ``kernels`` JSON.
 """
@@ -90,6 +112,27 @@ TRAIN_KERNELS = {   # name -> (TPU kernel it replaces, CUDA source)
 # 64, test 128, D = 32), M = N/10, E = 5, batch 32, T = 20, rho_s 0.05 int8.
 TRAIN_N, TRAIN_FOG, WINDOW, EPOCHS, BATCH, ROUNDS, LR = 200, 20, 256, 5, 32, 20, 0.01
 AGG_DS, AGG_NS = (1352, 8209, 65_536), (1, 200, 2000)
+NEW_KERNELS = {     # name -> (TPU kernel it replaces, CUDA source)
+    "robust_agg": ("src/repro/kernels/robust_agg.py:45",
+                   "src/repro_torch/kernels/csrc/robust_agg.cu"),
+    "wire_emit": ("src/repro/kernels/fused_agg.py:90",
+                  "src/repro_torch/kernels/csrc/fused_agg.cu"),
+    "wire_agg": ("src/repro/kernels/fused_agg.py:150",
+                 "src/repro_torch/kernels/csrc/fused_agg.cu"),
+}
+# robust-200: train-200 under the robustness benchmark's hardest attack
+# (experiments/bench/robustness_bench.json): 25% Gaussian Byzantine clients at scale 20 and
+# erasure 0.3, with the weighted trimmed mean at trim 0.45.
+ROBUST_FAULTS = dict(byz_mode="gauss", byz_frac=0.25, byz_scale=20.0, erasure_prob=0.3)
+ROBUST_TRIM, ROBUST_CHUNK = 0.45, 64
+ROBUST_MODES = (("trimmed", 0.0), ("trimmed", 0.2), ("trimmed", 0.45), ("median", 0.0))
+ROBUST_NS, ROBUST_DS = (1, 13, 200, 2000), (1352, 8209)
+WIRE_KS = (68, 410)              # rho_s 0.05 of d = 1,352, and of a whole block
+# fleet-10k: the synthetic settings of train-200 at N = 10,000, M = N/10, T = 5.
+FLEET_N, FLEET_FOG, FLEET_ROUNDS, FLEET_CHUNK = 10_000, 1_000, 5, 512
+# robust_agg at a large fleet: N clients in FLEET_FOG fogs, fog 0 holding
+# more members than the kernel stages in shared memory at once (1,024).
+BIG_ROBUST_N, BIG_ROBUST_FOG0 = 30_000, 3_000
 
 
 class SmokeFailure(RuntimeError):
@@ -102,10 +145,16 @@ def check(cond: bool, msg: str) -> None:
 
 
 START = time.perf_counter()
+PHASE_S: dict[str, float] = {}        # seconds per phase, in order
 
 
 def phase(name: str) -> None:
-    print(f"\n=== {name}  (t = {time.perf_counter() - START:.1f} s)", flush=True)
+    now = time.perf_counter() - START
+    if PHASE_S:
+        last = next(reversed(PHASE_S))
+        PHASE_S[last] = now - PHASE_S[last]
+    PHASE_S[name] = now
+    print(f"\n=== {name}  (t = {now:.1f} s)", flush=True)
 
 
 def nvidia_smi() -> str:
@@ -281,6 +330,38 @@ def agg_work(n, d, n_fog) -> tuple[int, int]:
     return 4 * (3 * n * d + 2 * n + n_fog * d), n * d * (2 + 2 * 32 + 5 + 1 + 2)
 
 
+def robust_work(fog_id, weights, n_fog, d) -> tuple[int, int]:
+    """(bytes, operations) of one robust reduce, counted on this call's
+    data: recon, ids and weights read once, the fog rows written once; per
+    column, each ordered pair of members of a fog (weight > 0) takes two
+    compares, two selects and two adds, and each member its ratio, eff and
+    the num / den updates (9)."""
+    members = torch.bincount(fog_id[weights > 0].long().cpu(), minlength=n_fog).double()
+    n = int(fog_id.numel())
+    ops = float((members ** 2).sum()) * d * 6 + float(members.sum()) * d * 9
+    return 4 * (n * d + 2 * n + n_fog * d), int(ops)
+
+
+def wire_emit_work(n, d, k, quantize) -> tuple[int, int]:
+    """(bytes, operations) of one wire emit: deltas and error buffers read
+    once, new_err, the slots (int32 index + int8 code, or f32 value) and
+    the block scales written once; per real coordinate what
+    :func:`agg_work` counts short of the fog add, plus one to pack."""
+    nb = -(-d // 8192)
+    return (4 * 3 * n * d + n * nb * k * (5 if quantize else 8) + 4 * n * nb,
+            n * d * (2 + 2 * 32 + 5 + 1 + 1))
+
+
+def wire_agg_work(fog_id, n_fog, d, k, quantize) -> tuple[int, int]:
+    """(bytes, operations) of one wire aggregate into running sums: the
+    slots, scales, ids and weights read once, and each fog row the call
+    touches read and written once; per slot two multiplies and an add."""
+    n, nb = int(fog_id.numel()), -(-d // 8192)
+    touched = int(torch.unique(fog_id).numel())
+    return (n * nb * k * (5 if quantize else 8) + 4 * n * nb + 8 * n + 8 * touched * d,
+            3 * n * nb * k)
+
+
 def bound_from(bytes_, ops) -> tuple[float, str]:
     t_bytes, t_ops = bytes_ / PEAK_BYTES_S, ops / PEAK_F32_FLOP_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -379,6 +460,12 @@ def time_training_kernels(dev, lt, fa, kops, kref, ae, multi_epoch_indices, name
             f"N={TRAIN_N} d={d} n_fog={TRAIN_FOG} k={k} int8",
         ),
     }
+    return time_cases(cases, name, smi)
+
+
+def time_cases(cases, name, smi) -> dict:
+    """Time each kernel beside its plain version: CUDA-event per-call time
+    and torch.profiler device time, with the bound from its work."""
     out = {}
     for kname, (run_kernel, run_plain, work, (n_k, n_p, prof_k, prof_p), shape) in cases.items():
         calls = {"call_ms": call_ms(run_kernel, n_k), "plain_call_ms": call_ms(run_plain, n_p)}
@@ -394,6 +481,214 @@ def time_training_kernels(dev, lt, fa, kops, kref, ae, multi_epoch_indices, name
               f"per call by CUDA events: kernel {calls['call_ms'] * 1e3:9.3f} us, "
               f"plain {calls['plain_call_ms'] * 1e3:10.3f} us  on {name} ({smi})")
     return out
+
+
+def time_new_kernels(dev, fa, ra, kops, kref, agg, comp, ae, name, smi) -> dict:
+    """Phase 6 for the robust and wire kernels: ``robust_agg`` at
+    robust-200's reduce (N = 200 compressed reconstructions of d = 1,352,
+    20 fogs, integer weights with 30% erased, trim 0.45), the wire pair at
+    one fleet-10k chunk (512 clients, k = 68, int8, into 1,000 fogs)."""
+    g = torch.Generator().manual_seed(9)
+    d = ae.param_count(D, HIDDEN)
+    deltas = torch.randn((TRAIN_N, d), generator=g).to(dev)
+    err = (0.1 * torch.randn((TRAIN_N, d), generator=g)).to(dev)
+    recon, _ = agg.client_compress(deltas, err, comp.CompressorConfig())
+    fog_id = torch.randint(0, TRAIN_FOG, (TRAIN_N,), generator=g, dtype=torch.int32).to(dev)
+    weights = (WINDOW * (torch.rand((TRAIN_N,), generator=g) > 0.3).to(torch.float32)).to(dev)
+    cd = torch.randn((FLEET_CHUNK, d), generator=g).to(dev)
+    ce = (0.1 * torch.randn((FLEET_CHUNK, d), generator=g)).to(dev)
+    k = kops.wire_k(comp.blockwise_k_frac(d, 0.05))
+    wire = fa.compress_wire_blocks(cd, ce, k)
+    cfog = torch.randint(0, FLEET_FOG, (FLEET_CHUNK,), generator=g, dtype=torch.int32).to(dev)
+    cw = torch.full((FLEET_CHUNK,), float(WINDOW), device=dev)
+    fog_sum = torch.zeros((FLEET_FOG, d), device=dev)
+    cases = {
+        "robust_agg": (
+            lambda: ra.robust_aggregate_blocks(recon, fog_id, weights, TRAIN_FOG, ROBUST_TRIM),
+            lambda: kref.robust_aggregate_ref(recon, fog_id, weights, TRAIN_FOG, ROBUST_TRIM),
+            robust_work(fog_id, weights, TRAIN_FOG, d),
+            (200, 5, 50, 3),
+            f"N={TRAIN_N} d={d} n_fog={TRAIN_FOG} trimmed {ROBUST_TRIM}, compressed recon",
+        ),
+        "wire_emit": (
+            lambda: fa.compress_wire_blocks(cd, ce, k, True, out=wire),
+            lambda: kref.compress_wire_ref(cd, ce, k),
+            wire_emit_work(FLEET_CHUNK, d, k, True),
+            (200, 20, 50, 5),
+            f"N={FLEET_CHUNK} d={d} k={k} int8",
+        ),
+        "wire_agg": (
+            lambda: fa.wire_aggregate_blocks(*wire[:3], cfog, cw, FLEET_FOG, d, out=fog_sum),
+            lambda: kref.wire_aggregate_ref(*wire[:3], cfog, cw, FLEET_FOG, d),
+            wire_agg_work(cfog, FLEET_FOG, d, k, True),
+            (200, 20, 50, 5),
+            f"N={FLEET_CHUNK} d={d} k={k} int8 into n_fog={FLEET_FOG}",
+        ),
+    }
+    return time_cases(cases, name, smi)
+
+
+def robust_layouts(n, g, dev) -> dict:
+    one = torch.zeros((n,), dtype=torch.int32)
+    twenty = torch.randint(0, TRAIN_FOG, (n,), generator=g, dtype=torch.int32)
+    half = torch.randint(1, TRAIN_FOG, (n,), generator=g, dtype=torch.int32)
+    half[: (n + 1) // 2] = 0
+    return {"one fog": one.to(dev), "20 fogs": twenty.to(dev), "half in one fog": half.to(dev)}
+
+
+def check_new_kernels(dev, fa, ra, kref, agg, comp) -> dict:
+    """Phase 7 for the robust and wire kernels against their plain
+    versions; returns the max |kernel - plain| per kernel.
+
+    ``robust_agg``: N 1 / 13 / 200 / 2,000, d 1,352 / 8,209, one fog / 20
+    fogs / one fog holding half the fleet, trimmed 0 / 0.2 / 0.45 and the
+    median, on real compressed reconstructions with integer weights:
+    rtol=1e-5, atol=1e-6.  The wire pair: phase 7's d x N grid, int8 on and
+    off, k 68 / 410, written at a row offset of larger buffers (rows
+    outside untouched): slots, codes and scales exactly, new_err to
+    atol=1e-5; ``wire_agg`` into running sums to rtol=1e-5 / atol=1e-4,
+    the empty fog's row untouched."""
+    max_err = dict.fromkeys(NEW_KERNELS, 0.0)
+    g = torch.Generator().manual_seed(17)
+    for d in ROBUST_DS:
+        for n in ROBUST_NS:
+            deltas = torch.randn((n, d), generator=g).to(dev)
+            err = (0.1 * torch.randn((n, d), generator=g)).to(dev)
+            recon, _ = agg.client_compress(deltas, err, comp.CompressorConfig())
+            weights = (WINDOW * (torch.rand((n,), generator=g) > 0.3).to(torch.float32)).to(dev)
+            for lname, fog_id in robust_layouts(n, g, dev).items():
+                e = 0.0
+                for mode, beta in ROBUST_MODES:
+                    out = ra.robust_aggregate_blocks(recon, fog_id, weights, TRAIN_FOG, beta, mode)
+                    want, _ = kref.robust_aggregate_ref(recon, fog_id, weights, TRAIN_FOG, beta,
+                                                        mode)
+                    e = max(e, close_on_device(out, want, 1e-5, 1e-6,
+                                               f"robust_agg {mode} {beta} N={n} d={d} {lname}"))
+                max_err["robust_agg"] = max(max_err["robust_agg"], e)
+                print(f"  robust_agg      d={d:5d} N={n:4d} {lname:15s} trimmed 0/0.2/0.45 + "
+                      f"median max|diff|={e:.3e}  ok")
+            del deltas, err, recon
+    off = 5
+    for d in AGG_DS:
+        for n in AGG_NS:
+            deltas = torch.randn((n, d), generator=g).to(dev)
+            err = (0.1 * torch.randn((n, d), generator=g)).to(dev)
+            fog_id = torch.randint(0, TRAIN_FOG, (n,), generator=g, dtype=torch.int32)
+            fog_id[fog_id == 1] = 0                      # fog 1 stays empty
+            weights = torch.rand((n,), generator=g)
+            weights[::3] = 0.0
+            fog_id, weights = fog_id.to(dev), weights.to(dev)
+            base = torch.randn((TRAIN_FOG, d), generator=g).to(dev)
+            nb = -(-d // 8192)
+            for quantize in (True, False):
+                for k in WIRE_KS:
+                    code = torch.int8 if quantize else torch.float32
+                    bufs = (torch.full((n + off + 2, nb, k), -7, dtype=torch.int32, device=dev),
+                            torch.full((n + off + 2, nb, k), 5, dtype=code, device=dev),
+                            torch.full((n + off + 2, nb), 9.0, device=dev),
+                            torch.full((n + off + 2, d), 9.0, device=dev))
+                    view = tuple(b[off:off + n] for b in bufs)
+                    fa.compress_wire_blocks(deltas, err, k, quantize, out=view)
+                    r_idx, r_q, r_scale, r_err = kref.compress_wire_ref(deltas, err, k, quantize)
+                    check(torch.equal(view[0], r_idx) and torch.equal(view[1], r_q)
+                          and torch.equal(view[2], r_scale),
+                          f"wire_emit slots, codes or scales differ at d={d}, N={n}, k={k}, "
+                          f"int8={quantize}")
+                    for b, fill in zip(bufs, (-7, 5, 9.0, 9.0)):
+                        check(bool((b[:off] == fill).all()) and bool((b[off + n:] == fill).all()),
+                              "wire_emit wrote outside its rows")
+                    e1 = close_on_device(view[3], r_err, 0.0, 1e-5, "wire_emit new_err")
+                    got = fa.wire_aggregate_blocks(*view[:3], fog_id, weights, TRAIN_FOG, d,
+                                                   out=base.clone())
+                    want = base + kref.wire_aggregate_ref(*view[:3], fog_id, weights, TRAIN_FOG, d)
+                    check(torch.equal(got[1], base[1]), "wire_agg touched the empty fog's row")
+                    e2 = close_on_device(got, want, 1e-5, 1e-4, "wire_agg fog sums")
+                    max_err["wire_emit"] = max(max_err["wire_emit"], e1)
+                    max_err["wire_agg"] = max(max_err["wire_agg"], e2)
+                    print(f"  wire_emit/agg   d={d:5d} N={n:4d} k={k:3d} int8={quantize!s:5s} "
+                          f"slots equal, max|new_err diff|={e1:.3e}, max|fog diff|={e2:.3e}  ok")
+                    del bufs, view
+            del deltas, err
+    return max_err
+
+
+def check_fleet_kernels(dev, fa, ra, kops, kref, agg, comp, ae) -> dict:
+    """Phase 7 at the shapes of fleet-10k and beyond; returns the max
+    |kernel - plain| per kernel.
+
+    ``fused_agg`` as the unchunked round calls it (N = 10,000, d = 1,352,
+    1,000 fogs, k = 68, int8, integer weights with 30% erased); the wire
+    pair as the chunked round calls it: every 512-client chunk emitted into
+    one chunk-sized wire and its rows of the round's error-feedback buffer,
+    then added into the running (1,000, d) fog sums, each step against the
+    plain versions (slots, codes and scales exactly, new_err to atol=1e-5,
+    the running sums to rtol=1e-5 / atol=1e-4).  ``robust_agg`` at N =
+    30,000 in 1,000 fogs, fog 0 holding 3,000 clients (its member list is
+    streamed through shared memory in tiles), trimmed 0.45 and the
+    median, to rtol=1e-5 / atol=1e-6."""
+    max_err = dict.fromkeys(("fused_agg", *NEW_KERNELS), 0.0)
+    g = torch.Generator().manual_seed(23)
+    d = ae.param_count(D, HIDDEN)
+    k = kops.wire_k(comp.blockwise_k_frac(d, 0.05))
+    deltas = torch.randn((FLEET_N, d), generator=g).to(dev)
+    err = (0.1 * torch.randn((FLEET_N, d), generator=g)).to(dev)
+    fog_id = torch.randint(0, FLEET_FOG, (FLEET_N,), generator=g, dtype=torch.int32).to(dev)
+    weights = (WINDOW * (torch.rand((FLEET_N,), generator=g) > 0.3).to(torch.float32)).to(dev)
+
+    fs_k, ne_k, thr_k = fa.compress_aggregate_blocks(deltas, err, fog_id, weights, FLEET_FOG, k)
+    fs_r, ne_r, thr_r = kref.compress_aggregate_ref(deltas, err, fog_id, weights, FLEET_FOG, k)
+    absv = kref.pad_blocks(deltas + err).abs()
+    check(torch.equal(absv > thr_k[..., None], absv > thr_r[..., None]),
+          f"fused_agg survivor sets differ at N={FLEET_N}, n_fog={FLEET_FOG}")
+    max_err["fused_agg"] = max(close_on_device(ne_k, ne_r, 0.0, 1e-5, "fused_agg new_err"),
+                               close_on_device(fs_k, fs_r, 1e-5, 1e-4, "fused_agg fog sums"))
+    print(f"  fused_agg       d={d:5d} N={FLEET_N} n_fog={FLEET_FOG} k={k} int8 survivors equal, "
+          f"max|diff|={max_err['fused_agg']:.3e}  ok")
+    del absv, thr_k, thr_r
+
+    nb = -(-d // 8192)
+    wire = (torch.empty((FLEET_CHUNK, nb, k), dtype=torch.int32, device=dev),
+            torch.empty((FLEET_CHUNK, nb, k), dtype=torch.int8, device=dev),
+            torch.empty((FLEET_CHUNK, nb), device=dev))
+    new_err = torch.empty((FLEET_N, d), device=dev)
+    run_k = torch.zeros((FLEET_FOG, d), device=dev)
+    run_r = torch.zeros((FLEET_FOG, d), device=dev)
+    for s in range(0, FLEET_N, FLEET_CHUNK):
+        e = min(s + FLEET_CHUNK, FLEET_N)
+        view = tuple(t[:e - s] for t in wire) + (new_err[s:e],)
+        fa.compress_wire_blocks(deltas[s:e], err[s:e], k, True, out=view)
+        r_idx, r_q, r_scale, r_err = kref.compress_wire_ref(deltas[s:e], err[s:e], k)
+        check(torch.equal(view[0], r_idx) and torch.equal(view[1], r_q)
+              and torch.equal(view[2], r_scale),
+              f"wire_emit slots, codes or scales differ in the chunk at {s}")
+        e1 = close_on_device(view[3], r_err, 0.0, 1e-5, "wire_emit new_err")
+        fa.wire_aggregate_blocks(*view[:3], fog_id[s:e], weights[s:e], FLEET_FOG, d, out=run_k)
+        run_r += kref.wire_aggregate_ref(*view[:3], fog_id[s:e], weights[s:e], FLEET_FOG, d)
+        e2 = close_on_device(run_k, run_r, 1e-5, 1e-4, "wire_agg running fog sums")
+        max_err["wire_emit"] = max(max_err["wire_emit"], e1)
+        max_err["wire_agg"] = max(max_err["wire_agg"], e2)
+    print(f"  wire_emit/agg   d={d:5d} N={FLEET_N} in chunks of {FLEET_CHUNK} into "
+          f"n_fog={FLEET_FOG}, k={k} int8: slots equal, max|new_err diff|="
+          f"{max_err['wire_emit']:.3e}, max|running fog diff|={max_err['wire_agg']:.3e}  ok")
+    del deltas, err, new_err, wire, fs_k, ne_k, fs_r, ne_r
+
+    n = BIG_ROBUST_N
+    deltas = torch.randn((n, d), generator=g).to(dev)
+    err = (0.1 * torch.randn((n, d), generator=g)).to(dev)
+    recon, _ = agg.client_compress(deltas, err, comp.CompressorConfig())
+    fog_id = torch.randint(1, FLEET_FOG, (n,), generator=g, dtype=torch.int32)
+    fog_id[:BIG_ROBUST_FOG0] = 0
+    fog_id = fog_id.to(dev)
+    weights = (WINDOW * (torch.rand((n,), generator=g) > 0.3).to(torch.float32)).to(dev)
+    for mode, beta in (("trimmed", ROBUST_TRIM), ("median", 0.0)):
+        out = ra.robust_aggregate_blocks(recon, fog_id, weights, FLEET_FOG, beta, mode)
+        want, _ = kref.robust_aggregate_ref(recon, fog_id, weights, FLEET_FOG, beta, mode)
+        max_err["robust_agg"] = max(max_err["robust_agg"], close_on_device(
+            out, want, 1e-5, 1e-6, f"robust_agg {mode} {beta} N={n}"))
+    print(f"  robust_agg      d={d:5d} N={n} n_fog={FLEET_FOG}, fog 0 holding "
+          f"{BIG_ROBUST_FOG0}: trimmed {ROBUST_TRIM} + median "
+          f"max|diff|={max_err['robust_agg']:.3e}  ok")
+    return max_err
 
 
 def train_fleet(mods, dev, name, smi, workdir) -> dict:
@@ -483,6 +778,201 @@ def train_fleet(mods, dev, name, smi, workdir) -> dict:
     return summary
 
 
+def robust_fleet(exp, hfl, ae, SensorDataset, FaultConfig, ds, fa, ra, dev, name, smi) -> dict:
+    """Phase 9: robust-200 on the card against the CPU; median and mean on
+    the card; trimmed at ``client_chunk=64`` bitwise equal to unchunked;
+    ms per round of the trimmed ``hfl.train`` on the card."""
+    faults = FaultConfig(**ROBUST_FAULTS)
+    cfg = exp.make_config(TRAIN_N, TRAIN_FOG, ROUNDS, robust="trimmed", trim_frac=ROBUST_TRIM,
+                          faults=faults)
+    inputs = exp.draw_trial(torch.Generator().manual_seed(0), ds, cfg)
+
+    def on_card(c):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exp.trial_metrics("hfl-selective", None, ds, c, inputs=inputs, return_params=True)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    ra.reset_launches()
+    fa.reset_launches()
+    gpu, trial_s = on_card(cfg)
+    launches = {"robust_agg": ra.LAUNCHES["robust_agg"], "fused_agg": fa.LAUNCHES["fused_agg"],
+                "wire_emit": fa.LAUNCHES["wire_emit"]}
+    check(launches == {"robust_agg": ROUNDS, "fused_agg": 2 * ROUNDS, "wire_emit": 0},
+          f"robust-200 launches {launches} for {ROUNDS} rounds")
+    cpu = exp.trial_metrics("hfl-selective", None, ds, cfg, inputs=inputs, device="cpu")
+    participants = [round(float(m["participation"]) * TRAIN_N * ROUNDS) for m in (gpu, cpu)]
+    check(participants[0] == participants[1],
+          f"participation {participants[0]} vs CPU {participants[1]} sensor-rounds")
+    check(float(gpu["erased_total"]) == float(cpu["erased_total"]) > 0,
+          f"erasures {float(gpu['erased_total'])} vs CPU {float(cpu['erased_total'])}")
+    for key in ("e_total", "e_s2f", "e_f2f", "e_f2g"):
+        check(np.isclose(float(gpu[key]), float(cpu[key]), rtol=1e-5, atol=0.0),
+              f"{key} {float(gpu[key])} vs CPU {float(cpu[key])}")
+    loss_g, loss_c = gpu["losses"].cpu().numpy(), cpu["losses"].numpy()
+    loss_rel = float(np.max(np.abs(loss_g - loss_c) / np.abs(loss_c)))
+    check(loss_rel <= 0.01, f"robust-200 loss differs from the CPU run by {loss_rel:.3e}")
+    check(abs(float(gpu["f1"]) - float(cpu["f1"])) <= 0.02,
+          f"robust-200 F1 {float(gpu['f1']):.4f} vs CPU {float(cpu['f1']):.4f}")
+    check(all(bool(torch.isfinite(v).all()) for k, v in gpu.items() if k != "params"),
+          "non-finite robust-200 metrics")
+
+    f1 = {"trimmed": float(gpu["f1"])}
+    for robust in ("median", "mean"):
+        out, _ = on_card(cfg.replace(robust=robust))
+        f1[robust] = float(out["f1"])
+    fa.reset_launches()
+    chunked, chunked_s = on_card(cfg.replace(client_chunk=ROBUST_CHUNK))
+    chunks = -(-TRAIN_N // ROBUST_CHUNK)
+    check(fa.LAUNCHES["fused_agg"] == 2 * chunks * ROUNDS,
+          f"chunked robust-200 launched fused_agg {fa.LAUNCHES['fused_agg']} times")
+    for key, v in gpu.items():
+        got = ae.ravel(chunked[key]) if key == "params" else chunked[key]
+        want = ae.ravel(v) if key == "params" else v
+        check(torch.equal(got, want), f"chunked trimmed differs from unchunked in {key}")
+    ds_dev = SensorDataset(*(t.to(dev) for t in ds))
+    dep_dev, draws_dev = inputs.dep.to(dev), inputs.draws.to(dev)
+    params_dev = [{k: v.to(dev) for k, v in layer.items()} for layer in inputs.params]
+    round_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hfl.train(params_dev, ae.loss, ds_dev, cfg, dep_dev, draws_dev)
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t0) * 1e3 / ROUNDS)
+    summary = dict(
+        launches=launches, trial_s=trial_s, chunked_trial_s=chunked_s, f1=f1, round_ms=round_ms,
+        cpu_f1=float(cpu["f1"]), loss_first=float(loss_g[0]), loss_last=float(loss_g[-1]),
+        loss_rel_vs_cpu=loss_rel, e_total=float(gpu["e_total"]),
+        participation=float(gpu["participation"]), erased_total=float(gpu["erased_total"]),
+    )
+    print(f"  hfl-selective N={TRAIN_N} M={TRAIN_FOG} T={ROUNDS}, {ROBUST_FAULTS} on {name} "
+          f"({smi}):")
+    print(f"    trimmed {ROBUST_TRIM}: hfl.train {', '.join(f'{v:.3f}' for v in round_ms)} ms per "
+          f"round; trial {trial_s:.3f} s, F1 {f1['trimmed']:.4f} (CPU "
+          f"{summary['cpu_f1']:.4f}); loss {summary['loss_first']:.4f} -> "
+          f"{summary['loss_last']:.4f}"
+          f" (max rel vs CPU {loss_rel:.2e}); {summary['erased_total']:.0f} erasures; "
+          f"participation {summary['participation']:.4f}; energy {summary['e_total']:.4f} J")
+    print(f"    F1 by fog reduce on the card: trimmed {f1['trimmed']:.4f}, median "
+          f"{f1['median']:.4f}, mean {f1['mean']:.4f}")
+    print(f"    client_chunk={ROBUST_CHUNK}: bitwise equal to unchunked ({chunks} chunks, trial "
+          f"{chunked_s:.3f} s); launches {launches}")
+    return summary
+
+
+def fleet_scale(exp, hfl, ae, SensorDataset, generate, normalize, SyntheticConfig, fa, dev,
+                name, smi) -> dict:
+    """Phase 10: fleet-10k at client_chunk=512 and unchunked, both on the
+    card; per-round physics, loss and F1 agree; ms per round and peak
+    device memory of each."""
+    ds = normalize(generate(
+        torch.Generator().manual_seed(0),
+        SyntheticConfig(n_sensors=FLEET_N, train_len=WINDOW, val_len=VAL_LEN, test_len=TEST_LEN),
+        device=dev,
+    ))
+    cfg = exp.make_config(FLEET_N, FLEET_FOG, FLEET_ROUNDS)
+    t0 = time.perf_counter()
+    inputs = exp.draw_trial(torch.Generator().manual_seed(0), ds, cfg)
+    draw_s = time.perf_counter() - t0
+    dep, draws = inputs.dep.to(dev), inputs.draws.to(dev)
+    params = [{k: v.to(dev) for k, v in layer.items()} for layer in inputs.params]
+    runs = {}
+    for chunk in (FLEET_CHUNK, None):
+        c = cfg.replace(client_chunk=chunk)
+        fa.reset_launches()
+        trial = exp.trial_metrics("hfl-selective", None, ds, c, inputs=inputs)
+        torch.cuda.synchronize()
+        launches = {k: fa.LAUNCHES[k] for k in ("wire_emit", "wire_agg", "fused_agg")}
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = hfl.train(params, ae.loss, ds, c, dep, draws)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / FLEET_ROUNDS
+        runs[chunk] = dict(trial=trial, metrics=m, launches=launches, ms_per_round=ms,
+                           peak_bytes=torch.cuda.max_memory_allocated(dev))
+    chunks = -(-FLEET_N // FLEET_CHUNK)
+    want = {None: {"wire_emit": 0, "wire_agg": 0, "fused_agg": 2 * FLEET_ROUNDS},
+            FLEET_CHUNK: {"wire_emit": chunks * FLEET_ROUNDS, "wire_agg": chunks * FLEET_ROUNDS,
+                          "fused_agg": 0}}
+    for chunk, r in runs.items():
+        check(r["launches"] == want[chunk], f"fleet-10k chunk={chunk} launches {r['launches']}")
+    a, b = runs[FLEET_CHUNK], runs[None]
+    for field in ("participation", "e_s2f", "e_f2f", "e_f2g"):
+        got = getattr(a["metrics"], field).cpu().to(torch.float64).numpy()
+        ref = getattr(b["metrics"], field).cpu().to(torch.float64).numpy()
+        check(np.allclose(got, ref, rtol=1e-5, atol=0.0),
+              f"fleet-10k per-round {field} chunked vs unchunked: {got} vs {ref}")
+    loss_a, loss_b = (r["metrics"].loss.cpu().numpy() for r in (a, b))
+    loss_rel = float(np.max(np.abs(loss_a - loss_b) / np.abs(loss_b)))
+    check(loss_rel <= 0.01, f"fleet-10k loss chunked vs unchunked differs by {loss_rel:.3e}")
+    f1 = {chunk: float(r["trial"]["f1"]) for chunk, r in runs.items()}
+    check(abs(f1[FLEET_CHUNK] - f1[None]) <= 0.02, f"fleet-10k F1 {f1}")
+    bitwise = all(torch.equal(x, y) for x, y in zip(a["metrics"], b["metrics"]))
+    layer_peaks = fleet_layer_peaks(ae, ds, cfg, dep, draws, params, dev)
+    check(all(bool(torch.isfinite(v).all()) for r in runs.values() for v in r["trial"].values()),
+          "non-finite fleet-10k metrics")
+    summary = dict(
+        draw_s=draw_s, loss_rel=loss_rel, metrics_bitwise_equal=bitwise,
+        layer_peak_bytes=layer_peaks,
+        **{("chunked" if chunk else "unchunked"): dict(
+            launches=r["launches"], ms_per_round=r["ms_per_round"], peak_bytes=r["peak_bytes"],
+            f1=f1[chunk], participation=float(r["trial"]["participation"]),
+            e_total=float(r["trial"]["e_total"]),
+            loss_first=float(r["metrics"].loss[0]), loss_last=float(r["metrics"].loss[-1]))
+           for chunk, r in runs.items()},
+    )
+    print(f"  hfl-selective N={FLEET_N} M={FLEET_FOG} T={FLEET_ROUNDS} on {name} ({smi}); "
+          f"draws {draw_s:.2f} s on the host")
+    for label, chunk in ((f"client_chunk={FLEET_CHUNK}", FLEET_CHUNK), ("unchunked", None)):
+        r = runs[chunk]
+        print(f"    {label:16s} {r['ms_per_round']:9.3f} ms per round, peak device memory "
+              f"{r['peak_bytes'] / 2**20:9.1f} MiB, F1 {f1[chunk]:.4f}, loss "
+              f"{float(r['metrics'].loss[0]):.4f} -> {float(r['metrics'].loss[-1]):.4f}, "
+              f"launches {r['launches']}")
+    print(f"    chunked vs unchunked: max rel loss diff {loss_rel:.2e}; every per-round metric "
+          f"bitwise equal: {bitwise}")
+    print("    peak device memory above the resident set, outputs included: "
+          + ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in layer_peaks.items()))
+    return summary
+
+
+def fleet_layer_peaks(ae, ds, cfg, dep, draws, params, dev) -> dict:
+    """Peak device memory above what is already allocated, for one call of
+    each big layer of a fleet-10k round: association, the client phase,
+    and compress-and-accumulate chunked and unchunked (outputs included)."""
+    from repro_torch.core import aggregation as agg
+    from repro_torch.core import association as assoc
+    from repro_torch.kernels import ops as kops
+
+    def peak_above(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        del out
+        return peak
+
+    fa_ = assoc.nearest_feasible_fog(dep, cfg.channel)
+    deltas, _ = kops.local_train(params, ds.train, draws.batches[0], cfg.lr)
+    err = torch.zeros_like(deltas)
+    weights = ds.n_samples * fa_.participates.to(torch.float32)
+    peaks = {
+        "association": peak_above(lambda: assoc.nearest_feasible_fog(dep, cfg.channel)),
+        "client phase": peak_above(lambda: kops.local_train(params, ds.train, draws.batches[0],
+                                                            cfg.lr)),
+    }
+    for label, chunk in ((f"compress chunk {FLEET_CHUNK}", FLEET_CHUNK),
+                         ("compress unchunked", None)):
+        peaks[label] = peak_above(lambda: agg.compress_and_accumulate(
+            deltas, err, fa_.fog_id, weights, FLEET_FOG, cfg.compressor, chunk=chunk))
+    return peaks
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
@@ -490,7 +980,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.core import aggregation as agg
     from repro_torch.core import anomaly, hfl
+    from repro_torch.core import compression as comp
+    from repro_torch.core.faults import FaultConfig
     from repro_torch.data.pipeline import multi_epoch_indices
     from repro_torch.data.synthetic import SensorDataset, SyntheticConfig, generate, normalize
     from repro_torch.kernels import _build
@@ -499,6 +992,7 @@ def main() -> int:
     from repro_torch.kernels import local_train as lt
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import robust_agg as ra
     from repro_torch.launch import experiment as exp
     from repro_torch.loadgen import VirtualClock, gaussian_windows, mmpp_trace, replay
     from repro_torch.models import autoencoder as ae
@@ -627,9 +1121,13 @@ def main() -> int:
                   f"  on {name} ({smi})")
     train_kmods = (lt, fa, kops, kref, ae, multi_epoch_indices)
     train_timing = time_training_kernels(dev, *train_kmods, name, smi)
+    train_timing.update(time_new_kernels(dev, fa, ra, kops, kref, agg, comp, ae, name, smi))
 
     phase("7. training kernels against their plain versions")
     train_err = check_training_kernels(dev, *train_kmods)
+    train_err.update(check_new_kernels(dev, fa, ra, kref, agg, comp))
+    for kname, e in check_fleet_kernels(dev, fa, ra, kops, kref, agg, comp, ae).items():
+        train_err[kname] = max(train_err[kname], e)
 
     phase("8. training (main path): hfl-selective at N=200, T=20")
     train_ds = normalize(generate(
@@ -640,6 +1138,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT / "build") as tmp:
         training = train_fleet((exp, hfl, ae, CheckpointStore, SensorDataset, train_ds, lt, fa),
                                dev, name, smi, Path(tmp))
+
+    phase("9. robust-200 (main path): Byzantine clients, trimmed mean on the card")
+    robust = robust_fleet(exp, hfl, ae, SensorDataset, FaultConfig, train_ds, fa, ra, dev, name,
+                          smi)
+
+    phase("10. fleet-10k (main path): client-chunked rounds, N=10,000")
+    fleet = fleet_scale(exp, hfl, ae, SensorDataset, generate, normalize, SyntheticConfig, fa,
+                        dev, name, smi)
+    phase("done")
 
     kernels = []
     for kname, replaces in KERNELS.items():
@@ -660,19 +1167,27 @@ def main() -> int:
             "rows": HEADLINE_ROWS,
             "by_rows": {str(r): v for r, v in rows_table[kname].items()},
         })
-    for kname, (replaces, source) in TRAIN_KERNELS.items():
+    launches = dict(training["launches"])
+    launches["robust_agg"] = robust["launches"]["robust_agg"]
+    launches.update({k: fleet["chunked"]["launches"][k] for k in ("wire_emit", "wire_agg")})
+    for kname, (replaces, source) in {**TRAIN_KERNELS, **NEW_KERNELS}.items():
+        check(launches[kname] > 0, f"{kname} was not launched on its main path")
         t = train_timing[kname]
         kernels.append({
             "name": kname,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": training["launches"][kname],
+            "launches": launches[kname],
             "max_abs_err": train_err[kname],
             "library_ms": None,
             **t,
         })
     print(json.dumps({"training": training}))
+    print(json.dumps({"robust": robust}))
+    print(json.dumps({"fleet": fleet}))
+    print("phase seconds: " + ", ".join(f"{k.split('.')[0]} {v:.1f}" for k, v in PHASE_S.items()
+                                        if k != "done"))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,19 +3,22 @@
 A round is a Python function over tensors that stay on one device:
 Gauss-Markov fog mobility, nearest-feasible-fog association, the
 cooperation decision, the client phase (``optim/sgd.make_client_solver``:
-the ``local_train_f32`` kernel on the card), compression fused with the
-fog sums (``core/aggregation.compress_and_accumulate``: the ``fused_agg``
-kernel on the card), cooperative mixing (Eq. 15), the gateway step
-(Eq. 16, optionally FedAdam) and the energy / latency / battery
-accounting (Eqs. 17-21).  :func:`train` loops it over the rounds.
+the ``local_train_f32`` kernel on the card), the fault layer
+(``core/faults``: crashes, Byzantine corruption, erasures), compression
+and the fog reduce (``core/aggregation``): the weighted mean fused with
+compression (the ``fused_agg`` kernel on the card, or ``wire_emit`` and
+``wire_agg`` chunk by chunk with ``client_chunk``) or the Byzantine-robust
+trimmed mean / median (``robust_agg``), cooperative mixing (Eq. 15), the
+gateway step (Eq. 16, optionally FedAdam) and the energy / latency /
+battery accounting (Eqs. 17-21).  :func:`train` loops it over the rounds.
 
 Randomness is an argument: :class:`RoundDraws` holds every round's
-mobility noise and minibatch index table, and :func:`draw_rounds` makes
-them from a ``torch.Generator`` in a fixed order, so a run on the card
-and one on the CPU see identical inputs, and a test can hand both
-packages the reference's own draws.  Faults, drift, robust aggregation,
-client chunking and the client mesh are not ported yet; the config
-leaves them out and ``client_mesh`` raises.
+mobility noise, minibatch index table and, with faults on, the crash and
+erasure uniforms and the Byzantine noise; :func:`draw_rounds` makes them
+from a ``torch.Generator`` in a fixed order, so a run on the card and one
+on the CPU see identical inputs, and a test can hand both packages the
+reference's own draws.  Drift and the client mesh are not ported yet:
+the config leaves drift out and ``client_mesh`` raises.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from repro_torch.core import channel as ch
 from repro_torch.core import compression as comp
 from repro_torch.core import cooperation as coop
 from repro_torch.core import energy as en
+from repro_torch.core import faults as flt
 from repro_torch.core import topology as topo
 from repro_torch.data.pipeline import multi_epoch_indices
 from repro_torch.data.synthetic import SensorDataset
@@ -45,9 +49,8 @@ UNPORTED_MESH = "client_mesh (sharded client axis) is not ported yet (ROADMAP.md
 
 @dataclasses.dataclass(frozen=True)
 class HFLConfig:
-    """Round-loop configuration: the reference's fields that the ported
-    path uses (faults, drift, robust aggregation and client chunking come
-    with their slices)."""
+    """Round-loop configuration: the reference's fields, except drift
+    (not ported yet)."""
 
     rule: coop.CoopRule = coop.CoopRule.SELECTIVE
     rounds: int = 20
@@ -64,6 +67,23 @@ class HFLConfig:
     channel: ch.ChannelParams = ch.ChannelParams()
     energy: en.EnergyParams = en.EnergyParams()
     deployment: topo.DeploymentParams = topo.DeploymentParams()
+    robust: str = "mean"             # fog reduce: mean | trimmed | median
+    trim_frac: float = 0.0           # weight fraction cut per end (trimmed)
+    faults: flt.FaultConfig = flt.FaultConfig()
+    # Compress and accumulate the client axis this many sensors at a time
+    # (transient memory follows the chunk, not the fleet); None or >= N is
+    # the one-shot path.
+    client_chunk: int | None = None
+
+    def __post_init__(self) -> None:
+        if self.robust not in ("mean", "trimmed", "median"):
+            raise ValueError(f"robust must be 'mean', 'trimmed' or 'median', got {self.robust!r}")
+        if not 0.0 <= self.trim_frac < 0.5:
+            raise ValueError("trim_frac cuts a weight fraction from EACH end and must be in "
+                             f"[0, 0.5), got {self.trim_frac!r}")
+        cc = self.client_chunk
+        if cc is not None and (not isinstance(cc, int) or cc < 1):
+            raise ValueError(f"client_chunk must be None or a positive int, got {cc!r}")
 
     def replace(self, **kw: Any) -> "HFLConfig":
         return dataclasses.replace(self, **kw)
@@ -80,7 +100,7 @@ class RoundMetrics(NamedTuple):
     coop_links: torch.Tensor     # number of active fog-to-fog exchanges
     battery_min: torch.Tensor
     n_nonfinite: torch.Tensor    # delivered deltas carrying NaN/Inf (zeroed)
-    n_erased: torch.Tensor       # packets lost to erasure (0: no faults yet)
+    n_erased: torch.Tensor       # transmitted packets lost to erasure
     global_finite: torch.Tensor  # bool — global params finite after the round
 
 
@@ -90,33 +110,58 @@ class HFLState(NamedTuple):
     battery: torch.Tensor        # (N,) residual energy
     dep: topo.Deployment
     server: srv.ServerOptState   # gateway optimiser state (FedAdam)
+    prev_delta: torch.Tensor     # (d,) last global delta (adaptive colluders)
 
 
 class RoundDraws(NamedTuple):
-    """Per-round random inputs, stacked over the rounds."""
+    """Per-round random inputs, stacked over the rounds.  The fault
+    draws are None when the fault layer is off (``byz_noise`` also unless
+    ``byz_mode == "gauss"``)."""
 
     mobility: torch.Tensor       # (T, M, 3) f32 standard-normal Gauss-Markov noise
     batches: torch.Tensor        # (T, N, steps, bs) int32 minibatch index tables
+    crash: torch.Tensor | None = None       # (T, N) f32 uniforms
+    erase: torch.Tensor | None = None       # (T, N) f32 uniforms
+    byz_noise: torch.Tensor | None = None   # (T, N, d) f32 standard normals
 
     def to(self, device: torch.device | str) -> "RoundDraws":
-        return RoundDraws(self.mobility.to(device), self.batches.to(device))
+        return RoundDraws(*(None if t is None else t.to(device) for t in self))
+
+    def round(self, t: int) -> tuple:
+        """Round ``t``'s draws, in :func:`make_round_fn`'s argument order."""
+        return tuple(None if x is None else x[t] for x in self)
 
 
 def draw_rounds(
     generator: torch.Generator, cfg: HFLConfig, n_clients: int, window: int,
+    d: int | None = None,
 ) -> RoundDraws:
     """Every round's draws from ``generator`` (CPU), in this order: per
-    round t, ``randn(M, 3)`` mobility noise, then the clients' index
-    tables (``data/pipeline.multi_epoch_indices``)."""
+    round t, ``randn(M, 3)`` mobility noise, the clients' index tables
+    (``data/pipeline.multi_epoch_indices``), then, only with the fault
+    layer on, ``rand(N)`` crash and ``rand(N)`` erasure uniforms and, for
+    ``byz_mode="gauss"``, ``randn(N, d)`` Byzantine noise (``d`` = the
+    flat parameter count).  With faults off a trial draws exactly what
+    it drew before the fault layer existed."""
     if cfg.rounds < 1:
         raise ValueError(f"a trial needs at least one round, got {cfg.rounds}")
-    noise, batches = [], []
+    faults = cfg.faults.is_active
+    gauss = faults and cfg.faults.byz_mode == "gauss"
+    if gauss and d is None:
+        raise ValueError("byz_mode='gauss' needs the flat parameter count d")
+    noise, batches, crash, erase, byz = [], [], [], [], []
     for _ in range(cfg.rounds):
         noise.append(torch.randn((cfg.deployment.n_fog, 3), generator=generator))
         batches.append(multi_epoch_indices(
             generator, n_clients, window, cfg.batch_size, cfg.local_epochs
         ))
-    return RoundDraws(torch.stack(noise), torch.stack(batches))
+        if faults:
+            crash.append(torch.rand((n_clients,), generator=generator))
+            erase.append(torch.rand((n_clients,), generator=generator))
+        if gauss:
+            byz.append(torch.randn((n_clients, d), generator=generator))
+    return RoundDraws(*(torch.stack(xs) if xs else None
+                        for xs in (noise, batches, crash, erase, byz)))
 
 
 def init_state(params: Params, dep: topo.Deployment, cfg: HFLConfig) -> HFLState:
@@ -129,6 +174,7 @@ def init_state(params: Params, dep: topo.Deployment, cfg: HFLConfig) -> HFLState
         battery=torch.full((n,), cfg.energy.e_init_j, dtype=torch.float32, device=dev),
         dep=dep,
         server=srv.init_state(flat.shape[0], dev),
+        prev_delta=torch.zeros_like(flat),
     )
 
 
@@ -165,10 +211,15 @@ def make_round_fn(
     client_mesh: Any = None,
 ) -> Callable[[HFLState, torch.Tensor, torch.Tensor], tuple[HFLState, RoundMetrics]]:
     """Build ``round_fn(state, mobility (M, 3), batches (N, steps, bs))
-    -> (state, metrics)``, one round of Algorithm 1 on ``ds``'s device."""
+    -> (state, metrics)``, one round of Algorithm 1 on ``ds``'s device;
+    with the fault layer on it also takes the round's ``crash`` and
+    ``erase`` uniforms (N,) and, for ``gauss``, ``byz_noise`` (N, d)."""
     if client_mesh is not None:
         raise NotImplementedError(UNPORTED_MESH)
     n_fog = cfg.deployment.n_fog
+    fl = cfg.faults
+    fault_on = fl.is_active          # off: exactly the fault-free round
+    adaptive = fault_on and fl.byz_mode == "adaptive"
     clients_fn = make_client_solver(
         loss_fn, batch_size=cfg.batch_size, epochs=cfg.local_epochs,
         lr=cfg.lr, prox_mu=cfg.prox_mu, solver=cfg.local_solver,
@@ -179,7 +230,11 @@ def make_round_fn(
     lat_comp = flops / cfg.compute_rate_flops
     e_comp = float(en.compute_energy_j(flops, cfg.energy))   # the f32 value, on the host
 
-    def round_fn(state: HFLState, mobility: torch.Tensor, batches: torch.Tensor):
+    def round_fn(state: HFLState, mobility: torch.Tensor, batches: torch.Tensor,
+                 crash: torch.Tensor | None = None, erase: torch.Tensor | None = None,
+                 byz_noise: torch.Tensor | None = None):
+        if fault_on and (crash is None or erase is None):
+            raise ValueError("the fault layer needs the round's crash and erasure uniforms")
         dep = state.dep
         if cfg.fog_mobility:
             dep = topo.gauss_markov_step(mobility, dep, cfg.deployment)
@@ -188,6 +243,10 @@ def make_round_fn(
         fa = assoc.nearest_feasible_fog(dep, cfg.channel)
         alive = state.battery > cfg.energy.e_min_j
         active = fa.participates & alive
+        if fault_on:
+            # Crashed clients drop out like a dead battery: no training, no
+            # transmission, no energy this round.
+            active = active & ~flt.draw_crash(crash, fl.crash_prob)
         # Cooperation sees round-active cluster sizes (battery included).
         c_active = torch.zeros((n_fog,), dtype=torch.int32, device=active.device)
         c_active.index_add_(0, fa.fog_id.long(), active.to(torch.int32))
@@ -197,13 +256,29 @@ def make_round_fn(
         flat0 = ae.ravel(state.params)
         d = flat0.shape[0]
         active_f = active.to(torch.float32)
-        weights = ds.n_samples * active_f
+        # Erasure strikes after the SNR gate: the packet was sent (energy
+        # charged below, EF buffer advances), only its weight vanishes.
+        if fault_on:
+            erased = active & flt.draw_erasure(erase, fl.erasure_prob)
+        else:
+            erased = torch.zeros_like(active)
+        delivered = active & ~erased
+        weights = ds.n_samples * delivered.to(torch.float32)
         deltas, losses = clients_fn(state.params, ds.train, batches)
-        n_nonfinite = torch.sum(active & ~torch.all(torch.isfinite(deltas), dim=-1))
-        fog_sum, fog_weight, new_err = agg.compress_and_accumulate(
-            deltas, state.err, fa.fog_id, weights, n_fog, cfg.compressor,
-        )
-        fog_delta = fog_sum / torch.clamp_min(fog_weight, 1e-12)[:, None]
+        if fault_on:
+            deltas = flt.corrupt_deltas(deltas, fl, prev_delta=state.prev_delta, noise=byz_noise)
+        n_nonfinite = torch.sum(delivered & flt.nonfinite_rows(deltas))
+        if cfg.robust == "mean":
+            fog_sum, fog_weight, new_err = agg.compress_and_accumulate(
+                deltas, state.err, fa.fog_id, weights, n_fog, cfg.compressor,
+                chunk=cfg.client_chunk,
+            )
+            fog_delta = fog_sum / torch.clamp_min(fog_weight, 1e-12)[:, None]
+        else:
+            fog_delta, fog_weight, new_err = agg.robust_compress_and_aggregate(
+                deltas, state.err, fa.fog_id, weights, n_fog, cfg.compressor,
+                cfg.trim_frac, cfg.robust, chunk=cfg.client_chunk,
+            )
         # Non-participants keep their error buffer and contribute nothing.
         new_err = torch.where(active[:, None], new_err, state.err)
 
@@ -246,10 +321,12 @@ def make_round_fn(
             coop_links=torch.sum(decision.cooperates.to(torch.int32)),
             battery_min=torch.amin(battery),
             n_nonfinite=n_nonfinite.to(torch.int32),
-            n_erased=torch.zeros((), dtype=torch.int32, device=active.device),
+            n_erased=torch.sum(erased.to(torch.int32)),
             global_finite=torch.all(torch.isfinite(new_flat)),
         )
-        return HFLState(new_params, new_err, battery, dep, server), metrics
+        # Adaptive colluders observe the realised global movement.
+        prev_delta = new_flat - flat0 if adaptive else state.prev_delta
+        return HFLState(new_params, new_err, battery, dep, server, prev_delta), metrics
 
     return round_fn
 
@@ -279,13 +356,17 @@ def train(
     dev = ds.train.device
     if not 1 <= cfg.rounds <= draws.mobility.shape[0]:
         raise ValueError(f"draws cover {draws.mobility.shape[0]} rounds, cfg.rounds={cfg.rounds}")
+    if cfg.faults.is_active and (draws.crash is None or draws.erase is None or (
+            cfg.faults.byz_mode == "gauss" and draws.byz_noise is None)):
+        raise ValueError("the fault layer is on but the draws lack its uniforms or noise "
+                         "(draw them with draw_rounds(..., d=...) under the same config)")
     draws = draws.to(dev)
     state = init_state([{k: v.to(dev) for k, v in layer.items()} for layer in init_params],
                        dep.to(dev), cfg)
     round_fn = make_round_fn(loss_fn, ds, cfg, client_mesh=client_mesh)
     per_round = []
     for t in range(cfg.rounds):
-        state, m = round_fn(state, draws.mobility[t], draws.batches[t])
+        state, m = round_fn(state, *draws.round(t))
         per_round.append(m)
         if store is not None and ((t + 1) % publish_every == 0 or t + 1 == cfg.rounds):
             store.publish(publish_offset + t + 1, state.params)

@@ -1,5 +1,5 @@
-"""Launch wrapper of the fused compress-and-aggregate kernel
-(``csrc/fused_agg.cu``).
+"""Launch wrappers of the compress-and-aggregate kernels
+(``csrc/fused_agg.cu``): the dense fused path and the sparse wire.
 
 :func:`compress_aggregate_blocks` takes CUDA tensors only: the (N, d)
 client updates and error-feedback buffers, the (N,) fog assignment and
@@ -11,6 +11,16 @@ Each launch adds one to ``LAUNCHES["fused_agg"]``.  The CPU route is
 ``kernels/ops``', which sends CPU tensors to
 ``kernels/ref.compress_aggregate_ref``, the plain version of the same
 function (it returns the same three tensors).
+
+:func:`compress_wire_blocks` (``wire_emit``, one launch) makes the same
+survivor selection and packs the survivors into k slots per block: int32
+indices, int8 codes (f32 values without quantisation) and one f32 scale
+per block, beside new_err.  :func:`wire_aggregate_blocks` (``wire_agg``,
+one launch) adds ``q * scale * w`` from the slots into fog sums, in place.
+Both write into caller-given buffers when asked, so a chunked round
+writes each chunk's wire and error-feedback rows straight into slices of
+the round's buffers.  Their plain versions are
+``kernels/ref.compress_wire_ref`` and ``kernels/ref.wire_aggregate_ref``.
 """
 from __future__ import annotations
 
@@ -21,13 +31,14 @@ import torch
 from repro_torch.kernels import _build, _launch
 from repro_torch.kernels.ref import BLOCK_ELEMS   # kBlock in csrc/fused_agg.cu
 
-LAUNCHES = {"fused_agg": 0}
+LAUNCHES = {"fused_agg": 0, "wire_emit": 0, "wire_agg": 0}
 
 _lib: ctypes.CDLL | None = None
 
 
 def reset_launches() -> None:
-    LAUNCHES["fused_agg"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -39,6 +50,10 @@ def _library() -> ctypes.CDLL:
         lib.fused_agg_select.restype = i
         lib.fused_agg_sum.argtypes = [vp, vp, vp, vp, i, i, i, i, vp, vp, vp, vp]
         lib.fused_agg_sum.restype = i
+        lib.wire_emit.argtypes = [vp, vp, i, i, i, i, vp, vp, vp, vp, vp]
+        lib.wire_emit.restype = i
+        lib.wire_agg.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, vp, vp]
+        lib.wire_agg.restype = i
         lib.fused_agg_error_string.argtypes = [i]
         lib.fused_agg_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -60,9 +75,8 @@ def compress_aggregate_blocks(
     if deltas.dim() != 2:
         raise ValueError(f"deltas must be (N, d), got {tuple(deltas.shape)}")
     n, d = (int(s) for s in deltas.shape)
-    if n < 1 or d < 1 or not 1 <= n_fog <= 65535 or k < 1:
-        raise ValueError(f"needs N, d, k >= 1 and 1 <= n_fog <= 65535, got N={n}, "
-                         f"d={d}, n_fog={n_fog}, k={k}")
+    if n < 1 or d < 1 or n_fog < 1 or k < 1:
+        raise ValueError(f"needs N, d, n_fog, k >= 1, got N={n}, d={d}, n_fog={n_fog}, k={k}")
     nb = -(-d // BLOCK_ELEMS)
     _launch.check(deltas, "deltas", torch.float32, (n, d), device)
     _launch.check(err, "err", torch.float32, (n, d), device)
@@ -89,3 +103,94 @@ def compress_aggregate_blocks(
         _launch.raise_on(rc, "fused_agg sum launch", lib.fused_agg_error_string)
         LAUNCHES["fused_agg"] += 1
     return fog_sum, new_err, thr
+
+
+def _wire_outputs(n: int, nb: int, k: int, d: int, quantize: bool, device: torch.device,
+                  out: tuple | None) -> tuple:
+    code = torch.int8 if quantize else torch.float32
+    shapes = ((n, nb, k), (n, nb, k), (n, nb), (n, d))
+    dtypes = (torch.int32, code, torch.float32, torch.float32)
+    if out is None:
+        return tuple(torch.empty(s, dtype=t, device=device) for s, t in zip(shapes, dtypes))
+    for t, name, dtype, shape in zip(out, ("idx", "q", "scale", "new_err"), dtypes, shapes):
+        _launch.check(t, name, dtype, shape, device)
+    return tuple(out)
+
+
+def compress_wire_blocks(
+    deltas: torch.Tensor,     # (N, d) f32 raw client updates
+    err: torch.Tensor,        # (N, d) f32 error-feedback buffers
+    k: int,                   # slots per 8192-element block
+    quantize: bool = True,
+    out: tuple | None = None,  # (idx, q, scale, new_err) to write into
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``wire_emit``: (idx (N, nb, k) int32, q (N, nb, k) int8 — f32
+    without ``quantize`` — scale (N, nb) f32, new_err (N, d)).  ``out``
+    gives contiguous buffers of those shapes (row slices of a round's
+    buffers are), written in place and returned."""
+    device = _launch.require_cuda(deltas, "wire emit")
+    if deltas.dim() != 2:
+        raise ValueError(f"deltas must be (N, d), got {tuple(deltas.shape)}")
+    n, d = (int(s) for s in deltas.shape)
+    if n < 1 or d < 1 or not 1 <= k <= BLOCK_ELEMS:
+        raise ValueError(f"needs N, d >= 1 and 1 <= k <= {BLOCK_ELEMS}, got N={n}, d={d}, k={k}")
+    nb = -(-d // BLOCK_ELEMS)
+    _launch.check(deltas, "deltas", torch.float32, (n, d), device)
+    _launch.check(err, "err", torch.float32, (n, d), device)
+    idx, q, scale, new_err = _wire_outputs(n, nb, k, d, quantize, device, out)
+    lib = _library()
+    with torch.cuda.device(device):
+        rc = lib.wire_emit(
+            deltas.data_ptr(), err.data_ptr(), n, d, int(k), int(quantize), idx.data_ptr(),
+            q.data_ptr(), scale.data_ptr(), new_err.data_ptr(), _launch.stream(device),
+        )
+        _launch.raise_on(rc, "wire_emit launch", lib.fused_agg_error_string)
+        LAUNCHES["wire_emit"] += 1
+    return idx, q, scale, new_err
+
+
+def wire_aggregate_blocks(
+    idx: torch.Tensor,        # (N, nb, k) int32 within-block coordinates
+    q: torch.Tensor,          # (N, nb, k) int8 codes, or f32 values
+    scale: torch.Tensor,      # (N, nb) f32 per-block scales
+    fog_id: torch.Tensor,     # (N,) int32 cluster assignment
+    weights: torch.Tensor,    # (N,) f32, zeroed for non-participants
+    n_fog: int,
+    d: int,
+    out: torch.Tensor | None = None,   # (n_fog, d) f32 running sums, added to in place
+) -> torch.Tensor:
+    """Launch ``wire_agg``: fog_sum (n_fog, d) f32 += the weighted wire of
+    these N clients, each coordinate summing its clients in index order
+    after the value already there.  ``out`` is updated in place (rows of
+    fogs without a client here are untouched); without it the sums start
+    from zeros.  Against the plain version, which scatter-adds in another
+    order: ``rtol=1e-5, atol=1e-4``."""
+    device = _launch.require_cuda(idx, "wire aggregate")
+    if idx.dim() != 3:
+        raise ValueError(f"idx must be (N, nb, k), got {tuple(idx.shape)}")
+    n, nb, k = (int(s) for s in idx.shape)
+    in_blocks = (nb - 1) * BLOCK_ELEMS < d <= nb * BLOCK_ELEMS
+    if n < 1 or k < 1 or not 1 <= n_fog <= 65535 or not in_blocks:
+        raise ValueError(f"needs N, k >= 1, 1 <= n_fog <= 65535 and d within the {nb} blocks, "
+                         f"got N={n}, k={k}, n_fog={n_fog}, d={d}")
+    if q.dtype not in (torch.int8, torch.float32):
+        raise TypeError(f"q is {q.dtype}, expected torch.int8 or torch.float32")
+    _launch.check(idx, "idx", torch.int32, (n, nb, k), device)
+    _launch.check(q, "q", q.dtype, (n, nb, k), device)
+    _launch.check(scale, "scale", torch.float32, (n, nb), device)
+    _launch.check(fog_id, "fog_id", torch.int32, (n,), device)
+    _launch.check(weights, "weights", torch.float32, (n,), device)
+    if out is None:
+        out = torch.zeros((n_fog, d), dtype=torch.float32, device=device)
+    else:
+        _launch.check(out, "out", torch.float32, (n_fog, d), device)
+    lib = _library()
+    with torch.cuda.device(device):
+        rc = lib.wire_agg(
+            idx.data_ptr(), q.data_ptr(), scale.data_ptr(), fog_id.data_ptr(),
+            weights.data_ptr(), n, nb, k, int(d), n_fog, int(q.dtype == torch.int8),
+            out.data_ptr(), _launch.stream(device),
+        )
+        _launch.raise_on(rc, "wire_agg launch", lib.fused_agg_error_string)
+        LAUNCHES["wire_agg"] += 1
+    return out

@@ -2,8 +2,8 @@
 
 A CPU tensor goes to the plain version in ``kernels/ref``; a CUDA tensor
 goes to the hand-written kernel (``kernels/fused_score``,
-``kernels/local_train``, ``kernels/fused_agg``), which raises on anything
-it cannot take; there is no fallback.  Counterparts of the same-named
+``kernels/local_train``, ``kernels/fused_agg``, ``kernels/robust_agg``),
+which raises on anything it cannot take; there is no fallback.  Counterparts of the same-named
 functions of ``repro.kernels.ops``, without their TPU row and 128-lane
 padding: the CUDA kernels take the real widths.
 """
@@ -17,6 +17,7 @@ from repro_torch.kernels import fused_agg as _fa
 from repro_torch.kernels import fused_score as _fs
 from repro_torch.kernels import local_train as _lt
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import robust_agg as _ra
 from repro_torch.models import autoencoder as ae
 
 BLOCK_ELEMS = _ref.BLOCK_ELEMS   # compression block of the flat updates
@@ -53,6 +54,100 @@ def compress_aggregate(
     fn = _fa.compress_aggregate_blocks if _route(deltas) == "cuda" else _ref.compress_aggregate_ref
     fog_sum, new_err, _ = fn(deltas, err, fog_id, weights, n_fog, block_k(k_frac), quantize)
     return fog_sum, new_err
+
+
+def wire_k(k_frac: float) -> int:
+    """Slots per block of the sparse wire for a keep fraction: at least 1,
+    at most a whole block."""
+    return min(block_k(k_frac), BLOCK_ELEMS)
+
+
+def compress_wire(
+    deltas: torch.Tensor,     # (N, d) raw per-client flat updates
+    err: torch.Tensor,        # (N, d) error-feedback buffers
+    k_frac: float,
+    quantize: bool = True,
+    out: tuple | None = None,  # (idx, q, scale, new_err) buffers to write into
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Emit the sparse wire for a batch of clients: (idx (N, nb, k) int32,
+    q (N, nb, k) int8 codes — f32 values without ``quantize`` — scale (N,
+    nb) f32, new_err (N, d)), per block k indices, k codes and one scale,
+    the Eq. 31 payload as a real object.  With ``out`` the results land in
+    those buffers (the kernel writes them directly)."""
+    k = wire_k(k_frac)
+    if _route(deltas) == "cuda":
+        return _fa.compress_wire_blocks(deltas, err, k, quantize, out=out)
+    res = _ref.compress_wire_ref(deltas, err, k, quantize)
+    if out is None:
+        return res
+    for buf, r in zip(out, res):
+        buf.copy_(r)
+    return tuple(out)
+
+
+def wire_aggregate(
+    idx: torch.Tensor,        # (N, nb, k) int32 wire indices
+    q: torch.Tensor,          # (N, nb, k) codes
+    scale: torch.Tensor,      # (N, nb) f32 per-block scales
+    fog_id: torch.Tensor,     # (N,) int32 cluster assignment
+    weights: torch.Tensor,    # (N,) f32, zeroed for non-participants
+    n_fog: int,
+    d: int,
+    out: torch.Tensor | None = None,   # (n_fog, d) running fog sums, added to in place
+) -> torch.Tensor:
+    """Weighted scatter-add of the wire into fog sums: fog_sum (n_fog, d)
+    f32, unnormalised; the dense (N, d) reconstructions never exist.  With
+    ``out`` the sums are added to it in place and it is returned."""
+    if _route(idx) == "cuda":
+        return _fa.wire_aggregate_blocks(idx, q, scale, fog_id, weights, n_fog, d, out=out)
+    part = _ref.wire_aggregate_ref(idx, q, scale, fog_id, weights, n_fog, d)
+    return part if out is None else out.add_(part)
+
+
+def compress_aggregate_wire(
+    deltas: torch.Tensor,     # (N, d) raw per-client flat updates
+    err: torch.Tensor,        # (N, d) error-feedback buffers
+    fog_id: torch.Tensor,     # (N,) int32 cluster assignment
+    weights: torch.Tensor,    # (N,) f32, zeroed for non-participants
+    n_fog: int,
+    k_frac: float,
+    quantize: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sparse-wire twin of :func:`compress_aggregate`: emit the wire, then
+    scatter-add it.  (fog_sum (n_fog, d) unnormalised, new_err (N, d)),
+    equal to the dense path up to f32 summation order.  No round calls it
+    (the chunked round calls :func:`compress_wire` and
+    :func:`wire_aggregate` per chunk); it is the counterpart of
+    ``repro.kernels.ops.compress_aggregate_wire``, the one-shot wire
+    operator that the reference's kernel benchmark times."""
+    if _route(deltas) == "cpu":
+        return _ref.compress_aggregate_wire_ref(deltas, err, fog_id, weights, n_fog,
+                                                wire_k(k_frac), quantize)
+    idx, q, scale, new_err = _fa.compress_wire_blocks(deltas, err, wire_k(k_frac), quantize)
+    return _fa.wire_aggregate_blocks(idx, q, scale, fog_id, weights, n_fog,
+                                     deltas.shape[1]), new_err
+
+
+def robust_aggregate(
+    recon: torch.Tensor,      # (N, d) per-client dequantised reconstructions
+    fog_id: torch.Tensor,     # (N,) int32 cluster assignment
+    weights: torch.Tensor,    # (N,) f32, zeroed for non-participants
+    n_fog: int,
+    trim_frac: float,
+    mode: str = "trimmed",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Coordinate-wise Byzantine-robust fog aggregation, weighted trimmed
+    mean or weighted lower median.  Returns (fog_out (n_fog, d) f32 — the
+    NORMALISED robust aggregate, zeros for empty fogs — and fog_weight
+    (n_fog,), the Eq. 16 gateway weights).  ``trim_frac`` is clamped to
+    [0, 0.4995]; at 0 the trimmed mean is the weighted mean."""
+    if mode not in ("trimmed", "median"):
+        raise ValueError(f"robust mode must be 'trimmed' or 'median', got {mode!r}")
+    beta = min(max(float(trim_frac), 0.0), _ra.MAX_BETA)
+    if _route(recon) == "cuda":
+        return (_ra.robust_aggregate_blocks(recon, fog_id, weights, n_fog, beta, mode),
+                _ref.segment_sum(weights.to(torch.float32), fog_id, n_fog))
+    return _ref.robust_aggregate_ref(recon, fog_id, weights, n_fog, beta, mode)
 
 
 def local_train(

@@ -176,3 +176,151 @@ def local_train_ref(
         for part in ((b - ab).reshape(n, -1), (w - aw).reshape(n, -1))
     ], dim=1)
     return deltas, loss_sum / steps
+
+
+def compress_wire_ref(
+    delta: torch.Tensor,      # (N, d) per-client flat updates
+    err: torch.Tensor,        # (N, d) error-feedback buffers
+    k: int,                   # slots per 8192-element block
+    quantize: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The sparse wire: the survivors of :func:`compress_aggregate_ref`'s
+    selection packed into k slots per zero-padded block.
+
+    Returns (idx (N, nb, k) int32 within-block coordinates, q (N, nb, k)
+    int8 codes — f32 values without ``quantize`` — scale (N, nb) f32, 1.0
+    without ``quantize``, new_err (N, d)).  Slot order is the reference's
+    ``top_k(where(survive, |v|, -1))``: survivors by |v| descending, ties
+    to the lower index, then the lowest-index non-survivors ascending with
+    code 0 (a stable descending sort gives exactly that order).
+    new_err is v - q * scale at the slots and v elsewhere.
+    """
+    n, d = delta.shape
+    v = pad_blocks(delta + err)
+    absv = torch.abs(v)
+    amax = torch.amax(absv, dim=-1, keepdim=True)
+    t = bisect_threshold(absv, k, hi=amax)
+    survive = absv > t
+    k = min(int(k), BLOCK_ELEMS)
+    rank_key = torch.where(survive, absv, -1.0)
+    idx = torch.sort(rank_key, dim=-1, descending=True, stable=True).indices[..., :k]
+    kept = torch.gather(survive, -1, idx)
+    v_slots = torch.gather(v, -1, idx)
+    vals = torch.where(kept, v_slots, 0.0)
+    if quantize:
+        scale = (amax * (1.0 / 127.0))[..., 0]
+        safe = torch.where(scale > 0, scale, 1.0)[..., None]
+        q = torch.clamp(torch.round(vals / safe), -127.0, 127.0)
+        recon_vals = torch.where(scale[..., None] > 0, q * scale[..., None], 0.0)
+        q = q.to(torch.int8)
+    else:
+        scale = torch.ones(v.shape[:-1], dtype=torch.float32, device=v.device)
+        q = vals
+        recon_vals = vals
+    new_err = v.scatter(-1, idx, v_slots - recon_vals)
+    return idx.to(torch.int32), q, scale, new_err.reshape(n, -1)[:, :d]
+
+
+def wire_aggregate_ref(
+    idx: torch.Tensor,        # (N, nb, k) int32 within-block coordinates
+    q: torch.Tensor,          # (N, nb, k) int8 codes (or f32 values)
+    scale: torch.Tensor,      # (N, nb) f32 per-block scales
+    fog_id: torch.Tensor,     # (N,) cluster id per client
+    weights: torch.Tensor,    # (N,) f32, zeroed for non-participants
+    n_fog: int,
+    d: int,
+) -> torch.Tensor:
+    """Weighted scatter-add off the wire: each slot adds
+    ``q * scale * w`` at its coordinate of its client's fog row.  Returns
+    fog_sum (n_fog, d) f32, unnormalised."""
+    n, nb, k = idx.shape
+    contrib = q.to(torch.float32) * scale[..., None] * weights.to(torch.float32)[:, None, None]
+    row = fog_id.long()[:, None, None] * nb + torch.arange(nb, device=idx.device)[None, :, None]
+    flat = row * BLOCK_ELEMS + idx.long()
+    fog_sum = torch.zeros((n_fog * nb * BLOCK_ELEMS,), dtype=torch.float32, device=idx.device)
+    fog_sum.index_add_(0, flat.reshape(-1), contrib.reshape(-1))
+    return fog_sum.reshape(n_fog, -1)[:, :d]
+
+
+def compress_aggregate_wire_ref(
+    delta: torch.Tensor,      # (N, d)
+    err: torch.Tensor,        # (N, d)
+    fog_id: torch.Tensor,     # (N,)
+    weights: torch.Tensor,    # (N,) f32
+    n_fog: int,
+    k: int,
+    quantize: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Emit the wire, then scatter-add it: (fog_sum (n_fog, d), new_err
+    (N, d)), equal to :func:`compress_aggregate_ref` up to f32 summation
+    order.  The plain version of ``ops.compress_aggregate_wire``, the
+    counterpart of the reference's one-shot wire operator."""
+    idx, q, scale, new_err = compress_wire_ref(delta, err, k, quantize)
+    return wire_aggregate_ref(idx, q, scale, fog_id, weights, n_fog, delta.shape[1]), new_err
+
+
+def segment_sum(x: torch.Tensor, fog_id: torch.Tensor, n_fog: int) -> torch.Tensor:
+    """Sum of the rows of x (N, ...) per fog: (n_fog, ...), in O(N)."""
+    out = torch.zeros((n_fog,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    return out.index_add_(0, fog_id.long(), x)
+
+
+ROBUST_PAIR_BUDGET = 1 << 24   # (members x members x columns) elements per chunk
+
+
+def robust_aggregate_ref(
+    recon: torch.Tensor,      # (N, d) per-client reconstructions
+    fog_id: torch.Tensor,     # (N,) cluster id per client
+    weights: torch.Tensor,    # (N,) f32, zeroed for non-participants
+    n_fog: int,
+    trim_frac: float = 0.1,
+    mode: str = "trimmed",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Coordinate-wise weighted trimmed mean (``mode="trimmed"``) or lower
+    median (``"median"``) per fog, sort-free by tie-group interval overlap.
+
+    Per fog m and coordinate, over the members i of m with weight > 0:
+    A_i is the member weight strictly below v_i, g_i the member weight tied
+    at v_i and W the fog's weight.  Trimmed: eff_i = w_i * max(min(A_i +
+    g_i, (1 - beta) W) - max(A_i, beta W), 0) / g_i with beta the trim
+    fraction clamped to [0, 0.4995] in f32; median: eff_i = w_i / g_i for
+    the tie group with A_i < W/2 <= A_i + g_i.  out = sum eff_i v_i /
+    max(sum eff_i, 1e-12); an empty fog gets zeros.
+
+    Loops over the fogs and, within a fog, over chunks of coordinates so
+    that the (members, members, columns) comparisons stay under
+    ``ROBUST_PAIR_BUDGET`` elements at any fleet size.  Returns (fog_out
+    (n_fog, d) f32, fog_weight (n_fog,) = the fogs' summed weights).
+    """
+    if mode not in ("trimmed", "median"):
+        raise ValueError(f"robust mode must be 'trimmed' or 'median', got {mode!r}")
+    v = recon.to(torch.float32)
+    w = weights.to(torch.float32)
+    n, d = v.shape
+    fog_weight = segment_sum(w, fog_id, n_fog)
+    out = torch.zeros((n_fog, d), dtype=torch.float32, device=v.device)
+    beta = torch.clamp(torch.tensor(trim_frac, dtype=torch.float32), 0.0, 0.4995).to(v.device)
+    for m in range(n_fog):
+        members = torch.nonzero((fog_id == m) & (w > 0)).flatten()
+        n_m = int(members.numel())
+        if n_m == 0:
+            continue
+        vm, wm = v[members], w[members]
+        big_w = torch.sum(wm)
+        cols = max(1, ROBUST_PAIR_BUDGET // (n_m * n_m))
+        for c0 in range(0, d, cols):
+            x = vm[:, c0:c0 + cols]                               # (n_m, C)
+            a = torch.einsum("ikc,k->ic", (x[None, :, :] < x[:, None, :]).to(torch.float32), wm)
+            g = torch.einsum("ikc,k->ic", (x[None, :, :] == x[:, None, :]).to(torch.float32), wm)
+            g_safe = torch.clamp_min(g, 1e-30)
+            if mode == "median":
+                half = 0.5 * big_w
+                ratio = torch.where((a < half) & (half <= a + g), 1.0 / g_safe, 0.0)
+            else:
+                lo = torch.maximum(a, beta * big_w)
+                hi = torch.minimum(a + g, (1.0 - beta) * big_w)
+                ratio = torch.clamp_min(hi - lo, 0.0) / g_safe
+            eff = wm[:, None] * ratio
+            out[m, c0:c0 + cols] = torch.sum(eff * x, dim=0) / torch.clamp_min(
+                torch.sum(eff, dim=0), 1e-12)
+    return out, fog_weight

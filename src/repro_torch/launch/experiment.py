@@ -79,7 +79,7 @@ class TrialInputs(NamedTuple):
 
     params: Any                # initial autoencoder params
     dep: topo.Deployment       # initial deployment
-    draws: hfl.RoundDraws      # per-round mobility noise + minibatch tables
+    draws: hfl.RoundDraws      # per-round mobility noise, minibatch tables, fault draws
 
 
 def draw_trial(
@@ -89,11 +89,13 @@ def draw_trial(
     """Draw a trial's inputs on the CPU from ``generator``, in this order:
     the init params (``models/autoencoder.init``), the deployment
     (``core/topology.sample_deployment``), the per-round draws
-    (``core/hfl.draw_rounds``)."""
+    (``core/hfl.draw_rounds``, fault draws included when the fault layer
+    is on)."""
     n, window, dim = ds.train.shape
     params = ae.init(generator, dim, hidden, device="cpu")
     dep = topo.sample_deployment(generator, cfg.deployment, device="cpu")
-    return TrialInputs(params, dep, hfl.draw_rounds(generator, cfg, n, window))
+    draws = hfl.draw_rounds(generator, cfg, n, window, d=ae.param_count(dim, hidden))
+    return TrialInputs(params, dep, draws)
 
 
 def _check_method(method: str) -> None:

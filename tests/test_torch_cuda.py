@@ -9,22 +9,32 @@ machine does not have).
 
 Tolerance: score errors to ``rtol=1e-5, atol=1e-5`` (the kernel sums in
 another order than PyTorch's matmul); flags exactly, except on rows within
-``1e-5 * max(1, |tau|)`` of tau.  Training kernels: local-train deltas to
-``rtol=1e-4, atol=1e-6`` and losses to ``rtol=1e-5``; compress-aggregate
+``1e-5 * max(1, |tau|)`` of tau.  The whole service on the card and on
+the CPU: each held to an f64 evaluation within the derived forward-error
+bound of f32 (see ``_score_bound``).  Training kernels: local-train deltas
+to ``rtol=1e-4, atol=1e-6`` and losses to ``rtol=1e-5``; compress-aggregate
 survivor sets exactly, new_err to ``atol=1e-5`` and fog sums to
 ``rtol=1e-5, atol=1e-4`` (the reference's kernel-vs-oracle tolerances).
+Robust aggregation to ``rtol=1e-5, atol=1e-6`` (the selection is exact
+with integer weights; only num / den round apart); the wire's slots, codes
+and scales exactly, its new_err to ``atol=1e-5`` and its fog sums to
+``rtol=1e-5, atol=1e-4``.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.checkpoint import CheckpointStore
+from repro_torch.core import aggregation as agg
+from repro_torch.core import compression as comp
+from repro_torch.core.faults import FaultConfig
 from repro_torch.data.pipeline import multi_epoch_indices
 from repro_torch.data.synthetic import SyntheticConfig, generate, normalize
 from repro_torch.kernels import fused_agg as fa
 from repro_torch.kernels import fused_score as fs
 from repro_torch.kernels import local_train as lt
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import robust_agg as ra
 from repro_torch.launch import experiment as exp
 from repro_torch.models import autoencoder as ae
 from repro_torch.serving import ScoringService, quantize_params
@@ -120,25 +130,84 @@ def test_wrapper_checks_inputs(cuda):
         )
 
 
+U = 2.0 ** -24       # unit roundoff of f32
+
+
+def _gamma(n: int) -> float:
+    return n * U / (1.0 - n * U)
+
+
+def _score_bound(x, ws, bs):
+    """(err, bound): the rows' reconstruction errors in f64 and a bound on
+    how far ANY f32 evaluation of the same f32 weights can land from them.
+
+    Derivation (Higham, Accuracy and Stability of Numerical Algorithms,
+    Thm 3.1 and Sec. 3.1): an f32 dot product of n terms plus a bias, in
+    any summation order and with or without FMA, is within
+    gamma_{n+1} (|h| . |W| + |b|) of the exact value, gamma_n = n u / (1 -
+    n u), u = 2^-24.  So with e the bound on the layer input's error,
+    |dz| <= |W|^T e + gamma_{n+1} (|W|^T (|h| + e) + |b|).  tanh is
+    1-Lipschitz and an f32 tanh is within 4 ulp (8 u relative; CUDA's
+    tanhf is within 2, PyTorch's CPU tanh within 1), so a hidden layer's
+    output error is dz + 8 u (|h| + dz).  The residual r = x - recon picks
+    up the output error e and one rounding: dr = e + u (|r| + e).  Each
+    square rounds once and the d squares sum in any order:
+    |err' - err| <= sum(2 |r| dr + dr^2) + gamma_{d+1} sum((|r| + dr)^2).
+    Per layer that is (width + 1) u relative to |W|^T |h|, which exceeds
+    |W^T h| by the cancellation in each row; for the random paper AE of
+    the test (four layers of at most 32 terms) the bound comes to ~2.5e-4
+    of err, and the CPU service's own error to under 0.1% of the bound.
+    """
+    x = x.astype(np.float64)
+    h, e = x, np.zeros_like(x)
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        w, b = w.astype(np.float64), b.astype(np.float64)
+        aw = np.abs(w)
+        z = h @ w + b
+        dz = e @ aw + _gamma(w.shape[0] + 1) * ((np.abs(h) + e) @ aw + np.abs(b))
+        if i < len(ws) - 1:
+            h = np.tanh(z)
+            e = dz + 8 * U * (np.abs(h) + dz)
+        else:
+            h, e = z, dz
+    r = x - h
+    dr = e + U * (np.abs(r) + e)
+    err = np.sum(r * r, axis=-1)
+    bound = (np.sum(2 * np.abs(r) * dr + dr * dr, axis=-1)
+             + _gamma(x.shape[-1] + 1) * np.sum((np.abs(r) + dr) ** 2, axis=-1))
+    return err, bound
+
+
 @pytest.mark.parametrize("weight_dtype", ["f32", "int8"])
 def test_service_on_the_card_matches_cpu_service(cuda, tmp_path, weight_dtype):
+    """The card's and the CPU's service, each held to an f64 evaluation of
+    the same f32 weights within ``_score_bound``; flags exactly outside a
+    band of that width around tau.  (Two correct f32 summation orders can
+    differ by more than 1e-5 relative: a fixed rtol between them is not a
+    property of either.)"""
     store = CheckpointStore(str(tmp_path))
     params = ae.init(torch.Generator().manual_seed(2), device="cpu")
     store.publish(1, params)
     rng = np.random.default_rng(0)
     reqs = [rng.standard_normal((n, 32)).astype(np.float32) for n in (10, 200, 1500, 64)]
-    out = []
+    if weight_dtype == "int8":     # the kernel dequantises to the same f32 weights
+        q = quantize_params(params)
+        ws = [(p["qw"].to(torch.float32) * p["sw"].reshape(1, -1)).numpy() for p in q]
+    else:
+        ws = [p["w"].numpy() for p in params]
+    bs = [p["b"].numpy() for p in params]
+    tau = 30.0
     for device in (None, "cpu"):
-        svc = ScoringService(store, params, buckets=(128, 1024), tau=30.0,
+        svc = ScoringService(store, params, buckets=(128, 1024), tau=tau,
                              weight_dtype=weight_dtype, device=device)
         rids = [svc.submit(r, fog=None) for r in reqs]
         res = svc.drain()
-        out.append([res[r] for r in rids])
         assert svc.device.type == ("cuda" if device is None else "cpu")
-    for a, b in zip(*out):
-        np.testing.assert_allclose(a.error, b.error, rtol=1e-5, atol=1e-5)
-        near = np.abs(b.error - 30.0) <= 30.0 * 1e-5
-        np.testing.assert_array_equal(a.flag[~near], b.flag[~near])
+        for rid, rows in zip(rids, reqs):
+            err64, bound = _score_bound(rows, ws, bs)
+            assert np.all(np.abs(res[rid].error - err64) <= bound), device
+            far = np.abs(err64 - tau) > bound
+            np.testing.assert_array_equal(res[rid].flag[far], (err64 > tau)[far])
 
 
 def _train_case(n, window, d, hidden, device, seed=0, bs=32, epochs=5):
@@ -246,5 +315,180 @@ def test_trial_on_the_card_matches_the_cpu_trial(cuda):
     cpu = exp.trial_metrics("hfl-selective", None, ds, cfg, inputs=inputs, device="cpu")
     assert gpu["losses"].device.type == "cuda"
     for name in ("participation", "coop_links", "e_total", "e_s2f", "e_f2f", "e_f2g"):
+        np.testing.assert_allclose(gpu[name].cpu().numpy(), cpu[name].numpy(), rtol=1e-5)
+    np.testing.assert_allclose(gpu["losses"].cpu().numpy(), cpu["losses"].numpy(), rtol=1e-4)
+
+
+def _recon_case(n, d, layout, device, seed=0):
+    """Real compressed reconstructions (blockwise rho_s 0.05 int8 through
+    the fused_agg kernel): most members tie at exactly 0 in most columns.
+    Integer round weights, a quarter of them 0."""
+    g = torch.Generator().manual_seed(seed)
+    deltas = torch.randn((n, d), generator=g).to(device)
+    err = (0.1 * torch.randn((n, d), generator=g)).to(device)
+    recon, _ = agg.client_compress(deltas, err, comp.CompressorConfig())
+    if layout == "one":
+        fog_id = torch.zeros((n,), dtype=torch.int32)
+    elif layout == "fleet":                        # 1,000 fogs; fog 0 holds 3,000 clients
+        fog_id = torch.randint(1, 1000, (n,), generator=g, dtype=torch.int32)
+        fog_id[:3000] = 0
+    elif layout == "half":
+        fog_id = torch.randint(1, 20, (n,), generator=g, dtype=torch.int32)
+        fog_id[: (n + 1) // 2] = 0
+    else:
+        fog_id = torch.randint(0, 20, (n,), generator=g, dtype=torch.int32)
+    weights = 256.0 * (torch.rand((n,), generator=g) > 0.25).to(torch.float32)
+    return recon, fog_id.to(device), weights.to(device)
+
+
+@pytest.mark.parametrize("layout", ["one", "twenty", "half"])
+@pytest.mark.parametrize("n", [1, 13, 200])
+@pytest.mark.parametrize("d", [1352, 8209])
+def test_robust_agg_kernel_matches_plain(cuda, d, n, layout):
+    recon, fog_id, weights = _recon_case(n, d, layout, cuda, seed=n + d)
+    for mode, beta in (("trimmed", 0.0), ("trimmed", 0.2), ("trimmed", 0.45), ("median", 0.0)):
+        before = ra.LAUNCHES["robust_agg"]
+        out = ra.robust_aggregate_blocks(recon, fog_id, weights, 20, beta, mode)
+        torch.cuda.synchronize()
+        assert ra.LAUNCHES["robust_agg"] == before + 1
+        want, _ = ref.robust_aggregate_ref(recon, fog_id, weights, 20, beta, mode)
+        np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=f"{mode} {beta}")
+
+
+def test_robust_agg_kernel_takes_any_fleet_size(cuda):
+    """N = 30,000 clients in 1,000 fogs, one of them holding 3,000: the
+    kernel reads a compacted member list, so neither the fleet nor the
+    large fog (streamed through shared memory in tiles) is too big."""
+    recon, fog_id, weights = _recon_case(30_000, 1352, "fleet", cuda, seed=3)
+    for mode, beta in (("trimmed", 0.45), ("median", 0.0)):
+        out = ra.robust_aggregate_blocks(recon, fog_id, weights, 1000, beta, mode)
+        want, _ = ref.robust_aggregate_ref(recon, fog_id, weights, 1000, beta, mode)
+        np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=f"{mode} {beta}")
+
+
+def test_kernels_take_more_fogs_than_grid_rows(cuda):
+    """n_fog = 66,000, past the grid's 65,535 rows: ``fused_agg`` with
+    identity segments (one fog per client, as the robust path compresses)
+    and ``robust_agg`` with three populated fogs, two of them past the
+    grid's rows, each against its plain version."""
+    n, d = 66_000, 64
+    deltas, err, _, weights = _agg_case(n, d, 3, cuda, seed=11)
+    ids = torch.arange(n, dtype=torch.int32, device=cuda)
+    fog_sum, new_err, _ = fa.compress_aggregate_blocks(deltas, err, ids, weights, n, 3)
+    fs_ref, ne_ref, _ = ref.compress_aggregate_ref(deltas, err, ids, weights, n, 3)
+    np.testing.assert_allclose(new_err.cpu().numpy(), ne_ref.cpu().numpy(), atol=1e-5)
+    np.testing.assert_allclose(fog_sum.cpu().numpy(), fs_ref.cpu().numpy(), rtol=1e-5, atol=1e-4)
+    populated = torch.tensor([0, 65_600, 65_999], dtype=torch.int32, device=cuda)
+    small = torch.randint(0, 3, (n,), generator=torch.Generator().manual_seed(2),
+                          dtype=torch.int32).to(cuda)
+    weights = torch.zeros((n,), device=cuda)
+    weights[::200] = 256.0                     # ~110 members per populated fog
+    out = ra.robust_aggregate_blocks(deltas, populated[small.long()], weights, n, 0.2)
+    want = torch.zeros((n, d), device=cuda)
+    want[populated.long()] = ref.robust_aggregate_ref(deltas, small, weights, 3, 0.2)[0]
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_fleet_shapes_match_plain(cuda):
+    """The kernels at fleet-10k's shapes (N = 10,000, d = 1,352, 1,000
+    fogs, k = 68, int8): ``fused_agg`` unchunked, and the wire pair chunk
+    by chunk (512 clients) into running fog sums, each against its plain
+    version."""
+    n, d, n_fog, chunk = 10_000, 1352, 1000, 512
+    deltas, err, fog_id, weights = _agg_case(n, d, n_fog, cuda, seed=10)
+    k = ops.wire_k(comp.blockwise_k_frac(d, 0.05))
+    fog_sum, new_err, thr = fa.compress_aggregate_blocks(deltas, err, fog_id, weights, n_fog, k)
+    fs_ref, ne_ref, thr_ref = ref.compress_aggregate_ref(deltas, err, fog_id, weights, n_fog, k)
+    absv = ref.pad_blocks(deltas + err).abs()
+    assert torch.equal(absv > thr[..., None], absv > thr_ref[..., None])
+    np.testing.assert_allclose(new_err.cpu().numpy(), ne_ref.cpu().numpy(), atol=1e-5)
+    np.testing.assert_allclose(fog_sum.cpu().numpy(), fs_ref.cpu().numpy(), rtol=1e-5, atol=1e-4)
+    run = torch.zeros((n_fog, d), device=cuda)
+    run_ref = torch.zeros((n_fog, d), device=cuda)
+    for s in range(0, n, chunk):
+        e = min(s + chunk, n)
+        idx, q, scale, ne = fa.compress_wire_blocks(deltas[s:e], err[s:e], k)
+        w_idx, w_q, w_scale, w_err = ref.compress_wire_ref(deltas[s:e], err[s:e], k)
+        assert torch.equal(idx, w_idx) and torch.equal(q, w_q) and torch.equal(scale, w_scale)
+        np.testing.assert_allclose(ne.cpu().numpy(), w_err.cpu().numpy(), atol=1e-5)
+        fa.wire_aggregate_blocks(idx, q, scale, fog_id[s:e], weights[s:e], n_fog, d, out=run)
+        run_ref += ref.wire_aggregate_ref(idx, q, scale, fog_id[s:e], weights[s:e], n_fog, d)
+        np.testing.assert_allclose(run.cpu().numpy(), run_ref.cpu().numpy(), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("k", [68, 410])
+@pytest.mark.parametrize("quantize", [True, False])
+@pytest.mark.parametrize("n", [1, 200])
+@pytest.mark.parametrize("d", [1352, 8209, 65536])
+def test_wire_kernels_match_plain(cuda, d, n, quantize, k):
+    deltas, err, fog_id, weights = _agg_case(n, d, 20, cuda, seed=d + n + k)
+    nb, off = -(-d // 8192), 3                 # write at a row offset of larger buffers
+    bufs = (torch.full((n + 5, nb, k), -7, dtype=torch.int32, device=cuda),
+            torch.full((n + 5, nb, k), 5, dtype=torch.int8 if quantize else torch.float32,
+                       device=cuda),
+            torch.full((n + 5, nb), 9.0, device=cuda), torch.full((n + 5, d), 9.0, device=cuda))
+    before = (fa.LAUNCHES["wire_emit"], fa.LAUNCHES["wire_agg"])
+    fa.compress_wire_blocks(deltas, err, k, quantize, out=tuple(b[off:off + n] for b in bufs))
+    idx, q, scale, new_err = (b[off:off + n] for b in bufs)
+    w_idx, w_q, w_scale, w_err = ref.compress_wire_ref(deltas, err, k, quantize)
+    assert torch.equal(idx, w_idx) and torch.equal(q, w_q) and torch.equal(scale, w_scale)
+    np.testing.assert_allclose(new_err.cpu().numpy(), w_err.cpu().numpy(), atol=1e-5)
+    for b, fill in zip(bufs, (-7, 5, 9.0, 9.0)):            # rows outside untouched
+        assert bool((b[:off] == fill).all()) and bool((b[off + n:] == fill).all())
+    base = torch.randn((20, d), generator=torch.Generator().manual_seed(1)).to(cuda)
+    fog_sum = fa.wire_aggregate_blocks(idx, q, scale, fog_id, weights, 20, d, out=base.clone())
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES["wire_emit"], fa.LAUNCHES["wire_agg"]) == (before[0] + 1, before[1] + 1)
+    want = base + ref.wire_aggregate_ref(idx, q, scale, fog_id, weights, 20, d)
+    np.testing.assert_allclose(fog_sum.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-4)
+    assert torch.equal(fog_sum[1], base[1])                # the empty fog's row untouched
+
+
+def test_ops_route_robust_and_wire_tensors_to_the_kernels(cuda):
+    deltas, err, fog_id, weights = _agg_case(12, 1352, 3, cuda)
+    before = (ra.LAUNCHES["robust_agg"], fa.LAUNCHES["wire_emit"], fa.LAUNCHES["wire_agg"])
+    ops.robust_aggregate(deltas, fog_id, weights, 3, 0.2)
+    ops.compress_aggregate_wire(deltas, err, fog_id, weights, 3, 0.05)
+    torch.cuda.synchronize()
+    assert (ra.LAUNCHES["robust_agg"], fa.LAUNCHES["wire_emit"], fa.LAUNCHES["wire_agg"]) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+
+
+def test_robust_and_wire_wrappers_check_inputs(cuda):
+    deltas, err, fog_id, weights = _agg_case(6, 100, 3, cuda)
+    with pytest.raises(ValueError, match="mode"):
+        ra.robust_aggregate_blocks(deltas, fog_id, weights, 3, 0.2, "krum")
+    with pytest.raises(TypeError):
+        ra.robust_aggregate_blocks(deltas, fog_id.long(), weights, 3, 0.2)
+    with pytest.raises(ValueError, match="on cpu"):
+        ra.robust_aggregate_blocks(deltas, fog_id, weights.cpu(), 3, 0.2)
+    with pytest.raises(ValueError, match="k"):
+        fa.compress_wire_blocks(deltas, err, 8193)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.compress_wire_blocks(deltas.t().contiguous().t(), err, 5)
+    idx, q, scale, _ = fa.compress_wire_blocks(deltas, err, 5)
+    with pytest.raises(ValueError, match="shape"):
+        fa.compress_wire_blocks(deltas, err, 5, out=(idx, q, scale, err[:3]))
+    with pytest.raises(TypeError):
+        fa.wire_aggregate_blocks(idx, q.to(torch.int32), scale, fog_id, weights, 3, 100)
+    with pytest.raises(ValueError, match="blocks"):
+        fa.wire_aggregate_blocks(idx, q, scale, fog_id, weights, 3, 9000)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(robust="trimmed", trim_frac=0.3,
+         faults=FaultConfig(byz_mode="gauss", byz_frac=0.25, byz_scale=20.0, erasure_prob=0.3)),
+    dict(client_chunk=5),
+])
+def test_robust_and_chunked_trials_on_the_card_match_the_cpu(cuda, kw):
+    cfg = exp.make_config(n_sensors=12, n_fog=3, rounds=3, local_epochs=1, **kw)
+    ds = normalize(generate(torch.Generator().manual_seed(0), SyntheticConfig(
+        n_sensors=12, train_len=48, val_len=24, test_len=48), device="cpu"))
+    inputs = exp.draw_trial(torch.Generator().manual_seed(1), ds, cfg)
+    gpu = exp.trial_metrics("hfl-selective", None, ds, cfg, inputs=inputs)
+    cpu = exp.trial_metrics("hfl-selective", None, ds, cfg, inputs=inputs, device="cpu")
+    for name in ("participation", "coop_links", "erased_total", "e_total", "e_s2f"):
         np.testing.assert_allclose(gpu[name].cpu().numpy(), cpu[name].numpy(), rtol=1e-5)
     np.testing.assert_allclose(gpu["losses"].cpu().numpy(), cpu["losses"].numpy(), rtol=1e-4)

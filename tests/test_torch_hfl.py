@@ -56,22 +56,36 @@ def torch_cfg(rounds=T, **kw):
 
 def jax_inputs(key, ds, cfg):
     """The random inputs ``repro.launch.experiment.trial_metrics(method,
-    key, ...)`` consumes, as the port's ``TrialInputs``."""
+    key, ...)`` consumes, as the port's ``TrialInputs``.  With the fault
+    layer on, each round splits the key six ways (``repro.core.hfl``):
+    key, mobility, training, Byzantine noise, crash, erasure; the crash
+    and erasure uniforms and the ``gauss`` normals go to the port."""
     k_init, k_train = jax.random.split(key)
     params = jae.init(k_init, ds.train.shape[-1], HIDDEN)
     kd, k = jax.random.split(k_train)
     dep = jtopo.sample_deployment(kd, cfg.deployment)
-    window = ds.train.shape[1]
-    noise, batches = [], []
+    n, window = ds.train.shape[:2]
+    d = tae.param_count(ds.train.shape[-1], HIDDEN)
+    faults = cfg.faults.is_active
+    gauss = faults and cfg.faults.byz_mode == "gauss"
+    noise, batches, crash, erase, byz = [], [], [], [], []
     for _ in range(cfg.rounds):
-        k, k_mob, k_tr = jax.random.split(k, 3)
+        if faults:
+            k, k_mob, k_tr, k_byz, k_crash, k_erase = jax.random.split(k, 6)
+            crash.append(np.array(jax.random.uniform(k_crash, (n,))))
+            erase.append(np.array(jax.random.uniform(k_erase, (n,))))
+            if gauss:
+                byz.append(np.array(jax.random.normal(k_byz, (n, d), jax.numpy.float32)))
+        else:
+            k, k_mob, k_tr = jax.random.split(k, 3)
         noise.append(np.array(jax.random.normal(k_mob, (cfg.deployment.n_fog, 3))))
-        keys = jax.random.split(k_tr, ds.train.shape[0])
+        keys = jax.random.split(k_tr, n)
         batches.append(np.array(jax.vmap(
             lambda kk: jax_indices(kk, window, cfg.batch_size, cfg.local_epochs))(keys)))
     dep_t = ttopo.Deployment(*(torch.from_numpy(np.array(a)) for a in
                                (dep.sensor_pos, dep.fog_pos, dep.fog_vel, dep.gateway_pos)))
-    draws = thfl.RoundDraws(torch.from_numpy(np.stack(noise)), torch.from_numpy(np.stack(batches)))
+    draws = thfl.RoundDraws(*(torch.from_numpy(np.stack(x)) if x else None
+                              for x in (noise, batches, crash, erase, byz)))
     return params, texp.TrialInputs(tae.from_numpy(params, "cpu"), dep_t, draws)
 
 
@@ -92,25 +106,52 @@ def _rounds_through_stores(train_fn, like):
     return params, metrics, per_round
 
 
-@pytest.fixture(scope="module")
-def selective_rounds(data):
+def rounds_both(data, seed, cfg_j, cfg_t):
+    """``hfl.train`` in both packages on the reference's draws, publishing
+    every round: (metrics_j, per-round params_j, metrics_t, per-round
+    params_t, final params_t)."""
     ds, ds_t = data
-    key = jax.random.key(2)
-    cfg = jax_cfg()
+    key = jax.random.key(seed)
     _, k_train = jax.random.split(key)
-    params_j, inputs = jax_inputs(key, ds, cfg)
+    params_j, inputs = jax_inputs(key, ds, cfg_j)
     like = tae.from_numpy(params_j, "cpu")
     with tempfile.TemporaryDirectory() as tmp:
         store = JaxStore(tmp, keep=T + 1)
-        _, m_j = jhfl.train(k_train, params_j, jae.loss, ds, cfg, store=store)
+        _, m_j = jhfl.train(k_train, params_j, jae.loss, ds, cfg_j, store=store)
         # The two stores write the same npz keys, so the port reads both.
         rounds_j = [CheckpointStore(tmp).restore(like, s)[0] for s in range(1, T + 1)]
     p_t, m_t, rounds_t = _rounds_through_stores(
-        lambda store: thfl.train(inputs.params, tae.loss, ds_t, torch_cfg(), inputs.dep,
+        lambda store: thfl.train(inputs.params, tae.loss, ds_t, cfg_t, inputs.dep,
                                  inputs.draws, store=store),
         like,
     )
     return m_j, rounds_j, m_t, rounds_t, p_t
+
+
+def assert_rounds_match(both):
+    """Per-round params and every ``RoundMetrics`` field to ``TOL``; the
+    participating sensors, links and counters exactly."""
+    m_j, rounds_j, m_t, rounds_t, p_t = both
+    for pj, pt in zip(rounds_j, rounds_t):
+        np.testing.assert_allclose(tae.ravel(pt).numpy(), tae.ravel(pj).numpy(), **TOL)
+    np.testing.assert_array_equal(tae.ravel(p_t).numpy(), tae.ravel(rounds_t[-1]).numpy())
+    for field in thfl.RoundMetrics._fields:
+        assert_metric_matches(field, getattr(m_t, field).numpy(), np.asarray(getattr(m_j, field)))
+
+
+def assert_metric_matches(field, got, want):
+    assert got.shape == want.shape == (T,), field
+    if field == "participation":     # the same sensors; the mean may round apart
+        np.testing.assert_array_equal(np.round(got * N), np.round(want * N), err_msg=field)
+    if field in ("coop_links", "n_nonfinite", "n_erased", "global_finite"):
+        np.testing.assert_array_equal(got, want, err_msg=field)
+    else:
+        np.testing.assert_allclose(got, want, **TOL, err_msg=field)
+
+
+@pytest.fixture(scope="module")
+def selective_rounds(data):
+    return rounds_both(data, 2, jax_cfg(), torch_cfg())
 
 
 def test_round_params_match_jax(selective_rounds):
@@ -124,14 +165,7 @@ def test_round_params_match_jax(selective_rounds):
 @pytest.mark.parametrize("field", thfl.RoundMetrics._fields)
 def test_round_metrics_match_jax(selective_rounds, field):
     m_j, _, m_t, _, _ = selective_rounds
-    got, want = getattr(m_t, field).numpy(), np.asarray(getattr(m_j, field))
-    assert got.shape == want.shape == (T,)
-    if field == "participation":     # the same sensors; the mean may round apart
-        np.testing.assert_array_equal(np.round(got * N), np.round(want * N))
-    if field in ("coop_links", "n_nonfinite", "n_erased", "global_finite"):
-        np.testing.assert_array_equal(got, want)
-    else:
-        np.testing.assert_allclose(got, want, **TOL)
+    assert_metric_matches(field, getattr(m_t, field).numpy(), np.asarray(getattr(m_j, field)))
 
 
 @pytest.fixture(scope="module")
@@ -242,7 +276,7 @@ def test_unported_methods_and_mesh_raise(data):
 
 def test_config_leaves_out_unported_fields():
     names = {f.name for f in dataclasses.fields(thfl.HFLConfig)}
-    assert not names & {"faults", "drift", "robust", "trim_frac", "client_chunk"}
+    assert "drift" not in names
     assert tcomp.CompressorConfig().mode == "blockwise"
     assert not {"use_pallas", "interpret"} & {f.name for f in
                                                dataclasses.fields(tcomp.CompressorConfig)}
