@@ -57,20 +57,50 @@ the result line:
              round each, ``fused_agg`` never) and unchunked (``fused_agg``
              twice a round), both on the card: per-round participation and
              energies to rtol=1e-5, loss within 1%, F1 within 0.02; ms per
-             round and peak device memory of each.
+             round and peak device memory of each;
+11. compressor kernels — ``compress_q8``, ``topk_ef`` and ``quant8``
+             against their plain versions on the card (d 1,352 / 8,209 /
+             65,536, N 1 / 200 / 2,000, keep fractions rho_s 0.05,
+             rho_s 1 and 1/8,192, an all-zero row and a row tying more than
+             k entries at each block max): codes, scales, sparse values,
+             new_err, payload bits and survivor sets bitwise, and the
+             survivor sets equal to ``fused_agg``'s;
+12. legacy-200 — train-200 with the per-client compressor:
+             ``CompressorConfig(fused=False)`` (``compress_q8`` once a
+             round) on the card and on the CPU with identical draws
+             (participation exactly, energies to rtol=1e-5, loss within 1%,
+             F1 within 0.02) and against phase 8's fused trial (loss within
+             1%, F1 within 0.02; on round 0's updates the same error
+             feedback bitwise, fog sums to rtol=1e-5 / atol=1e-4);
+             ``fused=False, quant_bits=32`` (``topk_ef``) and quantise-only
+             ``rho_s=1`` (``compress_q8`` at k = 1,352) on the card; ms per
+             round of each; then the int8 codec front door
+             (``ops.quant8`` / ``ops.dequant8``) on round 0's updates;
+13. drift-200 — train-200 in the drift benchmark's world (its compact
+             basin and 135 dB source-level cap at N = 200, M = 20) in its
+             three cells: static, frozen (current 3 m/s, no
+             re-association) and re-association every 2 rounds; the last on
+             the card and on the CPU with identical draws (per-round
+             participation exactly, energies to rtol=1e-5, loss within 1%,
+             F1 within 0.02); mean participation and F1 of each (their
+             order is recorded, not gated).
 
 Phase 6 also times ``robust_agg``, ``wire_emit`` and ``wire_agg`` at the
-shapes of phases 9 and 10, and phase 7 holds them against their plain
-versions over a grid and at fleet-10k's shapes (``fused_agg`` at N =
-10,000 into 1,000 fogs, the wire pair chunk by chunk into running sums,
-``robust_agg`` at N = 30,000 with a fog of 3,000).
+shapes of phases 9 and 10, ``compress_q8`` and ``topk_ef`` at train-200's
+shape and ``quant8`` on a 2^20-coordinate vector; phase 7 holds the
+robust and wire kernels against their plain versions over a grid and at
+fleet-10k's shapes (``fused_agg`` at N = 10,000 into 1,000 fogs, the wire
+pair chunk by chunk into running sums, ``robust_agg`` at N = 30,000 with
+a fog of 3,000).
 
 The launch counts reported for the score kernels are those of phases 4
 and 5 (the counters are zeroed just before phase 4 and read just after
 phase 5), for the training kernels those of phase 8's trial, for
 ``robust_agg`` those of phase 9's trimmed trial on the card and for the
-wire kernels those of phase 10's chunked trial (each zeroed just before
-its run, read just after).  The last line is ``{"ok": true, "device":
+wire kernels those of phase 10's chunked trial, for ``compress_q8`` and
+``topk_ef`` those of phase 12's first and second trials and for
+``quant8`` those of phase 12's codec run (each zeroed just before its
+run, read just after).  The last line is ``{"ok": true, "device":
 {...}}``; the line before it is the card's name and power limit, and the
 one before that the ``kernels`` JSON.
 """
@@ -78,6 +108,7 @@ from __future__ import annotations
 
 import importlib
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -133,6 +164,18 @@ FLEET_N, FLEET_FOG, FLEET_ROUNDS, FLEET_CHUNK = 10_000, 1_000, 5, 512
 # robust_agg at a large fleet: N clients in FLEET_FOG fogs, fog 0 holding
 # more members than the kernel stages in shared memory at once (1,024).
 BIG_ROBUST_N, BIG_ROBUST_FOG0 = 30_000, 3_000
+COMPRESS_KERNELS = {   # name -> (TPU kernel it replaces, CUDA source)
+    "compress_q8": ("src/repro/kernels/quant8.py:54", "src/repro_torch/kernels/csrc/quant8.cu"),
+    "topk_ef": ("src/repro/kernels/topk_ef.py:30", "src/repro_torch/kernels/csrc/topk_ef.cu"),
+    "quant8": ("src/repro/kernels/quant8.py:22", "src/repro_torch/kernels/csrc/quant8.cu"),
+}
+COMP_DS, COMP_NS = (1352, 8209, 65_536), (1, 200, 2000)
+QUANT8_D = 1 << 20               # phase 6: quant8 on one 2^20-coordinate vector
+# drift-200: benchmarks/drift_bench.py's world (a compact basin and a 135 dB
+# source-level cap, ~580 m of range) at train-200's N and M; its cells.
+DRIFT_BASIN = dict(lx_m=1200.0, ly_m=1200.0, depth_m=400.0, sensor_depth=(200.0, 350.0),
+                   fog_depth=(50.0, 150.0))
+DRIFT_SL_MAX_DB, DRIFT_CURRENT, DRIFT_REASSOC = 135.0, 3.0, 2.0
 
 
 class SmokeFailure(RuntimeError):
@@ -362,6 +405,27 @@ def wire_agg_work(fog_id, n_fog, d, k, quantize) -> tuple[int, int]:
             3 * n * nb * k)
 
 
+def compress_work(n, d, quantize) -> tuple[int, int]:
+    """(bytes, operations) of one per-client compressor call
+    (``compress_q8`` with ``quantize``, else ``topk_ef``): deltas and error
+    buffers read once; new_err and the int8 codes and block scales, or the
+    f32 sparse values, written once (the zero padding is counted, not
+    loaded); per real coordinate the add, |v|, 32 bisection compares and
+    count adds, the selection, with int8 the divide, round, two clamps and
+    the product, and the residual."""
+    nb = -(-d // 8192)
+    written = n * d * 5 + 4 * n * nb if quantize else n * d * 8
+    return 8 * n * d + written, n * d * (2 + 2 * 32 + 1 + (5 if quantize else 0) + 1)
+
+
+def quant8_work(n, d) -> tuple[int, int]:
+    """(bytes, operations) of one ``quant8`` call: x read once, the
+    blocked codes (padding included) and the block scales written once;
+    per coordinate |x|, the max, the divide, the round and two clamps."""
+    nb = -(-d // 8192)
+    return 4 * n * d + n * nb * 8192 + 4 * n * nb, n * d * 6
+
+
 def bound_from(bytes_, ops) -> tuple[float, str]:
     t_bytes, t_ops = bytes_ / PEAK_BYTES_S, ops / PEAK_F32_FLOP_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -373,6 +437,24 @@ def close_on_device(got, want, rtol, atol, what) -> float:
     check(bool(torch.all(diff <= atol + rtol * want.abs())),
           f"{what}: max |diff| {float(diff.max()):.3e} beyond rtol={rtol}, atol={atol}")
     return float(diff.max()) if diff.numel() else 0.0
+
+
+def agree_with_cpu(label, gpu, cpu, rounds) -> float:
+    """The card's trial against the CPU's on identical draws: the same
+    sensor-rounds, energies to rtol=1e-5, loss within 1%, F1 within 0.02;
+    returns the max relative loss difference."""
+    participants = [round(float(m["participation"]) * TRAIN_N * rounds) for m in (gpu, cpu)]
+    check(participants[0] == participants[1],
+          f"{label}: participation {participants[0]} vs CPU {participants[1]} sensor-rounds")
+    for key in ("e_total", "e_s2f", "e_f2f", "e_f2g"):
+        check(np.isclose(float(gpu[key]), float(cpu[key]), rtol=1e-5, atol=0.0),
+              f"{label}: {key} {float(gpu[key])} vs CPU {float(cpu[key])}")
+    loss_g, loss_c = gpu["losses"].cpu().numpy(), cpu["losses"].cpu().numpy()
+    loss_rel = float(np.max(np.abs(loss_g - loss_c) / np.abs(loss_c)))
+    check(loss_rel <= 0.01, f"{label}: loss differs from the CPU run by {loss_rel:.3e}")
+    check(abs(float(gpu["f1"]) - float(cpu["f1"])) <= 0.02,
+          f"{label}: F1 {float(gpu['f1']):.4f} vs CPU {float(cpu['f1']):.4f}")
+    return loss_rel
 
 
 def check_training_kernels(dev, lt, fa, kops, kref, ae, multi_epoch_indices) -> dict:
@@ -523,6 +605,42 @@ def time_new_kernels(dev, fa, ra, kops, kref, agg, comp, ae, name, smi) -> dict:
             wire_agg_work(cfog, FLEET_FOG, d, k, True),
             (200, 20, 50, 5),
             f"N={FLEET_CHUNK} d={d} k={k} int8 into n_fog={FLEET_FOG}",
+        ),
+    }
+    return time_cases(cases, name, smi)
+
+
+def time_compress_kernels(dev, kq8, tk, kops, kref, comp, ae, name, smi) -> dict:
+    """Phase 6 for the per-client compressor kernels: ``compress_q8`` and
+    ``topk_ef`` at train-200's shape (N = 200 updates of d = 1,352, rho_s
+    0.05: k = 68), ``quant8`` on one 2^20-coordinate vector."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    d = ae.param_count(D, HIDDEN)
+    deltas = torch.randn((TRAIN_N, d), generator=g, device=dev)
+    err = 0.1 * torch.randn((TRAIN_N, d), generator=g, device=dev)
+    x = torch.randn((1, QUANT8_D), generator=g, device=dev)
+    k = kops.block_k(comp.blockwise_k_frac(d, 0.05))
+    cases = {
+        "compress_q8": (
+            lambda: kq8.compress_blocks(deltas, err, k),
+            lambda: kref.compress_ref(deltas, err, k),
+            compress_work(TRAIN_N, d, True),
+            (200, 20, 50, 5),
+            f"N={TRAIN_N} d={d} k={k} int8",
+        ),
+        "topk_ef": (
+            lambda: tk.topk_ef_blocks(deltas, err, k),
+            lambda: kref.blockwise_topk_ef_ref(deltas, err, k),
+            compress_work(TRAIN_N, d, False),
+            (200, 20, 50, 5),
+            f"N={TRAIN_N} d={d} k={k}",
+        ),
+        "quant8": (
+            lambda: kq8.quant8_blocks(x),
+            lambda: kref.quant8_ref(x),
+            quant8_work(1, QUANT8_D),
+            (200, 20, 50, 5),
+            f"N=1 d={QUANT8_D}",
         ),
     }
     return time_cases(cases, name, smi)
@@ -760,6 +878,7 @@ def train_fleet(mods, dev, name, smi, workdir) -> dict:
         cpu_f1=float(cpu["f1"]), e_total=float(gpu["e_total"]),
         participation=float(gpu["participation"]), coop_links=float(gpu["coop_links"]),
         loss_first=float(loss_g[0]), loss_last=float(loss_g[-1]), loss_rel_vs_cpu=loss_rel,
+        losses=[float(x) for x in loss_g],
     )
     print(f"  hfl-selective N={TRAIN_N} M={TRAIN_FOG} window={WINDOW} E={EPOCHS} bs={BATCH} "
           f"T={ROUNDS} on {name} ({smi}):")
@@ -802,19 +921,10 @@ def robust_fleet(exp, hfl, ae, SensorDataset, FaultConfig, ds, fa, ra, dev, name
     check(launches == {"robust_agg": ROUNDS, "fused_agg": 2 * ROUNDS, "wire_emit": 0},
           f"robust-200 launches {launches} for {ROUNDS} rounds")
     cpu = exp.trial_metrics("hfl-selective", None, ds, cfg, inputs=inputs, device="cpu")
-    participants = [round(float(m["participation"]) * TRAIN_N * ROUNDS) for m in (gpu, cpu)]
-    check(participants[0] == participants[1],
-          f"participation {participants[0]} vs CPU {participants[1]} sensor-rounds")
+    loss_rel = agree_with_cpu("robust-200", gpu, cpu, ROUNDS)
     check(float(gpu["erased_total"]) == float(cpu["erased_total"]) > 0,
           f"erasures {float(gpu['erased_total'])} vs CPU {float(cpu['erased_total'])}")
-    for key in ("e_total", "e_s2f", "e_f2f", "e_f2g"):
-        check(np.isclose(float(gpu[key]), float(cpu[key]), rtol=1e-5, atol=0.0),
-              f"{key} {float(gpu[key])} vs CPU {float(cpu[key])}")
-    loss_g, loss_c = gpu["losses"].cpu().numpy(), cpu["losses"].numpy()
-    loss_rel = float(np.max(np.abs(loss_g - loss_c) / np.abs(loss_c)))
-    check(loss_rel <= 0.01, f"robust-200 loss differs from the CPU run by {loss_rel:.3e}")
-    check(abs(float(gpu["f1"]) - float(cpu["f1"])) <= 0.02,
-          f"robust-200 F1 {float(gpu['f1']):.4f} vs CPU {float(cpu['f1']):.4f}")
+    loss_g = gpu["losses"].cpu().numpy()
     check(all(bool(torch.isfinite(v).all()) for k, v in gpu.items() if k != "params"),
           "non-finite robust-200 metrics")
 
@@ -973,6 +1083,265 @@ def fleet_layer_peaks(ae, ds, cfg, dep, draws, params, dev) -> dict:
     return peaks
 
 
+def compress_rows(n, d, k, g, dev):
+    """Gaussian updates and error buffers on the card; with N > 2, row 1
+    all zeros and row 2 tying more than k entries of every block at the
+    block max (as many as the block's width allows)."""
+    deltas = torch.randn((n, d), generator=g, device=dev)
+    err = 0.1 * torch.randn((n, d), generator=g, device=dev)
+    if n > 2:
+        deltas[1] = 0.0
+        err[1] = 0.0
+        deltas[2] *= 0.1
+        err[2] = 0.0
+        for lo in range(0, d, 8192):
+            t = min(d - lo, 8192, k + 3)
+            deltas[2, lo:lo + t] = torch.where(torch.arange(t, device=dev) % 2 == 0, 5.0, -5.0)
+    return deltas, err
+
+
+def check_compress_kernels(dev, kq8, tk, fa, kops, kref, comp) -> dict:
+    """Phase 11: the per-client compressor kernels against their plain
+    versions over d x N x keep fraction, bitwise: ``compress_q8``'s codes,
+    scales and new_err, the payload bits of ``ops.compress``,
+    ``topk_ef``'s sparse values and new_err, ``quant8``'s codes and scales
+    (on the same rows); and ``topk_ef``'s selection equal to
+    ``fused_agg``'s (v where |v| > its thresholds).  Returns the max |kernel -
+    plain| per kernel and the number of tied blocks checked."""
+    max_err = dict.fromkeys(COMPRESS_KERNELS, 0.0)
+    g = torch.Generator(device=dev).manual_seed(11)
+    tied = 0
+    for d in COMP_DS:
+        b_idx = math.ceil(math.log2(d))
+        fracs = {"rho_s 0.05": comp.blockwise_k_frac(d, 0.05),
+                 "rho_s 1": comp.blockwise_k_frac(d, 1.0), "1/8192": 1.0 / 8192}
+        for n in COMP_NS:
+            for label, k_frac in fracs.items():
+                k = kops.block_k(k_frac)
+                deltas, err = compress_rows(n, d, k, g, dev)
+                q, scale, new_err = kq8.compress_blocks(deltas, err, k)
+                w_q, w_scale, w_err = kref.compress_ref(deltas, err, k)
+                for got, want, what in ((q, w_q, "codes"), (scale, w_scale, "scales"),
+                                        (new_err, w_err, "new_err")):
+                    check(got.dtype == want.dtype and torch.equal(got, want),
+                          f"compress_q8 {what} differ at d={d}, N={n}, k={k}")
+                bits = kops.compress(deltas, err, k_frac)[2]
+                check(torch.equal(bits, (w_q != 0).sum(1).to(torch.float32) * (8.0 + b_idx)),
+                      f"payload bits differ at d={d}, N={n}, k={k}")
+                sparse, t_err = tk.topk_ef_blocks(deltas, err, k)
+                w_sparse, w_terr = kref.blockwise_topk_ef_ref(deltas, err, k)
+                check(torch.equal(sparse, w_sparse) and torch.equal(t_err, w_terr),
+                      f"topk_ef differs at d={d}, N={n}, k={k}")
+                _, _, thr = fa.compress_aggregate_blocks(
+                    deltas, err, torch.zeros((n,), dtype=torch.int32, device=dev),
+                    torch.ones((n,), device=dev), 1, k)
+                v = kref.pad_blocks(deltas + err)
+                selected = kref.unpad_rows(torch.where(v.abs() > thr[..., None], v, 0.0), d)
+                check(torch.equal(sparse, selected),
+                      f"per-client and fused survivor sets differ at d={d}, N={n}, k={k}")
+                del v, selected, thr
+                xq, xs = kq8.quant8_blocks(deltas)
+                w_xq, w_xs = kref.quant8_ref(deltas)
+                check(torch.equal(xq, w_xq) and torch.equal(xs, w_xs),
+                      f"quant8 differs at d={d}, N={n}")
+                if n > 2:
+                    for b, lo in enumerate(range(0, d, 8192)):
+                        if min(d - lo, 8192, k + 3) > k:
+                            check(float(scale[2, b]) == 0.0 and not bool(q[2, lo:lo + 8192].any()),
+                                  f"a tie at the block max kept codes at d={d}, k={k}")
+                            tied += 1
+                print(f"  compress_q8/topk_ef/quant8 d={d:5d} N={n:4d} {label:10s} k={k:4d}: "
+                      f"codes, scales, new_err, sparse, payload bits and survivors equal  ok")
+                del deltas, err, q, scale, new_err, w_q, w_scale, w_err, sparse, t_err
+                del w_sparse, w_terr, xq, xs, w_xq, w_xs
+    check(tied > 0, "no block tied more than k entries at its max")
+    print(f"  {tied} tied blocks: nothing survived, scale 0")
+    return max_err, tied
+
+
+def train_variant(exp, hfl, ae, ds, cfg, inputs, counters, dev) -> dict:
+    """One train-200 trial on the card under ``cfg`` with ``counters``
+    (name -> (LAUNCHES dict, reset)) zeroed just before it and read just
+    after, then two timed ``hfl.train`` runs on the resident inputs and a
+    profiled one (device time and ops per round, idle share of the best
+    round)."""
+    for _, reset in counters.values():
+        reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gpu = exp.trial_metrics("hfl-selective", None, ds, cfg, inputs=inputs)
+    torch.cuda.synchronize()
+    trial_s = time.perf_counter() - t0
+    launches = {k: launches_of[k] for k, (launches_of, _) in counters.items()}
+    check(all(bool(torch.isfinite(v).all()) for v in gpu.values()), "non-finite trial metrics")
+    ds_dev = type(ds)(*(t.to(dev) for t in ds))
+    dep, draws = inputs.dep.to(dev), inputs.draws.to(dev)
+    params = [{k: v.to(dev) for k, v in layer.items()} for layer in inputs.params]
+    def train_on_card():
+        return hfl.train(params, ae.loss, ds_dev, cfg, dep, draws)
+
+    round_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = train_on_card()
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t0) * 1e3 / cfg.rounds)
+    train_ms, train_ops = device_ms(train_on_card, 1)
+    device = dict(device_ms_per_round=train_ms / cfg.rounds,
+                  device_ops_per_round=train_ops / cfg.rounds,
+                  idle_share=max(0.0, 1.0 - train_ms / cfg.rounds / min(round_ms)))
+    return dict(trial=gpu, metrics=m, launches=launches, trial_s=trial_s, round_ms=round_ms,
+                **device)
+
+
+def legacy_fleet(exp, hfl, ae, agg, comp, kops, ds, kq8, tk, fa, training, dev, name,
+                 smi) -> dict:
+    """Phase 12: legacy-200, train-200 with the per-client compressor, in
+    three variants, each launching its kernel once a round; the int8
+    variant on the CPU too and against phase 8's fused trial; then the
+    int8 codec front door on round 0's updates."""
+    base = exp.make_config(TRAIN_N, TRAIN_FOG, ROUNDS)
+    inputs = exp.draw_trial(torch.Generator().manual_seed(0), ds, base)   # phase 8's draws
+    counters = {"compress_q8": (kq8.LAUNCHES, kq8.reset_launches),
+                "topk_ef": (tk.LAUNCHES, tk.reset_launches),
+                "fused_agg": (fa.LAUNCHES, fa.reset_launches)}
+    variants = {
+        "fused=False int8": (comp.CompressorConfig(fused=False), "compress_q8"),
+        "fused=False f32": (comp.CompressorConfig(fused=False, quant_bits=32), "topk_ef"),
+        "rho_s=1 int8": (comp.CompressorConfig(rho_s=1.0), "compress_q8"),
+    }
+    out = {}
+    for label, (cc, kernel) in variants.items():
+        cfg = base.replace(compressor=cc)
+        r = train_variant(exp, hfl, ae, ds, cfg, inputs, counters, dev)
+        launches = r["launches"]
+        want = {k: (ROUNDS if k == kernel else 0) for k in counters}
+        check(launches == want, f"legacy-200 {label} launches {launches}, expected {want}")
+        gpu = r["trial"]
+        out[label] = dict(
+            launches=launches, trial_s=r["trial_s"], round_ms=r["round_ms"],
+            device_ms_per_round=r["device_ms_per_round"],
+            device_ops_per_round=r["device_ops_per_round"], idle_share=r["idle_share"],
+            f1=float(gpu["f1"]), participation=float(gpu["participation"]),
+            e_total=float(gpu["e_total"]), loss_first=float(gpu["losses"][0]),
+            loss_last=float(gpu["losses"][-1]))
+        if label == "fused=False int8":
+            cpu = exp.trial_metrics("hfl-selective", None, ds, cfg, inputs=inputs, device="cpu")
+            out[label]["loss_rel_vs_cpu"] = agree_with_cpu(f"legacy-200 {label}", gpu, cpu, ROUNDS)
+            out[label]["cpu_f1"] = float(cpu["f1"])
+            fused_loss = np.asarray(training["losses"])
+            rel = float(np.max(np.abs(gpu["losses"].cpu().numpy() - fused_loss) / fused_loss))
+            check(rel <= 0.01, f"legacy-200 loss differs from the fused trial by {rel:.3e}")
+            check(abs(float(gpu["f1"]) - training["f1"]) <= 0.02,
+                  f"legacy-200 F1 {float(gpu['f1']):.4f} vs fused {training['f1']:.4f}")
+            out[label]["loss_rel_vs_fused"] = rel
+        print(f"  {label:17s} hfl.train {', '.join(f'{v:.3f}' for v in r['round_ms'])} ms per "
+              f"round, device {r['device_ms_per_round']:.3f} ms in "
+              f"{r['device_ops_per_round']:.0f} ops per round, idle share {r['idle_share']:.3f}; trial {r['trial_s']:.3f} s, F1 {out[label]['f1']:.4f}, participation "
+              f"{out[label]['participation']:.4f}, loss {out[label]['loss_first']:.4f} -> "
+              f"{out[label]['loss_last']:.4f}, energy {out[label]['e_total']:.4f} J; launches "
+              f"{launches}  on {name} ({smi})")
+    first = out["fused=False int8"]
+    print(f"    fused=False int8 vs the CPU: max rel loss diff {first['loss_rel_vs_cpu']:.2e}, "
+          f"F1 {first['f1']:.4f} vs {first['cpu_f1']:.4f}; vs phase 8's fused trial: max rel "
+          f"loss diff {first['loss_rel_vs_fused']:.2e}, F1 {first['f1']:.4f} vs "
+          f"{training['f1']:.4f}")
+
+    # Round 0's updates through both compressors, with one round of error
+    # feedback in the buffers: the same EF state bitwise (so the same
+    # survivors and codes), the fog sums re-associated.
+    ds_dev = type(ds)(*(t.to(dev) for t in ds))
+    params = [{k: v.to(dev) for k, v in layer.items()} for layer in inputs.params]
+    deltas, _ = kops.local_train(params, ds_dev.train, inputs.draws.batches[0].to(dev), LR)
+    fog_id = (torch.arange(TRAIN_N, device=dev) % TRAIN_FOG).to(torch.int32)
+    weights = torch.full((TRAIN_N,), float(WINDOW), device=dev)
+    _, _, err = agg.compress_and_accumulate(deltas, torch.zeros_like(deltas), fog_id, weights,
+                                            TRAIN_FOG, base.compressor)
+    fused = agg.compress_and_accumulate(deltas, err, fog_id, weights, TRAIN_FOG, base.compressor)
+    legacy = agg.compress_and_accumulate(deltas, err, fog_id, weights, TRAIN_FOG,
+                                         comp.CompressorConfig(fused=False))
+    check(torch.equal(fused[2], legacy[2]), "fused and per-client error feedback differ")
+    sums_diff = close_on_device(legacy[0], fused[0], 1e-5, 1e-4, "per-client vs fused fog sums")
+    print(f"    round 0's updates: per-client and fused error feedback bitwise equal, fog sums "
+          f"max |diff| {sums_diff:.3e}")
+
+    kq8.reset_launches()
+    q, scale, n = kops.quant8(deltas)
+    recon = kops.dequant8(q, scale, n)
+    torch.cuda.synchronize()
+    codec_launches = kq8.LAUNCHES["quant8"]
+    check(codec_launches == 1, f"the int8 codec launched quant8 {codec_launches} times")
+    q_cpu, scale_cpu, _ = kops.quant8(deltas.cpu())
+    check(torch.equal(q.cpu(), q_cpu) and torch.equal(scale.cpu(), scale_cpu),
+          "the codec's codes differ from the CPU's")
+    step = float((deltas - recon).abs().max() / scale.max())
+    check(step <= 0.5 + 1e-6, f"int8 round trip off by {step:.4f} quantisation steps")
+    print(f"    int8 codec (ops.quant8 / ops.dequant8) on round 0's {TRAIN_N} updates: "
+          f"{codec_launches} launch, round trip within {step:.4f} of a step, equal to the CPU's")
+    return dict(variants=out, codec_launches=codec_launches, fog_sum_diff_vs_fused=sums_diff)
+
+
+def drift_fleet(exp, hfl, ae, topo, ch, DriftConfig, ds, lt, fa, dev, name, smi) -> dict:
+    """Phase 13: drift-200, train-200 in the drift benchmark's world and
+    its three cells on the card; the re-association cell on the CPU too
+    (per-round participation exactly, energies to rtol=1e-5, loss within
+    1%, F1 within 0.02)."""
+    base = exp.make_config(
+        TRAIN_N, TRAIN_FOG, ROUNDS,
+        deployment=topo.DeploymentParams(n_sensors=TRAIN_N, n_fog=TRAIN_FOG, **DRIFT_BASIN),
+        channel=ch.ChannelParams().replace(sl_max_db=DRIFT_SL_MAX_DB))
+    cells = {
+        "static": DriftConfig(active=True),
+        "frozen": DriftConfig(sensor_current_m_s=DRIFT_CURRENT, reassoc_every=float("inf")),
+        "reassoc": DriftConfig(sensor_current_m_s=DRIFT_CURRENT, reassoc_every=DRIFT_REASSOC),
+    }
+    inputs = exp.draw_trial(torch.Generator().manual_seed(0), ds, base)
+    counters = {"local_train_f32": (lt.LAUNCHES, lt.reset_launches),
+                "fused_agg": (fa.LAUNCHES, fa.reset_launches)}
+    out = {}
+    for cell, drift in cells.items():
+        cfg = base.replace(drift=drift)
+        r = train_variant(exp, hfl, ae, ds, cfg, inputs, counters, dev)
+        check(r["launches"] == {"local_train_f32": ROUNDS, "fused_agg": 2 * ROUNDS},
+              f"drift-200 {cell} launches {r['launches']}")
+        gpu = r["trial"]
+        part = r["metrics"].participation.cpu().numpy()
+        out[cell] = dict(
+            launches=r["launches"], trial_s=r["trial_s"], round_ms=r["round_ms"],
+            device_ms_per_round=r["device_ms_per_round"],
+            device_ops_per_round=r["device_ops_per_round"], idle_share=r["idle_share"],
+            f1=float(gpu["f1"]), participation=float(gpu["participation"]),
+            participation_by_round=[float(p) for p in part], e_total=float(gpu["e_total"]),
+            loss_first=float(gpu["losses"][0]), loss_last=float(gpu["losses"][-1]))
+        if cell == "reassoc":
+            cpu = exp.trial_metrics("hfl-selective", None, ds, cfg, inputs=inputs, device="cpu")
+            out[cell]["loss_rel_vs_cpu"] = agree_with_cpu("drift-200 reassoc", gpu, cpu, ROUNDS)
+            out[cell]["cpu_f1"] = float(cpu["f1"])
+            _, m_cpu = hfl.train(inputs.params, ae.loss, ds, cfg, inputs.dep, inputs.draws)
+            check(np.array_equal(np.round(part * TRAIN_N), np.round(
+                m_cpu.participation.numpy() * TRAIN_N)), "drift-200 per-round participation "
+                  f"differs from the CPU run: {part} vs {m_cpu.participation.numpy()}")
+            for field in ("e_s2f", "e_f2f", "e_f2g"):
+                got = getattr(r["metrics"], field).cpu().to(torch.float64).numpy()
+                want = getattr(m_cpu, field).to(torch.float64).numpy()
+                check(np.allclose(got, want, rtol=1e-5, atol=0.0),
+                      f"drift-200 per-round {field} differs from the CPU run")
+        print(f"  {cell:8s} hfl.train {', '.join(f'{v:.3f}' for v in r['round_ms'])} ms per "
+              f"round, device {r['device_ms_per_round']:.3f} ms in "
+              f"{r['device_ops_per_round']:.0f} ops per round, idle share {r['idle_share']:.3f}; F1 {out[cell]['f1']:.4f}, participation {out[cell]['participation']:.4f} "
+              f"(round 0 {part[0]:.3f}, last {part[-1]:.3f}), energy {out[cell]['e_total']:.4f} "
+              f"J, loss {out[cell]['loss_first']:.4f} -> {out[cell]['loss_last']:.4f}  on "
+              f"{name} ({smi})")
+    p = {c: out[c]["participation"] for c in cells}
+    ordered = p["frozen"] < p["reassoc"] <= p["static"]
+    print(f"    reassoc vs the CPU: max rel loss diff {out['reassoc']['loss_rel_vs_cpu']:.2e}, F1 "
+          f"{out['reassoc']['f1']:.4f} vs {out['reassoc']['cpu_f1']:.4f}; participation frozen "
+          f"{p['frozen']:.4f} < reassoc {p['reassoc']:.4f} <= static {p['static']:.4f}: "
+          f"{ordered} (recorded, not gated)")
+    return dict(cells=out, participation_ordered=ordered)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
@@ -982,7 +1351,10 @@ def main() -> int:
     from repro_torch.checkpoint import CheckpointStore
     from repro_torch.core import aggregation as agg
     from repro_torch.core import anomaly, hfl
+    from repro_torch.core import channel as ch
     from repro_torch.core import compression as comp
+    from repro_torch.core import topology as topo
+    from repro_torch.core.drift import DriftConfig
     from repro_torch.core.faults import FaultConfig
     from repro_torch.data.pipeline import multi_epoch_indices
     from repro_torch.data.synthetic import SensorDataset, SyntheticConfig, generate, normalize
@@ -991,8 +1363,10 @@ def main() -> int:
     from repro_torch.kernels import fused_score as fs
     from repro_torch.kernels import local_train as lt
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import quant8 as kq8
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import robust_agg as ra
+    from repro_torch.kernels import topk_ef as tk
     from repro_torch.launch import experiment as exp
     from repro_torch.loadgen import VirtualClock, gaussian_windows, mmpp_trace, replay
     from repro_torch.models import autoencoder as ae
@@ -1122,6 +1496,7 @@ def main() -> int:
     train_kmods = (lt, fa, kops, kref, ae, multi_epoch_indices)
     train_timing = time_training_kernels(dev, *train_kmods, name, smi)
     train_timing.update(time_new_kernels(dev, fa, ra, kops, kref, agg, comp, ae, name, smi))
+    train_timing.update(time_compress_kernels(dev, kq8, tk, kops, kref, comp, ae, name, smi))
 
     phase("7. training kernels against their plain versions")
     train_err = check_training_kernels(dev, *train_kmods)
@@ -1146,6 +1521,17 @@ def main() -> int:
     phase("10. fleet-10k (main path): client-chunked rounds, N=10,000")
     fleet = fleet_scale(exp, hfl, ae, SensorDataset, generate, normalize, SyntheticConfig, fa,
                         dev, name, smi)
+
+    phase("11. compressor kernels against their plain versions")
+    comp_err, tied_blocks = check_compress_kernels(dev, kq8, tk, fa, kops, kref, comp)
+    train_err.update(comp_err)
+
+    phase("12. legacy-200 (main path): the per-client compressor, N=200, T=20")
+    legacy = legacy_fleet(exp, hfl, ae, agg, comp, kops, train_ds, kq8, tk, fa, training, dev,
+                          name, smi)
+
+    phase("13. drift-200 (main path): the dynamic world, N=200, T=20")
+    drift = drift_fleet(exp, hfl, ae, topo, ch, DriftConfig, train_ds, lt, fa, dev, name, smi)
     phase("done")
 
     kernels = []
@@ -1170,7 +1556,11 @@ def main() -> int:
     launches = dict(training["launches"])
     launches["robust_agg"] = robust["launches"]["robust_agg"]
     launches.update({k: fleet["chunked"]["launches"][k] for k in ("wire_emit", "wire_agg")})
-    for kname, (replaces, source) in {**TRAIN_KERNELS, **NEW_KERNELS}.items():
+    launches["compress_q8"] = legacy["variants"]["fused=False int8"]["launches"]["compress_q8"]
+    launches["topk_ef"] = legacy["variants"]["fused=False f32"]["launches"]["topk_ef"]
+    launches["quant8"] = legacy["codec_launches"]
+    for kname, (replaces, source) in {**TRAIN_KERNELS, **NEW_KERNELS,
+                                      **COMPRESS_KERNELS}.items():
         check(launches[kname] > 0, f"{kname} was not launched on its main path")
         t = train_timing[kname]
         kernels.append({
@@ -1186,6 +1576,8 @@ def main() -> int:
     print(json.dumps({"training": training}))
     print(json.dumps({"robust": robust}))
     print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"legacy": legacy, "tied_blocks": tied_blocks}))
+    print(json.dumps({"drift": drift}))
     print("phase seconds: " + ", ".join(f"{k.split('.')[0]} {v:.1f}" for k, v in PHASE_S.items()
                                         if k != "done"))
     print(json.dumps({"kernels": kernels}))

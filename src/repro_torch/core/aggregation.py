@@ -123,9 +123,7 @@ def compress_and_accumulate(
     weights = weights * finite.to(weights.dtype)
     fog_weight = _segment_sum(weights, fog_id, n_fog)
 
-    if cfg.enabled and cfg.is_sparse and cfg.mode == "blockwise":
-        if not cfg.fused:
-            raise NotImplementedError(comp.UNPORTED_BLOCKWISE)
+    if cfg.enabled and cfg.is_sparse and cfg.fused and cfg.mode == "blockwise":
         # The fused path: EF Top-K + int8 + weighted accumulation straight
         # into the (n_fog, d) buffers; the dense per-client reconstruction
         # never exists.
@@ -137,8 +135,11 @@ def compress_and_accumulate(
         )
         return fog_sum, fog_weight, new_err
 
-    # Compression off, dense rho_s == 1, or mode="global": per-client
-    # reconstruction, then a dense segment sum.
+    # Compression off, quantise-only rho_s == 1, mode="global" or
+    # fused=False: per-client reconstruction (the compress_q8 / topk_ef
+    # kernels for blockwise), then a dense segment sum (index_add_: on the
+    # card its atomics add in no fixed order, so these sums agree with
+    # other paths to float tolerance, not bitwise).
     recon, new_err = comp.compress_update(deltas, err, cfg)
     fog_sum = _segment_sum(recon * weights[:, None], fog_id, n_fog)
     return fog_sum, fog_weight, new_err

@@ -3,11 +3,14 @@
 Two modes:
 
 - ``blockwise`` (the default here): per 8192-element block, error-feedback
-  Top-K by threshold bisection and an int8 round trip, fused with the fog
-  aggregation in ``core/aggregation`` (the ``fused_agg`` kernel on the
-  card).  This is the compressor ``repro.engine.Engine.resolve_compressor``
-  gives the round loops on every backend; the port has no Engine yet, so
-  it is the port's default.
+  Top-K by threshold bisection and an int8 round trip.  With ``fused``
+  (the default) it runs fused with the fog aggregation in
+  ``core/aggregation`` (the ``fused_agg`` kernel on the card); unfused,
+  and for quantise-only uploads (``rho_s = 1``, int8), it runs per client
+  through :func:`compress_update` (the ``compress_q8`` kernel, or
+  ``topk_ef`` with ``quant_bits=32``).  This is the compressor
+  ``repro.engine.Engine.resolve_compressor`` gives the round loops on
+  every backend; the port has no Engine yet, so it is the port's default.
 - ``global``: exact Top-K over the whole flat update, the paper's
   semantics for the ~1,352-parameter autoencoder (rho_s = 0.05 -> K ~ 68),
   in plain PyTorch (``torch.topk``).
@@ -23,14 +26,15 @@ from typing import Any
 
 import torch
 
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ops import BLOCK_ELEMS
 
 
 @dataclasses.dataclass(frozen=True)
 class CompressorConfig:
-    """Compression knobs.  ``fused=False`` (the per-client blockwise
-    pipeline) needs the unported ``quant8`` / ``topk_ef`` kernels and
-    raises."""
+    """Compression knobs.  ``fused=False`` compresses each client on its
+    own (:func:`compress_update`) before a dense fog sum: the legacy
+    two-pass pipeline, kept as the fused path's equivalence baseline."""
 
     rho_s: float = 0.05          # sparsification ratio (1.0 = dense)
     quant_bits: int = 8          # post-sparsification bit-width (32 = none)
@@ -47,12 +51,6 @@ class CompressorConfig:
     @property
     def enabled(self) -> bool:
         return self.is_sparse or self.quant_bits < 32
-
-
-UNPORTED_BLOCKWISE = (
-    "the per-client blockwise compressor needs the quant8 / topk_ef kernels, "
-    "not ported yet (ROADMAP.md queue 2 items 6-8)"
-)
 
 
 def payload_bits(d: int, cfg: CompressorConfig) -> float:
@@ -122,8 +120,9 @@ def compress_update(
     """Compress flat client updates (..., d) with error feedback.
 
     Returns (reconstruction the fog decodes, new error buffer), both
-    (..., d).  Only ``mode="global"`` is ported here; blockwise mode runs
-    fused with the aggregation (``core/aggregation``).
+    (..., d).  Blockwise mode takes the per-client kernels of
+    ``kernels/ops`` (:func:`repro_torch.kernels.ops.compress`, or
+    ``topk_ef`` without quantisation), one launch for all the rows.
     """
     if not cfg.enabled:
         return delta, err
@@ -138,6 +137,12 @@ def compress_update(
         return recon, v - recon
     if cfg.mode == "blockwise":
         validate_blockwise_bits(cfg.quant_bits)
-        raise NotImplementedError(UNPORTED_BLOCKWISE)
+        rows = delta.reshape(-1, delta.shape[-1])
+        k_frac = blockwise_k_frac(rows.shape[1], cfg.rho_s)
+        if cfg.quant_bits < 32:
+            recon, new_err, _ = kops.compress(rows, err.reshape(rows.shape), k_frac)
+        else:
+            recon, new_err = kops.topk_ef(rows, err.reshape(rows.shape), k_frac)
+        return recon.reshape(delta.shape), new_err.reshape(delta.shape)
     raise ValueError(f"unknown compression mode: {cfg.mode}")
 

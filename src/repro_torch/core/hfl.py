@@ -7,24 +7,31 @@ the ``local_train_f32`` kernel on the card), the fault layer
 (``core/faults``: crashes, Byzantine corruption, erasures), compression
 and the fog reduce (``core/aggregation``): the weighted mean fused with
 compression (the ``fused_agg`` kernel on the card, or ``wire_emit`` and
-``wire_agg`` chunk by chunk with ``client_chunk``) or the Byzantine-robust
-trimmed mean / median (``robust_agg``), cooperative mixing (Eq. 15), the
+``wire_agg`` chunk by chunk with ``client_chunk``; with ``fused=False`` or
+quantise-only ``rho_s = 1``, per client by ``compress_q8`` or ``topk_ef``,
+then a dense fog sum) or the Byzantine-robust trimmed mean / median
+(``robust_agg``), cooperative mixing (Eq. 15), the
 gateway step (Eq. 16, optionally FedAdam) and the energy / latency /
-battery accounting (Eqs. 17-21).  :func:`train` loops it over the rounds.
+battery accounting (Eqs. 17-21).  With the drift layer on
+(``HFLConfig.drift``, ``core/drift``) the sensors ride a current after the
+fog walk, the sensor->fog assignment is refreshed only every
+``reassoc_every`` rounds and the training windows scale by ``1 +
+covariate_shift * t``.  :func:`train` loops the round over the rounds.
 
 Randomness is an argument: :class:`RoundDraws` holds every round's
 mobility noise, minibatch index table and, with faults on, the crash and
 erasure uniforms and the Byzantine noise; :func:`draw_rounds` makes them
 from a ``torch.Generator`` in a fixed order, so a run on the card and one
 on the CPU see identical inputs, and a test can hand both packages the
-reference's own draws.  Drift and the client mesh are not ported yet:
-the config leaves drift out and ``client_mesh`` raises.
+reference's own draws.  Drift draws nothing.  The client mesh is not
+ported yet: ``client_mesh`` raises.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import aggregation as agg
@@ -32,6 +39,7 @@ from repro_torch.core import association as assoc
 from repro_torch.core import channel as ch
 from repro_torch.core import compression as comp
 from repro_torch.core import cooperation as coop
+from repro_torch.core import drift as drf
 from repro_torch.core import energy as en
 from repro_torch.core import faults as flt
 from repro_torch.core import topology as topo
@@ -49,8 +57,7 @@ UNPORTED_MESH = "client_mesh (sharded client axis) is not ported yet (ROADMAP.md
 
 @dataclasses.dataclass(frozen=True)
 class HFLConfig:
-    """Round-loop configuration: the reference's fields, except drift
-    (not ported yet)."""
+    """Round-loop configuration: the reference's fields."""
 
     rule: coop.CoopRule = coop.CoopRule.SELECTIVE
     rounds: int = 20
@@ -70,6 +77,7 @@ class HFLConfig:
     robust: str = "mean"             # fog reduce: mean | trimmed | median
     trim_frac: float = 0.0           # weight fraction cut per end (trimmed)
     faults: flt.FaultConfig = flt.FaultConfig()
+    drift: drf.DriftConfig = drf.DriftConfig()
     # Compress and accumulate the client axis this many sensors at a time
     # (transient memory follows the chunk, not the fleet); None or >= N is
     # the one-shot path.
@@ -111,6 +119,10 @@ class HFLState(NamedTuple):
     dep: topo.Deployment
     server: srv.ServerOptState   # gateway optimiser state (FedAdam)
     prev_delta: torch.Tensor     # (d,) last global delta (adaptive colluders)
+    # Drift carry (unused with drift off; round 0 always refreshes it):
+    assoc_fog: torch.Tensor      # (N,) int32 frozen sensor->fog assignment
+    assoc_ok: torch.Tensor       # (N,) bool, feasible at assignment time
+    t: int = 0                   # round counter, on the host
 
 
 class RoundDraws(NamedTuple):
@@ -175,6 +187,8 @@ def init_state(params: Params, dep: topo.Deployment, cfg: HFLConfig) -> HFLState
         dep=dep,
         server=srv.init_state(flat.shape[0], dev),
         prev_delta=torch.zeros_like(flat),
+        assoc_fog=torch.zeros((n,), dtype=torch.int32, device=dev),
+        assoc_ok=torch.zeros((n,), dtype=torch.bool, device=dev),
     )
 
 
@@ -219,6 +233,9 @@ def make_round_fn(
     n_fog = cfg.deployment.n_fog
     fl = cfg.faults
     fault_on = fl.is_active          # off: exactly the fault-free round
+    dr = cfg.drift
+    drift_on = dr.is_active          # off: exactly the drift-free round
+    cadence = np.float32(max(dr.reassoc_every, 1.0))
     adaptive = fault_on and fl.byz_mode == "adaptive"
     clients_fn = make_client_solver(
         loss_fn, batch_size=cfg.batch_size, epochs=cfg.local_epochs,
@@ -238,9 +255,21 @@ def make_round_fn(
         dep = state.dep
         if cfg.fog_mobility:
             dep = topo.gauss_markov_step(mobility, dep, cfg.deployment)
+        if drift_on:
+            dep = topo.current_advection_step(dep, cfg.deployment, dr.sensor_current_m_s)
 
         # --- 1. association + cooperation decisions (lines 1-7) ----------
-        fa = assoc.nearest_feasible_fog(dep, cfg.channel)
+        assoc_fog, assoc_ok = state.assoc_fog, state.assoc_ok
+        if drift_on:
+            # Stale assignment, live physics: the carried assignment is
+            # refreshed every ``reassoc_every`` rounds (round 0 always), in
+            # the reference's f32 arithmetic, decided on the host.
+            if np.mod(np.float32(state.t), cadence) < 0.5:
+                fresh = assoc.nearest_feasible_fog(dep, cfg.channel)
+                assoc_fog, assoc_ok = fresh.fog_id, fresh.participates
+            fa = assoc.assigned_fog_association(dep, cfg.channel, assoc_fog, assoc_ok)
+        else:
+            fa = assoc.nearest_feasible_fog(dep, cfg.channel)
         alive = state.battery > cfg.energy.e_min_j
         active = fa.participates & alive
         if fault_on:
@@ -264,7 +293,14 @@ def make_round_fn(
             erased = torch.zeros_like(active)
         delivered = active & ~erased
         weights = ds.n_samples * delivered.to(torch.float32)
-        deltas, losses = clients_fn(state.params, ds.train, batches)
+        train = ds.train
+        if drift_on:
+            # Covariate shift, 1 + shift * t in f32 as the reference computes
+            # it; a factor of exactly 1 leaves the windows as they are.
+            scale = np.float32(1.0) + np.float32(dr.covariate_shift) * np.float32(state.t)
+            if scale != 1.0:
+                train = train * float(scale)
+        deltas, losses = clients_fn(state.params, train, batches)
         if fault_on:
             deltas = flt.corrupt_deltas(deltas, fl, prev_delta=state.prev_delta, noise=byz_noise)
         n_nonfinite = torch.sum(delivered & flt.nonfinite_rows(deltas))
@@ -326,7 +362,8 @@ def make_round_fn(
         )
         # Adaptive colluders observe the realised global movement.
         prev_delta = new_flat - flat0 if adaptive else state.prev_delta
-        return HFLState(new_params, new_err, battery, dep, server, prev_delta), metrics
+        return HFLState(new_params, new_err, battery, dep, server, prev_delta,
+                        assoc_fog, assoc_ok, state.t + 1), metrics
 
     return round_fn
 

@@ -1,7 +1,8 @@
 """3D stratified IoUT deployment and fog mobility (paper Sec. III-A).
 
-Sensors are static and deep; fog nodes are mid-water and drift between
-rounds with a Gauss-Markov mobility model.  The surface gateway sits at
+Sensors are deep and, with the drift layer (``core/drift``), ride a
+depth-sheared current; fog nodes are mid-water and drift between rounds
+with a Gauss-Markov mobility model.  The surface gateway sits at
 z = 0 in the centre of the deployment area.  Randomness is an argument:
 :func:`sample_deployment` draws from a ``torch.Generator`` and
 :func:`gauss_markov_step` takes its standard-normal noise, so a test can
@@ -10,7 +11,9 @@ feed both packages the same draws.
 from __future__ import annotations
 
 import dataclasses
+import math
 
+import numpy as np
 import torch
 
 from repro_torch import device as _device
@@ -85,12 +88,43 @@ def gauss_markov_step(
     noise = noise * params.fog_speed_m_s
     root = torch.sqrt(torch.tensor(max(1.0 - a * a, 0.0), dtype=F32))
     vel = a * dep.fog_vel + root * noise
-    pos = dep.fog_pos + vel * params.round_interval_s
-    lo, hi = _box(params, params.fog_depth, pos.device)
+    pos, flipped = _reflect(dep.fog_pos + vel * params.round_interval_s, params,
+                            params.fog_depth)
+    vel = torch.where(flipped, -vel, vel)
+    return Deployment(dep.sensor_pos, pos, vel, dep.gateway_pos)
+
+
+def _reflect(pos: torch.Tensor, params: DeploymentParams,
+             depth: tuple[float, float]) -> tuple[torch.Tensor, torch.Tensor]:
+    """Reflect positions into the deployment volume at the stratum
+    ``depth``, then clamp (a guard against double reflection); returns
+    (positions, the components that reflected)."""
+    lo, hi = _box(params, depth, pos.device)
     over_hi = pos > hi
     under_lo = pos < lo
     pos = torch.where(over_hi, 2.0 * hi - pos, pos)
     pos = torch.where(under_lo, 2.0 * lo - pos, pos)
-    pos = torch.minimum(torch.maximum(pos, lo), hi)  # guard double reflection
-    vel = torch.where(over_hi | under_lo, -vel, vel)
-    return Deployment(dep.sensor_pos, pos, vel, dep.gateway_pos)
+    return torch.minimum(torch.maximum(pos, lo), hi), over_hi | under_lo
+
+
+def current_advection_step(
+    dep: Deployment, params: DeploymentParams, speed_m_s: float,
+) -> Deployment:
+    """Advect the SENSORS one round interval in a depth-sheared current.
+
+    The current is horizontal and deterministic: its direction turns with
+    depth, ``(cos, sin)(2 pi z / depth_m)``, so co-located sensors at
+    different depths separate over time.  The phase is computed as
+    ``z * (f32(2 pi) * f32(1 / depth_m))``, the arithmetic XLA gives the
+    reference's jitted ``2 pi z / depth_m`` (a true division rounds apart
+    on most depths).  Positions reflect into the sensor stratum as the fog
+    walk's do into theirs.
+    """
+    rate = float(np.float32(2.0 * math.pi) * (np.float32(1.0) / np.float32(params.depth_m)))
+    s = float(np.float32(speed_m_s))
+    z = dep.sensor_pos[:, 2]
+    phase = z * rate
+    vel = torch.stack([s * torch.cos(phase), s * torch.sin(phase), torch.zeros_like(z)], dim=-1)
+    pos, _ = _reflect(dep.sensor_pos + vel * params.round_interval_s, params,
+                      params.sensor_depth)
+    return Deployment(pos, dep.fog_pos, dep.fog_vel, dep.gateway_pos)

@@ -25,6 +25,18 @@ def require_cuda(t: torch.Tensor, what: str) -> torch.device:
     return t.device
 
 
+def rows(x: torch.Tensor, what: str, block: int) -> tuple[torch.device, int, int, int]:
+    """(device, N, d, blocks of ``block`` per row) of a CUDA (N, d) input;
+    raises on anything else."""
+    device = require_cuda(x, what)
+    if x.dim() != 2:
+        raise ValueError(f"the {what} kernel takes (N, d) rows, got {tuple(x.shape)}")
+    n, d = (int(s) for s in x.shape)
+    if n < 1 or d < 1:
+        raise ValueError(f"needs N, d >= 1, got N={n}, d={d}")
+    return device, n, d, -(-d // block)
+
+
 def raise_on(rc: int, what: str, error_string: Callable[[int], bytes]) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} failed: CUDA error {rc} ({error_string(rc).decode()})")

@@ -2,13 +2,17 @@
 
 A CPU tensor goes to the plain version in ``kernels/ref``; a CUDA tensor
 goes to the hand-written kernel (``kernels/fused_score``,
-``kernels/local_train``, ``kernels/fused_agg``, ``kernels/robust_agg``),
-which raises on anything it cannot take; there is no fallback.  Counterparts of the same-named
+``kernels/local_train``, ``kernels/fused_agg``, ``kernels/robust_agg``,
+``kernels/quant8``, ``kernels/topk_ef``), which raises on anything it
+cannot take; there is no fallback.  Counterparts of the same-named
 functions of ``repro.kernels.ops``, without their TPU row and 128-lane
-padding: the CUDA kernels take the real widths.
+padding: the CUDA kernels take the real widths.  The per-client
+compressors (:func:`topk_ef`, :func:`quant8`, :func:`compress`) take a
+batch of rows (N, d), where the reference takes one flat vector.
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -16,8 +20,10 @@ import torch
 from repro_torch.kernels import fused_agg as _fa
 from repro_torch.kernels import fused_score as _fs
 from repro_torch.kernels import local_train as _lt
+from repro_torch.kernels import quant8 as _q8
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import robust_agg as _ra
+from repro_torch.kernels import topk_ef as _tk
 from repro_torch.models import autoencoder as ae
 
 BLOCK_ELEMS = _ref.BLOCK_ELEMS   # compression block of the flat updates
@@ -37,6 +43,49 @@ def _route(x: torch.Tensor) -> str:
 def block_k(k_frac: float) -> int:
     """Survivors kept per block for a keep fraction (Python's round)."""
     return max(1, int(round(k_frac * BLOCK_ELEMS)))
+
+
+def topk_ef(
+    delta: torch.Tensor,      # (N, d) raw per-client flat updates
+    err: torch.Tensor,        # (N, d) error-feedback buffers
+    k_frac: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise error-feedback Top-K keeping ~``k_frac`` of each
+    8192-element block: (sparse (N, d), new_err (N, d))."""
+    fn = _tk.topk_ef_blocks if _route(delta) == "cuda" else _ref.blockwise_topk_ef_ref
+    return fn(delta, err, block_k(k_frac))
+
+
+def quant8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Blockwise int8 of (N, d) rows: (q (N, nb, 8192) int8, zeros past d,
+    scales (N, nb, 1), d)."""
+    fn = _q8.quant8_blocks if _route(x) == "cuda" else _ref.quant8_ref
+    q, scale = fn(x)
+    return q.reshape(scale.shape + (BLOCK_ELEMS,)), scale[..., None], x.shape[1]
+
+
+def dequant8(q: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`quant8`: the (N, n) rows."""
+    return (q.to(torch.float32) * scale).reshape(q.shape[0], -1)[:, :n]
+
+
+def compress(
+    delta: torch.Tensor,      # (N, d) raw per-client flat updates
+    err: torch.Tensor,        # (N, d) error-feedback buffers
+    k_frac: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """EF + blockwise Top-K + int8 per client: (recon (N, d), the
+    dequantised sparse update the fog decodes, new_err (N, d),
+    payload_bits (N,) f32), the Eq. 31 payload of each row, kept
+    coordinates times (8 + ceil(log2 d)) bits."""
+    fn = _q8.compress_blocks if _route(delta) == "cuda" else _ref.compress_ref
+    q, scale, new_err = fn(delta, err, block_k(k_frac))
+    d = delta.shape[1]
+    block_of = torch.arange(d, device=q.device) // BLOCK_ELEMS
+    recon = q.to(torch.float32) * scale[:, block_of]
+    b_idx = math.ceil(math.log2(max(d, 2)))
+    payload_bits = torch.sum(q != 0, dim=1).to(torch.float32) * (8.0 + b_idx)
+    return recon, new_err, payload_bits
 
 
 def compress_aggregate(

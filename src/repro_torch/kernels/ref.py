@@ -80,6 +80,77 @@ def pad_blocks(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, nb * BLOCK_ELEMS - d)).reshape(n, nb, BLOCK_ELEMS)
 
 
+def unpad_rows(x: torch.Tensor, d: int) -> torch.Tensor:
+    """(N, nb, BLOCK_ELEMS) blocks back to the (N, d) real coordinates."""
+    return x.reshape(x.shape[0], -1)[:, :d]
+
+
+def blockwise_topk_ef_ref(
+    delta: torch.Tensor,      # (N, d) per-client flat updates
+    err: torch.Tensor,        # (N, d) error-feedback buffers
+    k_per_block: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Error-feedback block Top-K (paper Eq. 30, blockwise) per client and
+    zero-padded 8192-element block: (sparse (N, d), new_err (N, d)) with
+    sparse + new_err == delta + err exactly (a mask decomposition)."""
+    d = delta.shape[1]
+    v = pad_blocks(delta + err)
+    absv = torch.abs(v)
+    sparse = torch.where(absv > bisect_threshold(absv, k_per_block), v, 0.0)
+    return unpad_rows(sparse, d), unpad_rows(v - sparse, d)
+
+
+def _quant8_blocks(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-block symmetric int8 of (..., BLOCK_ELEMS) blocks: (q int8, scale
+    (..., 1)), scale = max|x| times f32(1/127) (the product the
+    reference's jitted ``amax / 127`` computes), q = round(x / scale)
+    clipped to +-127 (half to even); an all-zero block gets scale 0 and q
+    0."""
+    scale = torch.amax(torch.abs(x), dim=-1, keepdim=True) * (1.0 / 127.0)
+    safe = torch.where(scale > 0, scale, 1.0)
+    q = torch.clamp(torch.round(x / safe), -127.0, 127.0).to(torch.int8)
+    return torch.where(scale > 0, q, 0), scale
+
+
+def quant8_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-block symmetric int8 of (N, d) rows, zero-padded to whole
+    8192-element blocks: (q int8 (N, nb * 8192) in the blocked layout,
+    zeros past d, scale (N, nb))."""
+    n = x.shape[0]
+    q, scale = _quant8_blocks(pad_blocks(x))
+    return q.reshape(n, -1), scale[..., 0]
+
+
+def dequant8_ref(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quant8_ref` (lossy): ``q * scale`` in f32, with
+    ``scale`` shaped to broadcast over its block (for blocked q (N, nb,
+    8192), scale (N, nb, 1))."""
+    return q.to(torch.float32) * scale
+
+
+def compress_ref(
+    delta: torch.Tensor,      # (N, d) per-client flat updates
+    err: torch.Tensor,        # (N, d) error-feedback buffers
+    k_per_block: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """EF block Top-K, then int8 of the survivors (the paper pipeline,
+    Sec. V-C): (q int8 (N, d), scale (N, nb), new_err (N, d)).
+
+    The scale is max|sparse| times f32(1/127): the block max of |v| when
+    anything survives, 0 when nothing does (more than k entries tied at
+    the block max), where :func:`compress_aggregate_ref` keeps the block
+    max's scale over the all-zero sparse.  new_err = v - q * scale, so the
+    error buffer absorbs the sparsification and the quantisation residual.
+    """
+    d = delta.shape[1]
+    v = pad_blocks(delta + err)
+    absv = torch.abs(v)
+    sparse = torch.where(absv > bisect_threshold(absv, k_per_block), v, 0.0)
+    q, scale = _quant8_blocks(sparse)
+    recon = dequant8_ref(q, scale)
+    return unpad_rows(q, d), scale[..., 0], unpad_rows(v - recon, d)
+
+
 def compress_aggregate_ref(
     delta: torch.Tensor,      # (N, d) per-client flat updates
     err: torch.Tensor,        # (N, d) error-feedback buffers

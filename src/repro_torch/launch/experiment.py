@@ -3,8 +3,13 @@
 :func:`trial_metrics` trains a method and evaluates it with the paper's
 protocol (train -> calibrate the 99th-percentile threshold on normal-only
 validation -> score test -> F1 / PA-F1), beside the per-round energy and
-participation traces.  The hierarchical methods (``hfl-*``) are ported;
-the flat, centralised and async families raise until their slices.
+participation traces.  The hierarchical methods (``hfl-*``) are ported,
+with every option of their config: the compressor's fused and per-client
+paths (``CompressorConfig(fused=False)``, quantise-only ``rho_s=1``), the
+fault layer, robust fog reduces, client chunking and the dynamic world
+(``drift=DriftConfig(...)``), all through :func:`make_config`'s
+overrides; the flat, centralised and async families raise until their
+slices, and so does ``client_mesh``.
 
 Randomness is injected: a trial's random inputs (:class:`TrialInputs`:
 init params, deployment, per-round draws) come from :func:`draw_trial`

@@ -18,7 +18,10 @@ survivor sets exactly, new_err to ``atol=1e-5`` and fog sums to
 Robust aggregation to ``rtol=1e-5, atol=1e-6`` (the selection is exact
 with integer weights; only num / den round apart); the wire's slots, codes
 and scales exactly, its new_err to ``atol=1e-5`` and its fog sums to
-``rtol=1e-5, atol=1e-4``.
+``rtol=1e-5, atol=1e-4``.  The per-client compressor kernels
+(``compress_q8``, ``topk_ef``, ``quant8``) bitwise: codes, scales, sparse
+values and new_err, the tie and all-zero rows included (the kernels and
+their plain versions make the same IEEE operations, none contracted).
 """
 import numpy as np
 import pytest
@@ -27,6 +30,7 @@ import torch
 from repro_torch.checkpoint import CheckpointStore
 from repro_torch.core import aggregation as agg
 from repro_torch.core import compression as comp
+from repro_torch.core.drift import DriftConfig
 from repro_torch.core.faults import FaultConfig
 from repro_torch.data.pipeline import multi_epoch_indices
 from repro_torch.data.synthetic import SyntheticConfig, generate, normalize
@@ -34,7 +38,9 @@ from repro_torch.kernels import fused_agg as fa
 from repro_torch.kernels import fused_score as fs
 from repro_torch.kernels import local_train as lt
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import quant8 as q8
 from repro_torch.kernels import robust_agg as ra
+from repro_torch.kernels import topk_ef as tk
 from repro_torch.launch import experiment as exp
 from repro_torch.models import autoencoder as ae
 from repro_torch.serving import ScoringService, quantize_params
@@ -490,5 +496,123 @@ def test_robust_and_chunked_trials_on_the_card_match_the_cpu(cuda, kw):
     gpu = exp.trial_metrics("hfl-selective", None, ds, cfg, inputs=inputs)
     cpu = exp.trial_metrics("hfl-selective", None, ds, cfg, inputs=inputs, device="cpu")
     for name in ("participation", "coop_links", "erased_total", "e_total", "e_s2f"):
+        np.testing.assert_allclose(gpu[name].cpu().numpy(), cpu[name].numpy(), rtol=1e-5)
+    np.testing.assert_allclose(gpu["losses"].cpu().numpy(), cpu["losses"].numpy(), rtol=1e-4)
+
+
+def _compress_case(n, d, k, device, seed=0):
+    """Gaussian rows; with n > 2, row 1 all zeros and row 2 tying more than
+    k entries of each block at the block max (as the block's width
+    allows)."""
+    g = torch.Generator().manual_seed(seed)
+    deltas = torch.randn((n, d), generator=g)
+    err = 0.1 * torch.randn((n, d), generator=g)
+    if n > 2:
+        deltas[1] = err[1] = 0.0
+        deltas[2] *= 0.1
+        err[2] = 0.0
+        for lo in range(0, d, 8192):
+            t = min(d - lo, 8192, k + 3)
+            deltas[2, lo:lo + t] = torch.where(torch.arange(t) % 2 == 0, 5.0, -5.0)
+    return deltas.to(device), err.to(device)
+
+
+@pytest.mark.parametrize("rho_s", [0.05, 1.0, 1.0 / 8192])
+@pytest.mark.parametrize("n", [1, 200])
+@pytest.mark.parametrize("d", [1352, 8209, 65536])
+def test_compressor_kernels_match_plain(cuda, d, n, rho_s):
+    k = ops.block_k(comp.blockwise_k_frac(d, rho_s))
+    deltas, err = _compress_case(n, d, k, cuda, seed=d + n)
+    before = (q8.LAUNCHES["compress_q8"], tk.LAUNCHES["topk_ef"])
+    q, scale, new_err = q8.compress_blocks(deltas, err, k)
+    sparse, t_err = tk.topk_ef_blocks(deltas, err, k)
+    torch.cuda.synchronize()
+    assert (q8.LAUNCHES["compress_q8"], tk.LAUNCHES["topk_ef"]) == (before[0] + 1, before[1] + 1)
+    for got, want in zip((q, scale, new_err, sparse, t_err),
+                         (*ref.compress_ref(deltas, err, k),
+                          *ref.blockwise_topk_ef_ref(deltas, err, k))):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    if n > 2:
+        assert not q[1].any() and not scale[1].any()
+
+
+def test_compressor_tie_keeps_nothing_on_the_card(cuda):
+    deltas, err = _compress_case(200, 1352, 68, cuda, seed=3)
+    q, scale, new_err = q8.compress_blocks(deltas, err, 68)
+    assert float(scale[2, 0]) == 0.0 and not q[2].any() and torch.equal(new_err[2], deltas[2])
+    _, _, thr = fa.compress_aggregate_blocks(
+        deltas, err, torch.zeros(200, dtype=torch.int32, device=cuda),
+        torch.ones(200, device=cuda), 1, 68)
+    assert float(thr[2, 0]) == 5.0
+
+
+@pytest.mark.parametrize("n,d", [(1, 1 << 20), (3, 1352), (200, 8209)])
+def test_quant8_kernel_matches_plain(cuda, n, d):
+    g = torch.Generator().manual_seed(n)
+    x = (torch.randn((n, d), generator=g) * 10.0 ** (6 * torch.rand((n, 1), generator=g) - 3))
+    x[0, :100] = 0.0
+    if n > 1:
+        x[1] = 0.0
+    x = x.to(cuda)
+    before = q8.LAUNCHES["quant8"]
+    q, scale = q8.quant8_blocks(x)
+    torch.cuda.synchronize()
+    assert q8.LAUNCHES["quant8"] == before + 1
+    q_ref, scale_ref = ref.quant8_ref(x)
+    assert torch.equal(q, q_ref) and torch.equal(scale, scale_ref)
+
+
+def test_ops_route_compressor_tensors_to_the_kernels(cuda):
+    deltas, err = _compress_case(12, 1352, 68, cuda)
+    before = (q8.LAUNCHES["compress_q8"], q8.LAUNCHES["quant8"], tk.LAUNCHES["topk_ef"])
+    recon, new_err, bits = ops.compress(deltas, err, 0.05)
+    ops.topk_ef(deltas, err, 0.05)
+    q, scale, n = ops.quant8(deltas)
+    torch.cuda.synchronize()
+    assert (q8.LAUNCHES["compress_q8"], q8.LAUNCHES["quant8"], tk.LAUNCHES["topk_ef"]) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    want = ops.compress(deltas.cpu(), err.cpu(), 0.05)
+    for got, w in zip((recon, new_err, bits), want):
+        assert torch.equal(got.cpu(), w)
+    assert torch.equal(ops.dequant8(q, scale, n).cpu(),
+                       ops.dequant8(*ops.quant8(deltas.cpu())))
+
+
+def test_compressor_wrappers_check_inputs(cuda):
+    deltas, err = _compress_case(6, 100, 5, cuda)
+    with pytest.raises(ValueError, match="k"):
+        q8.compress_blocks(deltas, err, 8193)
+    with pytest.raises(TypeError):
+        q8.compress_blocks(deltas.double(), err, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.topk_ef_blocks(deltas.t().contiguous().t(), err, 5)
+    with pytest.raises(ValueError, match="shape"):
+        tk.topk_ef_blocks(deltas, err[:3], 5)
+    with pytest.raises(ValueError, match="on cpu"):
+        q8.compress_blocks(deltas, err.cpu(), 5)
+    with pytest.raises(ValueError, match="rows"):
+        q8.quant8_blocks(deltas[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        q8.quant8_blocks(deltas.cpu())
+
+
+@pytest.mark.parametrize("kw,kernel,per_round", [
+    (dict(compressor=comp.CompressorConfig(fused=False)), "compress_q8", 1),
+    (dict(compressor=comp.CompressorConfig(fused=False, quant_bits=32)), "topk_ef", 1),
+    (dict(compressor=comp.CompressorConfig(rho_s=1.0)), "compress_q8", 1),
+    (dict(drift=DriftConfig(sensor_current_m_s=3.0, reassoc_every=2.0)), "fused_agg", 2),
+])
+def test_per_client_and_drift_trials_on_the_card_match_the_cpu(cuda, kw, kernel, per_round):
+    cfg = exp.make_config(n_sensors=12, n_fog=3, rounds=3, local_epochs=1, **kw)
+    ds = normalize(generate(torch.Generator().manual_seed(0), SyntheticConfig(
+        n_sensors=12, train_len=48, val_len=24, test_len=48), device="cpu"))
+    inputs = exp.draw_trial(torch.Generator().manual_seed(1), ds, cfg)
+    counts = {"compress_q8": q8.LAUNCHES, "topk_ef": tk.LAUNCHES, "fused_agg": fa.LAUNCHES}
+    before = counts[kernel][kernel]
+    gpu = exp.trial_metrics("hfl-selective", None, ds, cfg, inputs=inputs)
+    torch.cuda.synchronize()
+    assert counts[kernel][kernel] == before + 3 * per_round
+    cpu = exp.trial_metrics("hfl-selective", None, ds, cfg, inputs=inputs, device="cpu")
+    for name in ("participation", "coop_links", "e_total", "e_s2f"):
         np.testing.assert_allclose(gpu[name].cpu().numpy(), cpu[name].numpy(), rtol=1e-5)
     np.testing.assert_allclose(gpu["losses"].cpu().numpy(), cpu["losses"].numpy(), rtol=1e-4)
