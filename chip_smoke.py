@@ -83,7 +83,38 @@ the result line:
              the card and on the CPU with identical draws (per-round
              participation exactly, energies to rtol=1e-5, loss within 1%,
              F1 within 0.02); mean participation and F1 of each (their
-             order is recorded, not gated).
+             order is recorded, not gated);
+14. swa_decode — the sliding-window decode-attention kernel against its
+             plain version over (B, Hq, Hkv, d) in {(8, 10, 1, 256), (8, 32,
+             8, 128), (2, 8, 2, 64), (2, 8, 8, 64), (2, 4, 1, 128)}, S in
+             {64, 161, 321, 512, 2,233, 4,096} (161 and 321 are
+             dense-decode's and hybrid-serve's caches), window in {64,
+             2,048, 2^30}, f32 and bf16, per-row lengths 1, window -+ 1, window, S and one past
+             S + window (f32 to rtol=1e-4 / atol=2e-5, bf16 equal or one
+             ulp apart or within 2e-5, the empty window zeros), K/V outside
+             the window perturbed leaving the output bitwise equal; timed
+             at hybrid-window's shape beside its plain version, its bytes
+             bound and ``scaled_dot_product_attention`` (the yardstick);
+15. hybrid-serve — the LM main path: recurrentgemma-2b's published config
+             (26 layers, bf16, random weights from seed 0) through
+             ``launch/serve`` at batch 8, prompt 256 + 64 greedy tokens:
+             tokens/s, ms per decode step, peak memory, ``swa_decode``
+             launches = 8 x 320; then, from the decode's
+             final cache, one more step whose ``swa_decode`` calls (the
+             real q, caches and lengths) are held against the plain
+             version at phase 14's tolerances, and the device time and
+             idle share of the 5 steps after it; hybrid-window (3 layers at
+             full width, 2,200 + 32, the window slides; launches = steps;
+             the same check and profile); the card against the CPU,
+             teacher-forced (full width 3 layers f32 batch 2 x 48 steps,
+             REDUCED f32 and bf16 x 160 steps: f32 max |dlogit| <= 1e-3 x
+             max |logit|, bf16 recorded);
+16. dense-decode — llama3-8b at full width cut to 2 layers, batch 8, 128 +
+             32 (``swa_decode`` launches = 2 x 160, the "global" window
+             2^30; the same check and profile as phase 15's), the card
+             against the CPU in f32 (2 layers, batch 2, 32
+             steps), and gemma2-27b REDUCED against the CPU (soft-capped
+             layers: no ``swa_decode`` launch).
 
 Phase 6 also times ``robust_agg``, ``wire_emit`` and ``wire_agg`` at the
 shapes of phases 9 and 10, ``compress_q8`` and ``topk_ef`` at train-200's
@@ -99,9 +130,10 @@ phase 5), for the training kernels those of phase 8's trial, for
 ``robust_agg`` those of phase 9's trimmed trial on the card and for the
 wire kernels those of phase 10's chunked trial, for ``compress_q8`` and
 ``topk_ef`` those of phase 12's first and second trials and for
-``quant8`` those of phase 12's codec run (each zeroed just before its
-run, read just after).  The last line is ``{"ok": true, "device":
-{...}}``; the line before it is the card's name and power limit, and the
+``quant8`` those of phase 12's codec run and for ``swa_decode`` those of
+phase 15's hybrid-serve run (each zeroed just before its run, read just
+after; phases 15–16 check the other runs' counts too).  The last line is
+``{"ok": true, "device": {...}}``; the line before it is the card's name and power limit, and the
 one before that the ``kernels`` JSON.
 """
 from __future__ import annotations
@@ -1342,12 +1374,365 @@ def drift_fleet(exp, hfl, ae, topo, ch, DriftConfig, ds, lt, fa, dev, name, smi)
     return dict(cells=out, participation_ordered=ordered)
 
 
+# --- phases 14-16: LM decode serving and the swa_decode kernel -------------
+
+SWA_KERNEL = ("src/repro/kernels/swa_attention.py:28", "src/repro_torch/kernels/csrc/swa_decode.cu")
+SWA_SHAPES = ((8, 10, 1, 256), (8, 32, 8, 128), (2, 8, 2, 64), (2, 8, 8, 64), (2, 4, 1, 128))
+SWA_SEQS = (64, 161, 321, 512, 2233, 4096)   # 161, 321: dense-decode's, hybrid-serve's caches
+SWA_WINDOWS = (64, 2048, 2 ** 30)
+SWA_F32_TOL = dict(rtol=1e-4, atol=2e-5)     # the reference's own (tests/test_kernels.py)
+# hybrid-window's attention at its widest: batch 8, recurrentgemma's MQA
+# (Hq 10, Hkv 1, d 256), a 2,233-slot cache at length 2,200, window 2,048, bf16.
+SWA_TIME = dict(b=8, hq=10, hkv=1, d=256, s=2233, length=2200, window=2048)
+# hybrid-serve: recurrentgemma-2b's published config, batch 8, prompt 256 + 64 new.
+HYBRID_ARCH, HYBRID_BATCH, HYBRID_PROMPT, HYBRID_NEW = "recurrentgemma-2b", 8, 256, 64
+# hybrid-window: its first 3 layers (rec, rec, attn) at full width, 2,200 + 32.
+WINDOW_LAYERS, WINDOW_PROMPT, WINDOW_NEW = 3, 2200, 32
+# dense-decode: llama3-8b at full width cut to 2 layers, batch 8, 128 + 32.
+DENSE_ARCH, DENSE_LAYERS, DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = "llama3-8b", 2, 8, 128, 32
+PROFILE_STEPS = 5
+LM_GATE = 1e-3          # card vs CPU, f32: max |dlogit| <= LM_GATE * max |logit|
+CPU_VS_CARD = {         # (layers or None for REDUCED, batch, steps)
+    "hybrid full width": (3, 2, 48),
+    "hybrid REDUCED": (None, 2, 160),
+    "dense full width": (2, 2, 32),
+    "gemma2 REDUCED": (None, 2, 64),
+}
+
+
+def swa_lens(b, s, window, case) -> list[int]:
+    """Per-row cache lengths: a rotation of 1, window - 1, window, window
+    + 1 and S (clamped writes past S), the last row S + window (an empty
+    window)."""
+    mix = [1, window - 1, window, window + 1, s]
+    return [mix[(case + i) % len(mix)] for i in range(b - 1)] + [s + window]
+
+
+def bf16_ulps_ok(got, want) -> bool:
+    """Equal or one bf16 ulp apart; near zero, where the f32 rounding of
+    the sums alone spans bf16 ulps, within f32's atol."""
+    def ordered(x):
+        bits = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits & 0x7FFF)
+    ulps = torch.abs(ordered(got) - ordered(want))
+    near = torch.abs(got.float() - want.float()) <= SWA_F32_TOL["atol"]
+    return bool(torch.all((ulps <= 1) | near))
+
+
+def check_swa_kernel(dev, swa, kref) -> dict:
+    """Phase 14: ``swa_decode`` against its plain version over the grid of
+    (B, Hq, Hkv, d) x S x window x {f32, bf16}: f32 to rtol=1e-4 /
+    atol=2e-5, bf16 equal or one ulp apart, the empty-window row zeros;
+    then K/V outside the window perturbed leaves the output bitwise equal."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    max_err, cases, case = {"f32": 0.0, "bf16": 0.0}, 0, 0
+    for b, hq, hkv, d in SWA_SHAPES:
+        for s in SWA_SEQS:
+            for window in SWA_WINDOWS:
+                lens = swa_lens(b, s, window, case)
+                case += 1
+                q32 = torch.randn((b, hq, d), generator=g, device=dev)
+                k32 = torch.randn((b, s, hkv, d), generator=g, device=dev)
+                v32 = torch.randn((b, s, hkv, d), generator=g, device=dev)
+                ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+                for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                    q, k, v = (t.to(dev, dtype) for t in (q32, k32, v32))
+                    got = swa.swa_decode(q, k, v, ln, window)
+                    want = kref.sliding_window_decode_attention_ref(q, k, v, ln, window)
+                    torch.cuda.synchronize()
+                    what = f"swa_decode {tag} B={b} Hq={hq} Hkv={hkv} d={d} S={s} w={window}"
+                    check(got.dtype == dtype and got.shape == q.shape, f"{what}: output type")
+                    check(bool(torch.all(got[-1] == 0)), f"{what}: empty window not zero")
+                    if tag == "f32":
+                        e = close_on_device(got, want, what=what, **SWA_F32_TOL)
+                    else:
+                        check(bf16_ulps_ok(got, want), f"{what}: beyond one bf16 ulp")
+                        e = float((got.float() - want.float()).abs().max())
+                    max_err[tag] = max(max_err[tag], e)
+                    cases += 1
+    print(f"  {cases} cases within tolerance; max |diff| f32 {max_err['f32']:.3e}, "
+          f"bf16 {max_err['bf16']:.3e}; empty windows zero")
+    for b, hq, hkv, d in SWA_SHAPES[:2]:
+        s, window = 2233, 2048
+        lens = [2200, 77, 1, 2049][:b - 1] + [2233] * (b - 1 - 4) + [s + window]
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                   for shape in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        base = swa.swa_decode(q, k, v, ln, window)
+        k2, v2 = k.clone(), v.clone()
+        for row, n in enumerate(lens):
+            k2[row, :max(0, n - window)] += 100.0
+            v2[row, min(n, s):] = 1e4
+        check(torch.equal(swa.swa_decode(q, k2, v2, ln, window), base),
+              f"swa_decode reads K/V outside the window (Hq={hq})")
+    print("  K/V outside the window perturbed: output bitwise equal")
+    return dict(cases=cases, max_abs_err=max(max_err.values()), by_dtype=max_err)
+
+
+def time_swa_kernel(dev, swa, kref, name, smi) -> dict:
+    """Phase 14's timing at hybrid-window's shape: the kernel and its plain
+    version (``time_cases``), and ``scaled_dot_product_attention`` with a
+    boolean mask and ``enable_gqa`` on the same inputs (the yardstick; the
+    port never calls it)."""
+    import torch.nn.functional as F
+
+    c = SWA_TIME
+    g = torch.Generator(device=dev).manual_seed(15)
+    q = torch.randn((c["b"], c["hq"], c["d"]), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((c["b"], c["s"], c["hkv"], c["d"]), generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    ln = torch.full((c["b"],), c["length"], dtype=torch.int32, device=dev)
+    w = c["window"]
+    pos = torch.arange(c["s"], device=dev)
+    mask = ((pos < ln[:, None]) & (pos >= ln[:, None] - w))[:, None, None, :]
+    qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+
+    def run_library():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+
+    lib = run_library()[:, :, 0].float()
+    ker = swa.swa_decode(q, k, v, ln, w).float()
+    torch.cuda.synchronize()
+    lib_diff = float((lib - ker).abs().max())
+    shape = (f"B={c['b']} Hq={c['hq']} Hkv={c['hkv']} d={c['d']} S={c['s']} len={c['length']} "
+             f"w={w} bf16")
+    t = time_cases({"swa_decode": (lambda: swa.swa_decode(q, k, v, ln, w),
+                                   lambda: kref.sliding_window_decode_attention_ref(q, k, v, ln, w),
+                                   swa.swa_decode_work(q, k, ln, w), (200, 50, 50, 20), shape)},
+                   name, smi)["swa_decode"]
+    library_ms, library_ops = device_ms(run_library, 50)
+    t.update(library_ms=library_ms, library_call_ms=call_ms(run_library, 200),
+             library_device_ops_per_call=library_ops, library_max_abs_diff=lib_diff)
+    print(f"  scaled_dot_product_attention: device time {library_ms * 1e3:9.3f} us "
+          f"({library_ops:.0f} device ops), per call {t['library_call_ms'] * 1e3:9.3f} us; "
+          f"max |diff| from the kernel {lib_diff:.3e}  on {name} ({smi})")
+    return t
+
+
+def cut(cfg, layers):
+    """``cfg`` at full width cut to its first ``layers`` layers."""
+    return cfg if layers is None else cfg.replace(n_layers=layers)
+
+
+def profile_decode(api, cfg, params, cache, tok, n) -> tuple[float, float, int]:
+    """(device ms per decode step, swa_decode device ms per step, device ops
+    per step) over ``n`` steps of torch.profiler's CUPTI trace, after one
+    untraced step, continuing from ``cache``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step = api.make_serve_step(cfg)
+    cache, _ = step(params, cache, tok)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            cache, logits = step(params, cache, tok)
+        torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits).all()), "non-finite logits in the profiled steps")
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(bool(dev), "torch.profiler recorded no device time")
+    total = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / n
+    swa_ms = sum(e.time_range.elapsed_us() for e in dev if "swa_decode" in e.name) / 1e3 / n
+    return total, swa_ms, round(len(dev) / n)
+
+
+def check_swa_on_path(label, api, swa, kref, cfg, params, cache, tok) -> tuple[object, dict]:
+    """One more decode step from the run's final cache, with every
+    ``swa_decode`` call's inputs (the real q, K/V caches and lengths)
+    recorded and its output held against the plain version at phase 14's
+    tolerances (f32 rtol=1e-4 / atol=2e-5, bf16 equal or one ulp apart).
+    Returns the cache after that step and the calls' count and max |diff|."""
+    calls, launch = [], swa.swa_decode
+
+    def recording(q, k, v, cache_len, window):
+        out = launch(q, k, v, cache_len, window)
+        calls.append((out, q, k, v, cache_len.clone(), window))
+        return out
+
+    swa.swa_decode = recording
+    try:
+        cache, logits = api.make_serve_step(cfg)(params, cache, tok)
+    finally:
+        swa.swa_decode = launch
+    check(bool(torch.isfinite(logits).all()), f"{label}: non-finite logits in the checked step")
+    worst, lens = 0.0, set()
+    for i, (got, q, k, v, cache_len, window) in enumerate(calls):
+        want = kref.sliding_window_decode_attention_ref(q, k, v, cache_len, window)
+        what = (f"{label} swa_decode call {i} (B={q.shape[0]} Hq={q.shape[1]} S={k.shape[1]} "
+                f"Hkv={k.shape[2]} d={q.shape[2]} w={window} {q.dtype})")
+        if q.dtype == torch.float32:
+            worst = max(worst, close_on_device(got, want, what=what, **SWA_F32_TOL))
+        else:
+            check(bf16_ulps_ok(got, want), f"{what}: beyond one bf16 ulp")
+            worst = max(worst, float((got.float() - want.float()).abs().max()))
+        lens.update(cache_len.tolist())
+    return cache, dict(calls=len(calls), max_abs_err=worst, lengths=sorted(lens),
+                       s=int(calls[0][2].shape[1]) if calls else 0)
+
+
+def lm_serve(label, api, serve, swa, kref, cfg, dev, batch, prompt_len, new_tokens, name,
+             smi) -> dict:
+    """Serve ``cfg`` with random weights from seed 0: token-stepped prefill
+    of random prompts, greedy decode (``launch/serve``), the ``swa_decode``
+    launches of that run (zeroed just before it, read just after), prefill
+    and decode tokens/s, ms per decode step, peak memory; then, continuing
+    from the decode's final cache, one step whose ``swa_decode`` calls are
+    held against the plain version (``check_swa_on_path``), and the device
+    time and idle share of the steps after it."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = api.init_params(g, cfg)
+    cache = api.init_cache(cfg, batch, prompt_len + new_tokens + 1, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g, device=dev,
+                            dtype=torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    swa.reset_launches()
+    t0 = time.perf_counter()
+    cache, logits = serve.prefill_into_cache(cfg, params, cache, prompts)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cache, toks = serve.decode_tokens(cfg, params, cache, logits, new_tokens)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    launches = swa.LAUNCHES["swa_decode"]
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    check(bool(torch.isfinite(logits).all()), f"{label}: non-finite prefill logits")
+    check(toks.shape == (batch, new_tokens) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"{label}: tokens out of range")
+    n_attn = launches // (prompt_len + new_tokens)
+    cache, path_check = check_swa_on_path(label, api, swa, kref, cfg, params, cache,
+                                          toks[:, -1:])
+    check(path_check["calls"] == n_attn,
+          f"{label}: {path_check['calls']} swa_decode calls in the checked step, expected {n_attn}")
+    # Tokens in the cache when the attention runs: the checked step's, then
+    # the profile's untraced step and its traced steps.
+    first = prompt_len + new_tokens + 1
+    dev_ms, swa_ms, ops = profile_decode(api, cfg, params, cache, toks[:, -1:], PROFILE_STEPS)
+    step_ms = t_decode / new_tokens * 1e3
+    out = dict(
+        config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, dtype=str(cfg.dtype),
+        batch=batch, prompt_len=prompt_len, new_tokens=new_tokens, launches=launches,
+        prefill_s=t_prefill, decode_s=t_decode,
+        prefill_tok_s=batch * prompt_len / t_prefill, decode_tok_s=batch * new_tokens / t_decode,
+        decode_step_ms=step_ms, peak_mib=peak_mib, step_device_ms=dev_ms,
+        step_swa_device_ms=swa_ms, step_device_ops=ops, idle_share=1.0 - dev_ms / step_ms,
+        profile_lengths=[first + 2, first + 1 + PROFILE_STEPS], path_check=path_check,
+        sample=toks[0, :8].tolist(),
+    )
+    print(f"  {label}: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} {cfg.dtype}, batch "
+          f"{batch}, prompt {prompt_len} + {new_tokens} new: prefill {out['prefill_tok_s']:.1f} "
+          f"tok/s ({t_prefill:.3f} s), decode {out['decode_tok_s']:.1f} tok/s, {step_ms:.3f} ms "
+          f"per step; peak {peak_mib:.1f} MiB; a decode step: {dev_ms:.3f} ms device time in "
+          f"{ops} ops (swa_decode {swa_ms * 1e3:.1f} us), idle share {out['idle_share']:.3f}; "
+          f"swa_decode launches {launches}  on {name} ({smi})")
+    print(f"  {label}: the next step's {path_check['calls']} swa_decode calls (cache lengths "
+          f"{path_check['lengths']}, S={path_check['s']}) vs the plain version: max |diff| "
+          f"{path_check['max_abs_err']:.3e}; profiled steps at lengths {first + 2}-"
+          f"{first + 1 + PROFILE_STEPS} (writes past S={path_check['s']} clamp to the last slot)")
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def card_vs_cpu(label, api, layers, swa, cfg, dev, batch, steps, gate: bool) -> dict:
+    """Teacher-force the same tokens through the model on the card and on
+    the CPU (same weights, drawn on the card from seed 1 and copied):
+    max over steps of max |dlogit| / max |logit|, gated at ``LM_GATE``
+    when ``gate``; the card's ``swa_decode`` launches."""
+    gpu_params = api.init_params(torch.Generator(device=dev).manual_seed(1), cfg)
+    cpu_params = layers.map_leaves(lambda t: t.cpu(), gpu_params)
+    caches = [api.init_cache(cfg, batch, steps + 1, device=dev),
+              api.init_cache(cfg, batch, steps + 1, device="cpu")]
+    step = api.make_serve_step(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (steps, batch, 1),
+                         generator=torch.Generator().manual_seed(2), dtype=torch.int32)
+    worst, launches = 0.0, 0
+    for t in range(steps):
+        swa.reset_launches()
+        caches[0], got = step(gpu_params, caches[0], toks[t].to(dev))
+        launches += swa.LAUNCHES["swa_decode"]
+        caches[1], want = step(cpu_params, caches[1], toks[t])
+        got = got.cpu()
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite logits at step {t}")
+        worst = max(worst, float((got - want).abs().max() / want.abs().max()))
+    if gate:
+        check(worst <= LM_GATE, f"{label}: card vs CPU max rel |dlogit| {worst:.3e} > {LM_GATE}")
+    print(f"  {label} card vs CPU ({cfg.name}, {cfg.n_layers} layers d={cfg.d_model} {cfg.dtype}, "
+          f"batch {batch}, {steps} steps teacher-forced): max |dlogit| / max |logit| "
+          f"{worst:.3e}{' (gate ' + str(LM_GATE) + ')' if gate else ' (recorded)'}; "
+          f"swa_decode launches {launches}")
+    del gpu_params, cpu_params, caches
+    torch.cuda.empty_cache()
+    return dict(max_rel_logit_diff=worst, launches=launches, steps=steps, batch=batch,
+                layers=cfg.n_layers, dtype=str(cfg.dtype))
+
+
+def hybrid_phase(configs, api, layers, serve, rglru, swa, kref, dev, name, smi) -> dict:
+    """Phase 15: hybrid-serve (the main path), hybrid-window, and the card
+    against the CPU at full width (3 layers, f32) and at REDUCED size (f32
+    gated, bf16 recorded)."""
+    full = configs.get(HYBRID_ARCH)
+    n_attn = rglru.pattern(full).count("attn")
+    serve_run = lm_serve("hybrid-serve", api, serve, swa, kref, full, dev, HYBRID_BATCH,
+                         HYBRID_PROMPT, HYBRID_NEW, name, smi)
+    want = n_attn * (HYBRID_PROMPT + HYBRID_NEW)
+    check(serve_run["launches"] == want,
+          f"hybrid-serve: {serve_run['launches']} swa_decode launches, expected {want}")
+    wcfg = cut(full, WINDOW_LAYERS)
+    window_run = lm_serve("hybrid-window", api, serve, swa, kref, wcfg, dev, HYBRID_BATCH,
+                          WINDOW_PROMPT, WINDOW_NEW, name, smi)
+    want = rglru.pattern(wcfg).count("attn") * (WINDOW_PROMPT + WINDOW_NEW)
+    check(window_run["launches"] == want,
+          f"hybrid-window: {window_run['launches']} swa_decode launches, expected {want}")
+    lay, batch, steps = CPU_VS_CARD["hybrid full width"]
+    _, r_batch, r_steps = CPU_VS_CARD["hybrid REDUCED"]
+    runs = {"full width f32": (cut(full, lay).replace(dtype=torch.float32), batch, steps, True)}
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        runs[f"REDUCED {tag}"] = (configs.get(HYBRID_ARCH, reduced=True).replace(dtype=dtype),
+                                  r_batch, r_steps, tag == "f32")
+    vs_cpu = {}
+    for key, (cfg, batch, steps, gate) in runs.items():
+        vs_cpu[key] = card_vs_cpu(f"hybrid {key}", api, layers, swa, cfg, dev, batch, steps, gate)
+        want = rglru.pattern(cfg).count("attn") * steps
+        check(vs_cpu[key]["launches"] == want,
+              f"hybrid {key}: {vs_cpu[key]['launches']} swa_decode launches, expected {want}")
+    return {"hybrid-serve": serve_run, "hybrid-window": window_run, "card_vs_cpu": vs_cpu}
+
+
+def dense_phase(configs, api, layers, serve, swa, kref, dev, name, smi) -> dict:
+    """Phase 16: dense-decode (llama3-8b at full width, 2 layers), the card
+    against the CPU in f32, and gemma2-27b REDUCED (soft-capped layers:
+    the plain branch, no swa_decode launch) against the CPU."""
+    dcfg = cut(configs.get(DENSE_ARCH), DENSE_LAYERS)
+    run = lm_serve("dense-decode", api, serve, swa, kref, dcfg, dev, DENSE_BATCH, DENSE_PROMPT,
+                   DENSE_NEW, name, smi)
+    want = DENSE_LAYERS * (DENSE_PROMPT + DENSE_NEW)
+    check(run["launches"] == want, f"dense-decode: {run['launches']} swa_decode launches, "
+          f"expected {want}")
+    lay, batch, steps = CPU_VS_CARD["dense full width"]
+    vs_cpu = {"llama3 full width f32": card_vs_cpu(
+        "dense", api, layers, swa, cut(configs.get(DENSE_ARCH), lay).replace(dtype=torch.float32),
+        dev, batch, steps, gate=True)}
+    check(vs_cpu["llama3 full width f32"]["launches"] == lay * steps,
+          "dense: swa_decode launches on the card vs CPU run")
+    _, batch, steps = CPU_VS_CARD["gemma2 REDUCED"]
+    vs_cpu["gemma2 REDUCED f32"] = card_vs_cpu(
+        "gemma2 REDUCED", api, layers, swa,
+        configs.get("gemma2-27b", reduced=True).replace(dtype=torch.float32), dev, batch, steps,
+        gate=True)
+    check(vs_cpu["gemma2 REDUCED f32"]["launches"] == 0,
+          "gemma2's soft-capped layers launched swa_decode")
+    return {"dense-decode": run, "card_vs_cpu": vs_cpu}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs as lm_configs
     from repro_torch.checkpoint import CheckpointStore
     from repro_torch.core import aggregation as agg
     from repro_torch.core import anomaly, hfl
@@ -1366,10 +1751,15 @@ def main() -> int:
     from repro_torch.kernels import quant8 as kq8
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import robust_agg as ra
+    from repro_torch.kernels import swa_attention as swa
     from repro_torch.kernels import topk_ef as tk
     from repro_torch.launch import experiment as exp
+    from repro_torch.launch import serve as lm_launch
     from repro_torch.loadgen import VirtualClock, gaussian_windows, mmpp_trace, replay
+    from repro_torch.models import api as lm_api
     from repro_torch.models import autoencoder as ae
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import rglru
     from repro_torch.serving import ScoringService, StreamingCalibrator
 
     # The serving package re-exports a function named ``score`` that
@@ -1532,6 +1922,17 @@ def main() -> int:
 
     phase("13. drift-200 (main path): the dynamic world, N=200, T=20")
     drift = drift_fleet(exp, hfl, ae, topo, ch, DriftConfig, train_ds, lt, fa, dev, name, smi)
+
+    phase("14. swa_decode against its plain version; timing at hybrid-window's shape")
+    swa_err = check_swa_kernel(dev, swa, kref)
+    swa_timing = time_swa_kernel(dev, swa, kref, name, smi)
+
+    phase("15. hybrid-serve (main path): recurrentgemma-2b decode serving")
+    hybrid = hybrid_phase(lm_configs, lm_api, lm_layers, lm_launch, rglru, swa, kref, dev, name,
+                          smi)
+
+    phase("16. dense-decode (main path): llama3-8b at full width, 2 layers")
+    dense = dense_phase(lm_configs, lm_api, lm_layers, lm_launch, swa, kref, dev, name, smi)
     phase("done")
 
     kernels = []
@@ -1578,6 +1979,23 @@ def main() -> int:
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"legacy": legacy, "tied_blocks": tied_blocks}))
     print(json.dumps({"drift": drift}))
+    replaces, source = SWA_KERNEL
+    kernels.append({
+        "name": "swa_decode",
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": hybrid["hybrid-serve"]["launches"],
+        "max_abs_err": max([swa_err["max_abs_err"]] + [
+            run["path_check"]["max_abs_err"] for run in (hybrid["hybrid-serve"],
+                                                         hybrid["hybrid-window"],
+                                                         dense["dense-decode"])]),
+        **swa_timing,
+        "launches_by_path": {"hybrid-serve": hybrid["hybrid-serve"]["launches"],
+                             "hybrid-window": hybrid["hybrid-window"]["launches"],
+                             "dense-decode": dense["dense-decode"]["launches"]},
+    })
+    print(json.dumps({"lm": {"swa_check": swa_err, "hybrid": hybrid, "dense": dense}}))
     print("phase seconds: " + ", ".join(f"{k.split('.')[0]} {v:.1f}" for k, v in PHASE_S.items()
                                         if k != "done"))
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,22 @@
+"""llama3-8b [dense]: 32L d_model=4096 32H (GQA kv=8) d_ff=14336
+vocab=128256 [arXiv:2407.21783]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3-8b",
+    family="dense",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=14336,
+    vocab_size=128256,
+    head_dim=128,
+    rope_theta=500000.0,
+)
+
+REDUCED = CONFIG.replace(
+    name="llama3-8b-reduced",
+    n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
+    vocab_size=512, head_dim=64,
+)

@@ -1,3 +1,3 @@
 # Hand-written CUDA kernels for Hopper (csrc/, built by _build.py and bound
 # with ctypes in fused_score.py, local_train.py, fused_agg.py, robust_agg.py,
-# quant8.py and topk_ef.py) + plain PyTorch twins in ref.py.
+# quant8.py, topk_ef.py and swa_attention.py) + plain PyTorch twins in ref.py.

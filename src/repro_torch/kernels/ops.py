@@ -3,12 +3,14 @@
 A CPU tensor goes to the plain version in ``kernels/ref``; a CUDA tensor
 goes to the hand-written kernel (``kernels/fused_score``,
 ``kernels/local_train``, ``kernels/fused_agg``, ``kernels/robust_agg``,
-``kernels/quant8``, ``kernels/topk_ef``), which raises on anything it
-cannot take; there is no fallback.  Counterparts of the same-named
+``kernels/quant8``, ``kernels/topk_ef``, ``kernels/swa_attention``), which
+raises on anything it cannot take; there is no fallback.  Counterparts of the same-named
 functions of ``repro.kernels.ops``, without their TPU row and 128-lane
 padding: the CUDA kernels take the real widths.  The per-client
 compressors (:func:`topk_ef`, :func:`quant8`, :func:`compress`) take a
-batch of rows (N, d), where the reference takes one flat vector.
+batch of rows (N, d), where the reference takes one flat vector, and
+:func:`swa_decode_attention` a batch of sequences, where the reference
+takes one (its caller vmaps it).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.kernels import local_train as _lt
 from repro_torch.kernels import quant8 as _q8
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import robust_agg as _ra
+from repro_torch.kernels import swa_attention as _swa
 from repro_torch.kernels import topk_ef as _tk
 from repro_torch.models import autoencoder as ae
 
@@ -245,3 +248,18 @@ def fused_score_q8(
     if _route(x) == "cpu":
         return _ref.fused_score_q8_ref(x, qws, sws, bs, tau_rows)
     return _fs.score_rows_q8(x, tau_rows, qws, sws, bs)
+
+
+def swa_decode_attention(
+    q: torch.Tensor,          # (B, Hq, d) one query token per sequence
+    k_cache: torch.Tensor,    # (B, S, Hkv, d)
+    v_cache: torch.Tensor,    # (B, S, Hkv, d)
+    cache_len: torch.Tensor,  # (B,) int32 valid entries per sequence
+    window: int,
+) -> torch.Tensor:
+    """Single-token sliding-window GQA attention over the last ``window``
+    positions of each sequence's cache: (B, Hq, d) in q's dtype, zeros for
+    a sequence whose window is empty."""
+    if _route(q) == "cuda":
+        return _swa.swa_decode(q, k_cache, v_cache, cache_len, window)
+    return _ref.sliding_window_decode_attention_ref(q, k_cache, v_cache, cache_len, window)

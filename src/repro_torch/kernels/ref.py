@@ -395,3 +395,37 @@ def robust_aggregate_ref(
             out[m, c0:c0 + cols] = torch.sum(eff * x, dim=0) / torch.clamp_min(
                 torch.sum(eff, dim=0), 1e-12)
     return out, fog_weight
+
+
+SWA_NEG_INF = -1e30   # the decode kernel's running-max start (swa_decode.cu)
+
+
+def sliding_window_decode_attention_ref(
+    q: torch.Tensor,          # (B, Hq, d) one query token per row
+    k_cache: torch.Tensor,    # (B, S, Hkv, d)
+    v_cache: torch.Tensor,    # (B, S, Hkv, d)
+    cache_len: torch.Tensor,  # (B,) int32 valid entries per row
+    window: int,              # attend to the last ``window`` positions
+) -> torch.Tensor:
+    """One-token GQA decode attention over positions [len - window, len)
+    of each row's cache; (B, Hq, d) in q's dtype, computed in f32.
+
+    The function of the ``swa_decode`` kernel: q is scaled by d**-0.5
+    before the dot product, and the softmax takes the kernel's clips
+    (exp(clip(s - m, -80, 0)), the sum floored at 1e-20), so a row with no
+    position in its window gives zeros (the reference's oracle gives NaN
+    there, and its plain branch the mean of the whole cache)."""
+    b, hq, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, d).to(torch.float32) * (d ** -0.5)
+    scores = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.to(torch.float32))
+    pos = torch.arange(s, device=q.device)
+    n = cache_len.to(torch.int64)[:, None]
+    valid = ((pos < n) & (pos >= n - window))[:, None, None, :]         # (B, 1, 1, S)
+    m = torch.amax(torch.where(valid, scores, float("-inf")), dim=-1, keepdim=True)
+    m = torch.clamp_min(m, SWA_NEG_INF)
+    p = torch.where(valid, torch.exp(torch.clamp(scores - m, -80.0, 0.0)), 0.0)
+    acc = torch.einsum("bhgs,bshd->bhgd", p, v_cache.to(torch.float32))
+    out = acc / torch.clamp_min(torch.sum(p, dim=-1, keepdim=True), 1e-20)
+    return out.reshape(b, hq, d).to(q.dtype)

@@ -1,0 +1,151 @@
+"""Attention for the language models: GQA with optional qk-norm,
+soft-capping and sliding-window masking; the single-token decode path of
+``repro.models.attention`` (the full-sequence path waits with prefill by
+``forward``).
+
+Shapes follow the (batch, seq, heads, head_dim) convention; KV caches are
+(batch, max_seq, kv_heads, head_dim).  Unlike the reference, which updates
+the cache functionally, :func:`decode_step` writes the new K/V into the
+cache tensors in place (a decode step would otherwise copy every cache of
+the model) and returns a :class:`KVCache` holding those tensors.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch import device as _device
+from repro_torch.kernels import ops as kops
+from repro_torch.models import layers as L
+
+NEG_INF = -2.3819763e38  # the reference's mask value of the plain branch
+
+
+class AttnParams(NamedTuple):
+    wq: torch.Tensor        # (d_model, n_heads, head_dim)
+    wk: torch.Tensor        # (d_model, n_kv, head_dim)
+    wv: torch.Tensor        # (d_model, n_kv, head_dim)
+    wo: torch.Tensor        # (n_heads, head_dim, d_model)
+    q_norm: torch.Tensor | None    # (head_dim,) qk-norm scales (qwen3)
+    k_norm: torch.Tensor | None
+
+
+def init(
+    generator: torch.Generator,
+    d_model: int,
+    n_heads: int,
+    n_kv: int,
+    head_dim: int,
+    qk_norm: bool = False,
+    dtype: torch.dtype = torch.bfloat16,
+) -> AttnParams:
+    dev = generator.device
+    return AttnParams(
+        wq=L.dense_init(generator, (d_model, n_heads, head_dim), dtype),
+        wk=L.dense_init(generator, (d_model, n_kv, head_dim), dtype),
+        wv=L.dense_init(generator, (d_model, n_kv, head_dim), dtype),
+        wo=L.dense_init(generator, (n_heads, head_dim, d_model), dtype,
+                        scale=(n_heads * head_dim) ** -0.5),
+        q_norm=torch.zeros((head_dim,), dtype=dtype, device=dev) if qk_norm else None,
+        k_norm=torch.zeros((head_dim,), dtype=dtype, device=dev) if qk_norm else None,
+    )
+
+
+def _project_qkv(
+    p: AttnParams, x: torch.Tensor, positions: torch.Tensor,
+    rope_theta: float | None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
+    v = torch.einsum("bsd,dhk->bshk", x, p.wv)
+    if p.q_norm is not None:
+        q = L.rms_norm(q, p.q_norm)
+        k = L.rms_norm(k, p.k_norm)
+    if rope_theta is not None:  # None => absolute-position models (whisper)
+        q = L.apply_rope(q, positions, rope_theta)
+        k = L.apply_rope(k, positions, rope_theta)
+    return q, k, v
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor          # (b, max_seq, n_kv, head_dim)
+    v: torch.Tensor
+    length: torch.Tensor     # (b,) int32 — tokens seen (may pass max_seq)
+
+
+def init_cache(
+    batch: int, max_seq: int, n_kv: int, head_dim: int,
+    dtype: torch.dtype = torch.bfloat16, device: torch.device | str | None = None,
+) -> KVCache:
+    """Zero caches; ``device=None`` means the card."""
+    device = _device.resolve(device)
+    return KVCache(
+        k=torch.zeros((batch, max_seq, n_kv, head_dim), dtype=dtype, device=device),
+        v=torch.zeros((batch, max_seq, n_kv, head_dim), dtype=dtype, device=device),
+        length=torch.zeros((batch,), dtype=torch.int32, device=device),
+    )
+
+
+def decode_step(
+    p: AttnParams,
+    cache: KVCache,
+    x: torch.Tensor,              # (b, 1, d) — the new token's activations
+    window: int | None = None,
+    attn_softcap: float | None = None,
+    rope_theta: float = 10000.0,
+) -> tuple[KVCache, torch.Tensor]:
+    """One decode step: write the new K/V at ``length`` (in place), attend,
+    return (cache, out (b, 1, d)).
+
+    The write clamps its slot to ``max_seq - 1`` as the reference's
+    ``dynamic_update_slice`` does, so once ``length >= max_seq`` every new
+    token overwrites the last slot while ``length`` keeps growing; rope
+    takes the position ``length`` before the increment.
+
+    Routing replaces the reference's ``use_pallas_swa`` flag and is decided
+    by the layer alone: a layer with a window and no ``attn_softcap`` goes
+    to ``kernels/ops.swa_decode_attention`` (the ``swa_decode`` kernel on
+    the card, its plain version on the CPU); any other layer takes the
+    plain masked softmax of the reference's other branch (``NEG_INF``
+    mask, probabilities cast to x's dtype before the PV product).  The two
+    compute the same function except where the window is empty (the
+    kernel gives zeros, the plain branch the mean of the whole cache)."""
+    b = x.shape[0]
+    positions = cache.length[:, None]               # (b, 1)
+    q, k_new, v_new = _project_qkv(p, x, positions, rope_theta)
+
+    max_seq = cache.k.shape[1]
+    slot = torch.clamp(cache.length, max=max_seq - 1).to(torch.int64)
+    rows = torch.arange(b, device=x.device)
+    cache.k[rows, slot] = k_new[:, 0]
+    cache.v[rows, slot] = v_new[:, 0]
+    k, v = cache.k, cache.v
+    new_len = cache.length + 1
+
+    n_heads, head_dim = q.shape[-2], q.shape[-1]
+    n_kv = k.shape[-2]
+    g = n_heads // n_kv
+
+    if window is not None and attn_softcap is None:
+        out = kops.swa_decode_attention(q.reshape(b, n_heads, head_dim), k, v, new_len,
+                                        int(window))
+        out = out.reshape(b, 1, n_heads, head_dim)
+    else:
+        qg = q.reshape(b, 1, n_kv, g, head_dim)
+        scores = torch.einsum(
+            "bqhgk,bthk->bhgqt", qg.to(torch.float32), k.to(torch.float32)
+        ) * (head_dim ** -0.5)
+        if attn_softcap is not None:
+            scores = L.softcap(scores, attn_softcap)
+        kpos = torch.arange(max_seq, device=x.device)[None, :]
+        valid = kpos < new_len[:, None]
+        if window is not None:
+            valid &= kpos >= (new_len[:, None] - window)
+        scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = torch.einsum("bhgqt,bthk->bqhgk", probs, v)
+        out = out.reshape(b, 1, n_heads, head_dim)
+
+    y = torch.einsum("bshk,hkd->bsd", out, p.wo)
+    return KVCache(k, v, new_len), y

@@ -1,0 +1,111 @@
+"""Shared layers of the language models, the decode subset of
+``repro.models.layers``.
+
+Plain functions over tensors; the compute dtype is the params' (bf16 for
+the published configs) with f32 norms, softmax and logits, as in the
+reference.  ``shard_hint`` is not ported (one device; ROADMAP queue 1
+item 15).  Initialisers draw from a ``torch.Generator``, on its device, with
+the reference's distributions and dtypes (not its numbers: threefry is
+not reproduced; tests carry the reference's own params across with
+``from_numpy``).
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in f32 scaled by ``1 + scale``, cast back to x's dtype."""
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-2 style logit soft-capping: cap * tanh(x / cap)."""
+    return cap * torch.tanh(x / cap)
+
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0,
+                     device: torch.device | str | None = None) -> torch.Tensor:
+    """(head_dim/2,) f32 inverse frequencies."""
+    exp = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exp)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding on split halves (not interleaved pairs), in f32.
+    x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    head_dim = x.shape[-1]
+    freqs = rope_frequencies(head_dim, theta, x.device)
+    angles = positions[..., :, None].to(torch.float32) * freqs     # (..., seq, hd/2)
+    angles = angles[..., None, :]                                  # (..., seq, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def dense_init(generator: torch.Generator, shape: tuple[int, ...],
+               dtype: torch.dtype = torch.bfloat16, scale: float | None = None) -> torch.Tensor:
+    """N(0, 1) * scale in f32 (scale fan_in**-0.5 by default), then cast;
+    drawn on the generator's device."""
+    if scale is None:
+        scale = shape[0] ** -0.5
+    z = torch.randn(shape, generator=generator, dtype=torch.float32, device=generator.device)
+    return (scale * z).to(dtype)
+
+
+def embed_init(generator: torch.Generator, vocab: int, dim: int,
+               dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    # 1/sqrt(d) scale keeps tied-unembedding logits O(1) at init.
+    return dense_init(generator, (vocab, dim), dtype, scale=dim ** -0.5)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor,
+           act: Callable[[torch.Tensor], torch.Tensor] = F.silu) -> torch.Tensor:
+    """Gated MLP: down( act(x @ gate) * (x @ up) )."""
+    h = act(x @ w_gate) * (x @ w_up)
+    return h @ w_down
+
+
+def tensor_from_array(a, device: torch.device | str) -> torch.Tensor:
+    """A numpy array (e.g. a JAX array through ``np.asarray``) -> a tensor
+    on ``device``, dtype kept.  bf16 (``ml_dtypes.bfloat16``, which
+    ``torch.from_numpy`` rejects) is carried bit for bit through a
+    ``uint16`` view."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(a.view(np.uint16), copy=True)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device)
+
+
+def array_from_tensor(t: torch.Tensor) -> np.ndarray:
+    """A tensor -> a host numpy array; bf16 becomes float32 (exact), which
+    ``jnp.asarray(a, jnp.bfloat16)`` takes back unchanged."""
+    t = t.detach().cpu()
+    return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def map_leaves(fn, tree):
+    """``fn`` over the array leaves of a tree of NamedTuples, tuples and
+    ``None``s, rebuilt with the same classes."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        items = [map_leaves(fn, x) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return fn(tree)

@@ -616,3 +616,99 @@ def test_per_client_and_drift_trials_on_the_card_match_the_cpu(cuda, kw, kernel,
     for name in ("participation", "coop_links", "e_total", "e_s2f"):
         np.testing.assert_allclose(gpu[name].cpu().numpy(), cpu[name].numpy(), rtol=1e-5)
     np.testing.assert_allclose(gpu["losses"].cpu().numpy(), cpu["losses"].numpy(), rtol=1e-4)
+
+
+# --- sliding-window decode attention (swa_decode) and LM decode -------------
+
+SWA_F32_TOL = dict(atol=2e-5, rtol=1e-4)
+
+
+def _swa_inputs(b, hq, hkv, d, s, lens, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, hq, d), generator=g).to(device, dtype)
+    k = torch.randn((b, s, hkv, d), generator=g).to(device, dtype)
+    v = torch.randn((b, s, hkv, d), generator=g).to(device, dtype)
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=device)
+
+
+def _assert_swa_close(got, want):
+    """f32 to the reference's kernel tolerance; bf16 equal or one ulp apart
+    (within f32's atol near zero, where f32 rounding spans bf16 ulps)."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, **SWA_F32_TOL)
+        return
+    def ordered(x):
+        bits = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits & 0x7FFF)
+    ulps = torch.abs(ordered(got) - ordered(want))
+    near = torch.abs(got.float() - want.float()) <= SWA_F32_TOL["atol"]
+    assert bool(torch.all((ulps <= 1) | near))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [64, 2048, 2 ** 30])
+@pytest.mark.parametrize("s", [64, 2233])
+@pytest.mark.parametrize("hq,hkv,d", [(10, 1, 256), (32, 8, 128), (8, 8, 64), (36, 2, 32)])
+def test_swa_decode_kernel_matches_plain(cuda, hq, hkv, d, s, window, dtype):
+    lens = [1, min(window - 1, s), min(window, s), min(window + 1, s), s, s + window]
+    q, k, v, ln = _swa_inputs(len(lens), hq, hkv, d, s, lens, dtype, cuda, seed=s + d)
+    got = ops.swa_decode_attention(q, k, v, ln, window)
+    want = ref.sliding_window_decode_attention_ref(q, k, v, ln, window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    _assert_swa_close(got, want)
+    assert bool(torch.all(got[-1] == 0))          # len >= S + window: empty window
+
+
+def test_swa_decode_ignores_positions_outside_the_window_bitwise(cuda):
+    lens, window = [300, 77], 64
+    q, k, v, ln = _swa_inputs(2, 10, 1, 256, 512, lens, torch.bfloat16, cuda)
+    base = ops.swa_decode_attention(q, k, v, ln, window)
+    k2, v2 = k.clone(), v.clone()
+    for row, n in enumerate(lens):
+        k2[row, :n - window] += 100.0
+        v2[row, n:] = 1e4
+    torch.testing.assert_close(ops.swa_decode_attention(q, k2, v2, ln, window), base,
+                               rtol=0, atol=0)
+
+
+def test_swa_decode_wrapper_checks_inputs_and_counts(cuda):
+    from repro_torch.kernels import swa_attention as swa
+    q, k, v, ln = _swa_inputs(2, 8, 2, 64, 96, [96, 10], torch.float32, cuda)
+    swa.reset_launches()
+    ops.swa_decode_attention(q, k, v, ln, 32)
+    assert swa.LAUNCHES["swa_decode"] == 1
+    with pytest.raises(ValueError, match="head_dim"):
+        swa.swa_decode(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                       v[..., :48].contiguous(), ln, 32)
+    with pytest.raises(TypeError):
+        swa.swa_decode(q, k.to(torch.bfloat16), v, ln, 32)
+    with pytest.raises(TypeError):
+        swa.swa_decode(q, k, v, ln.to(torch.int64), 32)
+    assert swa.LAUNCHES["swa_decode"] == 1
+
+
+def test_reduced_hybrid_decode_on_the_card_matches_cpu(cuda):
+    """REDUCED recurrentgemma, f32, teacher-forced for 160 steps (the
+    window of 64 slides): logits on the card within 1e-3 of the largest
+    CPU logit, and one ``swa_decode`` launch per attention layer and step."""
+    from repro_torch import configs
+    from repro_torch.kernels import swa_attention as swa
+    from repro_torch.models import api, layers, rglru
+    cfg = configs.get("recurrentgemma-2b", reduced=True).replace(dtype=torch.float32)
+    cpu_params = api.init_params(torch.Generator().manual_seed(0), cfg)
+    gpu_params = layers.map_leaves(lambda t: t.to(cuda), cpu_params)
+    b, steps = 2, 160
+    caches = {"cpu": api.init_cache(cfg, b, steps + 1, device="cpu"),
+              "cuda": api.init_cache(cfg, b, steps + 1, device=cuda)}
+    step = api.make_serve_step(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (steps, b, 1),
+                         generator=torch.Generator().manual_seed(1))
+    swa.reset_launches()
+    for t in range(steps):
+        caches["cpu"], want = step(cpu_params, caches["cpu"], toks[t])
+        caches["cuda"], got = step(gpu_params, caches["cuda"], toks[t].to(cuda))
+        err = float(torch.max(torch.abs(got.cpu() - want)))
+        assert err <= 1e-3 * float(torch.max(torch.abs(want))), (t, err)
+    n_attn = rglru.pattern(cfg).count("attn")
+    assert swa.LAUNCHES["swa_decode"] == n_attn * steps
