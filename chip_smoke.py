@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one Hopper card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one sm_90 CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``)
+It needs one sm_90 CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``),
+the port's sources beside it (``src/repro_torch``; without them it exits 1)
 and nothing of JAX.  Phases, in order; any failure exits non-zero before
 the result line:
 
@@ -92,9 +93,11 @@ the result line:
              2,048, 2^30}, f32 and bf16, per-row lengths 1, window -+ 1, window, S and one past
              S + window (f32 to rtol=1e-4 / atol=2e-5, bf16 equal or one
              ulp apart or within 2e-5, the empty window zeros), K/V outside
-             the window perturbed leaving the output bitwise equal; timed
-             at hybrid-window's shape beside its plain version, its bytes
-             bound and ``scaled_dot_product_attention`` (the yardstick);
+             the window perturbed leaving the output bitwise equal, and
+             repeated calls bitwise equal (the splits merge in a fixed
+             order); timed at hybrid-window's and at dense-decode's shapes
+             beside its plain version, its bytes bound and
+             ``scaled_dot_product_attention`` (the yardstick);
 15. hybrid-serve — the LM main path: recurrentgemma-2b's published config
              (26 layers, bf16, random weights from seed 0) through
              ``launch/serve`` at batch 8, prompt 256 + 64 greedy tokens:
@@ -303,21 +306,40 @@ def call_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def device_ms(fn, n: int) -> tuple[float, float]:
-    """(device ms per call, device activities per call) over ``n`` calls,
-    from torch.profiler's CUPTI trace.  Fails when the profiler recorded
-    no device activity."""
+PROFILE_TRIES = 3     # traces of one measurement before an empty one fails the run
+
+
+def device_events(run) -> list:
+    """The device activities of torch.profiler's CUPTI trace of ``run()``
+    (which ends in a ``torch.cuda.synchronize``).  A trace that comes back
+    without device activity is taken again, up to ``PROFILE_TRIES``
+    traces; the run fails when none recorded any."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:
+            return dev
+        print(f"  torch.profiler recorded no device time (trace {attempt + 1} of "
+              f"{PROFILE_TRIES})")
+    check(False, "torch.profiler recorded no device time")
+
+
+def device_ms(fn, n: int) -> tuple[float, float]:
+    """(device ms per call, device activities per call) over ``n`` calls,
+    from torch.profiler's CUPTI trace (:func:`device_events`)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    check(bool(dev), "torch.profiler recorded no device time")
+
+    dev = device_events(run)
     return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / n, len(dev) / n
 
 
@@ -1377,6 +1399,7 @@ def drift_fleet(exp, hfl, ae, topo, ch, DriftConfig, ds, lt, fa, dev, name, smi)
 # --- phases 14-16: LM decode serving and the swa_decode kernel -------------
 
 SWA_KERNEL = ("src/repro/kernels/swa_attention.py:28", "src/repro_torch/kernels/csrc/swa_decode.cu")
+SWA_DEVICE_KERNELS = ("swa_split_kernel", "swa_merge_kernel")   # one swa_decode call
 SWA_SHAPES = ((8, 10, 1, 256), (8, 32, 8, 128), (2, 8, 2, 64), (2, 8, 8, 64), (2, 4, 1, 128))
 SWA_SEQS = (64, 161, 321, 512, 2233, 4096)   # 161, 321: dense-decode's, hybrid-serve's caches
 SWA_WINDOWS = (64, 2048, 2 ** 30)
@@ -1384,6 +1407,9 @@ SWA_F32_TOL = dict(rtol=1e-4, atol=2e-5)     # the reference's own (tests/test_k
 # hybrid-window's attention at its widest: batch 8, recurrentgemma's MQA
 # (Hq 10, Hkv 1, d 256), a 2,233-slot cache at length 2,200, window 2,048, bf16.
 SWA_TIME = dict(b=8, hq=10, hkv=1, d=256, s=2233, length=2200, window=2048)
+# dense-decode's attention: batch 8, llama3-8b's GQA (Hq 32, Hkv 8, d 128), its
+# 161-slot cache full, the "global" window, bf16.
+SWA_TIME_DENSE = dict(b=8, hq=32, hkv=8, d=128, s=161, length=161, window=2 ** 30)
 # hybrid-serve: recurrentgemma-2b's published config, batch 8, prompt 256 + 64 new.
 HYBRID_ARCH, HYBRID_BATCH, HYBRID_PROMPT, HYBRID_NEW = "recurrentgemma-2b", 8, 256, 64
 # hybrid-window: its first 3 layers (rec, rec, attn) at full width, 2,200 + 32.
@@ -1465,18 +1491,22 @@ def check_swa_kernel(dev, swa, kref) -> dict:
             v2[row, min(n, s):] = 1e4
         check(torch.equal(swa.swa_decode(q, k2, v2, ln, window), base),
               f"swa_decode reads K/V outside the window (Hq={hq})")
-    print("  K/V outside the window perturbed: output bitwise equal")
+        for _ in range(3):
+            check(torch.equal(swa.swa_decode(q, k, v, ln, window), base),
+                  f"swa_decode: two calls differ (Hq={hq})")
+    print("  K/V outside the window perturbed: output bitwise equal; repeated calls bitwise "
+          "equal (the splits merge in a fixed order)")
     return dict(cases=cases, max_abs_err=max(max_err.values()), by_dtype=max_err)
 
 
-def time_swa_kernel(dev, swa, kref, name, smi) -> dict:
-    """Phase 14's timing at hybrid-window's shape: the kernel and its plain
-    version (``time_cases``), and ``scaled_dot_product_attention`` with a
-    boolean mask and ``enable_gqa`` on the same inputs (the yardstick; the
-    port never calls it)."""
+def time_swa_kernel(dev, swa, kref, name, smi, c=None) -> dict:
+    """Phase 14's timing at one shape (hybrid-window's by default): the
+    kernel and its plain version (``time_cases``), and
+    ``scaled_dot_product_attention`` with a boolean mask and ``enable_gqa``
+    on the same inputs (the yardstick; the port never calls it)."""
     import torch.nn.functional as F
 
-    c = SWA_TIME
+    c = SWA_TIME if c is None else c
     g = torch.Generator(device=dev).manual_seed(15)
     q = torch.randn((c["b"], c["hq"], c["d"]), generator=g, device=dev).to(torch.bfloat16)
     k, v = (torch.randn((c["b"], c["s"], c["hkv"], c["d"]), generator=g, device=dev)
@@ -1503,6 +1533,17 @@ def time_swa_kernel(dev, swa, kref, name, smi) -> dict:
     library_ms, library_ops = device_ms(run_library, 50)
     t.update(library_ms=library_ms, library_call_ms=call_ms(run_library, 200),
              library_device_ops_per_call=library_ops, library_max_abs_diff=lib_diff)
+
+    def fifty():
+        for _ in range(50):
+            swa.swa_decode(q, k, v, ln, w)
+        torch.cuda.synchronize()
+
+    dev = device_events(fifty)
+    t["ms_by_device_kernel"] = {k: sum(e.time_range.elapsed_us() for e in dev if k in e.name)
+                                / 1e3 / 50 for k in SWA_DEVICE_KERNELS}
+    print("  swa_decode by device kernel: " + ", ".join(
+        f"{k} {v * 1e3:.3f} us" for k, v in t["ms_by_device_kernel"].items()))
     print(f"  scaled_dot_product_attention: device time {library_ms * 1e3:9.3f} us "
           f"({library_ops:.0f} device ops), per call {t['library_call_ms'] * 1e3:9.3f} us; "
           f"max |diff| from the kernel {lib_diff:.3e}  on {name} ({smi})")
@@ -1518,21 +1559,21 @@ def profile_decode(api, cfg, params, cache, tok, n) -> tuple[float, float, int]:
     """(device ms per decode step, swa_decode device ms per step, device ops
     per step) over ``n`` steps of torch.profiler's CUPTI trace, after one
     untraced step, continuing from ``cache``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     step = api.make_serve_step(cfg)
     cache, _ = step(params, cache, tok)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    state = {"cache": cache}
+
+    def run():
         for _ in range(n):
-            cache, logits = step(params, cache, tok)
+            state["cache"], state["logits"] = step(params, state["cache"], tok)
         torch.cuda.synchronize()
-    check(bool(torch.isfinite(logits).all()), "non-finite logits in the profiled steps")
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    check(bool(dev), "torch.profiler recorded no device time")
+
+    dev = device_events(run)
+    check(bool(torch.isfinite(state["logits"]).all()), "non-finite logits in the profiled steps")
     total = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / n
-    swa_ms = sum(e.time_range.elapsed_us() for e in dev if "swa_decode" in e.name) / 1e3 / n
+    swa_ms = sum(e.time_range.elapsed_us() for e in dev
+                 if any(k in e.name for k in SWA_DEVICE_KERNELS)) / 1e3 / n
     return total, swa_ms, round(len(dev) / n)
 
 
@@ -1731,6 +1772,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
               file=sys.stderr)
         return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: {ROOT / 'src' / 'repro_torch'} is missing; run the script from "
+              "a checkout of the repository", file=sys.stderr)
+        return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs as lm_configs
     from repro_torch.checkpoint import CheckpointStore
@@ -1923,9 +1968,12 @@ def main() -> int:
     phase("13. drift-200 (main path): the dynamic world, N=200, T=20")
     drift = drift_fleet(exp, hfl, ae, topo, ch, DriftConfig, train_ds, lt, fa, dev, name, smi)
 
-    phase("14. swa_decode against its plain version; timing at hybrid-window's shape")
+    phase("14. swa_decode against its plain version; timing at hybrid-window's and "
+          "dense-decode's shapes")
     swa_err = check_swa_kernel(dev, swa, kref)
     swa_timing = time_swa_kernel(dev, swa, kref, name, smi)
+    swa_timing["dense_decode_shape"] = time_swa_kernel(dev, swa, kref, name, smi,
+                                                       SWA_TIME_DENSE)
 
     phase("15. hybrid-serve (main path): recurrentgemma-2b decode serving")
     hybrid = hybrid_phase(lm_configs, lm_api, lm_layers, lm_launch, rglru, swa, kref, dev, name,

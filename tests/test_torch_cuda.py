@@ -22,6 +22,11 @@ and scales exactly, its new_err to ``atol=1e-5`` and its fog sums to
 (``compress_q8``, ``topk_ef``, ``quant8``) bitwise: codes, scales, sparse
 values and new_err, the tie and all-zero rows included (the kernels and
 their plain versions make the same IEEE operations, none contracted).
+``swa_decode``: f32 to ``atol=2e-5, rtol=1e-4``, bf16 equal or one ulp
+apart; over its split edges (splits holding no position, a window
+shorter than a tile, len 1 and S + window, g = 1 / 10 / 16 / 36) and
+bitwise equal across calls.  ``local_train_f32`` also at batches 1, 7
+and 33 and at widths without a compile-time instance.
 """
 import numpy as np
 import pytest
@@ -236,6 +241,51 @@ def test_local_train_kernel_matches_plain(cuda, d, hidden, n, window, mu):
     torch.cuda.synchronize()
     assert lt.LAUNCHES["local_train_f32"] == before + 1
     d_ref, l_ref = ref.local_train_ref(x, idx, ws, bs, 0.01, mu)
+    np.testing.assert_allclose(deltas.cpu().numpy(), d_ref.cpu().numpy(), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(loss.cpu().numpy(), l_ref.cpu().numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("mu", [0.0, 0.01])
+@pytest.mark.parametrize("bs,window,epochs", [(1, 48, 1), (7, 100, 2), (33, 100, 2)])
+@pytest.mark.parametrize("d,hidden", WIDTHS)
+def test_local_train_kernel_takes_any_batch(cuda, d, hidden, bs, window, epochs, mu):
+    """Batches below, off and above the 8 warps' rows; the paper AE's
+    compile-time instance and the run-time-width one (d = 130).  Batch 1
+    runs 48 steps: 200 single-row steps at d = 130 are ill-conditioned
+    (the next test)."""
+    params, x, idx = _train_case(13, window, d, hidden, cuda, seed=bs, bs=bs, epochs=epochs)
+    deltas, loss = lt.train_clients(x, idx, ae.ravel(params), (d, *hidden, d), 0.01, mu)
+    d_ref, l_ref = ref.local_train_ref(x, idx, tuple(p["w"] for p in params),
+                                       tuple(p["b"] for p in params), 0.01, mu)
+    np.testing.assert_allclose(deltas.cpu().numpy(), d_ref.cpu().numpy(), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(loss.cpu().numpy(), l_ref.cpu().numpy(), rtol=1e-5)
+
+
+def test_local_train_single_row_steps_are_ill_conditioned_at_d_130(cuda):
+    """200 single-row steps at d = 130: the plain version on the CPU and on
+    the card part beyond rtol=1e-4 / atol=1e-6 (so no f32 implementation
+    can be held to them there); the kernel stays within twice that spread
+    of the card's plain version."""
+    params, x, idx = _train_case(13, 100, 130, (64, 8, 64), cuda, seed=1, bs=1, epochs=2)
+    ws, bs = tuple(p["w"] for p in params), tuple(p["b"] for p in params)
+    deltas, _ = lt.train_clients(x, idx, ae.ravel(params), (130, 64, 8, 64, 130), 0.01, 0.0)
+    d_card, _ = ref.local_train_ref(x, idx, ws, bs, 0.01, 0.0)
+    d_cpu, _ = ref.local_train_ref(x.cpu(), idx.cpu(), tuple(w.cpu() for w in ws),
+                                   tuple(b.cpu() for b in bs), 0.01, 0.0)
+    d_card, deltas = d_card.cpu(), deltas.cpu()
+    assert not torch.all(torch.abs(d_cpu - d_card) <= 1e-6 + 1e-4 * torch.abs(d_card))
+    spread = float(torch.max(torch.abs(d_cpu - d_card)))
+    assert float(torch.max(torch.abs(deltas - d_card))) <= 2 * spread
+
+
+@pytest.mark.parametrize("d,hidden", [(5, (3,)), (64, (32,)), (32, (16, 8, 16, 8, 16))])
+def test_local_train_kernel_takes_other_widths(cuda, d, hidden):
+    """Run-time widths that do not divide 32, one layer of 32, a deeper
+    AE with the paper's widths (no compile-time instance)."""
+    params, x, idx = _train_case(13, 64, d, hidden, cuda, seed=d, bs=32, epochs=2)
+    deltas, loss = lt.train_clients(x, idx, ae.ravel(params), (d, *hidden, d), 0.01, 0.01)
+    d_ref, l_ref = ref.local_train_ref(x, idx, tuple(p["w"] for p in params),
+                                       tuple(p["b"] for p in params), 0.01, 0.01)
     np.testing.assert_allclose(deltas.cpu().numpy(), d_ref.cpu().numpy(), rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(loss.cpu().numpy(), l_ref.cpu().numpy(), rtol=1e-5)
 
@@ -658,6 +708,37 @@ def test_swa_decode_kernel_matches_plain(cuda, hq, hkv, d, s, window, dtype):
     assert got.dtype == dtype
     _assert_swa_close(got, want)
     assert bool(torch.all(got[-1] == 0))          # len >= S + window: empty window
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [5, 64, 2048])
+@pytest.mark.parametrize("hq,hkv,d", [(8, 8, 64), (10, 1, 256), (32, 2, 128), (36, 1, 32)])
+def test_swa_decode_split_edges(cuda, hq, hkv, d, window, dtype):
+    """g = 1, 10, 16, 36; a window shorter than one tile (5); rows whose
+    window fills only the first of many splits (len 1, 5), ends mid-split,
+    or is empty (len = S + window)."""
+    from repro_torch.kernels import swa_attention as swa
+    s = 2233
+    lens = [1, 5, window + 3, 1000, s, s + window]
+    splits, chunk = swa.plan(len(lens), hq, s, hkv, window)
+    assert splits > 1 or window < swa.TILE
+    q, k, v, ln = _swa_inputs(len(lens), hq, hkv, d, s, lens, dtype, cuda, seed=hq + window)
+    got = swa.swa_decode(q, k, v, ln, window)
+    want = ref.sliding_window_decode_attention_ref(q, k, v, ln, window)
+    torch.cuda.synchronize()
+    _assert_swa_close(got, want)
+    assert bool(torch.all(got[-1] == 0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_decode_is_deterministic(cuda, dtype):
+    """The splits merge in a fixed order: two calls bitwise equal."""
+    from repro_torch.kernels import swa_attention as swa
+    lens = [2200, 77, 1, 2049, 2233, 300, 1500, 4000]
+    q, k, v, ln = _swa_inputs(8, 10, 1, 256, 2233, lens, dtype, cuda, seed=3)
+    first = swa.swa_decode(q, k, v, ln, 2048)
+    for _ in range(3):
+        assert torch.equal(swa.swa_decode(q, k, v, ln, 2048), first)
 
 
 def test_swa_decode_ignores_positions_outside_the_window_bitwise(cuda):

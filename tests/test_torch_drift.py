@@ -19,6 +19,12 @@ PyTorch vs JAX.
   tolerance), the participating sensors exactly; in the drift cells up to
   two coordinates of a round's params may sit one int8 code apart (see
   :func:`assert_rounds_match_up_to_code_flips`).
+- Drift combined with faults (``DRIFT_FAULT_CELLS``): reassociating drift
+  with covariate shift 0.05, adaptive colluders, crash 0.2, erasure 0.3,
+  trimmed 0.3 and ``client_chunk=5``; frozen drift with sign-flip
+  colluders, median and FedAdam; reassociating drift with crash and
+  erasure, the mean, ``client_chunk=5`` and FedProx 0.01.  Held as the
+  drift cells, participation and erasures exactly.
 - Within the port: neutral drift (on, zero rates) against drift off
   within that tolerance; ``reassoc_every=inf`` with fog mobility off
   against drift off bitwise (the frozen assignment is the per-round one
@@ -41,12 +47,14 @@ from repro.core import association as jassoc
 from repro.core import channel as jch
 from repro.core import compression as jcomp
 from repro.core import drift as jdrf
+from repro.core import faults as jflt
 from repro.core import topology as jtopo
 from repro.launch import experiment as jexp
 from repro_torch.core import association as tassoc
 from repro_torch.core import channel as tch
 from repro_torch.core import compression as tcomp
 from repro_torch.core import drift as tdrf
+from repro_torch.core import faults as tflt
 from repro_torch.core import hfl as thfl
 from repro_torch.core import topology as ttopo
 from repro_torch.launch import experiment as texp
@@ -215,6 +223,43 @@ def assert_rounds_match_up_to_code_flips(both, max_flips=2, step=1e-3):
 @pytest.mark.parametrize("cell", list(DRIFT_CELLS))
 def test_drift_cell_rounds_match_jax(drift_rounds, cell):
     assert_rounds_match_up_to_code_flips(drift_rounds[cell])
+
+
+# Drift combined with faults, the robust reduces, client chunks and the
+# server and local optimisers: (drift cell, covariate shift, faults, round
+# options).
+DRIFT_FAULT_CELLS = {
+    "reassoc-adaptive-trimmed-chunked": (
+        "reassoc", 0.05,
+        dict(byz_mode="adaptive", byz_frac=0.25, byz_scale=3.0, crash_prob=0.2,
+             erasure_prob=0.3),
+        dict(robust="trimmed", trim_frac=0.3, client_chunk=5)),
+    "frozen-sign_flip-median-adam": (
+        "frozen", 0.0, dict(byz_mode="sign_flip", byz_frac=0.25, byz_scale=2.0),
+        dict(robust="median", server_opt="adam")),
+    "reassoc-crash-erasure-mean-chunked-prox": (
+        "reassoc", 0.0, dict(crash_prob=0.2, erasure_prob=0.3),
+        dict(client_chunk=5, prox_mu=0.01)),
+}
+
+
+@pytest.mark.parametrize("name", list(DRIFT_FAULT_CELLS))
+def test_drift_with_faults_rounds_match_jax(data, name):
+    """Participation and erasures exactly, the rest as the drift cells."""
+    cell, shift, faults, kw = DRIFT_FAULT_CELLS[name]
+    drift = dict(DRIFT_CELLS[cell], covariate_shift=shift)
+    fl = jflt.FaultConfig(**faults)
+    cfg_j = jax_cfg(**_world(jch, jtopo), drift=jdrf.DriftConfig(**drift), faults=fl, **kw)
+    cfg_t = torch_cfg(**_world(tch, ttopo), drift=tdrf.DriftConfig(**drift),
+                      faults=tflt.FaultConfig(**faults), **kw)
+    both = rounds_both(data, 70, cfg_j, cfg_t)
+    assert_rounds_match_up_to_code_flips(both)
+    m_j, m_t = both[0], both[2]
+    np.testing.assert_array_equal(np.round(m_t.participation.numpy() * N),
+                                  np.round(np.asarray(m_j.participation) * N))
+    np.testing.assert_array_equal(m_t.n_erased.numpy(), np.asarray(m_j.n_erased))
+    if "erasure_prob" in faults:
+        assert int(m_t.n_erased.sum()) > 0
 
 
 def test_reassociation_keeps_at_least_the_frozen_cohort(drift_rounds):

@@ -18,6 +18,12 @@ bf16 ulp apart: both sides compute in f32 and round once at the end
 bf16 ulps).  A row whose window is empty (``cache_len >= S + window``)
 gives zeros in the port and in the Pallas kernel (the oracle gives NaN
 there).
+
+The kernel's host plan (``swa_attention.plan`` / ``split_ranges``, pure
+functions of the shapes): every window position lies in exactly one
+split, the main paths' shapes fill the card, and the split-and-merge
+algorithm (numpy f64, the plan's splits and 32-position tiles) is the
+plain function to the f32 tolerance, empty splits adding nothing.
 """
 import jax
 import jax.numpy as jnp
@@ -146,3 +152,86 @@ def test_wrapper_refuses_cpu_tensors_and_counts_work():
     positions = 32 + 10                   # row 0: [64, 96); row 1: [0, 10)
     assert bytes_ == positions * 2 * 64 * 2 * 4 + 2 * 2 * 8 * 64 * 4 + 2 * 4
     assert ops_ == positions * 8 * (4 * 64 + 6)
+
+
+# --- the kernel's host plan (flash-decoding split) ---------------------------
+
+PLAN_CASES = [   # (B, Hq, S, Hkv, window)
+    (8, 10, 2233, 1, 2048),          # hybrid-window
+    (8, 10, 321, 1, 2048),           # hybrid-serve
+    (8, 32, 161, 8, 2 ** 30),        # dense-decode
+    (6, 36, 2233, 2, 5),             # a window shorter than one tile, g = 18
+    (1, 1, 1, 1, 1),
+    (2, 16, 4096, 1, 64),
+    (64, 64, 100, 64, 2048),         # more kv rows than the target
+]
+
+
+@pytest.mark.parametrize("b,hq,s,hkv,window", PLAN_CASES)
+def test_every_window_position_lies_in_exactly_one_split(b, hq, s, hkv, window):
+    splits, chunk = tswa.plan(b, hq, s, hkv, window)
+    assert chunk % tswa.TILE == 0 and splits >= 1
+    assert splits * chunk >= min(s, window) > (splits - 1) * chunk
+    for length in sorted({1, 2, window - 1, window, window + 1, s - 1, s, s + 1,
+                          s + window - 1, s + window, 3 * s} - {0}):
+        ranges = tswa.split_ranges(length, s, window, splits, chunk)
+        lo, hi = max(0, length - window), min(length, s)
+        covered = [p for a, e in ranges for p in range(a, e)]
+        assert covered == list(range(lo, hi)), length      # disjoint, in order, all of it
+        assert all(e - a <= chunk for a, e in ranges)
+
+
+def test_plan_fills_the_card_at_the_main_paths_shapes():
+    rows = lambda b, hq, hkv: b * hkv * -(-(hq // hkv) // tswa.HEAD_CHUNK)  # noqa: E731
+    assert tswa.plan(8, 10, 2233, 1, 2048) == (32, 64)       # 256 blocks of <= 64
+    for case in PLAN_CASES[:3]:
+        b, hq, s, hkv, window = case
+        splits, chunk = tswa.plan(*case)
+        tiles = -(-min(s, window) // tswa.TILE)
+        # at least one block per SM unless every split is one tile; never
+        # more than two blocks per SM
+        assert rows(b, hq, hkv) * splits >= tswa.TARGET_BLOCKS // 2 or splits == tiles
+        assert rows(b, hq, hkv) * splits <= tswa.TARGET_BLOCKS
+
+
+def _split_merge(q, k, v, lens, window):
+    """The kernel's algorithm in numpy (f64): each split's tiles of 32
+    positions through the clipped online softmax, then the splits merged in
+    order; the plan's split."""
+    b, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    splits, chunk = tswa.plan(b, hq, s, hkv, window)
+    clip = lambda x: np.exp(np.clip(x, -80.0, 0.0))  # noqa: E731
+    out = np.zeros((b, hq, d))
+    for row in range(b):
+        for h in range(hq):
+            qs = q[row, h].astype(np.float64) * d ** -0.5
+            parts = []
+            for a, e in tswa.split_ranges(int(lens[row]), s, window, splits, chunk):
+                m, l, acc = -1e30, 0.0, np.zeros(d)
+                for t0 in range(a, e, tswa.TILE):
+                    pos = np.arange(t0, min(e, t0 + tswa.TILE))
+                    sc = k[row, pos, h // g] @ qs
+                    m_new = max(m, sc.max())
+                    p = clip(sc - m_new)
+                    alpha = clip(m - m_new)
+                    l, acc, m = l * alpha + p.sum(), acc * alpha + p @ v[row, pos, h // g], m_new
+                parts.append((m, l, acc))
+            mx = max(m for m, _, _ in parts)
+            den = sum(l * clip(m - mx) for m, l, _ in parts)
+            num = sum(acc * clip(m - mx) for m, _, acc in parts)
+            out[row, h] = num / max(den, 1e-20)
+    return out
+
+
+@pytest.mark.parametrize("hq,hkv,d,s,window", [(10, 1, 64, 700, 300), (8, 2, 32, 161, 2 ** 30),
+                                               (4, 4, 32, 90, 5)])
+def test_split_and_merge_is_the_plain_function(hq, hkv, d, s, window):
+    """Splits with no position add nothing; the all-empty row is zeros."""
+    lens = [1, 5, window + 3, s, s - 40, s + window]
+    q, k, v = _inputs(len(lens), hq, hkv, d, s, 21)
+    want = _port(q, k, v, lens, window)
+    got = _split_merge(q, k, v, lens, window)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    assert np.all(got[-1] == 0)

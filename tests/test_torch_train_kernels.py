@@ -13,6 +13,9 @@ kernels ``fused_agg`` and ``local_train_f32`` are held against on the card).
 - ``local_train``: deltas to ``rtol=1e-4, atol=1e-6`` and losses to
   ``rtol=1e-5`` against both the reference's jnp oracle and its Pallas
   kernel in interpret mode (``tests/test_fused_local_train.py``).
+- The kernel's shared-memory ``layout()``, a pure function of the widths
+  and the batch: its size, and every buffer 16-byte aligned, disjoint and
+  inside the block's shared memory.
 """
 import jax
 import jax.numpy as jnp
@@ -218,9 +221,46 @@ def test_local_train_layout(dims, batch, fits):
         return
     lay = tlt.layout(dims, batch)
     assert lay["n_params"] == tae.param_count(dims[0], dims[1:-1])
-    assert all(s % 2 == 1 and s >= dd for s, dd in zip(lay["stride"], dims))
-    rows = batch * (2 * sum(lay["stride"]) - lay["stride"][0])
-    assert lay["smem"] == 4 * (lay["n_params"] + rows)
+    assert all(s % 4 == 0 and s >= dd for s, dd in zip(lay["stride"], dims))
+    weights = sum(-(-b // 4) * 4 + a * w for a, b, w in zip(dims, dims[1:], lay["w_stride"]))
+    # two gather buffers, the hidden activations, the gradients, the index ring
+    rows = batch * (2 * lay["stride"][0] + sum(lay["stride"][1:-1]) + sum(lay["stride"][1:]))
+    assert lay["smem"] == 4 * (weights + rows + 3 * batch)
+
+
+def _layout_buffers(dims, batch):
+    """(name, start, size) of every shared-memory buffer of ``layout``."""
+    lay = tlt.layout(dims, batch)
+    n = len(dims) - 1
+    bufs = [(f"bias{li}", lay["pseg_off"][li], dims[li + 1]) for li in range(n)]
+    bufs += [(f"w{li}", lay["w_off"][li], dims[li] * lay["w_stride"][li]) for li in range(n)]
+    bufs += [(f"x{k}", lay["x_off"][k], batch * lay["stride"][0]) for k in range(2)]
+    bufs += [(f"act{li}", lay["act_off"][li], batch * lay["stride"][li]) for li in range(1, n)]
+    bufs += [(f"grad{li}", lay["grad_off"][li], batch * lay["stride"][li])
+             for li in range(1, n + 1)]
+    bufs.append(("idx", lay["idx_off"], 3 * batch))
+    return lay, bufs
+
+
+@pytest.mark.parametrize("batch", [1, 7, 32, 33])
+@pytest.mark.parametrize("dims", [(32, 16, 8, 16, 32), (130, 64, 8, 64, 130), (5, 3, 5),
+                                  (64, 32, 64)])
+def test_local_train_layout_buffers_are_disjoint_and_aligned(dims, batch):
+    """The grown layout: every buffer starts on 16 bytes, none overlaps
+    another, all lie inside the block's shared memory; weight rows hold
+    their width, and rows of a width dividing 32 are packed (32 padded to
+    48) for the update's bank pattern."""
+    lay, bufs = _layout_buffers(dims, batch)
+    spans = sorted((start, start + size, name) for name, start, size in bufs)
+    for (s0, e0, n0), (s1, _, n1) in zip(spans, spans[1:]):
+        assert e0 <= s1, (n0, n1)
+    assert spans[-1][1] * 4 <= lay["smem"]
+    assert all(start % 4 == 0 for _, start, _ in bufs)
+    for w, s in zip(dims, lay["stride"]):
+        assert s == (48 if w == 32 else w if 32 % w == 0 else -(-w // 4) * 4 + 4)
+    assert all(ws >= b and ws % 4 == 0 for b, ws in zip(dims[1:], lay["w_stride"]))
+    assert lay["seg_off"] == [sum(a * b + b for a, b in zip(dims[:k], dims[1:k + 1]))
+                              for k in range(len(dims) - 1)]
 
 
 @pytest.mark.parametrize("mode", ["blockwise", "global"])
