@@ -28,7 +28,11 @@ the result line:
              torch.profiler (CUPTI; ``ms`` and ``plain_ms``, and the run
              fails when the profiler records no device time), and per-call
              time by CUDA events over back-to-back calls, host dispatch
-             included (``call_ms`` and ``plain_call_ms``);
+             included (``call_ms`` and ``plain_call_ms``); the launch floor
+             (an empty kernel's device and per-call time); the wrappers'
+             host cost before and after (``score_rows`` with its pointer
+             arrays rebuilt every call or kept, ``compress_wire_blocks``
+             with the attribute call every launch or once);
 7. training kernels — ``local_train_f32`` (N 1 / 13 / 200, window 48 /
              256, the paper AE and d=130, mu 0 / 0.01) and ``fused_agg``
              (d 1,352 / 8,209 / 65,536, N 1 / 200 / 2,000, 20 fogs, int8 on
@@ -64,8 +68,9 @@ the result line:
              65,536, N 1 / 200 / 2,000, keep fractions rho_s 0.05,
              rho_s 1 and 1/8,192, an all-zero row and a row tying more than
              k entries at each block max): codes, scales, sparse values,
-             new_err, payload bits and survivor sets bitwise, and the
-             survivor sets equal to ``fused_agg``'s;
+             new_err, payload bits and survivor sets bitwise, the
+             survivor sets equal to ``fused_agg``'s, and ``wire_emit``'s
+             new_err equal to ``compress_q8``'s (the two selections);
 12. legacy-200 — train-200 with the per-client compressor:
              ``CompressorConfig(fused=False)`` (``compress_q8`` once a
              round) on the card and on the CPU with identical draws
@@ -121,11 +126,15 @@ the result line:
 
 Phase 6 also times ``robust_agg``, ``wire_emit`` and ``wire_agg`` at the
 shapes of phases 9 and 10, ``compress_q8`` and ``topk_ef`` at train-200's
-shape and ``quant8`` on a 2^20-coordinate vector; phase 7 holds the
-robust and wire kernels against their plain versions over a grid and at
-fleet-10k's shapes (``fused_agg`` at N = 10,000 into 1,000 fogs, the wire
-pair chunk by chunk into running sums, ``robust_agg`` at N = 30,000 with
-a fog of 3,000).
+shape and ``compress_q8`` again at fleet-10k's chunk (the unchanged
+control beside ``wire_emit``), and ``quant8`` on a 2^20-coordinate
+vector; phase 7 holds the robust and wire kernels against their plain
+versions over a grid and at fleet-10k's shapes (``fused_agg`` at N =
+10,000 into 1,000 fogs, the wire pair chunk by chunk into running sums,
+``robust_agg`` at N = 30,000 with a fog of 3,000), the wire's slots,
+codes, scales and new_err bitwise, and ``wire_emit`` over its edges
+(widths 1 to 65,536 on both team sizes, k = 1 to 8,192, zero and tied
+rows).
 
 The launch counts reported for the score kernels are those of phases 4
 and 5 (the counters are zeroed just before phase 4 and read just after
@@ -141,6 +150,7 @@ one before that the ``kernels`` JSON.
 """
 from __future__ import annotations
 
+import ctypes
 import importlib
 import json
 import math
@@ -667,13 +677,18 @@ def time_new_kernels(dev, fa, ra, kops, kref, agg, comp, ae, name, smi) -> dict:
 def time_compress_kernels(dev, kq8, tk, kops, kref, comp, ae, name, smi) -> dict:
     """Phase 6 for the per-client compressor kernels: ``compress_q8`` and
     ``topk_ef`` at train-200's shape (N = 200 updates of d = 1,352, rho_s
-    0.05: k = 68), ``quant8`` on one 2^20-coordinate vector."""
+    0.05: k = 68), ``compress_q8`` again at fleet-10k's chunk (N = 512, the
+    old selection beside ``wire_emit``'s new one), ``quant8`` on one
+    2^20-coordinate vector."""
     g = torch.Generator(device=dev).manual_seed(12)
     d = ae.param_count(D, HIDDEN)
     deltas = torch.randn((TRAIN_N, d), generator=g, device=dev)
     err = 0.1 * torch.randn((TRAIN_N, d), generator=g, device=dev)
     x = torch.randn((1, QUANT8_D), generator=g, device=dev)
     k = kops.block_k(comp.blockwise_k_frac(d, 0.05))
+    cd = torch.randn((FLEET_CHUNK, d), generator=g, device=dev)
+    ce = 0.1 * torch.randn((FLEET_CHUNK, d), generator=g, device=dev)
+    k_chunk = kops.wire_k(comp.blockwise_k_frac(d, 0.05))
     cases = {
         "compress_q8": (
             lambda: kq8.compress_blocks(deltas, err, k),
@@ -689,6 +704,13 @@ def time_compress_kernels(dev, kq8, tk, kops, kref, comp, ae, name, smi) -> dict
             (200, 20, 50, 5),
             f"N={TRAIN_N} d={d} k={k}",
         ),
+        "compress_q8 @ fleet chunk": (
+            lambda: kq8.compress_blocks(cd, ce, k_chunk),
+            lambda: kref.compress_ref(cd, ce, k_chunk),
+            compress_work(FLEET_CHUNK, d, True),
+            (200, 10, 50, 3),
+            f"N={FLEET_CHUNK} d={d} k={k_chunk} int8, the control beside wire_emit",
+        ),
         "quant8": (
             lambda: kq8.quant8_blocks(x),
             lambda: kref.quant8_ref(x),
@@ -698,6 +720,111 @@ def time_compress_kernels(dev, kq8, tk, kops, kref, comp, ae, name, smi) -> dict
         ),
     }
     return time_cases(cases, name, smi)
+
+
+EMPTY_KERNEL = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def launch_floor(_build, name, smi) -> dict:
+    """Phase 6: an empty kernel built and launched as the port's kernels
+    are (nvcc with the same flags, ctypes, the current stream): its device
+    time and its per-call time, the floor under every kernel time here."""
+    out = ROOT / "build" / "launch_floor"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "empty.cu").write_text(EMPTY_KERNEL)
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out / "libempty.so"),
+                    str(out / "empty.cu")], check=True, capture_output=True, text=True,
+                   timeout=300)
+    lib = ctypes.CDLL(str(out / "libempty.so"))
+    lib.empty_launch.argtypes = [ctypes.c_void_p]
+    lib.empty_launch.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        check(lib.empty_launch(stream) == 0, "the empty kernel was refused")
+
+    per_call = call_ms(run, 1000)
+    ms, _ = device_ms(run, 200)
+    print(f"  launch floor (an empty kernel by ctypes on the current stream): device time "
+          f"{ms * 1e3:.3f} us, per call by CUDA events {per_call * 1e3:.3f} us  on {name} ({smi})")
+    return dict(ms=ms, call_ms=per_call)
+
+
+def wrapper_host_cost(dev, fs, fa, ae, kops, comp, name, smi) -> dict:
+    """Phase 6: per-call time (CUDA events) of ``score_rows`` at the large
+    bucket and of ``compress_wire_blocks`` at the fleet chunk, each as the
+    wrapper works now ("after") and with its old per-call host work put
+    back ("before": the ctypes pointer arrays rebuilt every call; the
+    dynamic shared-memory attribute set before every launch), in turns."""
+    g = torch.Generator().manual_seed(3)
+    params = ae.init(g, D, HIDDEN, device=dev)
+    ws, bs = layer_tuples(params, False)
+    x = torch.randn((HEADLINE_ROWS, D), generator=g).to(dev)
+    tau = torch.full((HEADLINE_ROWS,), 40.0, device=dev)
+    d = ae.param_count(D, HIDDEN)
+    cd = torch.randn((FLEET_CHUNK, d), generator=g).to(dev)
+    ce = (0.1 * torch.randn((FLEET_CHUNK, d), generator=g)).to(dev)
+    k = kops.wire_k(comp.blockwise_k_frac(d, 0.05))
+    wire = fa.compress_wire_blocks(cd, ce, k)
+    lib = fa._library()
+
+    def score_after():
+        fs.score_rows(x, tau, ws, bs)
+
+    def score_before():
+        fs._f32_args.clear()
+        fs.score_rows(x, tau, ws, bs)
+
+    def wire_after():
+        fa.compress_wire_blocks(cd, ce, k, True, out=wire)
+
+    def wire_before():
+        check(lib.wire_emit_init(fa.SMEM_MAX) == 0, "wire_emit_init failed")
+        fa.compress_wire_blocks(cd, ce, k, True, out=wire)
+
+    out = {}
+    for label, before, after in (("score_rows", score_before, score_after),
+                                 ("compress_wire_blocks", wire_before, wire_after)):
+        b1, a1, a2, b2 = (call_ms(f, 500) for f in (before, after, after, before))
+        out[label] = dict(before_call_ms=(b1 + b2) / 2, after_call_ms=(a1 + a2) / 2)
+        print(f"  {label} host cost: per call {out[label]['before_call_ms'] * 1e3:.3f} us "
+              f"before ({b1 * 1e3:.3f}, {b2 * 1e3:.3f}), {out[label]['after_call_ms'] * 1e3:.3f} "
+              f"us after ({a1 * 1e3:.3f}, {a2 * 1e3:.3f})  on {name} ({smi})")
+    return out
+
+
+WIRE_EDGE_DS = (1, 31, 33, 1352, 2049, 8191, 8192, 8209, 65_536)
+WIRE_EDGE_KS = ((8209, 1), (8209, 68), (31, 68), (1352, 1352), (1352, 2048), (2049, 4096),
+                (8209, 8192), (1, 8192))
+
+
+def check_wire_edges(dev, fa, kref) -> int:
+    """Phase 7: ``wire_emit`` over its team sizes and edges, bitwise against
+    its plain version (slots, codes, scales, new_err): widths 1 to 65,536
+    at k = 68 (a two-warp team up to 2,048, a block team above, both at
+    8,209), then k = 1, fills reaching into the padding, k at
+    and above a block's real width and k = 8,192; N = 7 rows with an
+    all-zero and a tied row; int8 on and off.  Returns the cases checked."""
+    g = torch.Generator(device=dev).manual_seed(29)
+    cases = [(d, 68) for d in WIRE_EDGE_DS] + list(WIRE_EDGE_KS)
+    for d, k in cases:
+        deltas, err = compress_rows(7, d, k, g, dev)
+        for quantize in (True, False):
+            got = fa.compress_wire_blocks(deltas, err, k, quantize)
+            want = kref.compress_wire_ref(deltas, err, k, quantize)
+            for a, b, what in zip(got, want, ("slots", "codes", "scales", "new_err")):
+                check(a.dtype == b.dtype and torch.equal(a, b),
+                      f"wire_emit {what} differ at d={d}, k={k}, int8={quantize}")
+    print(f"  wire_emit edges: {2 * len(cases)} cases (d 1..65,536, k 1..8,192, zero and tied "
+          f"rows, int8 on and off) bitwise equal  ok")
+    return 2 * len(cases)
 
 
 def robust_layouts(n, g, dev) -> dict:
@@ -717,8 +844,8 @@ def check_new_kernels(dev, fa, ra, kref, agg, comp) -> dict:
     median, on real compressed reconstructions with integer weights:
     rtol=1e-5, atol=1e-6.  The wire pair: phase 7's d x N grid, int8 on and
     off, k 68 / 410, written at a row offset of larger buffers (rows
-    outside untouched): slots, codes and scales exactly, new_err to
-    atol=1e-5; ``wire_agg`` into running sums to rtol=1e-5 / atol=1e-4,
+    outside untouched): slots, codes, scales and new_err exactly;
+    ``wire_agg`` into running sums to rtol=1e-5 / atol=1e-4,
     the empty fog's row untouched."""
     max_err = dict.fromkeys(NEW_KERNELS, 0.0)
     g = torch.Generator().manual_seed(17)
@@ -769,7 +896,9 @@ def check_new_kernels(dev, fa, ra, kref, agg, comp) -> dict:
                     for b, fill in zip(bufs, (-7, 5, 9.0, 9.0)):
                         check(bool((b[:off] == fill).all()) and bool((b[off + n:] == fill).all()),
                               "wire_emit wrote outside its rows")
-                    e1 = close_on_device(view[3], r_err, 0.0, 1e-5, "wire_emit new_err")
+                    check(torch.equal(view[3], r_err),
+                          f"wire_emit new_err differs at d={d}, N={n}, k={k}, int8={quantize}")
+                    e1 = close_on_device(view[3], r_err, 0.0, 0.0, "wire_emit new_err")
                     got = fa.wire_aggregate_blocks(*view[:3], fog_id, weights, TRAIN_FOG, d,
                                                    out=base.clone())
                     want = base + kref.wire_aggregate_ref(*view[:3], fog_id, weights, TRAIN_FOG, d)
@@ -778,7 +907,7 @@ def check_new_kernels(dev, fa, ra, kref, agg, comp) -> dict:
                     max_err["wire_emit"] = max(max_err["wire_emit"], e1)
                     max_err["wire_agg"] = max(max_err["wire_agg"], e2)
                     print(f"  wire_emit/agg   d={d:5d} N={n:4d} k={k:3d} int8={quantize!s:5s} "
-                          f"slots equal, max|new_err diff|={e1:.3e}, max|fog diff|={e2:.3e}  ok")
+                          f"slots and new_err equal, max|fog diff|={e2:.3e}  ok")
                     del bufs, view
             del deltas, err
     return max_err
@@ -793,8 +922,8 @@ def check_fleet_kernels(dev, fa, ra, kops, kref, agg, comp, ae) -> dict:
     pair as the chunked round calls it: every 512-client chunk emitted into
     one chunk-sized wire and its rows of the round's error-feedback buffer,
     then added into the running (1,000, d) fog sums, each step against the
-    plain versions (slots, codes and scales exactly, new_err to atol=1e-5,
-    the running sums to rtol=1e-5 / atol=1e-4).  ``robust_agg`` at N =
+    plain versions (slots, codes, scales and new_err exactly, the running
+    sums to rtol=1e-5 / atol=1e-4).  ``robust_agg`` at N =
     30,000 in 1,000 fogs, fog 0 holding 3,000 clients (its member list is
     streamed through shared memory in tiles), trimmed 0.45 and the
     median, to rtol=1e-5 / atol=1e-6."""
@@ -833,15 +962,16 @@ def check_fleet_kernels(dev, fa, ra, kops, kref, agg, comp, ae) -> dict:
         check(torch.equal(view[0], r_idx) and torch.equal(view[1], r_q)
               and torch.equal(view[2], r_scale),
               f"wire_emit slots, codes or scales differ in the chunk at {s}")
-        e1 = close_on_device(view[3], r_err, 0.0, 1e-5, "wire_emit new_err")
+        check(torch.equal(view[3], r_err), f"wire_emit new_err differs in the chunk at {s}")
+        e1 = close_on_device(view[3], r_err, 0.0, 0.0, "wire_emit new_err")
         fa.wire_aggregate_blocks(*view[:3], fog_id[s:e], weights[s:e], FLEET_FOG, d, out=run_k)
         run_r += kref.wire_aggregate_ref(*view[:3], fog_id[s:e], weights[s:e], FLEET_FOG, d)
         e2 = close_on_device(run_k, run_r, 1e-5, 1e-4, "wire_agg running fog sums")
         max_err["wire_emit"] = max(max_err["wire_emit"], e1)
         max_err["wire_agg"] = max(max_err["wire_agg"], e2)
     print(f"  wire_emit/agg   d={d:5d} N={FLEET_N} in chunks of {FLEET_CHUNK} into "
-          f"n_fog={FLEET_FOG}, k={k} int8: slots equal, max|new_err diff|="
-          f"{max_err['wire_emit']:.3e}, max|running fog diff|={max_err['wire_agg']:.3e}  ok")
+          f"n_fog={FLEET_FOG}, k={k} int8: slots and new_err equal, max|running fog diff|="
+          f"{max_err['wire_agg']:.3e}  ok")
     del deltas, err, new_err, wire, fs_k, ne_k, fs_r, ne_r
 
     n = BIG_ROBUST_N
@@ -1179,6 +1309,10 @@ def check_compress_kernels(dev, kq8, tk, fa, kops, kref, comp) -> dict:
                                         (new_err, w_err, "new_err")):
                     check(got.dtype == want.dtype and torch.equal(got, want),
                           f"compress_q8 {what} differ at d={d}, N={n}, k={k}")
+                wire_err = fa.compress_wire_blocks(deltas, err, k)[3]
+                check(torch.equal(wire_err, new_err),
+                      f"wire_emit and compress_q8 new_err differ at d={d}, N={n}, k={k}")
+                del wire_err
                 bits = kops.compress(deltas, err, k_frac)[2]
                 check(torch.equal(bits, (w_q != 0).sum(1).to(torch.float32) * (8.0 + b_idx)),
                       f"payload bits differ at d={d}, N={n}, k={k}")
@@ -1205,7 +1339,8 @@ def check_compress_kernels(dev, kq8, tk, fa, kops, kref, comp) -> dict:
                                   f"a tie at the block max kept codes at d={d}, k={k}")
                             tied += 1
                 print(f"  compress_q8/topk_ef/quant8 d={d:5d} N={n:4d} {label:10s} k={k:4d}: "
-                      f"codes, scales, new_err, sparse, payload bits and survivors equal  ok")
+                      f"codes, scales, new_err (and wire_emit's), sparse, payload bits and "
+                      f"survivors equal  ok")
                 del deltas, err, q, scale, new_err, w_q, w_scale, w_err, sparse, t_err
                 del w_sparse, w_terr, xq, xs, w_xq, w_xs
     check(tied > 0, "no block tied more than k entries at its max")
@@ -1898,6 +2033,7 @@ def main() -> int:
     print(f"  main-path launches: {main_path_launches}")
 
     phase("6. timing (profiler device time; CUDA events per call)")
+    floor = launch_floor(_build, name, smi)
     g = torch.Generator().manual_seed(1)
     params = ae.init(g, D, HIDDEN, device=dev)
     qparams = score_mod.quantize_params(params)
@@ -1925,9 +2061,11 @@ def main() -> int:
             )
             print(f"  {kname:16s} rows={rows:6d} device time: kernel {ms * 1e3:8.3f} us  "
                   f"plain {plain_ms * 1e3:8.3f} us  bound {bound_ms * 1e3:8.4f} us "
-                  f"({bound_by}); per call by CUDA events: kernel "
+                  f"({bound_by}), launch floor {floor['ms'] * 1e3:.3f} us; per call by CUDA "
+                  f"events: kernel "
                   f"{calls['call_ms'] * 1e3:8.3f} us, plain {calls['plain_call_ms'] * 1e3:8.3f} us"
                   f"  on {name} ({smi})")
+    host_cost = wrapper_host_cost(dev, fs, fa, ae, kops, comp, name, smi)
     train_kmods = (lt, fa, kops, kref, ae, multi_epoch_indices)
     train_timing = time_training_kernels(dev, *train_kmods, name, smi)
     train_timing.update(time_new_kernels(dev, fa, ra, kops, kref, agg, comp, ae, name, smi))
@@ -1938,6 +2076,7 @@ def main() -> int:
     train_err.update(check_new_kernels(dev, fa, ra, kref, agg, comp))
     for kname, e in check_fleet_kernels(dev, fa, ra, kops, kref, agg, comp, ae).items():
         train_err[kname] = max(train_err[kname], e)
+    wire_edges = check_wire_edges(dev, fa, kref)
 
     phase("8. training (main path): hfl-selective at N=200, T=20")
     train_ds = normalize(generate(
@@ -2027,6 +2166,9 @@ def main() -> int:
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"legacy": legacy, "tied_blocks": tied_blocks}))
     print(json.dumps({"drift": drift}))
+    print(json.dumps({"launch_floor": floor, "wrapper_host_cost": host_cost,
+                      "compress_q8_at_fleet_chunk": train_timing["compress_q8 @ fleet chunk"],
+                      "wire_emit_edge_cases": wire_edges}))
     replaces, source = SWA_KERNEL
     kernels.append({
         "name": "swa_decode",

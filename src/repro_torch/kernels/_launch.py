@@ -9,6 +9,8 @@ import torch
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
           device: torch.device) -> None:
+    if t.device == device and t.dtype == dtype and t.shape == shape and t.is_contiguous():
+        return   # the common case, in one test: the launch wrappers' host cost
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:

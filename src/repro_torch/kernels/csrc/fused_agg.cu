@@ -3,9 +3,11 @@
 // densely (fused_agg) or through the sparse wire (wire_emit + wire_agg).
 //
 // Replaces the Pallas TPU kernels _fused_agg_kernel, _wire_emit_kernel and
-// _wire_agg_kernel of src/repro/kernels/fused_agg.py.  The dense and the
-// wire paths share block_threshold (block_select.cuh), the one bisection of
-// every compression kernel, so their survivor sets cannot drift apart.
+// _wire_agg_kernel of src/repro/kernels/fused_agg.py.  The dense path runs
+// block_threshold (block_select.cuh), the bisection of every compression
+// kernel; the wire's emit runs team_threshold beside it, the same bisection
+// over the block's real width only, so their survivor sets cannot drift
+// apart.
 //
 // The dense path (fused_agg, two launches).  Per client i and 8192-element block b of
 // the zero-padded flat update (d real coordinates):
@@ -51,10 +53,12 @@
 // latency-bound, not bandwidth-bound.
 //
 // The wire (the client-chunked rounds of HFLConfig.client_chunk):
-//   wire_emit: one block per (client, 8192-block): the same selection, then
-//           the survivors packed into k slots (int32 index, int8 code or
-//           f32 value, one f32 scale per block) in ref.compress_wire_ref's
-//           order, and new_err, written at the caller's row offset.
+//   wire_emit: a team per (client, 8192-block) sized to the block's real
+//           width (two warps up to 2,048 columns, else the block): the same
+//           selection, then the survivors packed into k slots (int32
+//           index, int8 code or f32 value, one f32 scale per block) in
+//           ref.compress_wire_ref's order, and new_err, written at the
+//           caller's row offset; one launch per team size.
 //   wire_agg: one block per (8192-block, fog): the fog's clients of the
 //           chunk in index order, each adding w * q * scale at its k slots
 //           into a shared-memory accumulator started from the running fog
@@ -63,8 +67,14 @@
 // per coordinate, the slots ~rho_s of that); for wire_agg the slots read
 // and the touched fog rows read and written (at fleet-10k's chunk of 512
 // clients into 1,000 fogs, ~400 rows of 5.4 KB).  Both are latency-bound at
-// these sizes: a bisection of 32 barrier-separated steps per block, and a
-// barrier per client in the aggregate.
+// these sizes.  wire_emit's first design (a block of 256 threads per
+// (client, block)) spent most of its time counting the padding of a
+// 1,352-wide block in 32 barrier-separated steps; a two-warp team counts
+// 24 held slots a thread for 8 steps, then only the few candidates left,
+// with no barrier.  At fleet-10k's chunk its 512 teams are about two warps
+// per scheduler, so each phase (loads, bisection, compaction, the O(s^2)
+// rank of the <= k survivors) runs near one warp's latency, not at the
+// card's rate.  wire_agg keeps a barrier per client.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -179,82 +189,258 @@ __device__ __forceinline__ float wire_code(float v, float scale) {
 template <bool kQuantize> struct CodeType { using T = float; };
 template <> struct CodeType<true> { using T = int8_t; };
 
-// Wire emit: one block per (client, 8192-block), the selection of
-// select_kernel (block_threshold), then the survivors packed into k slots:
-// survivors first, by |v| descending with ties to the lower index, then
-// the lowest-index non-survivors ascending with code 0 (the order of
-// ref.compress_wire_ref's top_k).  Survivors are listed in shared memory
-// in any order (an atomic counter); each one's slot is its rank under that
-// strict total order, counted over the list (at most k survivors, so
-// O(k^2 / threads) per thread).  A non-survivor j < k fills slot s + j -
-// (survivors below j) when that is below k: the first k - s non-survivors
-// all lie below k.  new_err = v - q * scale at the survivors and v
-// elsewhere, exactly select_kernel's.
-template <bool kQuantize>
-__global__ void __launch_bounds__(kThreads)
-    wire_emit_kernel(const float* __restrict__ delta,
-                     const float* __restrict__ err, int d, int nb, int k,
-                     int* __restrict__ idx_out,
-                     typename CodeType<kQuantize>::T* __restrict__ q_out,
-                     float* __restrict__ scale_out,
-                     float* __restrict__ new_err) {
-  extern __shared__ float wire_sm[];        // k survivor values, then k indices
-  int* s_idx = reinterpret_cast<int*>(wire_sm + k);
-  __shared__ unsigned n_surv;
-  const int i = blockIdx.x / nb;
-  const int b = blockIdx.x - i * nb;
-  const int tid = threadIdx.x;
-  const size_t row = static_cast<size_t>(i) * d;
+// Wire emit.  Each (client, block) is a task for a team sized to the
+// block's real width (team_threshold, block_select.cuh): two warps when
+// the width is at most kSmallWidth (the last block of a row, and every
+// block of a row that narrow: fleet-10k's d = 1,352 is one 1,352-wide
+// block), the whole block of kThreads otherwise.  One launch per team
+// size: the wide blocks of every row, then the narrow last blocks, a
+// client a team and blockDim.x / kTeam teams a block; a row with both (d =
+// 8,209: a full block and a 17-wide one) takes both launches.
+//
+// After the selection a team packs its k slots in ref.compress_wire_ref's
+// order: the ranked elements (|v| > max(hi, 0): every survivor with a
+// nonzero value) by |v| descending with ties to the lower index, then the
+// lowest-index other positions of the padded block, ascending.  (When hi
+// < 0, k = 8192 and every position survives; its zeros then rank by index
+// after the nonzero ones, which is the same order.)  The ranked elements,
+// at most k, are compacted by ballots in index order into the team's
+// shared memory as 64-bit keys (~bits(|v|), index) and values; each one's
+// slot is the number of smaller keys.  An unranked position e fills slot
+// s + e - (ranked elements below e) when that is below k, s the ranked
+// count: only e < k can, and an unheld padding position e lands in slot e.
+// Its code is its survivor code (a zero) or 0.  new_err is v at every real
+// column, then v - q * scale at the ranked ones (the others' q * scale is
+// 0): the operations of select_kernel and compress_q8, so the three agree
+// bit for bit.
+constexpr int kRankPad = 8;                   // keys the rank reads at a time
+template <int kTeam, int kSlots, bool kQuantize>
+__device__ __forceinline__ void wire_team(
+    const float* __restrict__ delta, const float* __restrict__ err, int d, int nb, int k,
+    int i, int b, int t, int bar, TeamScratch& sc, unsigned long long* keys, float* vals,
+    float* cand, unsigned* pre, unsigned* bal_s, int* __restrict__ idx_out,
+    typename CodeType<kQuantize>::T* __restrict__ q_out, float* __restrict__ scale_out,
+    float* __restrict__ new_err) {
+  using S = TeamShape<kTeam, kSlots>;
+  using CodeT = typename CodeType<kQuantize>::T;
+  constexpr int kTeamWarps = S::kTeamWarps;
+  constexpr int kEntries = kSlots * kTeamWarps;   // (slot, warp) pairs, <= kTeam
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const unsigned lt = (1u << lane) - 1u;
   const int base = b * kBlock;
-  const size_t slot0 = static_cast<size_t>(blockIdx.x) * k;
+  const size_t task = static_cast<size_t>(i) * nb + b;
+  const size_t slot0 = task * k;
 
-  if (tid == 0) n_surv = 0u;
-  float v[kPerThread];
+  float a[S::kSlots];                             // |v|
+  unsigned neg[S::kWords];                        // v's sign bits
   float amax;
-  const float hi = block_threshold(delta, err, row, base, d, k, v, &amax);
+  const float hi = team_threshold<kTeam, kSlots>(
+      delta, err, static_cast<size_t>(i) * d + base, min(kBlock, d - base), k, t, bar, sc, a,
+      neg, cand, &amax);
+  const int width = opaque(min(kBlock, d - base));
+  const size_t row = opaque(static_cast<size_t>(i) * d + base);
   const float scale = kQuantize ? __fmul_rn(amax, kInv127) : 1.0f;
+  const float ranked_above = fmaxf(hi, 0.0f);
+
+  // new_err = v at the real columns; the ranked ones are corrected below,
+  // after a barrier, by the thread that codes them.
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int c = j * kThreads + tid;
-    if (fabsf(v[j]) > hi) {
-      const unsigned pos = atomicAdd(&n_surv, 1u);
-      if (pos < static_cast<unsigned>(k)) {
-        wire_sm[pos] = v[j];
-        s_idx[pos] = c;
+  for (int j = 0; j < S::kSlots; ++j) {
+    const int e = j * kTeam + t;
+    if (e < width) new_err[row + e] = with_sign(a[j], neg[j / 32], j % 32);
+  }
+
+  // Compaction.  bal_s takes each (slot, warp)'s ballot of ranked elements
+  // (entry j * kTeamWarps + warp), pre the number of ranked elements
+  // before it in index order (e = j * kTeam + t), for the compaction and
+  // the fill.
+#pragma unroll
+  for (int j = 0; j < S::kSlots; ++j) {
+    const unsigned bal = __ballot_sync(0xffffffffu, a[j] > ranked_above);
+    if (lane == 0) bal_s[j * kTeamWarps + warp] = bal;
+  }
+  team_sync<kTeam>(bar);
+  // An exclusive scan of the (slot, warp) counts, one a thread.
+  const unsigned c = t < kEntries ? __popc(bal_s[t]) : 0u;
+  unsigned inc = c;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned up = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += up;
+  }
+  if (lane == 31) sc.cnt[warp] = inc;
+  team_sync<kTeam>(bar);
+  unsigned before = 0;
+  unsigned ranked = 0;                            // s, in every team thread
+#pragma unroll
+  for (int w = 0; w < kTeamWarps; ++w) {
+    before += w < warp ? sc.cnt[w] : 0u;
+    ranked += sc.cnt[w];
+  }
+  if (t < kEntries) pre[t] = before + inc - c;
+  team_sync<kTeam>(bar);
+#pragma unroll
+  for (int j = 0; j < S::kSlots; ++j) {
+    const bool r = a[j] > ranked_above;
+    const unsigned below = pre[j * kTeamWarps + warp] + __popc(__ballot_sync(0xffffffffu, r) & lt);
+    if (r) {
+      keys[below] = (static_cast<unsigned long long>(~__float_as_uint(a[j])) << 32) |
+                    static_cast<unsigned>(j * kTeam + t);
+      vals[below] = with_sign(a[j], neg[j / 32], j % 32);
+    }
+  }
+  if (t < kRankPad) keys[ranked + t] = ~0ull;     // the rank reads whole groups of keys
+  team_sync<kTeam>(bar);
+
+  // The ranked elements into slots 0 .. s - 1, kRankKeys keys a thread at a
+  // time, and their new_err.  Every key is at least 2^63 (its high word is
+  // ~bits(|v|)), so o < p exactly when the 64-bit difference key_o - key_p
+  // is negative: a subtraction and a shift, no predicate.  The keys are
+  // read kRankPad at a time by 16-byte loads, all in flight together; the
+  // pad past s is ~0, never below a key.
+  constexpr int kRankKeys = 2;
+  const int s = static_cast<int>(ranked);
+  for (int p0 = 0; p0 < s; p0 += kRankKeys * kTeam) {
+    unsigned long long key[kRankKeys];
+    unsigned r[kRankKeys];
+#pragma unroll
+    for (int h = 0; h < kRankKeys; ++h) {
+      const int p = p0 + h * kTeam + t;
+      key[h] = p < s ? keys[p] : ~0ull;
+      r[h] = 0;
+    }
+    for (int o0 = 0; o0 < s; o0 += kRankPad) {
+      unsigned long long ko[kRankPad];
+#pragma unroll
+      for (int u = 0; u < kRankPad / 2; ++u) {
+        const ulonglong2 pair = reinterpret_cast<const ulonglong2*>(keys + o0)[u];
+        ko[2 * u] = pair.x;
+        ko[2 * u + 1] = pair.y;
+      }
+#pragma unroll
+      for (int u = 0; u < kRankPad; ++u)
+#pragma unroll
+        for (int h = 0; h < kRankKeys; ++h) r[h] += static_cast<unsigned>((ko[u] - key[h]) >> 63);
+    }
+#pragma unroll
+    for (int h = 0; h < kRankKeys; ++h) {
+      const int p = p0 + h * kTeam + t;
+      if (p < s) {
+        const int e = static_cast<int>(key[h] & 0xffffffffu);
+        const float v = vals[p];
+        const float code = wire_code<kQuantize>(v, scale);
+        idx_out[slot0 + r[h]] = e;
+        q_out[slot0 + r[h]] = static_cast<CodeT>(code);
+        new_err[row + e] = __fsub_rn(v, kQuantize ? __fmul_rn(code, scale) : code);
       }
     }
-    if (base + c < d)
-      new_err[row + base + c] = __fsub_rn(v[j], reconstruct(v[j], hi, scale, kQuantize));
   }
-  __syncthreads();
-  const int s = min(static_cast<int>(n_surv), k);   // n_surv <= k: the bisection's invariant
-  for (int p = tid; p < s; p += kThreads) {
-    const float vp = wire_sm[p];
-    const float ap = fabsf(vp);
-    const int ip = s_idx[p];
-    int rank = 0;
-    for (int o = 0; o < s; ++o) {
-      const float ao = fabsf(wire_sm[o]);
-      rank += (ao > ap || (ao == ap && s_idx[o] < ip)) ? 1 : 0;
-    }
-    idx_out[slot0 + rank] = ip;
-    q_out[slot0 + rank] =
-        static_cast<typename CodeType<kQuantize>::T>(wire_code<kQuantize>(vp, scale));
-  }
-  for (int j = tid; j < k; j += kThreads) {
-    int below = 0;
-    bool survivor = false;
-    for (int o = 0; o < s; ++o) {
-      below += s_idx[o] < j ? 1 : 0;
-      survivor |= s_idx[o] == j;
-    }
-    const int r = j - below;
-    if (!survivor && r < k - s) {
-      idx_out[slot0 + s + r] = j;
-      q_out[slot0 + s + r] = static_cast<typename CodeType<kQuantize>::T>(0);
+  // The fill: held positions e < k, then unheld padding positions e < k.
+  // An unranked position's v is 0 when it survives (hi < 0), so its code
+  // is 0, or v itself (a signed zero) without quantisation.
+  const int fill = k - s;
+#pragma unroll
+  for (int j = 0; j < S::kSlots; ++j) {
+    if (j * kTeam >= k) break;                    // uniform; only e < k can fill
+    const int e = j * kTeam + t;
+    const bool ranked_e = a[j] > ranked_above;
+    const int below = static_cast<int>(pre[j * kTeamWarps + warp] +
+                                       __popc(__ballot_sync(0xffffffffu, ranked_e) & lt));
+    if (!ranked_e) {
+      if (e - below < fill) {
+        const size_t slot = slot0 + s + (e - below);
+        idx_out[slot] = e;
+        q_out[slot] = static_cast<CodeT>(
+            !kQuantize && a[j] > hi ? with_sign(a[j], neg[j / 32], j % 32) : 0.0f);
+      }
     }
   }
-  if (tid == 0) scale_out[blockIdx.x] = scale;
+  for (int e = S::kHeld + t; e < k; e += kTeam) {
+    idx_out[slot0 + e] = e;
+    q_out[slot0 + e] = static_cast<CodeT>(0);
+  }
+  if (t == 0) scale_out[task] = scale;
+}
+
+// A team's shared region in 8-byte words, an even number so each region
+// starts 16-byte aligned (the rank reads keys in pairs): its candidate
+// list (held floats), later its keys (cap of them and kRankPad pad keys)
+// and values (cap), with a spare 16 bytes (team_region in fused_agg.py).
+__host__ __device__ constexpr int wire_region(int held, int cap) {
+  return ((held * 4 > (cap + kRankPad) * 8 + cap * 4 ? held * 4 : (cap + kRankPad) * 8 + cap * 4) /
+              16 + 1) * 2;
+}
+
+// Teams of kTeam threads, blockDim.x / kTeam of them a block, each on one
+// task: with `wide`, block b < n_wide of client task / n_wide; otherwise
+// the last block of client task.  A team past the last task leaves at
+// once; its barriers are its own.
+constexpr int kNarrowTeam = 64;               // a small team: two warps
+template <bool kQuantize, int kTeam, int kSlots>
+__global__ void __launch_bounds__(kThreads)
+    wire_emit_kernel(const float* __restrict__ delta, const float* __restrict__ err, int n,
+                     int d, int nb, int k, int n_wide, bool wide, int cap,
+                     int* __restrict__ idx_out,
+                     typename CodeType<kQuantize>::T* __restrict__ q_out,
+                     float* __restrict__ scale_out, float* __restrict__ new_err) {
+  extern __shared__ __align__(16) unsigned long long wire_sm[];
+  __shared__ unsigned pre[kThreads];
+  __shared__ unsigned bal_s[kThreads];
+  __shared__ TeamScratch scratch[kThreads / kTeam];
+  const int team = threadIdx.x / kTeam;
+  const int t = threadIdx.x - team * kTeam;
+  const int task = blockIdx.x * (blockDim.x / kTeam) + team;
+  if (task >= (wide ? n * n_wide : n)) return;   // the whole team; no barrier follows
+  const int i = wide ? task / n_wide : task;
+  const int b = wide ? task - i * n_wide : nb - 1;
+  unsigned long long* region = wire_sm + team * wire_region(kTeam * kSlots, cap);
+  wire_team<kTeam, kSlots, kQuantize>(
+      delta, err, d, nb, k, i, b, t, team + 1, scratch[team], region,
+      reinterpret_cast<float*>(region + cap + kRankPad), reinterpret_cast<float*>(region),
+      pre + team * kTeam, bal_s + team * kTeam, idx_out, q_out, scale_out, new_err);
+}
+
+// Every wire_emit kernel, for wire_emit_init's attribute.
+template <bool kQuantize>
+void wire_emit_kernels(const void** out) {
+  out[0] = reinterpret_cast<const void*>(wire_emit_kernel<kQuantize, kThreads, kBlock / kThreads>);
+  out[1] = reinterpret_cast<const void*>(wire_emit_kernel<kQuantize, kNarrowTeam, 8>);
+  out[2] = reinterpret_cast<const void*>(wire_emit_kernel<kQuantize, kNarrowTeam, 16>);
+  out[3] = reinterpret_cast<const void*>(wire_emit_kernel<kQuantize, kNarrowTeam, 24>);
+  out[4] = reinterpret_cast<const void*>(wire_emit_kernel<kQuantize, kNarrowTeam, 32>);
+}
+
+template <bool kQuantize>
+int launch_wire_emit(const float* delta, const float* err, int n, int d, int nb, int k,
+                     int n_wide, int cap_wide, int smem_wide, int slots, int threads,
+                     int narrow_grid, int cap_narrow, int smem_narrow, int* idx,
+                     typename CodeType<kQuantize>::T* q, float* scale, float* new_err,
+                     cudaStream_t s) {
+  if (n_wide > 0) {
+    wire_emit_kernel<kQuantize, kThreads, kBlock / kThreads>
+        <<<n * n_wide, kThreads, smem_wide, s>>>(delta, err, n, d, nb, k, n_wide, true,
+                                                 cap_wide, idx, q, scale, new_err);
+    const cudaError_t rc = cudaGetLastError();
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  if (narrow_grid > 0) {
+    switch (slots) {
+#define WIRE_NARROW_CASE(S)                                                            \
+  case S:                                                                              \
+    wire_emit_kernel<kQuantize, kNarrowTeam, S><<<narrow_grid, threads, smem_narrow, s>>>( \
+        delta, err, n, d, nb, k, n_wide, false, cap_narrow, idx, q, scale, new_err);   \
+    break;
+      WIRE_NARROW_CASE(8)
+      WIRE_NARROW_CASE(16)
+      WIRE_NARROW_CASE(24)
+      WIRE_NARROW_CASE(32)
+#undef WIRE_NARROW_CASE
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Wire aggregate: one block per (8192-block, fog).  The block walks its
@@ -359,39 +545,51 @@ int fused_agg_sum(const void* delta, const void* err, const void* fog_id,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Opts the wire_emit kernels in to smem_bytes of dynamic shared memory on
+// the current device; called once per device by the wrapper.  Returns the
+// cudaError_t (0 on success).
+int wire_emit_init(int smem_bytes) {
+  const void* kernels[10];
+  wire_emit_kernels<true>(kernels);
+  wire_emit_kernels<false>(kernels + 5);
+  for (const void* kernel : kernels) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  return 0;
+}
+
 // Wire emit.  idx (n, nb, k) int32, q (n, nb, k) int8 (quantize) or f32,
 // scale (n, nb) f32 and new_err (n, d), each written from its pointer on
-// (a row offset into the caller's buffers).  Returns the cudaError_t.
-int wire_emit(const void* delta, const void* err, int n, int d, int k,
-              int quantize, void* idx, void* q, void* scale, void* new_err,
-              void* stream) {
-  if (n < 1 || d < 1 || k < 1 || k > kBlock)
-    return static_cast<int>(cudaErrorInvalidValue);
+// (a row offset into the caller's buffers).  The launches come from
+// fused_agg.py's wire_plan(): n_wide block-team blocks per row (one launch
+// of n * n_wide blocks), then, when the last block is narrow, narrow_grid
+// blocks of two-warp teams with `slots` slots a thread (a second launch).
+// Returns the cudaError_t of the launches.
+int wire_emit(const void* delta, const void* err, int n, int d, int k, int quantize,
+              int n_wide, int cap_wide, int smem_wide, int slots, int threads,
+              int narrow_grid, int cap_narrow, int smem_narrow, void* idx, void* q,
+              void* scale, void* new_err, void* stream) {
   const int nb = (d + kBlock - 1) / kBlock;
-  const long long grid = static_cast<long long>(n) * nb;
-  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = 2 * k * static_cast<int>(sizeof(float));
-  cudaError_t rc;
-  if (quantize) {
-    rc = cudaFuncSetAttribute(wire_emit_kernel<true>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    wire_emit_kernel<true><<<static_cast<unsigned>(grid), kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(delta), static_cast<const float*>(err), d, nb,
-        k, static_cast<int*>(idx), static_cast<int8_t*>(q),
-        static_cast<float*>(scale), static_cast<float*>(new_err));
-  } else {
-    rc = cudaFuncSetAttribute(wire_emit_kernel<false>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    wire_emit_kernel<false><<<static_cast<unsigned>(grid), kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(delta), static_cast<const float*>(err), d, nb,
-        k, static_cast<int*>(idx), static_cast<float*>(q),
-        static_cast<float*>(scale), static_cast<float*>(new_err));
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (n < 1 || d < 1 || k < 1 || k > kBlock || n_wide < 0 || n_wide > nb ||
+      static_cast<long long>(n) * n_wide > 0x7fffffffLL || narrow_grid < 0 ||
+      (narrow_grid > 0 && (threads < kNarrowTeam || threads > kThreads ||
+                           threads % kNarrowTeam != 0 ||
+                           d - (nb - 1) * kBlock > kNarrowTeam * slots)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* dp = static_cast<const float*>(delta);
+  const float* ep = static_cast<const float*>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (quantize)
+    return launch_wire_emit<true>(dp, ep, n, d, nb, k, n_wide, cap_wide, smem_wide, slots,
+                                  threads, narrow_grid, cap_narrow, smem_narrow,
+                                  static_cast<int*>(idx), static_cast<int8_t*>(q),
+                                  static_cast<float*>(scale), static_cast<float*>(new_err), s);
+  return launch_wire_emit<false>(dp, ep, n, d, nb, k, n_wide, cap_wide, smem_wide, slots,
+                                 threads, narrow_grid, cap_narrow, smem_narrow,
+                                 static_cast<int*>(idx), static_cast<float*>(q),
+                                 static_cast<float*>(scale), static_cast<float*>(new_err), s);
 }
 
 // Wire aggregate: adds the wire of n clients into fog_sum (n_fog, d) in

@@ -7,18 +7,23 @@ launch on the current stream and raise when the launch is refused.  The
 CPU path is ``kernels/ops``' business, which sends CPU tensors to the
 plain versions in ``kernels/ref``.
 
-Unlike the TPU kernel there is no 128-lane padding: the kernel reads the
-real widths and masks the ragged row tile itself.  ``LAUNCHES`` counts each
+Unlike the TPU kernel there is no 128-lane padding: the kernels read the
+real widths and mask the ragged rows themselves.  ``LAUNCHES`` counts each
 wrapper's launches (plain integers; :func:`reset_launches` zeroes them).
 
-The first launch on a device opts both kernels in to ``SMEM_LIMIT`` bytes
+The first launch on a device opts the kernels in to ``SMEM_LIMIT`` bytes
 of dynamic shared memory there and reads its SM count; later launches
-reuse both, and the tile layout is cached per (widths, rows, SMs).
+reuse both.  ``fused_score_f32``'s grid comes from :func:`plan` (a warp per
+group of ``ROWS_PER_WARP`` rows), ``fused_score_q8``'s tile from
+:func:`layout`, each cached per (widths, rows, SMs); :func:`score_rows`
+builds the ctypes pointer arrays once per weight set, keyed on the
+tensors' ``data_ptr``s, so a hot-swapped set gets its own.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -26,11 +31,18 @@ from repro_torch.kernels import _build, _launch
 
 MAX_LAYERS = 8             # kMaxLayers in csrc/fused_score.cu
 SMEM_LIMIT = 232_448       # dynamic shared memory one sm_90 block may opt in to
+ROWS_PER_WARP = 4          # kGroupRows: the rows one warp scores together
+MAX_WARPS = 8              # kMaxWarps: warps per block, at most
+RESIDENT_WARPS = 16        # warps per SM a large batch keeps in flight
+PAPER_DIMS = (32, 16, 8, 16, 32)   # PaperAE, the compile-time instance
+PAPER_STRIP = ROWS_PER_WARP * (36 + 20 + 8)   # PaperAE::kStrip, floats per warp
+ARG_CACHE = 64             # weight sets whose ctypes arrays are kept
 
 LAUNCHES = {"fused_score_f32": 0, "fused_score_q8": 0}
 
 _lib: ctypes.CDLL | None = None
 _n_sm: dict[int, int] = {}  # device index -> SM count, once opted in
+_f32_args: dict[tuple, tuple] = {}   # (dims, weight and bias ptrs) -> ctypes arrays
 
 
 def reset_launches() -> None:
@@ -45,7 +57,8 @@ def _library() -> ctypes.CDLL:
         vp, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
         ptrs = ctypes.POINTER(ctypes.c_void_p)
         tail = [vp, vp, i, i, i, i, vp]   # err, flag, tile, strides, smem, stream
-        lib.fused_score_f32.argtypes = [vp, vp, i, i, ip, ptrs, ptrs, *tail]
+        lib.fused_score_f32.argtypes = [vp, vp, i, i, ip, ptrs, ptrs, vp, vp,
+                                        i, i, i, i, i, i, i, i, vp]
         lib.fused_score_f32.restype = i
         lib.fused_score_q8.argtypes = [vp, vp, i, i, ip, ptrs, ptrs, ptrs, *tail]
         lib.fused_score_q8.restype = i
@@ -64,8 +77,8 @@ def _raise_on(rc: int, what: str) -> None:
 
 
 def _sm_count(device: torch.device) -> int:
-    """SM count of ``device``; its first call there opts both kernels in
-    to ``SMEM_LIMIT`` bytes of dynamic shared memory."""
+    """SM count of ``device``; its first call there opts the kernels that
+    stage weights in to ``SMEM_LIMIT`` bytes of dynamic shared memory."""
     n_sm = _n_sm.get(device.index)
     if n_sm is None:
         with torch.cuda.device(device):
@@ -100,6 +113,62 @@ def layout(dims: tuple[int, ...], rows: int, n_sm: int) -> tuple[int, int, int, 
                 f"per 32-row block; the kernel has {SMEM_LIMIT}"
             )
         tile //= 2
+
+
+class Plan(NamedTuple):
+    """``fused_score_f32``'s launch: the instance, the grid and the shared
+    memory of each warp's strip (floats) and of the block (bytes)."""
+    paper: bool          # the PaperAE instance (weights in registers)
+    warps: int           # warps per block
+    blocks: int
+    x_stride: int        # strip row stride of x and the differences (Generic)
+    h_stride: int        # strip row stride of the hidden activations (Generic)
+    strip: int           # floats per warp
+    w_floats: int        # weights and biases staged per block (Generic), else 0
+    smem: int            # dynamic shared memory per block, bytes (Generic), else 0
+
+
+def _align4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+@functools.lru_cache(maxsize=256)
+def plan(dims: tuple[int, ...], rows: int, n_sm: int) -> Plan:
+    """The grid of ``fused_score_f32`` for ``rows`` rows of widths ``dims``
+    on ``n_sm`` SMs.
+
+    A warp scores ``ROWS_PER_WARP`` rows at a time.  Up to
+    ``RESIDENT_WARPS`` per SM, there is a warp per group; past that the
+    warps walk the groups with a stride.  The paper AE runs the
+    compile-time instance (weights in registers, no dynamic shared memory)
+    in blocks of as many warps (a power of two up to ``MAX_WARPS``) as keep
+    one block per SM or more.  Other widths stage their weights once per
+    block, so their blocks keep ``MAX_WARPS`` warps unless that does not fit
+    in ``SMEM_LIMIT``.  The instance depends on the widths alone, so a row
+    scores the same in every batch."""
+    groups = -(-rows // ROWS_PER_WARP)
+    warps = max(1, min(groups, n_sm * RESIDENT_WARPS))
+    per_block = MAX_WARPS
+    if tuple(dims) == PAPER_DIMS:
+        while per_block > 1 and -(-warps // per_block) < n_sm:
+            per_block //= 2
+        return Plan(True, per_block, -(-warps // per_block), 0, 0, PAPER_STRIP, 0, 0)
+    x_stride = _align4(dims[0])
+    hidden = dims[1:-1]
+    h_stride = _align4(max(hidden)) if hidden else 0
+    strip = ROWS_PER_WARP * (2 * x_stride + 2 * h_stride)
+    w_floats = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    while True:
+        smem = 4 * (w_floats + per_block * strip)
+        if smem <= SMEM_LIMIT:
+            return Plan(False, per_block, -(-warps // per_block), x_stride, h_stride, strip,
+                        w_floats, smem)
+        if per_block == 1:
+            raise ValueError(
+                f"autoencoder widths {dims} need {smem} B of shared memory "
+                f"per one-warp block; the kernel has {SMEM_LIMIT}"
+            )
+        per_block //= 2
 
 
 def _check_rows(x: torch.Tensor, tau: torch.Tensor, n_layers: int) -> torch.device:
@@ -142,6 +211,22 @@ def _run(fn, name: str, x, tau, dims, weight_ptrs, device):
     return err, flag
 
 
+def _f32_arrays(dims: tuple[int, ...], ws, bs) -> tuple:
+    """The ctypes (dims, weight pointers, bias pointers) arrays of one
+    weight set, built once and kept while the set's tensors stay where
+    they are (the key is their ``data_ptr``s)."""
+    key = (dims, tuple(w.data_ptr() for w in ws), tuple(b.data_ptr() for b in bs))
+    arrays = _f32_args.get(key)
+    if arrays is None:
+        n = len(ws)
+        arrays = ((ctypes.c_int * len(dims))(*dims), (ctypes.c_void_p * n)(*key[1]),
+                  (ctypes.c_void_p * n)(*key[2]))
+        if len(_f32_args) >= ARG_CACHE:
+            _f32_args.clear()
+        _f32_args[key] = arrays
+    return arrays
+
+
 def score_rows(
     x: torch.Tensor,                  # (R, d) f32, CUDA, contiguous
     tau: torch.Tensor,                # (R,) f32 per-row thresholds
@@ -151,14 +236,32 @@ def score_rows(
     """Launch ``fused_score_f32``: (err (R,) f32, flag (R,) bool)."""
     device = _check_rows(x, tau, len(ws))
     dims = _dims(x, ws)
-    for i, (w, b) in enumerate(zip(ws, bs, strict=True)):
-        _launch.check(w, f"ws[{i}]", torch.float32, (dims[i], dims[i + 1]), device)
-        _launch.check(b, f"bs[{i}]", torch.float32, (dims[i + 1],), device)
+    if len(bs) != len(ws):
+        raise ValueError(f"{len(ws)} weights but {len(bs)} biases")
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        w_shape, b_shape = (dims[i], dims[i + 1]), (dims[i + 1],)
+        if not (w.dtype == b.dtype == torch.float32 and w.device == b.device == device
+                and w.shape == w_shape and b.shape == b_shape
+                and w.is_contiguous() and b.is_contiguous()):
+            _launch.check(w, f"ws[{i}]", torch.float32, w_shape, device)
+            _launch.check(b, f"bs[{i}]", torch.float32, b_shape, device)
+    rows = int(x.shape[0])
+    err = torch.empty((rows,), dtype=torch.float32, device=device)
+    flag = torch.empty((rows,), dtype=torch.bool, device=device)
+    if rows == 0:
+        return err, flag
+    p = plan(dims, rows, _sm_count(device))
+    dims_arr, w_arr, b_arr = _f32_arrays(dims, ws, bs)
     lib = _library()
-    return _run(
-        lib.fused_score_f32, "fused_score_f32", x, tau, dims,
-        [[w.data_ptr() for w in ws], [b.data_ptr() for b in bs]], device,
-    )
+    with torch.cuda.device(device):
+        rc = lib.fused_score_f32(
+            x.data_ptr(), tau.data_ptr(), rows, len(ws), dims_arr, w_arr, b_arr,
+            err.data_ptr(), flag.data_ptr(), int(p.paper), p.warps, p.blocks, p.x_stride,
+            p.h_stride, p.strip, p.w_floats, p.smem, _launch.stream(device),
+        )
+    _raise_on(rc, "fused_score_f32 launch")
+    LAUNCHES["fused_score_f32"] += 1
+    return err, flag
 
 
 def score_rows_q8(

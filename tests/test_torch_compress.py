@@ -279,3 +279,118 @@ def test_unfused_matches_fused_survivors_and_sums():
     np.testing.assert_allclose(legacy[0].numpy(), fused[0].numpy(), rtol=1e-5, atol=1e-4)
     np.testing.assert_array_equal(legacy[1].numpy(), fused[1].numpy())
     np.testing.assert_array_equal(legacy[2].numpy(), fused[2].numpy())
+
+
+def _bisect_counting_real(real_abs, n_pad, k, iters=tref.BISECT_ITERS):
+    """The kernels' bisection: counts over the real values only, plus the
+    padding's n_pad * [mid < 0] (|0| > mid exactly when mid < 0)."""
+    lo = torch.full(real_abs.shape[:-1] + (1,), -1.0)
+    hi = torch.amax(real_abs, dim=-1, keepdim=True) if real_abs.shape[-1] else torch.zeros_like(lo)
+    hi = torch.maximum(hi, torch.zeros_like(hi))
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        cnt = torch.sum(real_abs > mid, dim=-1, keepdim=True) + n_pad * (mid < 0)
+        take = cnt > k
+        lo = torch.where(take, mid, lo)
+        hi = torch.where(take, hi, mid)
+    return hi
+
+
+def _identity_cases():
+    rng = np.random.default_rng(7)
+    gauss = rng.standard_normal((3, 1352)).astype(np.float32)
+    return {
+        "gaussian": (gauss, 68),
+        "amax below 1": (1e-3 * gauss, 68),
+        "all zero": (np.zeros((2, 1352), np.float32), 68),
+        "ties at the max": (np.where(np.arange(1352) % 2 == 0, 5.0, -5.0)[None].astype(np.float32), 68),
+        "k above the width": (rng.standard_normal((2, 17)).astype(np.float32), 68),
+        "k = 8192": (rng.standard_normal((2, 8209 - 8192)).astype(np.float32), 8192),
+        "k = 1": (gauss, 1),
+        "a full block": (rng.standard_normal((2, 8192)).astype(np.float32), 410),
+    }
+
+
+@pytest.mark.parametrize("case", list(_identity_cases()))
+def test_padding_count_identity(case):
+    """ref.bisect_threshold over a zero-padded 8,192-block equals the
+    bisection that counts the real values and adds n_pad * [mid < 0]:
+    the threshold wire_emit's team selection computes, bit for bit."""
+    x, k = _identity_cases()[case]
+    real = torch.from_numpy(np.abs(x))
+    width = real.shape[-1]
+    padded = torch.nn.functional.pad(real, (0, BLOCK - width))
+    want = tref.bisect_threshold(padded, k)
+    got = _bisect_counting_real(real, BLOCK - width, k)
+    assert torch.equal(got, want)
+
+
+def _pack_order(v, hi, k):
+    """wire_emit's slot order for one padded block v (8,192,): the ranked
+    elements (|v| > max(hi, 0)) by (|v| descending, index), then each other
+    position e with e - (ranked below e) < k - s at slot s + that; a
+    position of the padding past the held tiles lands in slot e."""
+    a = v.abs()
+    ranked = a > max(hi, 0.0)
+    s = int(ranked.sum())
+    order = sorted(torch.nonzero(ranked).flatten().tolist(), key=lambda e: (-float(a[e]), e))
+    slots = order + [-1] * (k - s)
+    below = torch.cumsum(ranked.to(torch.int64), 0) - ranked.to(torch.int64)
+    for e in range(BLOCK):
+        if not ranked[e] and e - int(below[e]) < k - s:
+            slots[s + e - int(below[e])] = e
+    return slots
+
+
+@pytest.mark.parametrize("case", list(_identity_cases()))
+def test_wire_pack_order_is_the_plain_versions(case):
+    """The pack rule of the wire_emit kernel gives compress_wire_ref's slot
+    order: survivors first, then the lowest-index others, with k at and
+    above the width and k = 8,192 (hi < 0: the zeros rank by index)."""
+    x, k = _identity_cases()[case]
+    delta = torch.from_numpy(x)
+    idx, _, _, _ = tref.compress_wire_ref(delta, torch.zeros_like(delta), k)
+    v = tref.pad_blocks(delta)
+    hi = tref.bisect_threshold(v.abs(), k)
+    for row in range(delta.shape[0]):
+        assert _pack_order(v[row, 0], float(hi[row, 0, 0]), k) == idx[row, 0].tolist()
+
+
+@pytest.mark.parametrize(
+    "n,d,k,want",
+    [(512, 1352, 68, (0, 0, 24, 128, 256, 68)),    # fleet-10k's chunk: 2 two-warp teams a block
+     (200, 1352, 68, (0, 0, 24, 64, 200, 68)),     # train-200: a team a block
+     (5, 1352, 68, (0, 0, 24, 64, 5, 68)),
+     (2000, 1352, 68, (0, 0, 24, 256, 500, 68)),
+     (200, 8209, 68, (1, 68, 8, 64, 200, 17)),     # a block team and a 17-wide small team per row
+     (3, 65536, 8192, (8, 8192, 0, 0, 0, 0)),      # full blocks only
+     (4, 8191, 68, (1, 68, 0, 0, 0, 0)),           # a last block too wide for a small team
+     (4, 2048, 4096, (0, 0, 32, 64, 4, 2048)),
+     (4, 1024, 68, (0, 0, 16, 64, 4, 68))],
+)
+def test_wire_plan_at_the_main_paths_shapes(n, d, k, want):
+    """wire_emit's teams and grid on an H100 SXM's 132 SMs: (block-team
+    blocks per row, their shared-memory cap, a small team's slots a thread,
+    threads and blocks of small teams, their cap)."""
+    from repro_torch.kernels import fused_agg as fa
+
+    p = fa.wire_plan(n, d, k, 132)
+    assert (p.n_wide, p.cap_wide, p.slots, p.threads, p.narrow_grid, p.cap_narrow) == want
+    assert p.smem_wide == (fa.team_region(8192, p.cap_wide) if p.n_wide else 0)
+    teams = p.threads // fa.SMALL_TEAM
+    assert p.smem_narrow == teams * fa.team_region(fa.SMALL_TEAM * p.slots, p.cap_narrow)
+    regions = [(p.smem_wide, 8192, p.cap_wide)] if p.n_wide else []
+    if teams:
+        regions.append((p.smem_narrow // teams, fa.SMALL_TEAM * p.slots, p.cap_narrow))
+    for region, held, cap in regions:
+        assert region >= 4 * held                                     # candidates, then keys
+        assert region >= fa.SLOT_BYTES * cap + 8 * fa.RANK_PAD
+    assert max(p.smem_wide, p.smem_narrow) <= fa.SMEM_MAX
+
+
+@pytest.mark.parametrize("width,threads", [(1, 64), (1352, 64), (2048, 64), (2049, 256),
+                                           (8192, 256)])
+def test_wire_team_size_by_width(width, threads):
+    from repro_torch.kernels import fused_agg as fa
+
+    assert fa.team_threads(width) == threads

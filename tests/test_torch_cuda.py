@@ -16,9 +16,9 @@ to ``rtol=1e-4, atol=1e-6`` and losses to ``rtol=1e-5``; compress-aggregate
 survivor sets exactly, new_err to ``atol=1e-5`` and fog sums to
 ``rtol=1e-5, atol=1e-4`` (the reference's kernel-vs-oracle tolerances).
 Robust aggregation to ``rtol=1e-5, atol=1e-6`` (the selection is exact
-with integer weights; only num / den round apart); the wire's slots, codes
-and scales exactly, its new_err to ``atol=1e-5`` and its fog sums to
-``rtol=1e-5, atol=1e-4``.  The per-client compressor kernels
+with integer weights; only num / den round apart); the wire's slots, codes,
+scales and new_err exactly (the same IEEE operations as the plain
+version), its fog sums to ``rtol=1e-5, atol=1e-4``.  The per-client compressor kernels
 (``compress_q8``, ``topk_ef``, ``quant8``) bitwise: codes, scales, sparse
 values and new_err, the tie and all-zero rows included (the kernels and
 their plain versions make the same IEEE operations, none contracted).
@@ -26,7 +26,9 @@ their plain versions make the same IEEE operations, none contracted).
 apart; over its split edges (splits holding no position, a window
 shorter than a tile, len 1 and S + window, g = 1 / 10 / 16 / 36) and
 bitwise equal across calls.  ``local_train_f32`` also at batches 1, 7
-and 33 and at widths without a compile-time instance.
+and 33 and at widths without a compile-time instance.  ``fused_score_f32``
+also at rows 1 to 65,537 at four depths, and a row's err bitwise equal
+in any batch.
 """
 import numpy as np
 import pytest
@@ -219,6 +221,56 @@ def test_service_on_the_card_matches_cpu_service(cuda, tmp_path, weight_dtype):
             assert np.all(np.abs(res[rid].error - err64) <= bound), device
             far = np.abs(err64 - tau) > bound
             np.testing.assert_array_equal(res[rid].flag[far], (err64 > tau)[far])
+
+
+SCORE_AES = {                       # name -> (d, hidden): the instances and depths
+    "paper": (32, (16, 8, 16)),
+    "wide": (130, (64, 8, 64)),
+    "one layer": (32, ()),
+    "eight layers": (24, (20, 16, 12, 8, 12, 16, 20)),
+}
+SCORE_ROWS = [1, 31, 32, 33, 127, 128, 1024, 65537]
+
+
+def _score_case(name, rows, device, seed):
+    """``_case`` with biases drawn too (``ae.init`` zeroes them)."""
+    d, hidden = SCORE_AES[name]
+    params, x, tau = _case(d, hidden, rows, device, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    for layer in params:
+        layer["b"] = (0.1 * torch.randn(layer["b"].shape, generator=g)).to(device)
+    return tuple(p["w"] for p in params), tuple(p["b"] for p in params), x, tau
+
+
+@pytest.mark.parametrize("rows", SCORE_ROWS)
+@pytest.mark.parametrize("name", list(SCORE_AES))
+def test_f32_kernel_rows_and_depths(cuda, name, rows):
+    """Ragged groups of 4 rows, one row short of and past a warp's 32
+    lanes, the compile-time instance and the generic one at 1, 4 and 8
+    layers."""
+    ws, bs, x, tau = _score_case(name, rows, cuda, seed=rows)
+    before = fs.LAUNCHES["fused_score_f32"]
+    err, flag = fs.score_rows(x, tau, ws, bs)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["fused_score_f32"] == before + 1
+    _assert_match(err, flag, *ref.fused_score_ref(x, ws, bs, tau), tau)
+
+
+@pytest.mark.parametrize("name", ["paper", "wide"])
+def test_f32_kernel_err_is_bitwise_the_same_in_any_batch(cuda, name):
+    """A row's err does not depend on the batch, the group or the lanes it
+    lands in: rows 301..428 of a 1,024-row batch scored again as a 128-row
+    batch (another offset within their groups), and the batch twice."""
+    ws, bs, x, tau = _score_case(name, 1024, cuda, seed=5)
+    err, flag = fs.score_rows(x, tau, ws, bs)
+    again, flag_again = fs.score_rows(x, tau, ws, bs)
+    part, flag_part = fs.score_rows(x[301:429].contiguous(), tau[301:429].contiguous(), ws, bs)
+    torch.cuda.synchronize()
+    assert torch.equal(err.isnan(), again.isnan()) and torch.equal(flag, flag_again)
+    fin = ~err.isnan()
+    assert torch.equal(err[fin], again[fin])
+    assert torch.equal(err[301:429][fin[301:429]], part[fin[301:429]])
+    assert torch.equal(flag[301:429], flag_part)
 
 
 def _train_case(n, window, d, hidden, device, seed=0, bs=32, epochs=5):
@@ -490,7 +542,7 @@ def test_wire_kernels_match_plain(cuda, d, n, quantize, k):
     idx, q, scale, new_err = (b[off:off + n] for b in bufs)
     w_idx, w_q, w_scale, w_err = ref.compress_wire_ref(deltas, err, k, quantize)
     assert torch.equal(idx, w_idx) and torch.equal(q, w_q) and torch.equal(scale, w_scale)
-    np.testing.assert_allclose(new_err.cpu().numpy(), w_err.cpu().numpy(), atol=1e-5)
+    assert torch.equal(new_err, w_err)
     for b, fill in zip(bufs, (-7, 5, 9.0, 9.0)):            # rows outside untouched
         assert bool((b[:off] == fill).all()) and bool((b[off + n:] == fill).all())
     base = torch.randn((20, d), generator=torch.Generator().manual_seed(1)).to(cuda)
@@ -500,6 +552,63 @@ def test_wire_kernels_match_plain(cuda, d, n, quantize, k):
     want = base + ref.wire_aggregate_ref(idx, q, scale, fog_id, weights, 20, d)
     np.testing.assert_allclose(fog_sum.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-4)
     assert torch.equal(fog_sum[1], base[1])                # the empty fog's row untouched
+
+
+def _wire_rows(n, d, k, device, seed):
+    """Gaussian rows; with N > 2, row 1 all zeros and row 2 with more than
+    k entries of each block tied at its max (as many as its width allows)
+    and the rest tied at a tenth of it."""
+    g = torch.Generator().manual_seed(seed)
+    deltas = torch.randn((n, d), generator=g)
+    err = 0.1 * torch.randn((n, d), generator=g)
+    if n > 2:
+        deltas[1] = 0.0
+        err[1] = 0.0
+        err[2] = 0.0
+        deltas[2] = torch.where(torch.arange(d) % 2 == 0, 0.5, -0.5)
+        for lo in range(0, d, 8192):
+            t = min(d - lo, 8192, k + 3)
+            deltas[2, lo:lo + t] = torch.where(torch.arange(t) % 2 == 0, 5.0, -5.0)
+    return deltas.to(device), err.to(device)
+
+
+def _assert_wire_equal(deltas, err, k, quantize):
+    got = fa.compress_wire_blocks(deltas, err, k, quantize)
+    want = ref.compress_wire_ref(deltas, err, k, quantize)
+    for g, w, what in zip(got, want, ("idx", "q", "scale", "new_err")):
+        assert g.dtype == w.dtype and torch.equal(g, w), what
+    return got
+
+
+@pytest.mark.parametrize("quantize", [True, False])
+@pytest.mark.parametrize("d", [1, 31, 33, 1352, 2049, 8191, 8192, 8209, 65536])
+def test_wire_emit_bitwise_over_widths(cuda, d, quantize):
+    """Warp teams (widths up to 2,048), block teams and both in one launch
+    (8,209 = a full block and a 17-wide one), N = 7 with a zero row and a
+    tied row, k = 68."""
+    deltas, err = _wire_rows(7, d, 68, cuda, seed=d)
+    _assert_wire_equal(deltas, err, 68, quantize)
+
+
+@pytest.mark.parametrize("quantize", [True, False])
+@pytest.mark.parametrize("d,k", [(8209, 1), (8209, 68), (31, 68), (1352, 1352), (1352, 2048),
+                                 (2049, 4096), (8209, 8192), (1, 8192)])
+def test_wire_emit_edges(cuda, d, k, quantize):
+    """k = 1; k = 68 at d = 8,209, whose fill reaches past the 17-wide last
+    block's real columns into its padding; k at and above a block's real
+    width; k = 8,192, where every position survives."""
+    deltas, err = _wire_rows(5, d, k, cuda, seed=d + k)
+    _assert_wire_equal(deltas, err, k, quantize)
+
+
+def test_wire_emit_new_err_equals_compress_q8(cuda):
+    """The two selections (team_threshold and block_threshold) on the same
+    rows: wire_emit's new_err equals compress_q8's bit for bit."""
+    for d in (1352, 8209):
+        deltas, err = _wire_rows(200, d, 68, cuda, seed=d + 1)
+        _, _, _, wire_err = fa.compress_wire_blocks(deltas, err, 68)
+        _, _, q8_err = q8.compress_blocks(deltas, err, 68)
+        assert torch.equal(wire_err, q8_err)
 
 
 def test_ops_route_robust_and_wire_tensors_to_the_kernels(cuda):

@@ -259,3 +259,52 @@ def test_kernel_layout_refuses_widths_beyond_shared_memory():
 
     with pytest.raises(ValueError, match="shared memory"):
         fs.layout((512, 256, 512), 1024, 132)
+
+
+PAPER = (32, 16, 8, 16, 32)
+WIDE_DIMS = (130, 64, 8, 64, 130)
+
+
+@pytest.mark.parametrize(
+    "dims,rows,want",
+    [(PAPER, 128, (True, 1, 32)),      # serve bucket: a warp per 4 rows, one per block
+     (PAPER, 1024, (True, 1, 256)),    # the large bucket over every SM
+     (PAPER, 65536, (True, 8, 264)),   # 16 resident warps per SM walk the groups
+     (PAPER, 1, (True, 1, 1)),
+     (WIDE_DIMS, 1024, (False, 8, 32)),
+     ((32, 32), 7, (False, 8, 1))],
+)
+def test_f32_plan_at_the_main_paths_shapes(dims, rows, want):
+    """fused_score_f32's grid on an H100 SXM's 132 SMs: the instance, warps
+    per block and blocks; enough warps for every 4-row group up to 16 per
+    SM, the paper AE's blocks as narrow as keeps one per SM."""
+    from repro_torch.kernels import fused_score as fs
+
+    p = fs.plan(dims, rows, 132)
+    assert (p.paper, p.warps, p.blocks) == want
+    groups = -(-rows // fs.ROWS_PER_WARP)
+    assert min(groups, 132 * fs.RESIDENT_WARPS) <= p.warps * p.blocks
+    assert p.warps * (p.blocks - 1) < min(groups, 132 * fs.RESIDENT_WARPS)
+    assert p.smem <= fs.SMEM_LIMIT
+
+
+def test_f32_plan_depends_on_widths_not_rows():
+    """The instance and the strip layout are the same at every row count,
+    so a row scores alike in every bucket."""
+    from repro_torch.kernels import fused_score as fs
+
+    for dims in (PAPER, WIDE_DIMS, (24, 20, 16, 12, 8, 12, 16, 20, 24)):
+        plans = [fs.plan(dims, r, 132) for r in (1, 31, 128, 1024, 65537)]
+        assert len({(p.paper, p.x_stride, p.h_stride, p.strip, p.w_floats) for p in plans}) == 1
+        if dims != PAPER:
+            p = plans[0]
+            assert p.x_stride % 4 == 0 and p.x_stride >= dims[0]
+            assert p.h_stride % 4 == 0 and p.h_stride >= max(dims[1:-1])
+            assert p.smem == 4 * (p.w_floats + p.warps * p.strip)
+
+
+def test_f32_plan_refuses_widths_beyond_shared_memory():
+    from repro_torch.kernels import fused_score as fs
+
+    with pytest.raises(ValueError, match="shared memory"):
+        fs.plan((512, 256, 512), 1024, 132)
