@@ -14,7 +14,10 @@ the result line:
 3. kernels — each score kernel against its plain PyTorch version on the card at
              rows 1..65,536, at the paper AE and at d=130 (64, 8, 64), with
              per-row tau and a NaN row (err to rtol=atol=1e-5, flags
-             exactly away from tau);
+             exactly away from tau); ``fused_score_q8`` bitwise equal to
+             ``fused_score_f32`` on the dequantised weights at each case,
+             and a row's err bitwise equal in 1-, 128-, 1,024- and
+             65,537-row batches;
 4. serving — the main path: ``ScoringService`` on the card over the
              200-sensor / 20-fog synthetic fleet (f32, then int8 weights):
              per-fog streaming calibration, one request per sensor, a
@@ -125,14 +128,18 @@ the result line:
              layers: no ``swa_decode`` launch).
 
 Phase 6 also times ``robust_agg``, ``wire_emit`` and ``wire_agg`` at the
-shapes of phases 9 and 10, ``compress_q8`` and ``topk_ef`` at train-200's
+shapes of phases 9 and 10 (``wire_agg`` also as one 10,000-client call,
+and at a chunk as deep as that call's deepest fog: the difference is the
+longer member scan), ``compress_q8`` and ``topk_ef`` at train-200's
 shape and ``compress_q8`` again at fleet-10k's chunk (the unchanged
 control beside ``wire_emit``), and ``quant8`` on a 2^20-coordinate
 vector; phase 7 holds the robust and wire kernels against their plain
 versions over a grid and at fleet-10k's shapes (``fused_agg`` at N =
-10,000 into 1,000 fogs, the wire pair chunk by chunk into running sums,
-``robust_agg`` at N = 30,000 with a fog of 3,000), the wire's slots,
-codes, scales and new_err bitwise, and ``wire_emit`` over its edges
+10,000 into 1,000 fogs, the wire pair chunk by chunk into running sums
+and ``wire_agg`` in one 10,000-client call, ``robust_agg`` at N = 30,000
+with a fog of 3,000), the wire's slots, codes, scales and new_err
+bitwise, ``wire_agg``'s sums bitwise equal to the client-order fold
+(``ref.wire_fold_ref``), and ``wire_emit`` over its edges
 (widths 1 to 65,536 on both team sizes, k = 1 to 8,192, zero and tied
 rows).
 
@@ -270,6 +277,39 @@ def compare(err, flag, err_ref, flag_ref, tau) -> float:
         near = np.abs(err_ref - tau) <= 1e-5 * np.maximum(1.0, np.abs(tau))
     np.testing.assert_array_equal(flag[~near], flag_ref[~near])
     return float(np.max(np.abs(err[fin] - err_ref[fin]))) if fin.any() else 0.0
+
+
+def same_scores(a, b) -> bool:
+    """Two (err, flag) results bitwise equal (NaN rows in the same places)."""
+    (err_a, flag_a), (err_b, flag_b) = a, b
+    fin = ~err_b.isnan()
+    return (torch.equal(err_a.isnan(), ~fin) and torch.equal(flag_a, flag_b)
+            and torch.equal(err_a[fin], err_b[fin]))
+
+
+def dequantised(qws, sws):
+    """The f32 weights ``q.to(f32) * s`` that ``fused_score_q8`` scores with."""
+    return tuple(q.to(torch.float32) * s.reshape(1, -1) for q, s in zip(qws, sws))
+
+
+def check_q8_any_batch(dev, fs, ae, quantize_params) -> int:
+    """Phase 3: at the paper AE and at d=130, a row's ``fused_score_q8``
+    err in a 65,537-row batch bitwise equal to its err in batches of 1,
+    128 and 1,024 rows at other offsets.  Returns the batches checked."""
+    checked = 0
+    for d, hidden in ((D, HIDDEN), WIDE):
+        params, x, tau = kernel_case(ae, quantize_params, d, hidden, 65_537, True, dev, d)
+        tensors = layer_tuples(params, True)
+        whole = fs.score_rows_q8(x, tau, *tensors)
+        for lo, rows in ((7, 1), (301, 128), (1030, 1024)):
+            part = fs.score_rows_q8(x[lo:lo + rows].contiguous(), tau[lo:lo + rows].contiguous(),
+                                    *tensors)
+            check(same_scores(part, tuple(t[lo:lo + rows] for t in whole)),
+                  f"fused_score_q8 err differs in a {rows}-row batch at d={d}")
+            checked += 1
+    print(f"  fused_score_q8   a row's err bitwise equal in 1-, 128-, 1,024- and 65,537-row "
+          f"batches at d={D} and d={WIDE[0]}  ok")
+    return checked
 
 
 def kernel_case(ae, quantize_params, d, hidden, rows, q8, dev, seed):
@@ -459,14 +499,17 @@ def wire_emit_work(n, d, k, quantize) -> tuple[int, int]:
             n * d * (2 + 2 * 32 + 5 + 1 + 1))
 
 
-def wire_agg_work(fog_id, n_fog, d, k, quantize) -> tuple[int, int]:
-    """(bytes, operations) of one wire aggregate into running sums: the
-    slots, scales, ids and weights read once, and each fog row the call
-    touches read and written once; per slot two multiplies and an add."""
-    n, nb = int(fog_id.numel()), -(-d // 8192)
-    touched = int(torch.unique(fog_id).numel())
-    return (n * nb * k * (5 if quantize else 8) + 4 * n * nb + 8 * n + 8 * touched * d,
-            3 * n * nb * k)
+def wire_agg_work(idx, fog_id, d, quantize) -> tuple[int, int]:
+    """(bytes, operations) of one wire aggregate into running sums, counted
+    on this call's data: the slots, scales, ids and weights read once, and
+    each fog coordinate the call touches read and written once; per slot
+    within the real columns two multiplies and an add."""
+    n, nb, k = (int(s) for s in idx.shape)
+    col = torch.arange(nb, device=idx.device)[None, :, None] * 8192 + idx.long()
+    real = col < d
+    touched = int(torch.unique((fog_id.long()[:, None, None] * d + col)[real]).numel())
+    return (n * nb * k * (5 if quantize else 8) + 4 * n * nb + 8 * n + 8 * touched,
+            3 * int(real.sum()))
 
 
 def compress_work(n, d, quantize) -> tuple[int, int]:
@@ -633,7 +676,11 @@ def time_new_kernels(dev, fa, ra, kops, kref, agg, comp, ae, name, smi) -> dict:
     """Phase 6 for the robust and wire kernels: ``robust_agg`` at
     robust-200's reduce (N = 200 compressed reconstructions of d = 1,352,
     20 fogs, integer weights with 30% erased, trim 0.45), the wire pair at
-    one fleet-10k chunk (512 clients, k = 68, int8, into 1,000 fogs)."""
+    one fleet-10k chunk (512 clients, k = 68, int8, into 1,000 fogs).
+    ``wire_agg`` also as one call of all 10,000 clients (the member scan
+    reads 10,000 ids per (fog, block)), and at a chunk whose deepest fog
+    has as many members as that call's: the two share their longest chain
+    of member adds, so their difference is the longer scan's."""
     g = torch.Generator().manual_seed(9)
     d = ae.param_count(D, HIDDEN)
     deltas = torch.randn((TRAIN_N, d), generator=g).to(dev)
@@ -648,6 +695,15 @@ def time_new_kernels(dev, fa, ra, kops, kref, agg, comp, ae, name, smi) -> dict:
     cfog = torch.randint(0, FLEET_FOG, (FLEET_CHUNK,), generator=g, dtype=torch.int32).to(dev)
     cw = torch.full((FLEET_CHUNK,), float(WINDOW), device=dev)
     fog_sum = torch.zeros((FLEET_FOG, d), device=dev)
+    big = fa.compress_wire_blocks(torch.randn((FLEET_N, d), generator=g).to(dev),
+                                  (0.1 * torch.randn((FLEET_N, d), generator=g)).to(dev), k)[:3]
+    big_fog = torch.randint(0, FLEET_FOG, (FLEET_N,), generator=g, dtype=torch.int32).to(dev)
+    big_w = torch.full((FLEET_N,), float(WINDOW), device=dev)
+    depth = int(torch.bincount(big_fog.long(), minlength=FLEET_FOG).max())
+    deep_fog = torch.randint(1, FLEET_FOG, (FLEET_CHUNK,), generator=g, dtype=torch.int32)
+    deep_fog[torch.randperm(FLEET_CHUNK, generator=g)[:depth]] = 0
+    deep_fog = deep_fog.to(dev)
+    deep = tuple(t[:FLEET_CHUNK] for t in big)
     cases = {
         "robust_agg": (
             lambda: ra.robust_aggregate_blocks(recon, fog_id, weights, TRAIN_FOG, ROBUST_TRIM),
@@ -666,9 +722,24 @@ def time_new_kernels(dev, fa, ra, kops, kref, agg, comp, ae, name, smi) -> dict:
         "wire_agg": (
             lambda: fa.wire_aggregate_blocks(*wire[:3], cfog, cw, FLEET_FOG, d, out=fog_sum),
             lambda: kref.wire_aggregate_ref(*wire[:3], cfog, cw, FLEET_FOG, d),
-            wire_agg_work(cfog, FLEET_FOG, d, k, True),
+            wire_agg_work(wire[0], cfog, d, True),
             (200, 20, 50, 5),
             f"N={FLEET_CHUNK} d={d} k={k} int8 into n_fog={FLEET_FOG}",
+        ),
+        "wire_agg @ 10k call": (
+            lambda: fa.wire_aggregate_blocks(*big, big_fog, big_w, FLEET_FOG, d, out=fog_sum),
+            lambda: kref.wire_aggregate_ref(*big, big_fog, big_w, FLEET_FOG, d),
+            wire_agg_work(big[0], big_fog, d, True),
+            (200, 10, 50, 3),
+            f"N={FLEET_N} d={d} k={k} int8 into n_fog={FLEET_FOG} in one call, deepest fog "
+            f"{depth} members",
+        ),
+        "wire_agg @ chunk, 10k depth": (
+            lambda: fa.wire_aggregate_blocks(*deep, deep_fog, cw, FLEET_FOG, d, out=fog_sum),
+            lambda: kref.wire_aggregate_ref(*deep, deep_fog, cw, FLEET_FOG, d),
+            wire_agg_work(deep[0], deep_fog, d, True),
+            (200, 20, 50, 5),
+            f"N={FLEET_CHUNK} d={d} k={k} int8 into n_fog={FLEET_FOG}, fog 0 holding {depth}",
         ),
     }
     return time_cases(cases, name, smi)
@@ -779,7 +850,7 @@ def wrapper_host_cost(dev, fs, fa, ae, kops, comp, name, smi) -> dict:
         fs.score_rows(x, tau, ws, bs)
 
     def score_before():
-        fs._f32_args.clear()
+        fs._args.clear()
         fs.score_rows(x, tau, ws, bs)
 
     def wire_after():
@@ -845,8 +916,9 @@ def check_new_kernels(dev, fa, ra, kref, agg, comp) -> dict:
     rtol=1e-5, atol=1e-6.  The wire pair: phase 7's d x N grid, int8 on and
     off, k 68 / 410, written at a row offset of larger buffers (rows
     outside untouched): slots, codes, scales and new_err exactly;
-    ``wire_agg`` into running sums to rtol=1e-5 / atol=1e-4,
-    the empty fog's row untouched."""
+    ``wire_agg`` into running sums bitwise equal to the client-order fold
+    (``ref.wire_fold_ref``) and to rtol=1e-5 / atol=1e-4 of the plain
+    version, the empty fog's row untouched."""
     max_err = dict.fromkeys(NEW_KERNELS, 0.0)
     g = torch.Generator().manual_seed(17)
     for d in ROBUST_DS:
@@ -903,11 +975,16 @@ def check_new_kernels(dev, fa, ra, kref, agg, comp) -> dict:
                                                    out=base.clone())
                     want = base + kref.wire_aggregate_ref(*view[:3], fog_id, weights, TRAIN_FOG, d)
                     check(torch.equal(got[1], base[1]), "wire_agg touched the empty fog's row")
+                    check(torch.equal(got, kref.wire_fold_ref(*view[:3], fog_id, weights,
+                                                              base.clone())),
+                          f"wire_agg differs from the client-order fold at d={d}, N={n}, k={k}, "
+                          f"int8={quantize}")
                     e2 = close_on_device(got, want, 1e-5, 1e-4, "wire_agg fog sums")
                     max_err["wire_emit"] = max(max_err["wire_emit"], e1)
                     max_err["wire_agg"] = max(max_err["wire_agg"], e2)
                     print(f"  wire_emit/agg   d={d:5d} N={n:4d} k={k:3d} int8={quantize!s:5s} "
-                          f"slots and new_err equal, max|fog diff|={e2:.3e}  ok")
+                          f"slots, new_err and the client-order fold equal, max|fog diff|="
+                          f"{e2:.3e}  ok")
                     del bufs, view
             del deltas, err
     return max_err
@@ -923,7 +1000,9 @@ def check_fleet_kernels(dev, fa, ra, kops, kref, agg, comp, ae) -> dict:
     one chunk-sized wire and its rows of the round's error-feedback buffer,
     then added into the running (1,000, d) fog sums, each step against the
     plain versions (slots, codes, scales and new_err exactly, the running
-    sums to rtol=1e-5 / atol=1e-4).  ``robust_agg`` at N =
+    sums bitwise equal to the client-order fold and to rtol=1e-5 /
+    atol=1e-4 of the plain version); ``wire_agg`` again as one call of all
+    10,000 clients, bitwise equal to the fold.  ``robust_agg`` at N =
     30,000 in 1,000 fogs, fog 0 holding 3,000 clients (its member list is
     streamed through shared memory in tiles), trimmed 0.45 and the
     median, to rtol=1e-5 / atol=1e-6."""
@@ -954,6 +1033,7 @@ def check_fleet_kernels(dev, fa, ra, kops, kref, agg, comp, ae) -> dict:
     new_err = torch.empty((FLEET_N, d), device=dev)
     run_k = torch.zeros((FLEET_FOG, d), device=dev)
     run_r = torch.zeros((FLEET_FOG, d), device=dev)
+    run_f = torch.zeros((FLEET_FOG, d), device=dev)
     for s in range(0, FLEET_N, FLEET_CHUNK):
         e = min(s + FLEET_CHUNK, FLEET_N)
         view = tuple(t[:e - s] for t in wire) + (new_err[s:e],)
@@ -966,12 +1046,26 @@ def check_fleet_kernels(dev, fa, ra, kops, kref, agg, comp, ae) -> dict:
         e1 = close_on_device(view[3], r_err, 0.0, 0.0, "wire_emit new_err")
         fa.wire_aggregate_blocks(*view[:3], fog_id[s:e], weights[s:e], FLEET_FOG, d, out=run_k)
         run_r += kref.wire_aggregate_ref(*view[:3], fog_id[s:e], weights[s:e], FLEET_FOG, d)
+        kref.wire_fold_ref(*view[:3], fog_id[s:e], weights[s:e], run_f)
+        check(torch.equal(run_k, run_f),
+              f"wire_agg running sums differ from the client-order fold in the chunk at {s}")
         e2 = close_on_device(run_k, run_r, 1e-5, 1e-4, "wire_agg running fog sums")
         max_err["wire_emit"] = max(max_err["wire_emit"], e1)
         max_err["wire_agg"] = max(max_err["wire_agg"], e2)
     print(f"  wire_emit/agg   d={d:5d} N={FLEET_N} in chunks of {FLEET_CHUNK} into "
-          f"n_fog={FLEET_FOG}, k={k} int8: slots and new_err equal, max|running fog diff|="
-          f"{max_err['wire_agg']:.3e}  ok")
+          f"n_fog={FLEET_FOG}, k={k} int8: slots, new_err and the client-order fold equal, "
+          f"max|running fog diff|={max_err['wire_agg']:.3e}  ok")
+    idx, q, scale, _ = fa.compress_wire_blocks(deltas, err, k)
+    base = torch.randn((FLEET_FOG, d), generator=g).to(dev)
+    got = fa.wire_aggregate_blocks(idx, q, scale, fog_id, weights, FLEET_FOG, d, out=base.clone())
+    check(torch.equal(got, kref.wire_fold_ref(idx, q, scale, fog_id, weights, base.clone())),
+          f"wire_agg differs from the client-order fold at one call of N={FLEET_N}")
+    max_err["wire_agg"] = max(max_err["wire_agg"], close_on_device(
+        got, base + kref.wire_aggregate_ref(idx, q, scale, fog_id, weights, FLEET_FOG, d),
+        1e-5, 1e-4, "wire_agg at one 10k call"))
+    print(f"  wire_agg        d={d:5d} N={FLEET_N} in one call into n_fog={FLEET_FOG}: the "
+          f"client-order fold equal  ok")
+    del idx, q, scale, got, base
     del deltas, err, new_err, wire, fs_k, ne_k, fs_r, ne_r
 
     n = BIG_ROBUST_N
@@ -1981,13 +2075,19 @@ def main() -> int:
                 if q8:
                     out = fs.score_rows_q8(x, tau, *tensors)
                     ref = kref.fused_score_q8_ref(x, *tensors, tau)
+                    check(same_scores(out, fs.score_rows(x, tau, dequantised(*tensors[:2]),
+                                                         tensors[2])),
+                          f"fused_score_q8 differs from fused_score_f32 on the dequantised "
+                          f"weights at d={d}, rows={rows}")
                 else:
                     out = fs.score_rows(x, tau, *tensors)
                     ref = kref.fused_score_ref(x, *tensors, tau)
                 torch.cuda.synchronize()
                 e = compare(*out, *ref, tau)
                 max_err[kname] = max(max_err[kname], e)
-                print(f"  {kname:16s} d={d:3d} rows={rows:6d} max|err diff|={e:.3e}  ok")
+                print(f"  {kname:16s} d={d:3d} rows={rows:6d} max|err diff|={e:.3e}"
+                      + ("; bitwise fused_score_f32 on q * s" if q8 else "") + "  ok")
+    q8_batches = check_q8_any_batch(dev, fs, ae, score_mod.quantize_params)
 
     phase("4. serving (main path)")
     ds = normalize(generate(
@@ -2069,6 +2169,11 @@ def main() -> int:
     train_kmods = (lt, fa, kops, kref, ae, multi_epoch_indices)
     train_timing = time_training_kernels(dev, *train_kmods, name, smi)
     train_timing.update(time_new_kernels(dev, fa, ra, kops, kref, agg, comp, ae, name, smi))
+    at_10k, at_depth = (train_timing[k]["ms"] for k in ("wire_agg @ 10k call",
+                                                         "wire_agg @ chunk, 10k depth"))
+    scan_share = (at_10k - at_depth) / at_10k
+    print(f"  wire_agg member scan over 10,000 ids less 512: {(at_10k - at_depth) * 1e3:.3f} us of "
+          f"the 10k call's {at_10k * 1e3:.3f} us (share {scan_share:.3f})  on {name} ({smi})")
     train_timing.update(time_compress_kernels(dev, kq8, tk, kops, kref, comp, ae, name, smi))
 
     phase("7. training kernels against their plain versions")
@@ -2168,6 +2273,10 @@ def main() -> int:
     print(json.dumps({"drift": drift}))
     print(json.dumps({"launch_floor": floor, "wrapper_host_cost": host_cost,
                       "compress_q8_at_fleet_chunk": train_timing["compress_q8 @ fleet chunk"],
+                      "wire_agg_at_10k_call": train_timing["wire_agg @ 10k call"],
+                      "wire_agg_chunk_at_10k_depth": train_timing["wire_agg @ chunk, 10k depth"],
+                      "wire_agg_scan_share_at_10k": scan_share,
+                      "fused_score_q8_batches_bitwise": q8_batches,
                       "wire_emit_edge_cases": wire_edges}))
     replaces, source = SWA_KERNEL
     kernels.append({

@@ -59,22 +59,28 @@
 //           index, int8 code or f32 value, one f32 scale per block) in
 //           ref.compress_wire_ref's order, and new_err, written at the
 //           caller's row offset; one launch per team size.
-//   wire_agg: one block per (8192-block, fog): the fog's clients of the
-//           chunk in index order, each adding w * q * scale at its k slots
-//           into a shared-memory accumulator started from the running fog
-//           row, then written back.  No atomics; deterministic.
+//   wire_agg: a warp per (fog, 8192-block): the fog's clients of the call
+//           found by ballots over the fog ids, then, in index order, each
+//           adding w * q * scale at its k slots straight into the fog row
+//           in device memory.  No atomics; deterministic.
 // Bound: bytes for wire_emit (delta and err read, new_err written: 12 bytes
-// per coordinate, the slots ~rho_s of that); for wire_agg the slots read
-// and the touched fog rows read and written (at fleet-10k's chunk of 512
-// clients into 1,000 fogs, ~400 rows of 5.4 KB).  Both are latency-bound at
-// these sizes.  wire_emit's first design (a block of 256 threads per
-// (client, block)) spent most of its time counting the padding of a
-// 1,352-wide block in 32 barrier-separated steps; a two-warp team counts
-// 24 held slots a thread for 8 steps, then only the few candidates left,
-// with no barrier.  At fleet-10k's chunk its 512 teams are about two warps
-// per scheduler, so each phase (loads, bisection, compaction, the O(s^2)
-// rank of the <= k survivors) runs near one warp's latency, not at the
-// card's rate.  wire_agg keeps a barrier per client.
+// per coordinate, the slots ~rho_s of that); for wire_agg the slots, ids and
+// weights read and each touched coordinate read and written once (at
+// fleet-10k's chunk of 512 clients into 1,000 fogs, ~35,000 coordinates:
+// ~0.45 MB in all).  Both are latency-bound at these sizes.  wire_emit's
+// first design (a block of 256 threads per (client, block)) spent most of
+// its time counting the padding of a 1,352-wide block in 32
+// barrier-separated steps; a two-warp team counts 24 held slots a thread
+// for 8 steps, then only the few candidates left, with no barrier.  At
+// fleet-10k's chunk its 512 teams are about two warps per scheduler, so
+// each phase (loads, bisection, compaction, the O(s^2) rank of the <= k
+// survivors) runs near one warp's latency, not at the card's rate.
+// wire_agg's first design (a block of 256 threads per (block, fog), an
+// 8192-float accumulator in shared memory) made every block scan the ids
+// in 16 barrier-separated ballot steps, copied whole fog rows in and out
+// and paid a block barrier per member; a warp now scans with one round
+// trip per 512 ids, and a fog's time is the chain of its members' adds,
+// one L2 round trip each.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -443,69 +449,112 @@ int launch_wire_emit(const float* delta, const float* err, int n, int d, int nb,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Wire aggregate: one block per (8192-block, fog).  The block walks its
-// fog's clients in index order (compacted as in sum_kernel) and adds
-// q * scale * w at each of a client's k slots into an 8192-float
-// accumulator in shared memory.  The k slots of one (client, block) hold
-// distinct coordinates, so the threads of one client's pass never collide;
-// a barrier separates clients, so every coordinate sums its clients in
-// index order: deterministic, no atomics.  The accumulator starts from the
-// fog row as it is (the caller's running sums, or zeros) and is written
-// back over the real d columns only; a fog with no client here returns
-// at once and leaves its row alone.
-template <typename CodeT>
-__global__ void __launch_bounds__(kSumThreads)
-    wire_agg_kernel(const int* __restrict__ idx, const CodeT* __restrict__ q,
-                    const float* __restrict__ scale,
-                    const int* __restrict__ fog_id, const float* __restrict__ w,
-                    int n, int nb, int k, int d, float* __restrict__ fog_sum) {
-  __shared__ float acc[kBlock];
-  __shared__ int members[kChunk];
-  __shared__ int n_members;
-  const int b = blockIdx.x;
-  const int m = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const size_t frow = static_cast<size_t>(m) * d + static_cast<size_t>(b) * kBlock;
-  const int width = min(kBlock, d - b * kBlock);   // real columns of this block
-  bool started = false;                            // uniform across the block
+// Wire aggregate: a warp per (fog, 8192-block), kAggWarps warps a block on
+// a 1-D grid (fog-major, so a fog's blocks sit in neighbouring warps).  The
+// warp finds its fog's clients in batches of kScanIds * 32 ids: each lane
+// issues all its kScanIds loads before the first ballot (one memory round
+// trip a batch), the ballots append the members in client index order to
+// the warp's list in shared memory, and the next batch's loads go out
+// before this batch's members add.  For each member in order, lanes take
+// slots lane, lane + 32, ... (kSlotRegs at a time) and add
+// q * scale * w at their coordinates of the fog row, in device memory:
+// one member's k slots of a block hold distinct coordinates, so no two
+// lanes collide, and __syncwarp between members orders each coordinate's
+// clients by index.  The next member's slots, scale and weight load while
+// the current one adds.  Each coordinate thus takes its clients' products
+// in index order after the value already there, the operations and order
+// of the first design (a block per (block, fog) and an 8192-float
+// accumulator in shared memory), so the sums are bit for bit what they
+// were.  Rows of fogs without a member here are never touched; slots whose
+// index lies outside the block's real columns (the padding) are skipped.
+constexpr int kAggWarps = 4;    // wire_agg: warps per block
+constexpr int kScanIds = 16;    // fog ids a lane loads per batch: 512 a warp
+constexpr int kSlotRegs = 4;    // slots a lane holds per step: 128 a warp
 
-  for (int c0 = 0; c0 < n; c0 += kChunk) {
-    if (tid < 32) {
-      int count = 0;
-      for (int s = 0; s < kChunk && c0 + s < n; s += 32) {
-        const int i = c0 + s + lane;
-        const bool mine = i < n && fog_id[i] == m;
-        const unsigned ballot = __ballot_sync(0xffffffffu, mine);
-        if (mine) members[count + __popc(ballot & ((1u << lane) - 1u))] = i;
-        count += __popc(ballot);
-      }
-      if (lane == 0) n_members = count;
+template <typename CodeT>
+struct MemberSlots {            // one step of a member: up to 128 of its slots
+  int j[kSlotRegs];
+  CodeT q[kSlotRegs];
+  float scale;
+  float w;
+};
+
+template <typename CodeT>
+__global__ void __launch_bounds__(kAggWarps * 32)
+    wire_agg_kernel(const int* __restrict__ idx, const CodeT* __restrict__ q,
+                    const float* __restrict__ scale, const int* __restrict__ fog_id,
+                    const float* __restrict__ w, int n, int nb, int k, int d, int n_fog,
+                    float* __restrict__ fog_sum) {
+  __shared__ int lists[kAggWarps][kScanIds * 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long unit = static_cast<long long>(blockIdx.x) * kAggWarps + warp;
+  if (unit >= static_cast<long long>(n_fog) * nb) return;
+  const int m = static_cast<int>(unit / nb);
+  const int b = static_cast<int>(unit - static_cast<long long>(m) * nb);
+  const int width = min(kBlock, d - b * kBlock);   // real columns of this block
+  float* row = fog_sum + static_cast<size_t>(m) * d + static_cast<size_t>(b) * kBlock;
+  int* list = lists[warp];
+  const unsigned below = (1u << lane) - 1u;
+  const int steps = (k + 32 * kSlotRegs - 1) / (32 * kSlotRegs);   // per member
+
+  int ids[kScanIds];
+  auto load_ids = [&](int c0) {
+#pragma unroll
+    for (int t = 0; t < kScanIds; ++t) {
+      const int i = c0 + t * 32 + lane;
+      ids[t] = i < n ? __ldg(fog_id + i) : -1;
     }
-    __syncthreads();
-    const int count = n_members;
-    if (count > 0 && !started) {
-      for (int j = tid; j < kBlock; j += kSumThreads)
-        acc[j] = j < width ? fog_sum[frow + j] : 0.0f;
-      started = true;
-      __syncthreads();
+  };
+  // Step `it` of the batch: member list[it / steps], slots from
+  // (it % steps) * 128.
+  auto fetch = [&](int it, MemberSlots<CodeT>& s) {
+    const int t = it / steps;
+    const int i = list[t];
+    const size_t cb = static_cast<size_t>(i) * nb + b;
+    s.scale = __ldg(scale + cb);
+    s.w = __ldg(w + i);
+    const int s0 = (it - t * steps) * 32 * kSlotRegs + lane;
+#pragma unroll
+    for (int r = 0; r < kSlotRegs; ++r) {
+      const int slot = s0 + r * 32;
+      const bool in = slot < k;
+      s.j[r] = in ? __ldg(idx + cb * k + slot) : -1;
+      s.q[r] = in ? __ldg(q + cb * k + slot) : CodeT(0);
     }
-    for (int t = 0; t < count; ++t) {
-      const int i = members[t];
-      const size_t cb = static_cast<size_t>(i) * nb + b;
-      const float sc = scale[cb];
-      const float wi = w[i];
-      for (int s = tid; s < k; s += kSumThreads) {
-        const int j = idx[cb * k + s];
-        if (static_cast<unsigned>(j) < static_cast<unsigned>(kBlock))
-          acc[j] = __fadd_rn(acc[j], __fmul_rn(__fmul_rn(static_cast<float>(q[cb * k + s]), sc), wi));
-      }
-      __syncthreads();
+  };
+
+  load_ids(0);
+  for (int c0 = 0; c0 < n; c0 += kScanIds * 32) {
+    int count = 0;
+#pragma unroll
+    for (int t = 0; t < kScanIds; ++t) {
+      const bool mine = ids[t] == m;
+      const unsigned ballot = __ballot_sync(0xffffffffu, mine);
+      if (mine) list[count + __popc(ballot & below)] = c0 + t * 32 + lane;
+      count += __popc(ballot);
     }
-    __syncthreads();  // the member list is rewritten by the next chunk
+    if (c0 + kScanIds * 32 < n) load_ids(c0 + kScanIds * 32);
+    __syncwarp();
+    const int items = count * steps;
+    MemberSlots<CodeT> cur, next;
+    if (items > 0) fetch(0, cur);
+    for (int it = 0; it < items; ++it) {
+      if (it + 1 < items) fetch(it + 1, next);
+      float v[kSlotRegs];
+#pragma unroll
+      for (int r = 0; r < kSlotRegs; ++r)
+        v[r] = static_cast<unsigned>(cur.j[r]) < static_cast<unsigned>(width) ? row[cur.j[r]]
+                                                                              : 0.0f;
+#pragma unroll
+      for (int r = 0; r < kSlotRegs; ++r)
+        if (static_cast<unsigned>(cur.j[r]) < static_cast<unsigned>(width))
+          row[cur.j[r]] = __fadd_rn(
+              v[r], __fmul_rn(__fmul_rn(static_cast<float>(cur.q[r]), cur.scale), cur.w));
+      __syncwarp();   // the next member may add at the same coordinates
+      cur = next;
+    }
   }
-  if (!started) return;
-  for (int j = tid; j < width; j += kSumThreads) fog_sum[frow + j] = acc[j];
 }
 
 }  // namespace
@@ -598,20 +647,22 @@ int wire_emit(const void* delta, const void* err, int n, int d, int k, int quant
 int wire_agg(const void* idx, const void* q, const void* scale,
              const void* fog_id, const void* w, int n, int nb, int k, int d,
              int n_fog, int quantize, void* fog_sum, void* stream) {
-  if (n < 1 || nb < 1 || k < 1 || d < 1 || d > nb * kBlock || n_fog < 1 ||
-      n_fog > 65535)
+  const long long grid = (static_cast<long long>(n_fog) * nb + kAggWarps - 1) / kAggWarps;
+  if (n < 1 || nb < 1 || k < 1 || d <= static_cast<long long>(nb - 1) * kBlock ||
+      d > static_cast<long long>(nb) * kBlock || n_fog < 1 || grid > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(nb, n_fog);
+  const unsigned blocks = static_cast<unsigned>(grid);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (quantize) {
-    wire_agg_kernel<int8_t><<<grid, kSumThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    wire_agg_kernel<int8_t><<<blocks, kAggWarps * 32, 0, s>>>(
         static_cast<const int*>(idx), static_cast<const int8_t*>(q),
         static_cast<const float*>(scale), static_cast<const int*>(fog_id),
-        static_cast<const float*>(w), n, nb, k, d, static_cast<float*>(fog_sum));
+        static_cast<const float*>(w), n, nb, k, d, n_fog, static_cast<float*>(fog_sum));
   } else {
-    wire_agg_kernel<float><<<grid, kSumThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    wire_agg_kernel<float><<<blocks, kAggWarps * 32, 0, s>>>(
         static_cast<const int*>(idx), static_cast<const float*>(q),
         static_cast<const float*>(scale), static_cast<const int*>(fog_id),
-        static_cast<const float*>(w), n, nb, k, d, static_cast<float*>(fog_sum));
+        static_cast<const float*>(w), n, nb, k, d, n_fog, static_cast<float*>(fog_sum));
   }
   return static_cast<int>(cudaGetLastError());
 }

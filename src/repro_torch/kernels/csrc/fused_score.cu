@@ -15,12 +15,13 @@
 // writes 5 B and takes 2,560 FLOP, about 19 FLOP/B: right at the H100's
 // f32 CUDA-core ridge (67 TFLOP/s / 3.35 TB/s = 20), and far below one
 // launch's overhead at the service's 128- and 1,024-row buckets, where
-// fused_score_f32 is one warp's latency through the four layers.  At large
+// a launch is one warp's latency through the four layers.  int8 weights
+// read 1,368 B instead of 5,184 once per warp, which changes none of that.  At large
 // batches its lane-per-column layout reads one activation from shared
 // memory per FMA (a float4 feeds four), so the shared-memory reads, not
 // the FMAs, set its pace there.
 //
-// fused_score_f32: a warp per group of kGroupRows rows, one lane per output
+// Both kernels: a warp per group of kGroupRows rows, one lane per output
 // column.  Where a layer is narrower than 32 the group's rows share the
 // lanes (2 rows at width 16, 4 at width 8), so no lane idles.  The group's
 // rows and activations live in the warp's own strip of shared memory and
@@ -43,152 +44,31 @@
 //    output layer's differences go to the strip, summed per row by one lane
 //    in column order with fmaf.
 //
-// fused_score_q8 (the first design, unchanged): each block stages every
-// layer's weights and biases once in dynamic shared memory, dequantised
-// there (w = float(q) * s, the same single rounding as the plain version),
-// then a tile of blockDim.x rows; one thread computes one row, rows and
-// hidden activations in per-thread shared-memory columns with odd strides.
-// The wrapper picks the tile and strides (layout()).
+// fused_score_q8 runs the same two instances on int8 weights with
+// per-output-column f32 scales: each weight is dequantised once as it is
+// loaded, w = __fmul_rn(float(q), s[c]) (the single rounding of the plain
+// version's q.to(f32) * s), into a lane's registers (PaperAE) or the
+// block's staged weights (Generic).  From there the row chain is the f32
+// kernel's, so a row's err equals fused_score_f32's on the dequantised
+// weights bit for bit.  Its first design (a thread per row, every block
+// dequantising all weights with a k % d_out per element) ran one thread's
+// latency through the network at the serve buckets.
 //
 // fused_score_init, called once per device by the wrapper, opts the
-// kernels that stage weights in to the largest dynamic shared memory, so a
-// launch sets no attribute.
+// Generic instances in to the largest dynamic shared memory, so a launch
+// sets no attribute.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxLayers = 8;  // MAX_LAYERS in fused_score.py
-constexpr int kOutTile = 8;
-
-struct Layers {
-  const void* w[kMaxLayers];   // (d_in, d_out) row-major, f32 or int8
-  const float* s[kMaxLayers];  // (d_out,) scales, int8 weights only
-  const float* b[kMaxLayers];  // (d_out,)
-  int dims[kMaxLayers + 1];    // d, hidden..., d
-  int n_layers;
-};
-
-template <bool kQ8>
-__global__ void fused_score_kernel(const float* __restrict__ x,
-                                   const float* __restrict__ tau,
-                                   const Layers p, int rows, int x_stride,
-                                   int h_stride, float* __restrict__ err,
-                                   uint8_t* __restrict__ flag) {
-  extern __shared__ float smem[];
-  const int n_layers = p.n_layers;
-  const int d = p.dims[0];
-  const int tid = threadIdx.x;
-  const int tile = blockDim.x;
-
-  // 1. Weights and biases, layer after layer.
-  int off = 0;
-  for (int l = 0; l < n_layers; ++l) {
-    const int dout = p.dims[l + 1];
-    const int n = p.dims[l] * dout;
-    if constexpr (kQ8) {
-      const int8_t* q = static_cast<const int8_t*>(p.w[l]);
-      const float* s = p.s[l];
-      for (int k = tid; k < n; k += tile)
-        smem[off + k] = static_cast<float>(q[k]) * s[k % dout];
-    } else {
-      const float* w = static_cast<const float*>(p.w[l]);
-      for (int k = tid; k < n; k += tile) smem[off + k] = w[k];
-    }
-    off += n;
-    for (int k = tid; k < dout; k += tile) smem[off + k] = p.b[l][k];
-    off += dout;
-  }
-
-  // 2. This block's rows: consecutive threads read consecutive floats.
-  float* xt = smem + off;
-  const int row0 = blockIdx.x * tile;
-  const int n_rows = min(tile, rows - row0);
-  const float* xg = x + static_cast<size_t>(row0) * d;
-  for (int k = tid; k < n_rows * d; k += tile) {
-    const int r = k / d;
-    xt[r * x_stride + (k - r * d)] = xg[k];
-  }
-  __syncthreads();
-  if (tid >= n_rows) return;  // ragged last tile; no barrier follows
-
-  // 3. One row per thread.
-  const float* xr = xt + tid * x_stride;
-  float* hbuf0 = xt + tile * x_stride + tid * h_stride;
-  float* hbuf1 = hbuf0 + tile * h_stride;
-  const float* hin = xr;
-  const float* wl = smem;
-  float e = 0.0f;
-  for (int l = 0; l < n_layers; ++l) {
-    const int din = p.dims[l];
-    const int dout = p.dims[l + 1];
-    const float* bl = wl + din * dout;
-    const bool last = (l == n_layers - 1);
-    float* hout = (l & 1) ? hbuf1 : hbuf0;
-    for (int j0 = 0; j0 < dout; j0 += kOutTile) {
-      float acc[kOutTile];
-#pragma unroll
-      for (int u = 0; u < kOutTile; ++u) acc[u] = 0.0f;
-      for (int i = 0; i < din; ++i) {
-        const float hv = hin[i];
-        const float* wr = wl + i * dout + j0;
-#pragma unroll
-        for (int u = 0; u < kOutTile; ++u)
-          if (j0 + u < dout) acc[u] = fmaf(hv, wr[u], acc[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < kOutTile; ++u) {
-        const int j = j0 + u;
-        if (j < dout) {
-          const float v = acc[u] + bl[j];
-          if (last) {
-            const float diff = xr[j] - v;
-            e = fmaf(diff, diff, e);
-          } else {
-            hout[j] = tanhf(v);
-          }
-        }
-      }
-    }
-    hin = hout;
-    wl = bl + dout;
-  }
-  const int row = row0 + tid;
-  err[row] = e;
-  flag[row] = e > tau[row] ? 1 : 0;
-}
-
-template <bool kQ8>
-int launch(const void* x, const void* tau, int rows, int n_layers,
-           const int* dims, void* const* w, void* const* s, void* const* b,
-           void* err, void* flag, int tile, int x_stride, int h_stride,
-           int smem_bytes, void* stream) {
-  if (n_layers < 1 || n_layers > kMaxLayers || rows < 1 || tile < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Layers p = {};
-  p.n_layers = n_layers;
-  for (int l = 0; l <= n_layers; ++l) p.dims[l] = dims[l];
-  for (int l = 0; l < n_layers; ++l) {
-    p.w[l] = w[l];
-    if constexpr (kQ8) p.s[l] = static_cast<const float*>(s[l]);
-    p.b[l] = static_cast<const float*>(b[l]);
-  }
-  const int grid = (rows + tile - 1) / tile;
-  fused_score_kernel<kQ8><<<grid, tile, smem_bytes,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(tau), p, rows,
-      x_stride, h_stride, static_cast<float*>(err),
-      static_cast<uint8_t*>(flag));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// --- fused_score_f32 ------------------------------------------------------
-
+constexpr int kMaxLayers = 8;     // MAX_LAYERS in fused_score.py
 constexpr int kGroupRows = 4;     // ROWS_PER_WARP in fused_score.py
 constexpr int kMaxWarps = 8;      // warps per block, at most
 
 struct Net {
-  const float* w[kMaxLayers];   // (d_in, d_out) row-major
+  const void* w[kMaxLayers];    // (d_in, d_out) row-major: f32, or int8 codes
+  const float* s[kMaxLayers];   // (d_out,) per-column scales (int8 weights only)
   const float* b[kMaxLayers];   // (d_out,)
   int dims[kMaxLayers + 1];     // d, hidden..., d
   int n_layers;
@@ -203,6 +83,9 @@ __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+template <typename W>
+constexpr bool kIsQ8 = sizeof(W) == 1;   // int8 codes with scales, else f32
+
 // The paper AE.  One dense layer of DIN -> DOUT for the group's rows: lane
 // (slot, column) with slot = lane / DOUT takes rows slot, slot + 32 / DOUT,
 // ...; its column's weights are w[].  acc[p] is row p * (32 / DOUT) + slot.
@@ -214,11 +97,21 @@ struct Dense {
   float w[DIN];
   float b;
 
-  __device__ __forceinline__ void load(const float* __restrict__ W,
+  // Column c's weights, dequantised on the way in when W is int8.
+  template <typename W>
+  __device__ __forceinline__ void load(const void* Wp, const float* __restrict__ S,
                                        const float* __restrict__ B, int lane) {
     const int c = lane % DOUT;
+    const W* __restrict__ Wt = static_cast<const W*>(Wp);
+    if constexpr (kIsQ8<W>) {
+      const float s = __ldg(S + c);
 #pragma unroll
-    for (int i = 0; i < DIN; ++i) w[i] = __ldg(W + i * DOUT + c);
+      for (int i = 0; i < DIN; ++i)
+        w[i] = __fmul_rn(static_cast<float>(__ldg(Wt + i * DOUT + c)), s);
+    } else {
+#pragma unroll
+      for (int i = 0; i < DIN; ++i) w[i] = __ldg(Wt + i * DOUT + c);
+    }
     b = __ldg(B + c);
   }
 
@@ -262,9 +155,10 @@ struct PaperAE {
   static constexpr int kStrip = kGroupRows * (kXs + kH1s + kH2s);
 };
 
+template <typename W>
 __global__ void __launch_bounds__(kMaxWarps * 32, 2)
-    score_f32_paper(const float* __restrict__ x, const float* __restrict__ tau, const Net net,
-                    float* __restrict__ err, uint8_t* __restrict__ flag) {
+    score_paper(const float* __restrict__ x, const float* __restrict__ tau, const Net net,
+                float* __restrict__ err, uint8_t* __restrict__ flag) {
   __shared__ __align__(16) float strips[kMaxWarps * PaperAE::kStrip];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -276,10 +170,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
   Dense<16, 8> l1;
   Dense<8, 16> l2;
   Dense<16, 32> l3;
-  l0.load(net.w[0], net.b[0], lane);
-  l1.load(net.w[1], net.b[1], lane);
-  l2.load(net.w[2], net.b[2], lane);
-  l3.load(net.w[3], net.b[3], lane);
+  l0.template load<W>(net.w[0], net.s[0], net.b[0], lane);
+  l1.template load<W>(net.w[1], net.s[1], net.b[1], lane);
+  l2.template load<W>(net.w[2], net.s[2], net.b[2], lane);
+  l3.template load<W>(net.w[3], net.s[3], net.b[3], lane);
 
   // A group's rows and tau are loaded one group ahead, so a warp that walks
   // several groups waits for device memory once.
@@ -334,26 +228,44 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
 
 // Every other width.  The strip holds x (4, x_stride), the output layer's
 // differences (4, x_stride) and two hidden buffers (4, h_stride).
+template <typename W>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-    score_f32_generic(const float* __restrict__ x, const float* __restrict__ tau,
-                      const Net net, float* __restrict__ err, uint8_t* __restrict__ flag) {
+    score_generic(const float* __restrict__ x, const float* __restrict__ tau,
+                  const Net net, float* __restrict__ err, uint8_t* __restrict__ flag) {
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n_layers = net.n_layers;
   const int d = net.dims[0];
 
-  // Weights then biases of each layer, staged once by the block.
+  // Weights then biases of each layer, staged once by the block.  int8
+  // codes are dequantised here: thread t takes columns t % cols, + cols,
+  // ... and rows t / cols, + rstep, ...: a scale loaded once per column,
+  // no division per element.
   int off = 0;
   for (int l = 0; l < n_layers; ++l) {
-    const int n = net.dims[l] * net.dims[l + 1];
-    const float* w = net.w[l];
+    const int din = net.dims[l];
+    const int dout = net.dims[l + 1];
+    const W* __restrict__ w = static_cast<const W*>(net.w[l]);
+    if constexpr (kIsQ8<W>) {
+      const int cols = min(dout, static_cast<int>(blockDim.x));
+      const int rstep = blockDim.x / cols;
+      const int r0 = threadIdx.x / cols;
+      if (r0 < rstep) {
+        for (int c = threadIdx.x - r0 * cols; c < dout; c += cols) {
+          const float s = __ldg(net.s[l] + c);
 #pragma unroll 4
-    for (int k = threadIdx.x; k < n; k += blockDim.x) smem[off + k] = __ldg(w + k);
-    off += n;
-    for (int k = threadIdx.x; k < net.dims[l + 1]; k += blockDim.x)
-      smem[off + k] = __ldg(net.b[l] + k);
-    off += net.dims[l + 1];
+          for (int r = r0; r < din; r += rstep)
+            smem[off + r * dout + c] = __fmul_rn(static_cast<float>(__ldg(w + r * dout + c)), s);
+        }
+      }
+    } else {
+#pragma unroll 4
+      for (int k = threadIdx.x; k < din * dout; k += blockDim.x) smem[off + k] = __ldg(w + k);
+    }
+    off += din * dout;
+    for (int k = threadIdx.x; k < dout; k += blockDim.x) smem[off + k] = __ldg(net.b[l] + k);
+    off += dout;
   }
   __syncthreads();
 
@@ -435,32 +347,15 @@ bool is_paper(int n_layers, const int* dims) {
   return true;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Opts the kernels that stage weights in shared memory (fused_score_q8 and
-// fused_score_f32's generic instance) in to smem_bytes of dynamic shared
-// memory on the current device; returns the cudaError_t (0 on success).
-int fused_score_init(int smem_bytes) {
-  cudaError_t rc = cudaFuncSetAttribute(
-      score_f32_generic, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (rc == cudaSuccess)
-    rc = cudaFuncSetAttribute(fused_score_kernel<true>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem_bytes);
-  return static_cast<int>(rc);
-}
-
-// fused_score_f32: paper != 0 runs the PaperAE instance (the widths must
-// be 32-16-8-16-32); warps per block, blocks, strides, the strip and the
-// staged weights' floats and the dynamic shared memory come from the
-// wrapper's plan().  Returns the cudaError_t of the launch (0 on success).
-int fused_score_f32(const void* x, const void* tau, int rows, int n_layers,
-                    const int* dims, void* const* w, void* const* b,
-                    void* err, void* flag, int paper, int warps, int blocks,
-                    int x_stride, int h_stride, int strip, int w_floats,
-                    int smem_bytes, void* stream) {
+// One launch of either kernel: paper != 0 runs the PaperAE instance (the
+// widths must be 32-16-8-16-32); warps per block, blocks, strides, the
+// strip, the staged weights' floats and the dynamic shared memory come from
+// the wrapper's plan().  s is null for f32 weights.
+template <typename W>
+int launch_score(const void* x, const void* tau, int rows, int n_layers, const int* dims,
+                 void* const* w, void* const* s, void* const* b, void* err, void* flag,
+                 int paper, int warps, int blocks, int x_stride, int h_stride, int strip,
+                 int w_floats, int smem_bytes, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || rows < 1 || blocks < 1 ||
       warps < 1 || warps > kMaxWarps || (paper && !is_paper(n_layers, dims)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -473,30 +368,58 @@ int fused_score_f32(const void* x, const void* tau, int rows, int n_layers,
   net.w_floats = w_floats;
   for (int l = 0; l <= n_layers; ++l) net.dims[l] = dims[l];
   for (int l = 0; l < n_layers; ++l) {
-    net.w[l] = static_cast<const float*>(w[l]);
+    net.w[l] = w[l];
+    if constexpr (kIsQ8<W>) net.s[l] = static_cast<const float*>(s[l]);
     net.b[l] = static_cast<const float*>(b[l]);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (paper) {
-    score_f32_paper<<<blocks, warps * 32, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(tau), net,
-        static_cast<float*>(err), static_cast<uint8_t*>(flag));
-  } else {
-    score_f32_generic<<<blocks, warps * 32, smem_bytes, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(tau), net,
-        static_cast<float*>(err), static_cast<uint8_t*>(flag));
-  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xp = static_cast<const float*>(x);
+  const float* tp = static_cast<const float*>(tau);
+  float* ep = static_cast<float*>(err);
+  uint8_t* fp = static_cast<uint8_t*>(flag);
+  if (paper)
+    score_paper<W><<<blocks, warps * 32, 0, st>>>(xp, tp, net, ep, fp);
+  else
+    score_generic<W><<<blocks, warps * 32, smem_bytes, st>>>(xp, tp, net, ep, fp);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Returns the cudaError_t of the launch (0 on success).
+}  // namespace
+
+extern "C" {
+
+// Opts both Generic instances in to smem_bytes of dynamic shared memory on
+// the current device; returns the cudaError_t (0 on success).
+int fused_score_init(int smem_bytes) {
+  cudaError_t rc = cudaFuncSetAttribute(
+      score_generic<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (rc == cudaSuccess)
+    rc = cudaFuncSetAttribute(score_generic<int8_t>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  return static_cast<int>(rc);
+}
+
+// fused_score_f32: f32 weights.  Returns the cudaError_t of the launch.
+int fused_score_f32(const void* x, const void* tau, int rows, int n_layers,
+                    const int* dims, void* const* w, void* const* b,
+                    void* err, void* flag, int paper, int warps, int blocks,
+                    int x_stride, int h_stride, int strip, int w_floats,
+                    int smem_bytes, void* stream) {
+  return launch_score<float>(x, tau, rows, n_layers, dims, w, nullptr, b, err, flag, paper,
+                             warps, blocks, x_stride, h_stride, strip, w_floats, smem_bytes,
+                             stream);
+}
+
+// fused_score_q8: int8 weights qw with per-output-column f32 scales sw,
+// the same plan as fused_score_f32.  Returns the cudaError_t of the launch.
 int fused_score_q8(const void* x, const void* tau, int rows, int n_layers,
-                   const int* dims, void* const* qw, void* const* sw,
-                   void* const* b, void* err, void* flag, int tile,
-                   int x_stride, int h_stride, int smem_bytes,
-                   void* stream) {
-  return launch<true>(x, tau, rows, n_layers, dims, qw, sw, b, err, flag,
-                      tile, x_stride, h_stride, smem_bytes, stream);
+                   const int* dims, void* const* qw, void* const* sw, void* const* b,
+                   void* err, void* flag, int paper, int warps, int blocks,
+                   int x_stride, int h_stride, int strip, int w_floats,
+                   int smem_bytes, void* stream) {
+  return launch_score<int8_t>(x, tau, rows, n_layers, dims, qw, sw, b, err, flag, paper,
+                              warps, blocks, x_stride, h_stride, strip, w_floats, smem_bytes,
+                              stream);
 }
 
 const char* fused_score_error_string(int code) {

@@ -21,7 +21,9 @@ real width (:func:`wire_plan`): ``SMALL_TEAM`` threads up to
 one of each when a row holds both kinds.  Its first call on a device opts
 the kernels in to ``SMEM_MAX`` bytes of dynamic shared memory there and
 reads the SM count.  :func:`wire_aggregate_blocks` (``wire_agg``, one
-launch) adds ``q * scale * w`` from the slots into fog sums, in place.
+launch, a warp per (fog, block)) adds ``q * scale * w`` from the slots
+into fog sums, in place, each coordinate taking its clients in index
+order.
 Both write into caller-given buffers when asked, so a chunked round
 writes each chunk's wire and error-feedback rows straight into slices of
 the round's buffers.  Their plain versions are
@@ -260,8 +262,8 @@ def wire_aggregate_blocks(
         raise ValueError(f"idx must be (N, nb, k), got {tuple(idx.shape)}")
     n, nb, k = (int(s) for s in idx.shape)
     in_blocks = (nb - 1) * BLOCK_ELEMS < d <= nb * BLOCK_ELEMS
-    if n < 1 or k < 1 or not 1 <= n_fog <= 65535 or not in_blocks:
-        raise ValueError(f"needs N, k >= 1, 1 <= n_fog <= 65535 and d within the {nb} blocks, "
+    if n < 1 or k < 1 or n_fog < 1 or not in_blocks:
+        raise ValueError(f"needs N, k, n_fog >= 1 and d within the {nb} blocks, "
                          f"got N={n}, k={k}, n_fog={n_fog}, d={d}")
     if q.dtype not in (torch.int8, torch.float32):
         raise TypeError(f"q is {q.dtype}, expected torch.int8 or torch.float32")

@@ -13,11 +13,13 @@ wrapper's launches (plain integers; :func:`reset_launches` zeroes them).
 
 The first launch on a device opts the kernels in to ``SMEM_LIMIT`` bytes
 of dynamic shared memory there and reads its SM count; later launches
-reuse both.  ``fused_score_f32``'s grid comes from :func:`plan` (a warp per
-group of ``ROWS_PER_WARP`` rows), ``fused_score_q8``'s tile from
-:func:`layout`, each cached per (widths, rows, SMs); :func:`score_rows`
-builds the ctypes pointer arrays once per weight set, keyed on the
-tensors' ``data_ptr``s, so a hot-swapped set gets its own.
+reuse both.  Both kernels take their instance and grid from :func:`plan`
+(a warp per group of ``ROWS_PER_WARP`` rows), cached per (widths, rows,
+SMs): int8 weights are dequantised as they are loaded and then run the
+f32 kernel's row chain, so a row's err is the f32 kernel's on the
+dequantised weights, bit for bit.  Both wrappers build the ctypes pointer
+arrays once per weight set, keyed on the tensors' ``data_ptr``s, so a
+hot-swapped set gets its own.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ LAUNCHES = {"fused_score_f32": 0, "fused_score_q8": 0}
 
 _lib: ctypes.CDLL | None = None
 _n_sm: dict[int, int] = {}  # device index -> SM count, once opted in
-_f32_args: dict[tuple, tuple] = {}   # (dims, weight and bias ptrs) -> ctypes arrays
+_args: dict[tuple, tuple] = {}   # (dims, weight, scale and bias ptrs) -> ctypes arrays
 
 
 def reset_launches() -> None:
@@ -56,9 +58,8 @@ def _library() -> ctypes.CDLL:
         lib = _build.load("fused_score")
         vp, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
         ptrs = ctypes.POINTER(ctypes.c_void_p)
-        tail = [vp, vp, i, i, i, i, vp]   # err, flag, tile, strides, smem, stream
-        lib.fused_score_f32.argtypes = [vp, vp, i, i, ip, ptrs, ptrs, vp, vp,
-                                        i, i, i, i, i, i, i, i, vp]
+        tail = [vp, vp, i, i, i, i, i, i, i, i, vp]   # err, flag, the plan, stream
+        lib.fused_score_f32.argtypes = [vp, vp, i, i, ip, ptrs, ptrs, *tail]
         lib.fused_score_f32.restype = i
         lib.fused_score_q8.argtypes = [vp, vp, i, i, ip, ptrs, ptrs, ptrs, *tail]
         lib.fused_score_q8.restype = i
@@ -88,35 +89,8 @@ def _sm_count(device: torch.device) -> int:
     return n_sm
 
 
-@functools.lru_cache(maxsize=256)
-def layout(dims: tuple[int, ...], rows: int, n_sm: int) -> tuple[int, int, int, int]:
-    """(rows per block, row stride, hidden stride, shared-memory bytes).
-
-    Strides are odd so a warp's 32 row columns fall in 32 banks.  The tile
-    shrinks from 128 rows (to at least 32) until the grid has a block for
-    each of the ``n_sm`` SMs or the staged weights, row tile and two
-    hidden buffers fit."""
-    x_stride = dims[0] | 1
-    hidden = dims[1:-1]
-    h_stride = (max(hidden) | 1) if hidden else 0
-    w_floats = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
-    tile = 128
-    while tile > 32 and tile * n_sm > rows:
-        tile //= 2
-    while True:
-        smem = 4 * (w_floats + tile * (x_stride + 2 * h_stride))
-        if smem <= SMEM_LIMIT:
-            return tile, x_stride, h_stride, smem
-        if tile == 32:
-            raise ValueError(
-                f"autoencoder widths {dims} need {smem} B of shared memory "
-                f"per 32-row block; the kernel has {SMEM_LIMIT}"
-            )
-        tile //= 2
-
-
 class Plan(NamedTuple):
-    """``fused_score_f32``'s launch: the instance, the grid and the shared
+    """A score kernel's launch: the instance, the grid and the shared
     memory of each warp's strip (floats) and of the block (bytes)."""
     paper: bool          # the PaperAE instance (weights in registers)
     warps: int           # warps per block
@@ -134,8 +108,8 @@ def _align4(n: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def plan(dims: tuple[int, ...], rows: int, n_sm: int) -> Plan:
-    """The grid of ``fused_score_f32`` for ``rows`` rows of widths ``dims``
-    on ``n_sm`` SMs.
+    """The launch of either score kernel for ``rows`` rows of widths
+    ``dims`` on ``n_sm`` SMs (int8 weights are staged dequantised, as f32).
 
     A warp scores ``ROWS_PER_WARP`` rows at a time.  Up to
     ``RESIDENT_WARPS`` per SM, there is a warp per group; past that the
@@ -189,42 +163,42 @@ def _dims(x: torch.Tensor, ws) -> tuple[int, ...]:
     return dims
 
 
-def _run(fn, name: str, x, tau, dims, weight_ptrs, device):
+def _arrays(dims: tuple[int, ...], *sets) -> tuple:
+    """The ctypes dims array and one pointer array per tensor set (weights,
+    scales, biases) of one weight set, built once and kept while its
+    tensors stay where they are (the key is their ``data_ptr``s)."""
+    key = (dims, *(tuple(t.data_ptr() for t in ts) for ts in sets))
+    arrays = _args.get(key)
+    if arrays is None:
+        n = len(dims) - 1
+        arrays = ((ctypes.c_int * len(dims))(*dims),
+                  *((ctypes.c_void_p * n)(*ptrs) for ptrs in key[1:]))
+        if len(_args) >= ARG_CACHE:
+            _args.clear()
+        _args[key] = arrays
+    return arrays
+
+
+def _launch_rows(name: str, x, tau, dims, sets, device):
+    """Allocate (err, flag), launch ``name`` with the plan for ``dims`` and
+    count it; ``sets`` are the weight set's tensor tuples in the C entry's
+    order."""
     rows = int(x.shape[0])
     err = torch.empty((rows,), dtype=torch.float32, device=device)
     flag = torch.empty((rows,), dtype=torch.bool, device=device)
     if rows == 0:
         return err, flag
-    tile, x_stride, h_stride, smem = layout(dims, rows, _sm_count(device))
-    n_layers = len(dims) - 1
-    arrays = [(ctypes.c_void_p * n_layers)(*ptrs) for ptrs in weight_ptrs]
+    p = plan(dims, rows, _sm_count(device))
+    arrays = _arrays(dims, *sets)
     with torch.cuda.device(device):
-        stream = _launch.stream(device)
-        rc = fn(
-            x.data_ptr(), tau.data_ptr(), rows, n_layers,
-            (ctypes.c_int * len(dims))(*dims), *arrays,
-            err.data_ptr(), flag.data_ptr(), tile, x_stride, h_stride, smem,
-            stream,
+        rc = getattr(_library(), name)(
+            x.data_ptr(), tau.data_ptr(), rows, len(dims) - 1, *arrays,
+            err.data_ptr(), flag.data_ptr(), int(p.paper), p.warps, p.blocks, p.x_stride,
+            p.h_stride, p.strip, p.w_floats, p.smem, _launch.stream(device),
         )
     _raise_on(rc, f"{name} launch")
     LAUNCHES[name] += 1
     return err, flag
-
-
-def _f32_arrays(dims: tuple[int, ...], ws, bs) -> tuple:
-    """The ctypes (dims, weight pointers, bias pointers) arrays of one
-    weight set, built once and kept while the set's tensors stay where
-    they are (the key is their ``data_ptr``s)."""
-    key = (dims, tuple(w.data_ptr() for w in ws), tuple(b.data_ptr() for b in bs))
-    arrays = _f32_args.get(key)
-    if arrays is None:
-        n = len(ws)
-        arrays = ((ctypes.c_int * len(dims))(*dims), (ctypes.c_void_p * n)(*key[1]),
-                  (ctypes.c_void_p * n)(*key[2]))
-        if len(_f32_args) >= ARG_CACHE:
-            _f32_args.clear()
-        _f32_args[key] = arrays
-    return arrays
 
 
 def score_rows(
@@ -245,23 +219,7 @@ def score_rows(
                 and w.is_contiguous() and b.is_contiguous()):
             _launch.check(w, f"ws[{i}]", torch.float32, w_shape, device)
             _launch.check(b, f"bs[{i}]", torch.float32, b_shape, device)
-    rows = int(x.shape[0])
-    err = torch.empty((rows,), dtype=torch.float32, device=device)
-    flag = torch.empty((rows,), dtype=torch.bool, device=device)
-    if rows == 0:
-        return err, flag
-    p = plan(dims, rows, _sm_count(device))
-    dims_arr, w_arr, b_arr = _f32_arrays(dims, ws, bs)
-    lib = _library()
-    with torch.cuda.device(device):
-        rc = lib.fused_score_f32(
-            x.data_ptr(), tau.data_ptr(), rows, len(ws), dims_arr, w_arr, b_arr,
-            err.data_ptr(), flag.data_ptr(), int(p.paper), p.warps, p.blocks, p.x_stride,
-            p.h_stride, p.strip, p.w_floats, p.smem, _launch.stream(device),
-        )
-    _raise_on(rc, "fused_score_f32 launch")
-    LAUNCHES["fused_score_f32"] += 1
-    return err, flag
+    return _launch_rows("fused_score_f32", x, tau, dims, (ws, bs), device)
 
 
 def score_rows_q8(
@@ -271,7 +229,8 @@ def score_rows_q8(
     sws: tuple[torch.Tensor, ...],    # (1, d_out) or (d_out,) f32 scales
     bs: tuple[torch.Tensor, ...],     # (d_out,) f32 biases
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``fused_score_q8``: (err (R,) f32, flag (R,) bool)."""
+    """Launch ``fused_score_q8``: (err (R,) f32, flag (R,) bool), bitwise
+    :func:`score_rows` on the weights ``q.to(f32) * s``."""
     device = _check_rows(x, tau, len(qws))
     dims = _dims(x, qws)
     for i, (q, s, b) in enumerate(zip(qws, sws, bs, strict=True)):
@@ -280,9 +239,4 @@ def score_rows_q8(
         if s.numel() != dims[i + 1]:
             raise ValueError(f"sws[{i}] has {s.numel()} scales, expected {dims[i + 1]}")
         _launch.check(b, f"bs[{i}]", torch.float32, (dims[i + 1],), device)
-    lib = _library()
-    return _run(
-        lib.fused_score_q8, "fused_score_q8", x, tau, dims,
-        [[q.data_ptr() for q in qws], [s.data_ptr() for s in sws],
-         [b.data_ptr() for b in bs]], device,
-    )
+    return _launch_rows("fused_score_q8", x, tau, dims, (qws, sws, bs), device)

@@ -313,6 +313,40 @@ def wire_aggregate_ref(
     return fog_sum.reshape(n_fog, -1)[:, :d]
 
 
+def wire_fold_ref(
+    idx: torch.Tensor,        # (N, nb, k) int32, distinct within a (client, block)
+    q: torch.Tensor,          # (N, nb, k) int8 codes (or f32 values)
+    scale: torch.Tensor,      # (N, nb) f32 per-block scales
+    fog_id: torch.Tensor,     # (N,) cluster id per client
+    weights: torch.Tensor,    # (N,) f32
+    out: torch.Tensor,        # (n_fog, d) f32 running sums, added to in place
+) -> torch.Tensor:
+    """:func:`wire_aggregate_ref` in ``wire_agg``'s own order: each
+    coordinate of ``out`` takes ``(q * scale) * w`` of its fog's clients in
+    index order, each added to the running value, so the result is the
+    kernel's bit for bit.  Slots outside the real columns are skipped.  The
+    clients go in waves, the r-th member of every fog in wave r, so no two
+    adds of a wave meet at a coordinate."""
+    n, nb = idx.shape[:2]
+    d = out.shape[1]
+    fog = fog_id.long()
+    order = torch.sort(fog, stable=True).indices
+    counts = torch.bincount(fog, minlength=out.shape[0])
+    first = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(fog)
+    rank[order] = torch.arange(n, device=fog.device) - first[fog[order]]
+    col = torch.arange(nb, device=idx.device)[None, :, None] * BLOCK_ELEMS + idx.long()
+    real = (idx >= 0) & (idx < BLOCK_ELEMS) & (col < d)
+    val = q.to(torch.float32) * scale[..., None] * weights.to(torch.float32)[:, None, None]
+    flat = out.view(-1)
+    for r in range(int(rank.max()) + 1):
+        wave = rank == r
+        keep = real[wave]
+        pos = (fog[wave][:, None, None] * d + col[wave])[keep]
+        flat[pos] = flat[pos] + val[wave][keep]
+    return out
+
+
 def compress_aggregate_wire_ref(
     delta: torch.Tensor,      # (N, d)
     err: torch.Tensor,        # (N, d)

@@ -98,6 +98,57 @@ def test_wire_aggregate_matches_jax(d, quantize):
     np.testing.assert_allclose(base.numpy(), got.numpy() + 0.5, rtol=1e-6, atol=1e-6)
 
 
+def _client_order_fold(idx, q, scale, fog_id, w, base):
+    """wire_agg's order rule, one client at a time in index order: each
+    real slot adds ``(q * scale) * w``, rounded in f32 at each step, to
+    the running value of its fog row."""
+    out = base.copy()
+    n, nb, _ = idx.shape
+    d = out.shape[1]
+    for i in range(n):
+        for b in range(nb):
+            cols = b * 8192 + idx[i, b].astype(np.int64)
+            real = cols < d
+            add = (q[i, b].astype(np.float32) * scale[i, b]) * w[i]
+            out[fog_id[i], cols[real]] = out[fog_id[i], cols[real]] + add[real]
+    return out
+
+
+@pytest.mark.parametrize("quantize", [True, False])
+@pytest.mark.parametrize("d", [1352, 8209])
+def test_wire_aggregate_follows_the_client_order_fold(d, quantize):
+    """The order rule ``wire_agg`` is held to bitwise on the card: a client
+    fold in index order, from a non-zero starting buffer, against the
+    plain route of ``ops.wire_aggregate`` and the JAX ``wire_aggregate``
+    (``rtol=1e-5, atol=1e-4``: they sum in another order), and bitwise
+    against ``ref.wire_fold_ref``, the fold the card runs.  Repeated fogs,
+    an empty fog (2), zero weights; at d = 8,209 the second block's slots
+    reach into the padding."""
+    from repro_torch.kernels import ref as tref
+
+    deltas, err = _wire_inputs(40, d, d + 7)
+    rng = np.random.default_rng(d + 3)
+    fog_id = rng.integers(0, 5, 40).astype(np.int32)
+    fog_id[fog_id == 2] = 0
+    fog_id[:6] = 4                               # six clients of one fog in a row
+    w = rng.uniform(0.0, 3.0, 40).astype(np.float32)
+    w[::5] = 0.0
+    base = rng.standard_normal((5, d)).astype(np.float32)
+    idx, q, scale, _ = (np.array(a) for a in jops.compress_wire(
+        jnp.asarray(deltas), jnp.asarray(err), 0.05, quantize))
+    fold = _client_order_fold(idx, q, scale, fog_id, w, base)
+    assert np.array_equal(fold[2], base[2])
+    q_t = torch.from_numpy(q).to(torch.int8 if quantize else torch.float32)
+    args = (torch.from_numpy(idx), q_t, *_t(scale, fog_id, w))
+    plain = tops.wire_aggregate(*args, 5, d, out=torch.from_numpy(base.copy()))
+    np.testing.assert_allclose(plain.numpy(), fold, rtol=1e-5, atol=1e-4)
+    want = base + np.asarray(jops.wire_aggregate(*(jnp.asarray(a) for a in (idx, q, scale)),
+                                                 jnp.asarray(fog_id), jnp.asarray(w), 5, d))
+    np.testing.assert_allclose(fold, want, rtol=1e-5, atol=1e-4)
+    folded = tref.wire_fold_ref(*args, out=torch.from_numpy(base.copy()))
+    assert np.array_equal(folded.numpy(), fold)
+
+
 def _agg_inputs(n=23, d=40, n_fog=4, seed=0):
     """``tests/test_chunked_agg.py``'s inputs, from the same keys."""
     k1, k2, k3 = jax.random.split(jax.random.key(seed), 3)

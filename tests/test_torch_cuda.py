@@ -27,8 +27,10 @@ apart; over its split edges (splits holding no position, a window
 shorter than a tile, len 1 and S + window, g = 1 / 10 / 16 / 36) and
 bitwise equal across calls.  ``local_train_f32`` also at batches 1, 7
 and 33 and at widths without a compile-time instance.  ``fused_score_f32``
-also at rows 1 to 65,537 at four depths, and a row's err bitwise equal
-in any batch.
+and ``fused_score_q8`` also at rows 1 to 65,537 at four depths, and a
+row's err bitwise equal in any batch; ``fused_score_q8``'s err bitwise
+``fused_score_f32``'s on the dequantised weights.  ``wire_agg`` bitwise
+equal to ``ref.wire_fold_ref``, the client-order fold.
 """
 import numpy as np
 import pytest
@@ -136,11 +138,12 @@ def test_wrapper_checks_inputs(cuda):
     with pytest.raises(ValueError, match="on cpu"):
         fs.score_rows(x, tau, (ws[0].cpu(),) + ws[1:], bs)
     big = ae.init(torch.Generator().manual_seed(0), 512, (256,), device=cuda)
+    x_big, tau_big = torch.zeros((8, 512), device=cuda), torch.zeros(8, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        fs.score_rows(
-            torch.zeros((8, 512), device=cuda), torch.zeros(8, device=cuda),
-            tuple(p["w"] for p in big), tuple(p["b"] for p in big),
-        )
+        fs.score_rows(x_big, tau_big, tuple(p["w"] for p in big), tuple(p["b"] for p in big))
+    q = quantize_params(big)
+    with pytest.raises(ValueError, match="shared memory"):
+        fs.score_rows_q8(x_big, tau_big, *(tuple(p[k] for p in q) for k in ("qw", "sw", "b")))
 
 
 U = 2.0 ** -24       # unit roundoff of f32
@@ -271,6 +274,64 @@ def test_f32_kernel_err_is_bitwise_the_same_in_any_batch(cuda, name):
     assert torch.equal(err[fin], again[fin])
     assert torch.equal(err[301:429][fin[301:429]], part[fin[301:429]])
     assert torch.equal(flag[301:429], flag_part)
+
+
+def _q8_score_case(name, rows, device, seed):
+    """``_score_case`` with the weights quantised: (qws, sws, bs, the
+    dequantised f32 weights ``q.to(f32) * s``, x, tau)."""
+    ws, bs, x, tau = _score_case(name, rows, device, seed)
+    q = quantize_params([{"w": w, "b": b} for w, b in zip(ws, bs)])
+    qws, sws = (tuple(p[k] for p in q) for k in ("qw", "sw"))
+    deq = tuple(qw.to(torch.float32) * sw.reshape(1, -1) for qw, sw in zip(qws, sws))
+    return qws, sws, bs, deq, x, tau
+
+
+@pytest.mark.parametrize("rows", SCORE_ROWS)
+@pytest.mark.parametrize("name", list(SCORE_AES))
+def test_q8_kernel_rows_and_depths(cuda, name, rows):
+    """``test_f32_kernel_rows_and_depths`` for int8 weights: against the
+    plain version, and err bitwise the f32 kernel's on the dequantised
+    weights."""
+    qws, sws, bs, deq, x, tau = _q8_score_case(name, rows, cuda, seed=rows + 1)
+    before = fs.LAUNCHES["fused_score_q8"]
+    err, flag = fs.score_rows_q8(x, tau, qws, sws, bs)
+    err_f32, flag_f32 = fs.score_rows(x, tau, deq, bs)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["fused_score_q8"] == before + 1
+    _assert_match(err, flag, *ref.fused_score_q8_ref(x, qws, sws, bs, tau), tau)
+    assert torch.equal(err.isnan(), err_f32.isnan()) and torch.equal(flag, flag_f32)
+    assert torch.equal(err[~err.isnan()], err_f32[~err.isnan()])
+
+
+@pytest.mark.parametrize("name", ["paper", "wide"])
+def test_q8_kernel_is_bitwise_the_f32_kernel_on_dequantised_weights(cuda, name):
+    """At the paper AE and at d = 130, over the serve buckets and a large
+    batch: err and flags of ``fused_score_q8`` equal ``fused_score_f32``'s
+    on ``q.to(f32) * s``, bit for bit."""
+    for rows in (128, 1024, 65536):
+        qws, sws, bs, deq, x, tau = _q8_score_case(name, rows, cuda, seed=rows + 2)
+        err, flag = fs.score_rows_q8(x, tau, qws, sws, bs)
+        err_f32, flag_f32 = fs.score_rows(x, tau, deq, bs)
+        torch.cuda.synchronize()
+        fin = ~err_f32.isnan()
+        assert torch.equal(err.isnan(), ~fin) and torch.equal(flag, flag_f32), rows
+        assert torch.equal(err[fin], err_f32[fin]), rows
+
+
+@pytest.mark.parametrize("name", ["paper", "wide"])
+def test_q8_kernel_err_is_bitwise_the_same_in_any_batch(cuda, name):
+    """A row's err in a 65,537-row batch equals its err in batches of 1,
+    128 and 1,024 rows taken at other offsets (other groups and lanes)."""
+    qws, sws, bs, _, x, tau = _q8_score_case(name, 65537, cuda, seed=9)
+    err, flag = fs.score_rows_q8(x, tau, qws, sws, bs)
+    fin = ~err.isnan()
+    for lo, rows in ((7, 1), (301, 128), (1030, 1024)):
+        part, flag_part = fs.score_rows_q8(x[lo:lo + rows].contiguous(),
+                                           tau[lo:lo + rows].contiguous(), qws, sws, bs)
+        torch.cuda.synchronize()
+        keep = fin[lo:lo + rows]
+        assert torch.equal(part.isnan(), ~keep) and torch.equal(flag_part, flag[lo:lo + rows])
+        assert torch.equal(part[keep], err[lo:lo + rows][keep]), rows
 
 
 def _train_case(n, window, d, hidden, device, seed=0, bs=32, epochs=5):
@@ -478,9 +539,10 @@ def test_robust_agg_kernel_takes_any_fleet_size(cuda):
 
 def test_kernels_take_more_fogs_than_grid_rows(cuda):
     """n_fog = 66,000, past the grid's 65,535 rows: ``fused_agg`` with
-    identity segments (one fog per client, as the robust path compresses)
-    and ``robust_agg`` with three populated fogs, two of them past the
-    grid's rows, each against its plain version."""
+    identity segments (one fog per client, as the robust path compresses),
+    ``robust_agg`` with three populated fogs, two of them past the grid's
+    rows, each against its plain version, and ``wire_agg`` into those three
+    fogs bitwise equal to the client-order fold, the other rows untouched."""
     n, d = 66_000, 64
     deltas, err, _, weights = _agg_case(n, d, 3, cuda, seed=11)
     ids = torch.arange(n, dtype=torch.int32, device=cuda)
@@ -497,6 +559,14 @@ def test_kernels_take_more_fogs_than_grid_rows(cuda):
     want = torch.zeros((n, d), device=cuda)
     want[populated.long()] = ref.robust_aggregate_ref(deltas, small, weights, 3, 0.2)[0]
     np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-6)
+    idx, q, scale, _ = fa.compress_wire_blocks(deltas[:3000], err[:3000], 3)
+    fogs = populated[small[:3000].long()]
+    base = torch.randn((n, d), generator=torch.Generator().manual_seed(3)).to(cuda)
+    got = fa.wire_aggregate_blocks(idx, q, scale, fogs, weights[:3000], n, d, out=base.clone())
+    assert torch.equal(got, ref.wire_fold_ref(idx, q, scale, fogs, weights[:3000], base.clone()))
+    others = torch.ones((n,), dtype=torch.bool, device=cuda)
+    others[populated.long()] = False
+    assert torch.equal(got[others], base[others])
 
 
 def test_fleet_shapes_match_plain(cuda):
@@ -552,6 +622,21 @@ def test_wire_kernels_match_plain(cuda, d, n, quantize, k):
     want = base + ref.wire_aggregate_ref(idx, q, scale, fog_id, weights, 20, d)
     np.testing.assert_allclose(fog_sum.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-4)
     assert torch.equal(fog_sum[1], base[1])                # the empty fog's row untouched
+    assert torch.equal(fog_sum, ref.wire_fold_ref(idx, q, scale, fog_id, weights, base.clone()))
+
+
+@pytest.mark.parametrize("quantize", [True, False])
+def test_wire_agg_bitwise_at_a_10k_client_call(cuda, quantize):
+    """One call of 10,000 clients into 1,000 fogs (fleet-10k's whole round
+    in one call, ~10 clients a fog in 20 batches of the member scan), k =
+    68: bitwise equal to the client-order fold from running sums."""
+    n, d, n_fog = 10_000, 1352, 1000
+    deltas, err, fog_id, weights = _agg_case(n, d, n_fog, cuda, seed=12)
+    idx, q, scale, _ = fa.compress_wire_blocks(deltas, err, 68, quantize)
+    base = torch.randn((n_fog, d), generator=torch.Generator().manual_seed(4)).to(cuda)
+    got = fa.wire_aggregate_blocks(idx, q, scale, fog_id, weights, n_fog, d, out=base.clone())
+    assert torch.equal(got, ref.wire_fold_ref(idx, q, scale, fog_id, weights, base.clone()))
+    assert torch.equal(got[1], base[1])
 
 
 def _wire_rows(n, d, k, device, seed):
@@ -640,6 +725,8 @@ def test_robust_and_wire_wrappers_check_inputs(cuda):
         fa.wire_aggregate_blocks(idx, q.to(torch.int32), scale, fog_id, weights, 3, 100)
     with pytest.raises(ValueError, match="blocks"):
         fa.wire_aggregate_blocks(idx, q, scale, fog_id, weights, 3, 9000)
+    with pytest.raises(ValueError, match="n_fog"):
+        fa.wire_aggregate_blocks(idx, q, scale, fog_id, weights, 0, 100)
 
 
 @pytest.mark.parametrize("kw", [

@@ -8,7 +8,9 @@ package's own kernel-vs-oracle tests); flags agree exactly, except on rows
 whose error lies within ``1e-5 * max(1, |tau|)`` of tau, where the two
 summation orders may round to opposite sides.
 """
+import contextlib
 import importlib
+import types
 
 import jax
 import numpy as np
@@ -240,31 +242,46 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     assert fs.LAUNCHES == before
 
 
-@pytest.mark.parametrize(
-    "dims,rows,tile",
-    [((32, 16, 8, 16, 32), 128, 32), ((32, 16, 8, 16, 32), 65536, 128),
-     ((130, 64, 8, 64, 130), 1024, 32), ((130, 64, 8, 64, 130), 25600, 128)],
-)
-def test_kernel_layout_fits_and_pads_strides_odd(dims, rows, tile):
-    from repro_torch.kernels import fused_score as fs
-
-    t, xs, hs, smem = fs.layout(dims, rows, 132)   # an H100 SXM's SMs
-    assert t == tile and xs % 2 == 1 and hs % 2 == 1
-    assert xs >= dims[0] and hs >= max(dims[1:-1])
-    assert smem <= fs.SMEM_LIMIT
-
-
-def test_kernel_layout_refuses_widths_beyond_shared_memory():
-    from repro_torch.kernels import fused_score as fs
-
-    with pytest.raises(ValueError, match="shared memory"):
-        fs.layout((512, 256, 512), 1024, 132)
-
-
 PAPER = (32, 16, 8, 16, 32)
 WIDE_DIMS = (130, 64, 8, 64, 130)
 
 
+WEIGHTS = ["f32", "int8"]
+
+
+def _launched_plan(monkeypatch, dims, rows, weights):
+    """The plan the wrapper of ``weights``' kernel launches with on an H100
+    SXM's 132 SMs: the wrapper runs on CPU tensors against a recording
+    stand-in for the library."""
+    from repro_torch.kernels import fused_score as fs
+
+    plans = []
+
+    def record(*args):   # ..., paper, warps, blocks, strides, strip, w_floats, smem, stream
+        plans.append(fs.Plan(bool(args[-9]), *args[-8:-1]))
+        return 0
+
+    lib = types.SimpleNamespace(fused_score_f32=record, fused_score_q8=record)
+    monkeypatch.setattr(fs, "_library", lambda: lib)
+    monkeypatch.setattr(fs, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(fs._launch, "require_cuda", lambda t, what: t.device)
+    monkeypatch.setattr(fs._launch, "stream", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    g = torch.Generator().manual_seed(rows)
+    x = torch.randn((rows, dims[0]), generator=g)
+    tau = torch.zeros((rows,))
+    ws = tuple(torch.randn((a, b), generator=g) for a, b in zip(dims[:-1], dims[1:]))
+    bs = tuple(torch.zeros((b,)) for b in dims[1:])
+    if weights == "f32":
+        fs.score_rows(x, tau, ws, bs)
+    else:
+        fs.score_rows_q8(x, tau, tuple(w.to(torch.int8) for w in ws),
+                         tuple(torch.ones((1, b)) for b in dims[1:]), bs)
+    assert len(plans) == 1
+    return plans[0]
+
+
+@pytest.mark.parametrize("weights", WEIGHTS)
 @pytest.mark.parametrize(
     "dims,rows,want",
     [(PAPER, 128, (True, 1, 32)),      # serve bucket: a warp per 4 rows, one per block
@@ -274,13 +291,15 @@ WIDE_DIMS = (130, 64, 8, 64, 130)
      (WIDE_DIMS, 1024, (False, 8, 32)),
      ((32, 32), 7, (False, 8, 1))],
 )
-def test_f32_plan_at_the_main_paths_shapes(dims, rows, want):
-    """fused_score_f32's grid on an H100 SXM's 132 SMs: the instance, warps
-    per block and blocks; enough warps for every 4-row group up to 16 per
-    SM, the paper AE's blocks as narrow as keeps one per SM."""
+def test_f32_plan_at_the_main_paths_shapes(monkeypatch, dims, rows, want, weights):
+    """The launch on an H100 SXM's 132 SMs, for f32 and int8 weights alike:
+    the instance, warps per block and blocks; enough warps for every 4-row
+    group up to 16 per SM, the paper AE's blocks as narrow as keeps one
+    per SM."""
     from repro_torch.kernels import fused_score as fs
 
-    p = fs.plan(dims, rows, 132)
+    p = _launched_plan(monkeypatch, dims, rows, weights)
+    assert p == fs.plan(dims, rows, 132)
     assert (p.paper, p.warps, p.blocks) == want
     groups = -(-rows // fs.ROWS_PER_WARP)
     assert min(groups, 132 * fs.RESIDENT_WARPS) <= p.warps * p.blocks
@@ -288,13 +307,15 @@ def test_f32_plan_at_the_main_paths_shapes(dims, rows, want):
     assert p.smem <= fs.SMEM_LIMIT
 
 
-def test_f32_plan_depends_on_widths_not_rows():
+@pytest.mark.parametrize("weights", WEIGHTS)
+def test_f32_plan_depends_on_widths_not_rows(monkeypatch, weights):
     """The instance and the strip layout are the same at every row count,
-    so a row scores alike in every bucket."""
+    for f32 and int8 weights alike, so a row scores alike in every
+    bucket."""
     from repro_torch.kernels import fused_score as fs
 
     for dims in (PAPER, WIDE_DIMS, (24, 20, 16, 12, 8, 12, 16, 20, 24)):
-        plans = [fs.plan(dims, r, 132) for r in (1, 31, 128, 1024, 65537)]
+        plans = [_launched_plan(monkeypatch, dims, r, weights) for r in (1, 31, 128, 1024, 65537)]
         assert len({(p.paper, p.x_stride, p.h_stride, p.strip, p.w_floats) for p in plans}) == 1
         if dims != PAPER:
             p = plans[0]
@@ -303,8 +324,7 @@ def test_f32_plan_depends_on_widths_not_rows():
             assert p.smem == 4 * (p.w_floats + p.warps * p.strip)
 
 
-def test_f32_plan_refuses_widths_beyond_shared_memory():
-    from repro_torch.kernels import fused_score as fs
-
+@pytest.mark.parametrize("weights", WEIGHTS)
+def test_f32_plan_refuses_widths_beyond_shared_memory(monkeypatch, weights):
     with pytest.raises(ValueError, match="shared memory"):
-        fs.plan((512, 256, 512), 1024, 132)
+        _launched_plan(monkeypatch, (512, 256, 512), 1024, weights)
