@@ -4,8 +4,11 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one sm_90 CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``),
 the port's sources beside it (``src/repro_torch``; without them it exits 1)
-and nothing of JAX.  Phases, in order; any failure exits non-zero before
-the result line:
+and nothing of JAX.  ``python3 chip_smoke.py --timing`` runs phases 1, 2
+and 6 alone and prints their numbers without the result line: a copy of
+the script run from an older checkout times that checkout's kernels the
+same way (the A/B of two kernel designs).  Phases, in order; any failure
+exits non-zero before the result line:
 
 1. device  — name, capability, count, ``nvidia-smi`` name and power limit;
 2. build   — every kernel source in ``kernels/csrc`` with nvcc for sm_90a,
@@ -127,7 +130,12 @@ the result line:
              steps), and gemma2-27b REDUCED against the CPU (soft-capped
              layers: no ``swa_decode`` launch).
 
-Phase 6 also times ``robust_agg``, ``wire_emit`` and ``wire_agg`` at the
+Phase 6 also times ``fused_agg`` at robust-200's identity call (N =
+n_fog = 200), at one of its 64-client chunks and at fleet-10k's unchunked
+call (N = 10,000 into 1,000 fogs), and with 66,000 identity fogs (kernel
+only), each also by launch (``select``, ``sum``); ``robust_agg`` by launch
+too (the member list, the reduce); and ``robust_agg``, ``wire_emit`` and
+``wire_agg`` at the
 shapes of phases 9 and 10 (``wire_agg`` also as one 10,000-client call,
 and at a chunk as deep as that call's deepest fog: the difference is the
 longer member scan), ``compress_q8`` and ``topk_ef`` at train-200's
@@ -135,7 +143,11 @@ shape and ``compress_q8`` again at fleet-10k's chunk (the unchanged
 control beside ``wire_emit``), and ``quant8`` on a 2^20-coordinate
 vector; phase 7 holds the robust and wire kernels against their plain
 versions over a grid and at fleet-10k's shapes (``fused_agg`` at N =
-10,000 into 1,000 fogs, the wire pair chunk by chunk into running sums
+10,000 into 1,000 fogs, its fog sums bitwise equal to the client-order
+fold ``ref.dense_fold_ref`` there and over phase 7's grid, with its
+thresholds and new_err bitwise the plain version's; ``robust_agg``'s
+member lists on the card equal ``robust_agg.member_lists`` element for
+element; the wire pair chunk by chunk into running sums
 and ``wire_agg`` in one 10,000-client call, ``robust_agg`` at N = 30,000
 with a fog of 3,000), the wire's slots, codes, scales and new_err
 bitwise, ``wire_agg``'s sums bitwise equal to the client-order fold
@@ -393,6 +405,36 @@ def device_ms(fn, n: int) -> tuple[float, float]:
     return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / n, len(dev) / n
 
 
+def device_split(fn, n: int, parts: dict, rest: str | None = None) -> dict:
+    """Device ms per call of ``fn`` by kernel name, over ``n`` calls
+    (torch.profiler, :func:`device_events`): each label of ``parts`` (label
+    -> a substring of the kernel's name) sums the activities whose name
+    holds its substring, ``rest`` every other one; with the activities per
+    call of each label under ``<label> ops``."""
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+
+    labels = [*parts, *([rest] if rest else [])]
+    out = {**dict.fromkeys(labels, 0.0), **{f"{k} ops": 0.0 for k in labels}}
+    for e in device_events(run):
+        label = next((k for k, sub in parts.items() if sub in e.name), rest)
+        if label is not None:
+            out[label] += e.time_range.elapsed_us() / 1e3 / n
+            out[f"{label} ops"] += 1.0 / n
+    return out
+
+
+# fused_agg's two launches and robust_agg's member list and reduce, by the
+# kernels' names (the first designs' names too: the list was PyTorch ops).
+FUSED_SPLIT = ({"select": "select_kernel", "sum": "sum_kernel"}, None)
+ROBUST_SPLIT = ({"aggregate": "robust_kernel"}, "member list")
+
+
 def serve_fleet(mods, ds, weight_dtype, workdir):
     """Phase 4 for one weight dtype; returns (service, launches, F1 per wave)."""
     ae, anomaly, CheckpointStore, ScoringService, StreamingCalibrator, fs, score_mod = mods
@@ -566,7 +608,9 @@ def agree_with_cpu(label, gpu, cpu, rounds) -> float:
 
 def check_training_kernels(dev, lt, fa, kops, kref, ae, multi_epoch_indices) -> dict:
     """Phase 7: each training kernel against its plain version on the
-    card; returns the max |kernel - plain| per kernel."""
+    card (``fused_agg``'s thresholds and new_err bitwise, its fog sums
+    bitwise equal to the client-order fold, ``ref.dense_fold_ref``);
+    returns the max |kernel - plain| per kernel."""
     max_err = dict.fromkeys(TRAIN_KERNELS, 0.0)
     g = torch.Generator().manual_seed(7)
     for n in (1, 13, TRAIN_N):
@@ -604,11 +648,17 @@ def check_training_kernels(dev, lt, fa, kops, kref, ae, multi_epoch_indices) -> 
                     deltas, err, fog_id, weights, TRAIN_FOG, k, quantize)
                 check(torch.equal(absv > thr_k[..., None], absv > thr_r[..., None]),
                       f"fused_agg survivor sets differ at d={d}, N={n}")
+                check(torch.equal(thr_k, thr_r) and torch.equal(ne_k, ne_r),
+                      f"fused_agg thresholds or new_err differ bitwise at d={d}, N={n}")
+                check(torch.equal(fs_k, kref.dense_fold_ref(deltas, err, fog_id, weights,
+                                                             TRAIN_FOG, k, quantize)),
+                      f"fused_agg fog sums differ from the client-order fold at d={d}, N={n}")
                 check(not bool(fs_k[1].any()), "the empty fog got a nonzero sum")
                 e = max(close_on_device(ne_k, ne_r, 0.0, 1e-5, "fused_agg new_err"),
                         close_on_device(fs_k, fs_r, 1e-5, 1e-4, "fused_agg fog sums"))
                 max_err["fused_agg"] = max(max_err["fused_agg"], e)
-                print(f"  fused_agg       d={d:5d} N={n:4d} int8={quantize!s:5s} survivors equal, "
+                print(f"  fused_agg       d={d:5d} N={n:4d} int8={quantize!s:5s} survivors, "
+                      f"thresholds, new_err and the client-order fold equal, "
                       f"max|diff|={e:.3e}  ok")
             del deltas, err, absv
     return max_err
@@ -616,7 +666,12 @@ def check_training_kernels(dev, lt, fa, kops, kref, ae, multi_epoch_indices) -> 
 
 def time_training_kernels(dev, lt, fa, kops, kref, ae, multi_epoch_indices, name, smi) -> dict:
     """Phase 6 for the training kernels at the train-200 shapes (the
-    compress-aggregate keep count is the round's: rho_s 0.05 of d)."""
+    compress-aggregate keep count is the round's: rho_s 0.05 of d), and
+    ``fused_agg`` at its other main-path calls: robust-200's identity
+    segments (N = n_fog = 200: ``aggregation.client_compress``), one of its
+    chunks at ``client_chunk=64`` (N = n_fog = 64) and fleet-10k's
+    unchunked round (N = 10,000 into 1,000 fogs); ``fused_agg`` also by
+    its two launches (select, sum)."""
     from repro_torch.core.compression import blockwise_k_frac
 
     g = torch.Generator().manual_seed(6)
@@ -649,12 +704,73 @@ def time_training_kernels(dev, lt, fa, kops, kref, ae, multi_epoch_indices, name
             f"N={TRAIN_N} d={d} n_fog={TRAIN_FOG} k={k} int8",
         ),
     }
-    return time_cases(cases, name, smi)
+    ids = torch.arange(TRAIN_N, dtype=torch.int32, device=dev)
+    ones = torch.ones((TRAIN_N,), device=dev)
+    c = ROBUST_CHUNK
+    fd = torch.randn((FLEET_N, d), generator=g).to(dev)
+    fe = (0.1 * torch.randn((FLEET_N, d), generator=g)).to(dev)
+    ffog = torch.randint(0, FLEET_FOG, (FLEET_N,), generator=g, dtype=torch.int32).to(dev)
+    fw = (WINDOW * (torch.rand((FLEET_N,), generator=g) > 0.3).to(torch.float32)).to(dev)
+    cases.update({
+        "fused_agg @ robust-200 identity": (
+            lambda: fa.compress_aggregate_blocks(deltas, err, ids, ones, TRAIN_N, k),
+            lambda: kref.compress_aggregate_ref(deltas, err, ids, ones, TRAIN_N, k),
+            agg_work(TRAIN_N, d, TRAIN_N),
+            (200, 20, 50, 5),
+            f"N=n_fog={TRAIN_N} d={d} k={k} int8, identity segments",
+        ),
+        "fused_agg @ robust-200 chunk": (
+            lambda: fa.compress_aggregate_blocks(deltas[:c], err[:c], ids[:c], ones[:c], c, k),
+            lambda: kref.compress_aggregate_ref(deltas[:c], err[:c], ids[:c], ones[:c], c, k),
+            agg_work(c, d, c),
+            (200, 20, 50, 5),
+            f"N=n_fog={c} d={d} k={k} int8, identity segments (client_chunk={c})",
+        ),
+        "fused_agg @ fleet-10k": (
+            lambda: fa.compress_aggregate_blocks(fd, fe, ffog, fw, FLEET_FOG, k),
+            lambda: kref.compress_aggregate_ref(fd, fe, ffog, fw, FLEET_FOG, k),
+            agg_work(FLEET_N, d, FLEET_FOG),
+            (50, 3, 20, 2),
+            f"N={FLEET_N} d={d} n_fog={FLEET_FOG} k={k} int8, unchunked",
+        ),
+    })
+    return time_cases(cases, name, smi, splits={"fused_agg": FUSED_SPLIT})
 
 
-def time_cases(cases, name, smi) -> dict:
+IDENTITY_N, IDENTITY_D = 66_000, 64     # identity segments past the grid's 65,535 rows
+
+
+def time_identity_fogs(dev, fa, name, smi) -> dict:
+    """Phase 6: ``fused_agg`` with 66,000 identity segments (n_fog = N =
+    66,000, d = 64, k = 3: the card test's case past the grid's rows), where
+    finding each fog's members reads N^2 fog ids; device time by launch and
+    per call, beside the bound (no plain time: its one-hot product would be
+    66,000^2 floats)."""
+    g = torch.Generator().manual_seed(66)
+    deltas = torch.randn((IDENTITY_N, IDENTITY_D), generator=g).to(dev)
+    err = (0.1 * torch.randn((IDENTITY_N, IDENTITY_D), generator=g)).to(dev)
+    ids = torch.arange(IDENTITY_N, dtype=torch.int32, device=dev)
+    weights = torch.ones((IDENTITY_N,), device=dev)
+
+    def run():
+        fa.compress_aggregate_blocks(deltas, err, ids, weights, IDENTITY_N, 3)
+
+    per_call = call_ms(run, 3)
+    by_name = device_split(run, 3, *FUSED_SPLIT)
+    ms = sum(v for k, v in by_name.items() if not k.endswith(" ops"))
+    bound_ms, bound_by = bound_from(*agg_work(IDENTITY_N, IDENTITY_D, IDENTITY_N))
+    print(f"  fused_agg @ 66,000 identity fogs (N=n_fog={IDENTITY_N} d={IDENTITY_D} k=3): device "
+          f"time {ms * 1e3:.3f} us (select {by_name['select'] * 1e3:.3f}, sum "
+          f"{by_name['sum'] * 1e3:.3f}); bound {bound_ms * 1e3:.4f} us ({bound_by}); per call "
+          f"by CUDA events {per_call * 1e3:.3f} us  on {name} ({smi})")
+    return dict(ms=ms, call_ms=per_call, bound_ms=bound_ms, bound_by=bound_by, split=by_name)
+
+
+def time_cases(cases, name, smi, splits=None) -> dict:
     """Time each kernel beside its plain version: CUDA-event per-call time
-    and torch.profiler device time, with the bound from its work."""
+    and torch.profiler device time, with the bound from its work; a kernel
+    named in ``splits`` (name -> :func:`device_split`'s parts and rest)
+    also by its kernels' names."""
     out = {}
     for kname, (run_kernel, run_plain, work, (n_k, n_p, prof_k, prof_p), shape) in cases.items():
         calls = {"call_ms": call_ms(run_kernel, n_k), "plain_call_ms": call_ms(run_plain, n_p)}
@@ -669,6 +785,12 @@ def time_cases(cases, name, smi) -> dict:
               f"({plain_kernels:.0f} device ops); bound {bound_ms * 1e3:8.4f} us ({bound_by}); "
               f"per call by CUDA events: kernel {calls['call_ms'] * 1e3:9.3f} us, "
               f"plain {calls['plain_call_ms'] * 1e3:10.3f} us  on {name} ({smi})")
+        split = (splits or {}).get(kname.split(" @ ")[0])
+        if split:
+            out[kname]["split"] = by_name = device_split(run_kernel, prof_k, *split)
+            print(f"  {kname:16s} by device kernel: " + ", ".join(
+                f"{k} {v * 1e3:.3f} us ({by_name[k + ' ops']:.0f} ops)"
+                for k, v in by_name.items() if not k.endswith(" ops")) + f"  on {name} ({smi})")
     return out
 
 
@@ -680,7 +802,8 @@ def time_new_kernels(dev, fa, ra, kops, kref, agg, comp, ae, name, smi) -> dict:
     ``wire_agg`` also as one call of all 10,000 clients (the member scan
     reads 10,000 ids per (fog, block)), and at a chunk whose deepest fog
     has as many members as that call's: the two share their longest chain
-    of member adds, so their difference is the longer scan's."""
+    of member adds, so their difference is the longer scan's.  ``robust_agg``
+    also by its two launches (the member list, the reduce)."""
     g = torch.Generator().manual_seed(9)
     d = ae.param_count(D, HIDDEN)
     deltas = torch.randn((TRAIN_N, d), generator=g).to(dev)
@@ -742,7 +865,7 @@ def time_new_kernels(dev, fa, ra, kops, kref, agg, comp, ae, name, smi) -> dict:
             f"N={FLEET_CHUNK} d={d} k={k} int8 into n_fog={FLEET_FOG}, fog 0 holding {depth}",
         ),
     }
-    return time_cases(cases, name, smi)
+    return time_cases(cases, name, smi, splits={"robust_agg": ROBUST_SPLIT})
 
 
 def time_compress_kernels(dev, kq8, tk, kops, kref, comp, ae, name, smi) -> dict:
@@ -906,6 +1029,15 @@ def robust_layouts(n, g, dev) -> dict:
     return {"one fog": one.to(dev), "20 fogs": twenty.to(dev), "half in one fog": half.to(dev)}
 
 
+def check_member_lists(ra, fog_id, weights, n_fog, what) -> None:
+    """``robust_agg``'s member lists built on the card equal the plain
+    ``member_lists`` element for element (members and offsets)."""
+    got, want = ra.member_lists_blocks(fog_id, weights, n_fog), ra.member_lists(fog_id, weights,
+                                                                               n_fog)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"robust_agg's member lists on the card differ from the plain version's at {what}")
+
+
 def check_new_kernels(dev, fa, ra, kref, agg, comp) -> dict:
     """Phase 7 for the robust and wire kernels against their plain
     versions; returns the max |kernel - plain| per kernel.
@@ -913,7 +1045,9 @@ def check_new_kernels(dev, fa, ra, kref, agg, comp) -> dict:
     ``robust_agg``: N 1 / 13 / 200 / 2,000, d 1,352 / 8,209, one fog / 20
     fogs / one fog holding half the fleet, trimmed 0 / 0.2 / 0.45 and the
     median, on real compressed reconstructions with integer weights:
-    rtol=1e-5, atol=1e-6.  The wire pair: phase 7's d x N grid, int8 on and
+    rtol=1e-5, atol=1e-6; its member lists on the card equal the plain
+    ``member_lists`` element for element on each layout, and with ids
+    outside [0, n_fog).  The wire pair: phase 7's d x N grid, int8 on and
     off, k 68 / 410, written at a row offset of larger buffers (rows
     outside untouched): slots, codes, scales and new_err exactly;
     ``wire_agg`` into running sums bitwise equal to the client-order fold
@@ -928,6 +1062,10 @@ def check_new_kernels(dev, fa, ra, kref, agg, comp) -> dict:
             recon, _ = agg.client_compress(deltas, err, comp.CompressorConfig())
             weights = (WINDOW * (torch.rand((n,), generator=g) > 0.3).to(torch.float32)).to(dev)
             for lname, fog_id in robust_layouts(n, g, dev).items():
+                check_member_lists(ra, fog_id, weights, TRAIN_FOG, f"N={n} {lname}")
+                outside = fog_id.clone()
+                outside[::7], outside[3::11] = -2, TRAIN_FOG + 3
+                check_member_lists(ra, outside, weights, TRAIN_FOG, f"N={n} {lname}, ids outside")
                 e = 0.0
                 for mode, beta in ROBUST_MODES:
                     out = ra.robust_aggregate_blocks(recon, fog_id, weights, TRAIN_FOG, beta, mode)
@@ -936,8 +1074,8 @@ def check_new_kernels(dev, fa, ra, kref, agg, comp) -> dict:
                     e = max(e, close_on_device(out, want, 1e-5, 1e-6,
                                                f"robust_agg {mode} {beta} N={n} d={d} {lname}"))
                 max_err["robust_agg"] = max(max_err["robust_agg"], e)
-                print(f"  robust_agg      d={d:5d} N={n:4d} {lname:15s} trimmed 0/0.2/0.45 + "
-                      f"median max|diff|={e:.3e}  ok")
+                print(f"  robust_agg      d={d:5d} N={n:4d} {lname:15s} member lists equal; "
+                      f"trimmed 0/0.2/0.45 + median max|diff|={e:.3e}  ok")
             del deltas, err, recon
     off = 5
     for d in AGG_DS:
@@ -1020,10 +1158,12 @@ def check_fleet_kernels(dev, fa, ra, kops, kref, agg, comp, ae) -> dict:
     absv = kref.pad_blocks(deltas + err).abs()
     check(torch.equal(absv > thr_k[..., None], absv > thr_r[..., None]),
           f"fused_agg survivor sets differ at N={FLEET_N}, n_fog={FLEET_FOG}")
+    check(torch.equal(fs_k, kref.dense_fold_ref(deltas, err, fog_id, weights, FLEET_FOG, k)),
+          f"fused_agg fog sums differ from the client-order fold at N={FLEET_N}")
     max_err["fused_agg"] = max(close_on_device(ne_k, ne_r, 0.0, 1e-5, "fused_agg new_err"),
                                close_on_device(fs_k, fs_r, 1e-5, 1e-4, "fused_agg fog sums"))
-    print(f"  fused_agg       d={d:5d} N={FLEET_N} n_fog={FLEET_FOG} k={k} int8 survivors equal, "
-          f"max|diff|={max_err['fused_agg']:.3e}  ok")
+    print(f"  fused_agg       d={d:5d} N={FLEET_N} n_fog={FLEET_FOG} k={k} int8 survivors and the "
+          f"client-order fold equal, max|diff|={max_err['fused_agg']:.3e}  ok")
     del absv, thr_k, thr_r
 
     nb = -(-d // 8192)
@@ -1076,6 +1216,7 @@ def check_fleet_kernels(dev, fa, ra, kops, kref, agg, comp, ae) -> dict:
     fog_id[:BIG_ROBUST_FOG0] = 0
     fog_id = fog_id.to(dev)
     weights = (WINDOW * (torch.rand((n,), generator=g) > 0.3).to(torch.float32)).to(dev)
+    check_member_lists(ra, fog_id, weights, FLEET_FOG, f"N={n}, fog 0 holding {BIG_ROBUST_FOG0}")
     for mode, beta in (("trimmed", ROBUST_TRIM), ("median", 0.0)):
         out = ra.robust_aggregate_blocks(recon, fog_id, weights, FLEET_FOG, beta, mode)
         want, _ = kref.robust_aggregate_ref(recon, fog_id, weights, FLEET_FOG, beta, mode)
@@ -1996,7 +2137,11 @@ def dense_phase(configs, api, layers, serve, swa, kref, dev, name, smi) -> dict:
     return {"dense-decode": run, "card_vs_cpu": vs_cpu}
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    timing_only = argv == ["--timing"]
+    if argv and not timing_only:
+        print("usage: chip_smoke.py [--timing]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
               file=sys.stderr)
@@ -2063,74 +2208,76 @@ def main() -> int:
             if any(k in line for k in ("Compiling entry", "Used", "spill", "smem")):
                 print(f"  {src}: {line.strip()}")
 
-    phase("3. kernels against their plain versions")
-    max_err = {k: 0.0 for k in KERNELS}
-    for d, hidden in ((D, HIDDEN), WIDE):
-        for rows in CHECK_ROWS:
-            for q8, kname in ((False, "fused_score_f32"), (True, "fused_score_q8")):
-                params, x, tau = kernel_case(
-                    ae, score_mod.quantize_params, d, hidden, rows, q8, dev, rows + d
-                )
-                tensors = layer_tuples(params, q8)
-                if q8:
-                    out = fs.score_rows_q8(x, tau, *tensors)
-                    ref = kref.fused_score_q8_ref(x, *tensors, tau)
-                    check(same_scores(out, fs.score_rows(x, tau, dequantised(*tensors[:2]),
-                                                         tensors[2])),
-                          f"fused_score_q8 differs from fused_score_f32 on the dequantised "
-                          f"weights at d={d}, rows={rows}")
-                else:
-                    out = fs.score_rows(x, tau, *tensors)
-                    ref = kref.fused_score_ref(x, *tensors, tau)
-                torch.cuda.synchronize()
-                e = compare(*out, *ref, tau)
-                max_err[kname] = max(max_err[kname], e)
-                print(f"  {kname:16s} d={d:3d} rows={rows:6d} max|err diff|={e:.3e}"
-                      + ("; bitwise fused_score_f32 on q * s" if q8 else "") + "  ok")
-    q8_batches = check_q8_any_batch(dev, fs, ae, score_mod.quantize_params)
+    max_err, q8_batches, main_path_launches = {}, 0, {}
+    if not timing_only:   # phases 3-5; --timing runs phase 6 alone after the build
+        phase("3. kernels against their plain versions")
+        max_err = {k: 0.0 for k in KERNELS}
+        for d, hidden in ((D, HIDDEN), WIDE):
+            for rows in CHECK_ROWS:
+                for q8, kname in ((False, "fused_score_f32"), (True, "fused_score_q8")):
+                    params, x, tau = kernel_case(
+                        ae, score_mod.quantize_params, d, hidden, rows, q8, dev, rows + d
+                    )
+                    tensors = layer_tuples(params, q8)
+                    if q8:
+                        out = fs.score_rows_q8(x, tau, *tensors)
+                        ref = kref.fused_score_q8_ref(x, *tensors, tau)
+                        check(same_scores(out, fs.score_rows(x, tau, dequantised(*tensors[:2]),
+                                                             tensors[2])),
+                              f"fused_score_q8 differs from fused_score_f32 on the dequantised "
+                              f"weights at d={d}, rows={rows}")
+                    else:
+                        out = fs.score_rows(x, tau, *tensors)
+                        ref = kref.fused_score_ref(x, *tensors, tau)
+                    torch.cuda.synchronize()
+                    e = compare(*out, *ref, tau)
+                    max_err[kname] = max(max_err[kname], e)
+                    print(f"  {kname:16s} d={d:3d} rows={rows:6d} max|err diff|={e:.3e}"
+                          + ("; bitwise fused_score_f32 on q * s" if q8 else "") + "  ok")
+        q8_batches = check_q8_any_batch(dev, fs, ae, score_mod.quantize_params)
 
-    phase("4. serving (main path)")
-    ds = normalize(generate(
-        torch.Generator().manual_seed(0),
-        SyntheticConfig(n_sensors=N_SENSORS, val_len=VAL_LEN, test_len=TEST_LEN),
-        device=dev,
-    ))
-    mods = (ae, anomaly, CheckpointStore, ScoringService, StreamingCalibrator, fs, score_mod)
-    fs.reset_launches()
-    summaries = {}
-    global_tau = None
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT / "build") as tmp:
-        workdir = Path(tmp)
-        for weight_dtype in ("f32", "int8"):
-            svc, launched, f1s = serve_fleet(mods, ds, weight_dtype, workdir)
-            summaries[weight_dtype] = svc.stats.summary()
-            if weight_dtype == "f32":
-                global_tau = float(svc.calibrator.global_tau)
-            print(f"  {weight_dtype}: {launched} launches, pointwise F1 (random weights) "
-                  f"wave 1 {f1s[0]:.4f}, wave 2 {f1s[1]:.4f}")
-            print(f"  {weight_dtype} summary: {json.dumps(summaries[weight_dtype])}")
+        phase("4. serving (main path)")
+        ds = normalize(generate(
+            torch.Generator().manual_seed(0),
+            SyntheticConfig(n_sensors=N_SENSORS, val_len=VAL_LEN, test_len=TEST_LEN),
+            device=dev,
+        ))
+        mods = (ae, anomaly, CheckpointStore, ScoringService, StreamingCalibrator, fs, score_mod)
+        fs.reset_launches()
+        summaries = {}
+        global_tau = None
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT / "build") as tmp:
+            workdir = Path(tmp)
+            for weight_dtype in ("f32", "int8"):
+                svc, launched, f1s = serve_fleet(mods, ds, weight_dtype, workdir)
+                summaries[weight_dtype] = svc.stats.summary()
+                if weight_dtype == "f32":
+                    global_tau = float(svc.calibrator.global_tau)
+                print(f"  {weight_dtype}: {launched} launches, pointwise F1 (random weights) "
+                      f"wave 1 {f1s[0]:.4f}, wave 2 {f1s[1]:.4f}")
+                print(f"  {weight_dtype} summary: {json.dumps(summaries[weight_dtype])}")
 
-        phase("5. load (MMPP trace, virtual clock)")
-        store = CheckpointStore(str(workdir / "load"), keep=2)
-        params = ae.init(torch.Generator().manual_seed(0), D, HIDDEN, device="cpu")
-        store.publish(1, params)
-        trace = mmpp_trace(1, rate_on_hz=2000.0, mean_on_s=0.3, mean_off_s=0.5,
-                           duration_s=4.0, fleet=N_SENSORS, n_fog=N_FOG, rows=16)
-        clock = VirtualClock()
-        svc = ScoringService(store, params, buckets=BUCKETS, max_wait_s=MAX_WAIT_S,
-                             tau=global_tau, clock=clock)
-        rep = replay(svc, trace, clock, windows=gaussian_windows(trace, D), d=D)
-        check(rep.completed == trace.n_events, "load replay left requests behind")
-        load = rep.summary()
-        print(f"  {trace.n_events} events, {load['samples']} rows on {name} ({smi}): "
-              f"e2e p50 {load['e2e_p50_ms']:.3f} ms, p99 {load['e2e_p99_ms']:.3f} ms, "
-              f"{load['samples_per_s']:.0f} samples/s over step time, "
-              f"{load['steps']} steps, mean fill {load['mean_fill']:.1f}, "
-              f"buckets used {load['compiles_by_bucket']}")
-    main_path_launches = dict(fs.LAUNCHES)
-    for kname, n in main_path_launches.items():
-        check(n > 0, f"{kname} was not launched on the main path")
-    print(f"  main-path launches: {main_path_launches}")
+            phase("5. load (MMPP trace, virtual clock)")
+            store = CheckpointStore(str(workdir / "load"), keep=2)
+            params = ae.init(torch.Generator().manual_seed(0), D, HIDDEN, device="cpu")
+            store.publish(1, params)
+            trace = mmpp_trace(1, rate_on_hz=2000.0, mean_on_s=0.3, mean_off_s=0.5,
+                               duration_s=4.0, fleet=N_SENSORS, n_fog=N_FOG, rows=16)
+            clock = VirtualClock()
+            svc = ScoringService(store, params, buckets=BUCKETS, max_wait_s=MAX_WAIT_S,
+                                 tau=global_tau, clock=clock)
+            rep = replay(svc, trace, clock, windows=gaussian_windows(trace, D), d=D)
+            check(rep.completed == trace.n_events, "load replay left requests behind")
+            load = rep.summary()
+            print(f"  {trace.n_events} events, {load['samples']} rows on {name} ({smi}): "
+                  f"e2e p50 {load['e2e_p50_ms']:.3f} ms, p99 {load['e2e_p99_ms']:.3f} ms, "
+                  f"{load['samples_per_s']:.0f} samples/s over step time, "
+                  f"{load['steps']} steps, mean fill {load['mean_fill']:.1f}, "
+                  f"buckets used {load['compiles_by_bucket']}")
+        main_path_launches = dict(fs.LAUNCHES)
+        for kname, n in main_path_launches.items():
+            check(n > 0, f"{kname} was not launched on the main path")
+        print(f"  main-path launches: {main_path_launches}")
 
     phase("6. timing (profiler device time; CUDA events per call)")
     floor = launch_floor(_build, name, smi)
@@ -2175,6 +2322,12 @@ def main() -> int:
     print(f"  wire_agg member scan over 10,000 ids less 512: {(at_10k - at_depth) * 1e3:.3f} us of "
           f"the 10k call's {at_10k * 1e3:.3f} us (share {scan_share:.3f})  on {name} ({smi})")
     train_timing.update(time_compress_kernels(dev, kq8, tk, kops, kref, comp, ae, name, smi))
+    identity = time_identity_fogs(dev, fa, name, smi)
+    if timing_only:
+        print(json.dumps({"timing": train_timing, "identity_66k": identity,
+                          "launch_floor": floor, "device": name}))
+        print(smi)
+        return 0
 
     phase("7. training kernels against their plain versions")
     train_err = check_training_kernels(dev, *train_kmods)
@@ -2266,6 +2419,10 @@ def main() -> int:
             "library_ms": None,
             **t,
         })
+        if kname == "fused_agg":
+            kernels[-1]["by_shape"] = {
+                **{k.split(" @ ")[1]: v for k, v in train_timing.items()
+                   if k.startswith("fused_agg @ ")}, "66,000 identity fogs": identity}
     print(json.dumps({"training": training}))
     print(json.dumps({"robust": robust}))
     print(json.dumps({"fleet": fleet}))
@@ -2305,4 +2462,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -5,10 +5,10 @@
 // fused_agg.cu (the dense fused path and the sparse wire), quant8.cu (the
 // per-client compressor) and topk_ef.cu (the same without int8) include
 // this one definition, so their survivor sets cannot drift apart.
-// block_threshold holds a whole padded block in 256 threads; team_threshold
-// (wire_emit) holds about the block's real width, in a team sized to it,
-// counts the rest of the padding arithmetically, and gives the same
-// threshold bit for bit.
+// block_threshold (compress_q8, topk_ef) holds a whole padded block in 256
+// threads; team_threshold (wire_emit and fused_agg's select) holds about
+// the block's real width, in a team sized to it, counts the rest of the
+// padding arithmetically, and gives the same threshold bit for bit.
 //
 // Numerics: lo = -1, hi = block max, mid = 0.5f * (lo + hi), strict >,
 // cnt > k, 32 iterations, survivors |v| > hi.  Padding positions (>= d)
@@ -29,14 +29,19 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kIters = 32;                    // BISECT_ITERS in kernels/ref.py
 constexpr float kInv127 = 1.0f / 127.0f;      // the int8 scale's factor
 
+// The int8 code of v at this scale: rint(v / scale) clipped to +-127, 0
+// when the scale is 0 (then v is 0 too).
+__device__ __forceinline__ float code8(float v, float scale) {
+  if (!(scale > 0.0f)) return 0.0f;
+  return fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -127.0f), 127.0f);
+}
+
 __device__ __forceinline__ float reconstruct(float v, float thr, float scale,
                                              bool quantize) {
   const float sparse = fabsf(v) > thr ? v : 0.0f;
   if (!quantize) return sparse;
   if (!(scale > 0.0f)) return 0.0f;
-  float q = rintf(__fdiv_rn(sparse, scale));
-  q = fminf(fmaxf(q, -127.0f), 127.0f);
-  return __fmul_rn(q, scale);
+  return __fmul_rn(code8(sparse, scale), scale);
 }
 
 // One (client, 8192-block) of v = delta + err into registers (zeros past
@@ -174,11 +179,10 @@ __device__ __forceinline__ float team_max(float x, TeamScratch& s, int bar, int 
 // every later mid lies in [lo, hi], so the count above mid is the count
 // above hi (fixed from there on) plus the candidates above mid, and the
 // remaining steps read only the list (a few entries on Gaussian updates;
-// up to kRegList of them every thread counts alone from registers, with no
+// up to 32 of them, one a lane, are counted by a ballot a step, with no
 // barrier).  Returns hi (survivors: |v| > hi) and the block max in
 // *amax_out, the same in every team thread; every team thread must call it.
 constexpr int kFullSteps = 8;
-constexpr int kRegList = 16;                  // candidates every thread counts in full
 template <int kTeam, int kSlots>
 __device__ __forceinline__ float team_threshold(
     const float* __restrict__ delta, const float* __restrict__ err, size_t row, int width,
@@ -253,20 +257,18 @@ __device__ __forceinline__ float team_threshold(
     run += __popc(bal);
   }
   team_sync<kTeam>(bar);
-  // A short list is counted by every thread in full from registers (the
-  // same total in each, no barrier; the pad, -1, is never above a mid); a
-  // long one a share a thread.
-  if (m <= kRegList) {
-    float r[kRegList];
-#pragma unroll
-    for (int q = 0; q < kRegList; ++q) r[q] = q < static_cast<int>(m) ? cand[q] : -1.0f;
+  // A short list (up to a warp's lanes) is counted by one ballot a step,
+  // candidate q in lane q of every warp (the same total in each thread, no
+  // barrier; the pad, -1, is never above a mid); a long one a share a
+  // thread.
+  if (m <= 32) {
+    const float r = lane < static_cast<int>(m) ? cand[lane] : -1.0f;
 #pragma unroll 1
     for (; it < kIters; ++it) {
       const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
-      unsigned c[2] = {above + (mid < 0.0f ? kUnheld : 0u), 0u};
-#pragma unroll
-      for (int q = 0; q < kRegList; ++q) c[q % 2] += r[q] > mid ? 1u : 0u;
-      if (c[0] + c[1] > static_cast<unsigned>(k)) {
+      const unsigned total = above + (mid < 0.0f ? kUnheld : 0u) +
+                             __popc(__ballot_sync(0xffffffffu, r > mid));
+      if (total > static_cast<unsigned>(k)) {
         lo = mid;
       } else {
         hi = mid;

@@ -3,34 +3,46 @@
 // densely (fused_agg) or through the sparse wire (wire_emit + wire_agg).
 //
 // Replaces the Pallas TPU kernels _fused_agg_kernel, _wire_emit_kernel and
-// _wire_agg_kernel of src/repro/kernels/fused_agg.py.  The dense path runs
-// block_threshold (block_select.cuh), the bisection of every compression
-// kernel; the wire's emit runs team_threshold beside it, the same bisection
-// over the block's real width only, so their survivor sets cannot drift
-// apart.
+// _wire_agg_kernel of src/repro/kernels/fused_agg.py.  Both paths select
+// with team_threshold (block_select.cuh), the bisection of every
+// compression kernel over the block's real width only, so their survivor
+// sets cannot drift apart from each other or from block_threshold's
+// (compress_q8, topk_ef).
 //
-// The dense path (fused_agg, two launches).  Per client i and 8192-element block b of
-// the zero-padded flat update (d real coordinates):
+// The dense path (fused_agg, two launches).  Per client i and 8192-element
+// block b of the zero-padded flat update (d real coordinates):
 //   v = delta + err; t = bisection threshold keeping at most k of |v|;
 //   sparse = v * [|v| > t]; recon = int8 round trip of sparse with scale
 //   max|v| * f32(1/127) (or sparse itself without quantisation);
 //   new_err = v - recon; fog_sum[fog_id[i]] += w[i] * recon.
 //
-// Two launches behind one wrapper (fused_agg.py):
-//   select: one block per (client, 8192-block); reads delta and err once,
-//           keeps v in registers (32 per thread), runs the 32-step
-//           bisection with block-wide counts, writes new_err and the
-//           block's threshold and scale.  Padding positions (>= d) are
-//           zeros that are counted, never loaded.
-//   sum:    one block per (fog, 1,024 columns); walks the clients of its
-//           fog in index order (compacted 1,024 at a time with a warp
-//           ballot), recomputes recon from delta + err, the threshold and
-//           the scale, and writes each fog row once.  The sum is
-//           deterministic, with no atomics, in the TPU kernel's order
-//           (client innermost).  Fogs past the grid's 65,535 rows are
-//           taken by a loop, so identity segments (n_fog = N, the robust
-//           path's per-client compression) take any N; each block still
-//           scans all N ids, O(N * n_fog) in all.
+// Two launches behind one wrapper (fused_agg.py, dense_plan()):
+//   select: three kinds of block in one grid.  First, n_fog + 1 list
+//           blocks (fog_members.cuh): block m writes fog m's clients, in
+//           index order, into a member list and its start into offsets, so
+//           every fog's members are found once per call, not once per
+//           column tile; ids outside [0, n_fog) belong to no fog.  Then a
+//           team per (client, block) sized to the block's real width, as
+//           wire_emit's: a block team of 256 threads for the full blocks of
+//           a row, `teams` two-warp teams a block for a last block up to
+//           kSmallWidth wide (d = 1,352 is one such block; d = 8,209 has
+//           one of each).  A team reads delta and err once, bisects with
+//           the unheld padding counted as n * [mid < 0] (the last steps by
+//           one ballot each), and writes new_err and each real column's
+//           code (int8, 0 off the survivors; the f32 sparse value without
+//           quantisation), and the block's threshold (the bisection's hi)
+//           and scale.  Only survivors divide.
+//   sum:    a block of kSumThreads per (fog, tile of kSumThreads * cols
+//           columns), on a 1-D grid (no fog limit); cols (1, 2 or 4) is the
+//           widest that still gives one block per SM, so train-200's 20
+//           fogs take 220 blocks.  A block reads its fog's slice of the
+//           member list and takes the members kSumGroup at a time: their
+//           scales, weights and codes are all loaded before the first add,
+//           the next group's ids while this group adds; then each column
+//           adds w * (code * scale) in member (client index) order, in
+//           registers: one byte a coordinate read, no division.  Every fog
+//           row is written, zeros for an empty fog.  Deterministic, no
+//           atomics, the TPU kernel's order (client innermost).
 //
 // Numerics copy repro_torch.kernels.ref.compress_aggregate_ref: the
 // bisection is ref.bisect_threshold (lo = -1, hi = block max, mid =
@@ -43,14 +55,24 @@
 // reference's jitted oracle gets that product (XLA folds a division by a
 // constant into a multiply), and so does the plain version, explicitly.
 // A one-ulp difference in the scale rarely flips an int8 code, and then
-// new_err moves by a whole quantisation step.
+// new_err moves by a whole quantisation step.  The fog sums are
+// acc = __fadd_rn(acc, __fmul_rn(w, recon)) from 0 in client index order:
+// ref.dense_fold_ref replays that order bit for bit.
 //
 // Bound: bytes.  At N = 200, d = 1,352 the function reads delta and err
 // (2 x 1.08 MB) and writes new_err (1.08 MB) and the fog sums (0.1 MB):
 // ~1 us at 3.35 TB/s; the select pass does ~33 compares per element, far
-// below the card's rate.  The sum pass reads delta and err a second time
-// (from L2 at these sizes); at a few hundred blocks both launches are
-// latency-bound, not bandwidth-bound.
+// below the card's rate.  The codes add a byte a coordinate, written once
+// and read once (0.27 MB here; at fleet-10k's N = 10,000 13.5 MB, where
+// reading delta and err again would be 108 MB).  At a few hundred blocks
+// both launches are latency-bound: the select's time is a team's loads,
+// bisection and its survivors' divisions, the sum's a few dependent round
+// trips (offsets, list, the members' codes).
+// The first design ran block_threshold, 256 threads counting a
+// whole padded block in 32 barrier-separated steps however narrow the row,
+// and its sum blocks (fog, 1,024 columns) each rescanned all N ids with
+// one warp while seven waited, then walked the members one load chain at a
+// time: O(N n_fog ceil(d / 1024)) id reads.
 //
 // The wire (the client-chunked rounds of HFLConfig.client_chunk):
 //   wire_emit: a team per (client, 8192-block) sized to the block's real
@@ -85,111 +107,174 @@
 #include <stdint.h>
 
 #include "block_select.cuh"
+#include "fog_members.cuh"
 
 namespace {
 
-constexpr int kSumThreads = 256;              // sum: threads per block
-constexpr int kSumCols = 1024;                // sum: columns per block (divides kBlock)
-constexpr int kColsPerThread = kSumCols / kSumThreads;
-constexpr int kChunk = 1024;                  // sum: clients compacted per pass
-constexpr int kMaxGridY = 65535;              // sum: fogs per launch row; more loop
+constexpr int kNarrowTeam = 64;               // a small team: two warps
+static_assert(kListWarps * 32 == kThreads, "a list block is a select block");
 
-__global__ void __launch_bounds__(kThreads)
-    select_kernel(const float* __restrict__ delta,
-                  const float* __restrict__ err, int d, int nb, int k,
-                  bool quantize, float* __restrict__ new_err,
-                  float* __restrict__ thr_out, float* __restrict__ scale_out) {
-  const int i = blockIdx.x / nb;
-  const int b = blockIdx.x - i * nb;
-  const int tid = threadIdx.x;
-  const size_t row = static_cast<size_t>(i) * d;
+// One (client, block) of the dense path for a team of kTeam threads: the
+// selection, new_err at the block's real columns, and the block's
+// threshold (the bisection's hi) and scale, the operations of the first
+// design's select bit for bit.
+template <int kTeam, int kSlots>
+__device__ __forceinline__ void select_team(
+    const float* __restrict__ delta, const float* __restrict__ err, int d, int nb, int k,
+    bool quantize, int i, int b, int t, int bar, TeamScratch& sc, float* cand,
+    float* __restrict__ new_err, float* __restrict__ thr_out, float* __restrict__ scale_out,
+    void* __restrict__ codes) {
+  using S = TeamShape<kTeam, kSlots>;
   const int base = b * kBlock;
-
-  float v[kPerThread];
+  float a[kSlots];                                // |v|
+  unsigned neg[S::kWords];                        // v's sign bits
   float amax;
-  const float hi = block_threshold(delta, err, row, base, d, k, v, &amax);
+  const float hi = team_threshold<kTeam, kSlots>(
+      delta, err, static_cast<size_t>(i) * d + base, min(kBlock, d - base), k, t, bar, sc, a,
+      neg, cand, &amax);
+  const int width = opaque(min(kBlock, d - base));
+  const size_t row = opaque(static_cast<size_t>(i) * d + base);
   const float scale = __fmul_rn(amax, kInv127);
+  // A non-survivor's code and recon are +0 (0 / scale rounds to +0), so
+  // its new_err is v - 0; only survivors (at most k) take the division.
+  // The code (int8, or the f32 value without quantisation) is what the sum
+  // launch reads: recon = code * scale, the same product.
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int col = base + j * kThreads + tid;
-    if (col < d)
-      new_err[row + col] = __fsub_rn(v[j], reconstruct(v[j], hi, scale, quantize));
+  for (int j = 0; j < kSlots; ++j) {
+    const int e = j * kTeam + t;
+    if (e < width) {
+      const float v = with_sign(a[j], neg[j / 32], j % 32);
+      const float code = a[j] > hi ? (quantize ? code8(v, scale) : v) : 0.0f;
+      new_err[row + e] = __fsub_rn(v, quantize ? __fmul_rn(code, scale) : code);
+      if (quantize) {
+        static_cast<int8_t*>(codes)[row + e] = static_cast<int8_t>(code);
+      } else {
+        static_cast<float*>(codes)[row + e] = code;
+      }
+    }
   }
-  if (tid == 0) {
-    thr_out[blockIdx.x] = hi;
-    scale_out[blockIdx.x] = scale;
+  if (t == 0) {
+    const size_t task = static_cast<size_t>(i) * nb + b;
+    thr_out[task] = hi;
+    scale_out[task] = scale;
   }
 }
 
+// The select launch: blocks [0, n_fog] list the fogs' members (block m
+// bucket m); the next n * n_wide run a block team on block b < n_wide of a
+// client (kWide instances only: without it the block team's registers are
+// not reserved); the rest run `teams` two-warp teams (kSlots slots a
+// thread), each on the last block of a client.  A team past the last
+// client leaves at once; its barriers are its own (named, one per team).
+template <int kSlots, bool kWide>
+__global__ void __launch_bounds__(kThreads)
+    select_kernel(const float* __restrict__ delta, const float* __restrict__ err,
+                  const int* __restrict__ fog_id, int n, int d, int nb, int k, bool quantize,
+                  int n_fog, int n_wide, int teams, float* __restrict__ new_err,
+                  float* __restrict__ thr_out, float* __restrict__ scale_out,
+                  void* __restrict__ codes, int* __restrict__ members,
+                  int* __restrict__ offsets) {
+  __shared__ float cand[kBlock];                  // the teams' bisection candidates
+  __shared__ TeamScratch scratch[kThreads / kNarrowTeam];
+  const long long blk = blockIdx.x;
+  if (blk <= n_fog) {
+    fog_members_block(fog_id, nullptr, n, n_fog, static_cast<int>(blk), members, offsets);
+    return;
+  }
+  const long long task = blk - (n_fog + 1LL);
+  const long long wide_tasks = static_cast<long long>(n) * n_wide;
+  if (kWide && task < wide_tasks) {
+    const int i = static_cast<int>(task / n_wide);
+    const int b = static_cast<int>(task - static_cast<long long>(i) * n_wide);
+    select_team<kThreads, kPerThread>(delta, err, d, nb, k, quantize, i, b, threadIdx.x, 1,
+                                      scratch[0], cand, new_err, thr_out, scale_out, codes);
+    return;
+  }
+  const int team = threadIdx.x / kNarrowTeam;
+  const long long i = (task - wide_tasks) * teams + team;
+  if (team >= teams || i >= n) return;            // the whole team; no barrier follows
+  select_team<kNarrowTeam, kSlots>(delta, err, d, nb, k, quantize, static_cast<int>(i), nb - 1,
+                                   threadIdx.x - team * kNarrowTeam, team + 1, scratch[team],
+                                   cand + team * kNarrowTeam * kSlots, new_err, thr_out,
+                                   scale_out, codes);
+}
+
+// The fog sums: a block per (fog m, tile of kSumThreads * kCols columns),
+// tile-minor on a 1-D grid; a tile lies inside one 8192-block.  Thread t
+// owns columns tile0 + u * kSumThreads + t.  A member's recon is its code
+// times its block's scale (CodeT int8), or the code itself (f32): the
+// select launch's product, so no division here.
+constexpr int kSumThreads = 128;
+constexpr int kSumGroup = 8;                      // members whose loads fly together
+
+template <int kCols, typename CodeT>
 __global__ void __launch_bounds__(kSumThreads)
-    sum_kernel(const float* __restrict__ delta, const float* __restrict__ err,
-               const int* __restrict__ fog_id, const float* __restrict__ w,
-               int n, int d, int nb, int n_fog, bool quantize,
-               const float* __restrict__ thr, const float* __restrict__ scale,
-               float* __restrict__ fog_sum) {
-  __shared__ int members[kChunk];
-  __shared__ int n_members;
-  const int col0 = blockIdx.x * kSumCols;
-  const int b = col0 / kBlock;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
+    sum_kernel(const CodeT* __restrict__ codes, const int* __restrict__ members,
+               const int* __restrict__ offsets, const float* __restrict__ w, int d, int nb,
+               int tiles, const float* __restrict__ scale, float* __restrict__ fog_sum) {
+  static_assert(kBlock % (kSumThreads * kCols) == 0, "a tile inside one block");
+  constexpr bool kQuantize = sizeof(CodeT) == 1;
+  const long long task = blockIdx.x;
+  const int m = static_cast<int>(task / tiles);
+  const int tile0 = static_cast<int>(task - static_cast<long long>(m) * tiles) *
+                    (kSumThreads * kCols);
+  const int b = tile0 / kBlock;
+  const int first = __ldg(offsets + m);
+  const int last = __ldg(offsets + m + 1);
 
-  // Fogs past the grid's rows (n_fog > 65,535: identity segments of a
-  // large fleet) are taken by this loop; the barriers stay uniform.
-  for (int m = blockIdx.y; m < n_fog; m += gridDim.y) {
-    float acc[kColsPerThread];
+  float acc[kCols];
 #pragma unroll
-    for (int u = 0; u < kColsPerThread; ++u) acc[u] = 0.0f;
-
-    for (int c0 = 0; c0 < n; c0 += kChunk) {
-      // Warp 0 lists this fog's clients of the chunk in index order.
-      if (tid < 32) {
-        int count = 0;
-        for (int s = 0; s < kChunk && c0 + s < n; s += 32) {
-          const int i = c0 + s + lane;
-          const bool mine = i < n && fog_id[i] == m;
-          const unsigned ballot = __ballot_sync(0xffffffffu, mine);
-          if (mine) members[count + __popc(ballot & ((1u << lane) - 1u))] = i;
-          count += __popc(ballot);
-        }
-        if (lane == 0) n_members = count;
-      }
-      __syncthreads();
-      const int count = n_members;
-      for (int t = 0; t < count; ++t) {
-        const int i = members[t];
-        const float th = thr[static_cast<size_t>(i) * nb + b];
-        const float sc = scale[static_cast<size_t>(i) * nb + b];
-        const float wi = w[i];
-        const size_t row = static_cast<size_t>(i) * d;
+  for (int u = 0; u < kCols; ++u) acc[u] = 0.0f;
+  int id[kSumGroup];
 #pragma unroll
-        for (int u = 0; u < kColsPerThread; ++u) {
-          const int col = col0 + u * kSumThreads + tid;
-          if (col < d) {
-            const float v = __fadd_rn(delta[row + col], err[row + col]);
-            acc[u] = __fadd_rn(acc[u], __fmul_rn(wi, reconstruct(v, th, sc, quantize)));
-          }
-        }
+  for (int j = 0; j < kSumGroup; ++j) id[j] = first + j < last ? __ldg(members + first + j) : -1;
+  for (int g0 = first; g0 < last; g0 += kSumGroup) {
+    float sc[kSumGroup], wi[kSumGroup];
+    CodeT c[kSumGroup][kCols];
+#pragma unroll
+    for (int j = 0; j < kSumGroup; ++j) {
+      const bool in = id[j] >= 0;
+      const size_t row = static_cast<size_t>(in ? id[j] : 0) * d;
+      sc[j] = kQuantize && in ? __ldg(scale + static_cast<size_t>(id[j]) * nb + b) : 1.0f;
+      wi[j] = in ? __ldg(w + id[j]) : 0.0f;
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) {
+        const int col = tile0 + u * kSumThreads + static_cast<int>(threadIdx.x);
+        c[j][u] = in && col < d ? __ldg(codes + row + col) : CodeT(0);
       }
-      __syncthreads();  // the member list is rewritten by the next chunk
+    }
+    int next[kSumGroup];                          // the next group's ids, in flight
+#pragma unroll
+    for (int j = 0; j < kSumGroup; ++j) {
+      const int p = g0 + kSumGroup + j;
+      next[j] = p < last ? __ldg(members + p) : -1;
     }
 #pragma unroll
-    for (int u = 0; u < kColsPerThread; ++u) {
-      const int col = col0 + u * kSumThreads + tid;
-      if (col < d) fog_sum[static_cast<size_t>(m) * d + col] = acc[u];
+    for (int j = 0; j < kSumGroup; ++j) {
+      if (id[j] < 0) continue;
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) {
+        const float recon = kQuantize ? __fmul_rn(static_cast<float>(c[j][u]), sc[j])
+                                      : static_cast<float>(c[j][u]);
+        acc[u] = __fadd_rn(acc[u], __fmul_rn(wi[j], recon));
+      }
     }
+#pragma unroll
+    for (int j = 0; j < kSumGroup; ++j) id[j] = next[j];
+  }
+#pragma unroll
+  for (int u = 0; u < kCols; ++u) {
+    const int col = tile0 + u * kSumThreads + static_cast<int>(threadIdx.x);
+    if (col < d) fog_sum[static_cast<size_t>(m) * d + col] = acc[u];
   }
 }
-
 
 // int8 code of a survivor (or its value, without quantisation), as
 // ref.compress_wire_ref computes it: rint(v / scale) clipped to +-127, 0
 // when the scale is 0 (then v is 0 too).
 template <bool kQuantize>
 __device__ __forceinline__ float wire_code(float v, float scale) {
-  if (!kQuantize) return v;
-  if (!(scale > 0.0f)) return 0.0f;
-  return fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -127.0f), 127.0f);
+  return kQuantize ? code8(v, scale) : v;
 }
 
 template <bool kQuantize> struct CodeType { using T = float; };
@@ -382,7 +467,6 @@ __host__ __device__ constexpr int wire_region(int held, int cap) {
 // task: with `wide`, block b < n_wide of client task / n_wide; otherwise
 // the last block of client task.  A team past the last task leaves at
 // once; its barriers are its own.
-constexpr int kNarrowTeam = 64;               // a small team: two warps
 template <bool kQuantize, int kTeam, int kSlots>
 __global__ void __launch_bounds__(kThreads)
     wire_emit_kernel(const float* __restrict__ delta, const float* __restrict__ err, int n,
@@ -561,36 +645,88 @@ __global__ void __launch_bounds__(kAggWarps * 32)
 
 extern "C" {
 
-// Pass 1.  new_err (n, d); thr and scale (n, nb) with nb = ceil(d / 8192).
-// Returns the cudaError_t of the launch (0 on success).
-int fused_agg_select(const void* delta, const void* err, int n, int d, int k,
-                     int quantize, void* new_err, void* thr, void* scale,
-                     void* stream) {
-  if (n < 1 || d < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+// Pass 1, the select launch (fused_agg.py's dense_plan() gives n_wide,
+// slots, teams and narrow_grid, as wire_plan() does for wire_emit): new_err
+// (n, d); thr and scale (n, nb) with nb = ceil(d / 8192); codes (n, d),
+// int8 with quantize, else f32; members (n) and offsets (n_fog + 1), the
+// fogs' member lists (fog_members.cuh).  Returns the cudaError_t of the
+// launch (0 on success).
+int fused_agg_select(const void* delta, const void* err, const void* fog_id, int n, int d,
+                     int k, int quantize, int n_fog, int n_wide, int slots, int teams,
+                     int narrow_grid, void* new_err, void* thr, void* scale, void* codes,
+                     void* members, void* offsets, void* stream) {
   const int nb = (d + kBlock - 1) / kBlock;
-  const long long grid = static_cast<long long>(n) * nb;
-  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  select_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(delta), static_cast<const float*>(err), d, nb,
-      k, quantize != 0, static_cast<float*>(new_err), static_cast<float*>(thr),
-      static_cast<float*>(scale));
+  const long long grid = n_fog + 1LL + static_cast<long long>(n) * n_wide + narrow_grid;
+  const bool narrow = n_wide < nb;                // the last block goes to small teams
+  if (n < 1 || d < 1 || k < 1 || n_fog < 1 || n_fog == 0x7fffffff || n_wide < nb - 1 ||
+      n_wide > nb || teams < 1 || teams > kThreads / kNarrowTeam ||
+      (narrow ? static_cast<long long>(narrow_grid) * teams < n ||
+                    d - (nb - 1) * kBlock > kNarrowTeam * slots
+              : narrow_grid != 0) ||
+      grid > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SELECT_LAUNCH(S, W)                                                                \
+  select_kernel<S, W><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(                    \
+      static_cast<const float*>(delta), static_cast<const float*>(err),                    \
+      static_cast<const int*>(fog_id), n, d, nb, k, quantize != 0, n_fog, n_wide, teams,   \
+      static_cast<float*>(new_err), static_cast<float*>(thr), static_cast<float*>(scale),  \
+      codes, static_cast<int*>(members), static_cast<int*>(offsets))
+#define SELECT_CASE(S)                                                                     \
+  case S:                                                                                  \
+    if (n_wide > 0) {                                                                      \
+      SELECT_LAUNCH(S, true);                                                              \
+    } else {                                                                               \
+      SELECT_LAUNCH(S, false);                                                             \
+    }                                                                                      \
+    break;
+  switch (slots) {
+    SELECT_CASE(8)
+    SELECT_CASE(16)
+    SELECT_CASE(24)
+    SELECT_CASE(32)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SELECT_CASE
+#undef SELECT_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
-// Pass 2.  fog_sum (n_fog, d), every row written.  Returns the cudaError_t.
-int fused_agg_sum(const void* delta, const void* err, const void* fog_id,
-                  const void* w, int n, int d, int n_fog, int quantize,
-                  const void* thr, const void* scale, void* fog_sum,
+// Pass 2, the fog sums: fog_sum (n_fog, d), every row written, from pass
+// 1's codes (n, d: int8 with quantize, else f32), scale, members and
+// offsets; cols (1, 2 or 4) columns a thread.  Returns the cudaError_t.
+int fused_agg_sum(const void* codes, const void* members, const void* offsets, const void* w,
+                  int d, int n_fog, int quantize, int cols, const void* scale, void* fog_sum,
                   void* stream) {
-  if (n < 1 || d < 1 || n_fog < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int nb = (d + kBlock - 1) / kBlock;
-  const dim3 grid((d + kSumCols - 1) / kSumCols, n_fog < kMaxGridY ? n_fog : kMaxGridY);
-  sum_kernel<<<grid, kSumThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(delta), static_cast<const float*>(err),
-      static_cast<const int*>(fog_id), static_cast<const float*>(w), n, d, nb,
-      n_fog, quantize != 0, static_cast<const float*>(thr),
-      static_cast<const float*>(scale), static_cast<float*>(fog_sum));
+  const int tile = kSumThreads * cols;
+  const int tiles = (d + tile - 1) / tile;
+  const long long grid = static_cast<long long>(n_fog) * tiles;
+  if (d < 1 || n_fog < 1 || grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SUM_LAUNCH(C, T)                                                                    \
+  sum_kernel<C, T><<<static_cast<unsigned>(grid), kSumThreads, 0, s>>>(                     \
+      static_cast<const T*>(codes), static_cast<const int*>(members),                       \
+      static_cast<const int*>(offsets), static_cast<const float*>(w), d, nb, tiles,         \
+      static_cast<const float*>(scale), static_cast<float*>(fog_sum))
+#define SUM_CASE(C)                                                                         \
+  case C:                                                                                   \
+    if (quantize) {                                                                         \
+      SUM_LAUNCH(C, int8_t);                                                                \
+    } else {                                                                                \
+      SUM_LAUNCH(C, float);                                                                 \
+    }                                                                                       \
+    break;
+  switch (cols) {
+    SUM_CASE(1)
+    SUM_CASE(2)
+    SUM_CASE(4)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SUM_CASE
+#undef SUM_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,21 +15,31 @@
 // This is the sort-free tie-group interval overlap of
 // repro_torch.kernels.ref.robust_aggregate_ref.
 //
-// Layout: one block per (64-column tile, fog), one thread per column (fogs
-// past the grid's 65,535 rows are taken by a loop).  The
-// caller hands over the members of every fog, in index order, as one
-// compacted list (members[offsets[m] .. offsets[m + 1])), so a block reads
-// only its own fog's ids and no fog size is too large.  The block stages
-// the ids and weights in shared memory 1,024 at a time: a fog of up to
-// 1,024 members is staged once, a larger one is streamed tile by tile for
-// every group below.  The TPU kernel looped over all N clients for every
-// fog (O(N^2 M d)); this walks members only: O(sum_m n_m^2 d).  Each
-// thread takes the members in groups of 8 held in registers (values, A, g)
-// and streams every member's value of its column once per group, so a
-// member's value is read n_m / 8 times, not n_m.  There is no reuse across
-// threads (each owns its column), so the values are read straight from
-// device memory through L1 / L2, coalesced across the warp.  A, g and W
-// accumulate in member index order, and so do num and den.
+// Two launches behind one wrapper (robust_agg.py).  The first lists every
+// fog's members (weight > 0), in index order, as one compacted array with
+// per-fog offsets: members_kernel, a block per fog (fog_members.cuh, the
+// code that lists fused_agg's fogs), so no host sync, no sort and no
+// PyTorch op runs on the card's route, and any fleet and fog size is
+// taken.  Each list block reads all N ids and weights twice: O(N n_fog)
+// reads, a few round trips deep at N = 200.  The list equals
+// kernels/robust_agg.member_lists, the plain version, element for
+// element.  (The first design built it with torch.where, a stable
+// torch.sort, arange and searchsorted: 11 device ops before the kernel.)
+//
+// The second, robust_kernel: one block per (64-column tile, fog), one
+// thread per column (fogs past the grid's 65,535 rows are taken by a
+// loop).  A block reads only its own fog's slice of the list
+// (members[offsets[m] .. offsets[m + 1])), so no fog size is too large.
+// The block stages the ids and weights in shared memory 1,024 at a time: a
+// fog of up to 1,024 members is staged once, a larger one is streamed tile
+// by tile for every group below.  The TPU kernel looped over all N clients
+// for every fog (O(N^2 M d)); this walks members only: O(sum_m n_m^2 d).
+// Each thread takes the members in groups of 8 held in registers (values,
+// A, g) and streams every member's value of its column once per group, so
+// a member's value is read n_m / 8 times, not n_m.  There is no reuse
+// across threads (each owns its column), so the values are read straight
+// from device memory through L1 / L2, coalesced across the warp.  A, g and
+// W accumulate in member index order, and so do num and den.
 //
 // Exactness: round weights are integers (n_samples * delivered), so A, g
 // and W are exact in f32 in any order and the choice of which members
@@ -41,11 +51,13 @@
 //
 // Bound: operations.  Per fog sum_m n_m^2 d compare-and-accumulate pairs
 // (two compares, two selects, two adds) against N d reads of recon and
-// M d writes.  At N = 200 in 20 fogs of ~10 members the whole function is
-// a few microseconds of either; at one fog of 2,000 members it is 4 M
-// pairs per column.
+// M d writes (the member list's id reads are not counted).  At N = 200 in
+// 20 fogs of ~10 members the whole function is a few microseconds of
+// either; at one fog of 2,000 members it is 4 M pairs per column.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fog_members.cuh"
 
 namespace {
 
@@ -138,9 +150,30 @@ __global__ void __launch_bounds__(kTile)
   }
 }
 
+// The member lists: block m lists bucket m (fog m, or n_fog: every client
+// of no fog).
+__global__ void __launch_bounds__(kListWarps * 32)
+    members_kernel(const int* __restrict__ fog_id, const float* __restrict__ w, int n,
+                   int n_fog, int* __restrict__ members, int* __restrict__ offsets) {
+  fog_members_block(fog_id, w, n, n_fog, static_cast<int>(blockIdx.x), members, offsets);
+}
+
 }  // namespace
 
 extern "C" {
+
+// The launch before robust_agg: members (n) and offsets (n_fog + 1) int32,
+// the fogs' clients of weight > 0 in index order (fog_members.cuh), the
+// clients of no fog after them.  Returns the cudaError_t of the launch.
+int robust_agg_members(const void* fog_id, const void* w, int n, int n_fog, void* members,
+                       void* offsets, void* stream) {
+  if (n < 1 || n_fog < 1 || n_fog == 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  members_kernel<<<static_cast<unsigned>(n_fog) + 1u, kListWarps * 32, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(fog_id), static_cast<const float*>(w), n, n_fog,
+      static_cast<int*>(members), static_cast<int*>(offsets));
+  return static_cast<int>(cudaGetLastError());
+}
 
 // out (n_fog, d), every row written.  members holds the fogs' member ids
 // (weight > 0), fog by fog and in index order within a fog; fog m's are

@@ -3,14 +3,19 @@
 
 :func:`compress_aggregate_blocks` takes CUDA tensors only: the (N, d)
 client updates and error-feedback buffers, the (N,) fog assignment and
-weights.  It checks them, allocates the outputs with ``torch.empty`` and
-makes the kernel's two launches on the current stream: ``select`` (the
-threshold, the int8 round trip and new_err per client and 8192-element
-block) and ``sum`` (the per-fog weighted sums, clients in index order).
-Each launch adds one to ``LAUNCHES["fused_agg"]``.  The CPU route is
-``kernels/ops``', which sends CPU tensors to
+weights.  It checks them, allocates the outputs and its workspace (each
+coordinate's int8 code, the fogs' member lists) with ``torch.empty`` and
+makes the kernel's two launches on the current stream, laid out by
+:func:`dense_plan`: ``select`` (the fogs' member lists, one block per
+fog, beside the threshold, the int8 codes and new_err per client and
+8192-element block, each block selected by a team sized to its real
+width as ``wire_emit``'s) and ``sum`` (the per-fog weighted sums of code
+* scale, a block per (fog, column tile), clients in index order from the
+list).  Each launch adds one to ``LAUNCHES["fused_agg"]``.  The CPU route
+is ``kernels/ops``', which sends CPU tensors to
 ``kernels/ref.compress_aggregate_ref``, the plain version of the same
-function (it returns the same three tensors).
+function (it returns the same three tensors); ``kernels/ref.dense_fold_ref``
+replays the kernel's summation order, bit for bit.
 
 :func:`compress_wire_blocks` (``wire_emit``) makes the same survivor
 selection and packs the survivors into k slots per block: int32 indices,
@@ -19,11 +24,10 @@ beside new_err.  Each (client, block) goes to a team sized to the block's
 real width (:func:`wire_plan`): ``SMALL_TEAM`` threads up to
 ``SMALL_WIDTH`` columns, else a block of ``TEAM_THREADS``; one launch, or
 one of each when a row holds both kinds.  Its first call on a device opts
-the kernels in to ``SMEM_MAX`` bytes of dynamic shared memory there and
-reads the SM count.  :func:`wire_aggregate_blocks` (``wire_agg``, one
-launch, a warp per (fog, block)) adds ``q * scale * w`` from the slots
-into fog sums, in place, each coordinate taking its clients in index
-order.
+the kernels in to ``SMEM_MAX`` bytes of dynamic shared memory there.
+:func:`wire_aggregate_blocks` (``wire_agg``, one launch, a warp per (fog,
+block)) adds ``q * scale * w`` from the slots into fog sums, in place,
+each coordinate taking its clients in index order.
 Both write into caller-given buffers when asked, so a chunked round
 writes each chunk's wire and error-feedback rows straight into slices of
 the round's buffers.  Their plain versions are
@@ -48,9 +52,12 @@ TEAM_THREADS = 256         # kThreads: a block team, and the block of a launch
 SLOT_BYTES = 12            # shared memory per ranked survivor: a 64-bit key, an f32 value
 RANK_PAD = 8               # kRankPad: pad keys after a team's ranked survivors
 SMEM_MAX = TEAM_THREADS // SMALL_TEAM * (SLOT_BYTES * SMALL_WIDTH + 8 * RANK_PAD + 16)
+SUM_THREADS = 128          # kSumThreads: threads of a fog-sum block
+SUM_COLS = (4, 2, 1)       # its instances' columns a thread, widest first
 
 _lib: ctypes.CDLL | None = None
-_n_sm: dict[int, int] = {}  # device index -> SM count, once wire_emit is opted in
+_n_sm: dict[int, int] = {}  # device index -> SM count
+_wire_ready: set[int] = set()   # devices whose wire_emit kernels are opted in
 
 
 def reset_launches() -> None:
@@ -63,9 +70,10 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("fused_agg")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_agg_select.argtypes = [vp, vp, i, i, i, i, vp, vp, vp, vp]
+        lib.fused_agg_select.argtypes = [vp, vp, vp, i, i, i, i, i, i, i, i, i,
+                                         vp, vp, vp, vp, vp, vp, vp]
         lib.fused_agg_select.restype = i
-        lib.fused_agg_sum.argtypes = [vp, vp, vp, vp, i, i, i, i, vp, vp, vp, vp]
+        lib.fused_agg_sum.argtypes = [vp, vp, vp, vp, i, i, i, i, vp, vp, vp]
         lib.fused_agg_sum.restype = i
         lib.wire_emit.argtypes = [vp, vp, i, i, i, i, i, i, i, i, i, i, i, i, vp, vp, vp, vp, vp]
         lib.wire_emit.restype = i
@@ -96,32 +104,44 @@ def compress_aggregate_blocks(
     n, d = (int(s) for s in deltas.shape)
     if n < 1 or d < 1 or n_fog < 1 or k < 1:
         raise ValueError(f"needs N, d, n_fog, k >= 1, got N={n}, d={d}, n_fog={n_fog}, k={k}")
+    if n_fog >= 0x7FFFFFFF or (n_fog + 1) + n * -(-d // BLOCK_ELEMS) > 0x7FFFFFFF:
+        raise ValueError(f"N={n} rows of d={d} into n_fog={n_fog} fogs need more blocks than "
+                         "a grid holds")
     nb = -(-d // BLOCK_ELEMS)
     _launch.check(deltas, "deltas", torch.float32, (n, d), device)
     _launch.check(err, "err", torch.float32, (n, d), device)
     _launch.check(fog_id, "fog_id", torch.int32, (n,), device)
     _launch.check(weights, "weights", torch.float32, (n,), device)
+    p = dense_plan(n, d, n_fog, _sm_count(device))
     new_err = torch.empty((n, d), dtype=torch.float32, device=device)
-    thr = torch.empty((n, nb), dtype=torch.float32, device=device)
-    scale = torch.empty((n, nb), dtype=torch.float32, device=device)
+    thr_scale = torch.empty((2, n, nb), dtype=torch.float32, device=device)
     fog_sum = torch.empty((n_fog, d), dtype=torch.float32, device=device)
+    # One workspace (raw bytes, addressed by pointer: no views to build per
+    # call): the (N, d) codes, int8 or f32, then the member list (N) and
+    # the offsets (n_fog + 1), int32, 16-byte aligned.
+    code_bytes = -(-n * d * (1 if quantize else 4) // 16) * 16
+    work = torch.empty((code_bytes + 4 * (n + n_fog + 1),), dtype=torch.uint8, device=device)
+    codes = work.data_ptr()
+    members = codes + code_bytes
+    offsets = members + 4 * n
+    scale = thr_scale.data_ptr() + 4 * n * nb
     lib = _library()
     with torch.cuda.device(device):
         stream = _launch.stream(device)
         rc = lib.fused_agg_select(
-            deltas.data_ptr(), err.data_ptr(), n, d, int(k), int(quantize),
-            new_err.data_ptr(), thr.data_ptr(), scale.data_ptr(), stream,
+            deltas.data_ptr(), err.data_ptr(), fog_id.data_ptr(), n, d, int(k), int(quantize),
+            n_fog, p.n_wide, p.slots, p.teams, p.narrow_grid, new_err.data_ptr(),
+            thr_scale.data_ptr(), scale, codes, members, offsets, stream,
         )
         _launch.raise_on(rc, "fused_agg select launch", lib.fused_agg_error_string)
         LAUNCHES["fused_agg"] += 1
         rc = lib.fused_agg_sum(
-            deltas.data_ptr(), err.data_ptr(), fog_id.data_ptr(), weights.data_ptr(),
-            n, d, n_fog, int(quantize), thr.data_ptr(), scale.data_ptr(),
+            codes, members, offsets, weights.data_ptr(), d, n_fog, int(quantize), p.cols, scale,
             fog_sum.data_ptr(), stream,
         )
         _launch.raise_on(rc, "fused_agg sum launch", lib.fused_agg_error_string)
         LAUNCHES["fused_agg"] += 1
-    return fog_sum, new_err, thr
+    return fog_sum, new_err, thr_scale[0]
 
 
 class WirePlan(NamedTuple):
@@ -151,45 +171,85 @@ def team_threads(width: int) -> int:
     return SMALL_TEAM if width <= SMALL_WIDTH else TEAM_THREADS
 
 
-@functools.lru_cache(maxsize=256)
-def wire_plan(n: int, d: int, k: int, n_sm: int) -> WirePlan:
-    """Teams and grid of ``wire_emit`` for N = ``n`` rows of ``d`` on
-    ``n_sm`` SMs.  Only a row's last block can be narrower than
+def _teams(n: int, d: int, n_sm: int) -> tuple[int, int, int, int]:
+    """The selection's teams for N = ``n`` rows of ``d`` on ``n_sm`` SMs,
+    the same for ``wire_emit`` and ``fused_agg``: (blocks of each row run
+    by a block team, a small team's slots a thread, small teams a block,
+    blocks of small teams).  Only a row's last block can be narrower than
     ``BLOCK_ELEMS``; when it is at most ``SMALL_WIDTH`` wide it goes to a
-    small team, and the launch packs as many small teams a block (a power
-    of two up to ``TEAM_THREADS // SMALL_TEAM``) as keep one block per SM
-    or more, each thread holding the fewest of ``SMALL_SLOTS`` slots that
-    cover the width.  Every other block goes to a block team.  A team keeps
-    at most min(k, width) ranked survivors in shared memory."""
+    small team, each thread holding the fewest of ``SMALL_SLOTS`` slots
+    that cover the width, and a launch packs as many small teams a block
+    (a power of two up to ``TEAM_THREADS // SMALL_TEAM``) as keep one block
+    per SM or more.  Every other block goes to a block team."""
     nb = -(-d // BLOCK_ELEMS)
     tail = d - (nb - 1) * BLOCK_ELEMS
-    narrow = team_threads(tail) == SMALL_TEAM
-    n_wide = nb - 1 if narrow else nb
-    cap_wide = min(k, BLOCK_ELEMS) if n_wide else 0
-    smem_wide = team_region(BLOCK_ELEMS, cap_wide) if n_wide else 0
-    if not narrow:
-        return WirePlan(n_wide, cap_wide, smem_wide, 0, 0, 0, 0, 0)
+    if team_threads(tail) != SMALL_TEAM:
+        return nb, 0, 0, 0
     slots = next(s for s in SMALL_SLOTS if SMALL_TEAM * s >= tail)
     teams = TEAM_THREADS // SMALL_TEAM
     while teams > 1 and -(-n // teams) < n_sm:
         teams //= 2
-    cap_narrow = min(k, tail)
-    return WirePlan(n_wide, cap_wide, smem_wide, slots, SMALL_TEAM * teams, -(-n // teams),
+    return nb - 1, slots, teams, -(-n // teams)
+
+
+@functools.lru_cache(maxsize=256)
+def wire_plan(n: int, d: int, k: int, n_sm: int) -> WirePlan:
+    """Teams and grid of ``wire_emit`` for N = ``n`` rows of ``d`` on
+    ``n_sm`` SMs (:func:`_teams`), one launch per team size.  A team keeps
+    at most min(k, width) ranked survivors in shared memory."""
+    n_wide, slots, teams, narrow_grid = _teams(n, d, n_sm)
+    cap_wide = min(k, BLOCK_ELEMS) if n_wide else 0
+    smem_wide = team_region(BLOCK_ELEMS, cap_wide) if n_wide else 0
+    if not teams:
+        return WirePlan(n_wide, cap_wide, smem_wide, 0, 0, 0, 0, 0)
+    cap_narrow = min(k, d - n_wide * BLOCK_ELEMS)
+    return WirePlan(n_wide, cap_wide, smem_wide, slots, SMALL_TEAM * teams, narrow_grid,
                     cap_narrow, teams * team_region(SMALL_TEAM * slots, cap_narrow))
 
 
+class DensePlan(NamedTuple):
+    """``fused_agg``'s launches: the select launch (n_fog + 1 list blocks,
+    N * n_wide block teams, narrow_grid blocks of ``teams`` small teams of
+    ``slots`` slots a thread), then n_fog * ceil(d / (SUM_THREADS * cols))
+    fog-sum blocks."""
+    n_wide: int        # blocks of each row run by a block team (the first ones)
+    slots: int         # slots a thread of a small team (SMALL_SLOTS[0] when there is none)
+    teams: int         # small teams a block of the select launch
+    narrow_grid: int   # blocks of small teams (0: the last block is wide too)
+    cols: int          # columns a thread of a fog-sum block
+
+
+@functools.lru_cache(maxsize=256)
+def dense_plan(n: int, d: int, n_fog: int, n_sm: int) -> DensePlan:
+    """Teams of the select launch (:func:`_teams`, ``wire_emit``'s) and the
+    fog sums' tile for N = ``n`` rows of ``d`` into ``n_fog`` fogs on
+    ``n_sm`` SMs: the widest of ``SUM_COLS`` columns a thread whose tiles
+    are no wider than the row and still give one block per SM or more
+    (train-200's 20 fogs of d = 1,352: one, 11 tiles, 220 blocks), else
+    one."""
+    n_wide, slots, teams, narrow_grid = _teams(n, d, n_sm)
+    cols = next((c for c in SUM_COLS if SUM_THREADS * c <= max(d, SUM_THREADS)
+                 and n_fog * -(-d // (SUM_THREADS * c)) >= n_sm), 1)
+    return DensePlan(n_wide, slots or SMALL_SLOTS[0], max(teams, 1), narrow_grid, cols)
+
+
 def _sm_count(device: torch.device) -> int:
-    """SM count of ``device``; its first call there opts ``wire_emit`` in to
-    ``SMEM_MAX`` bytes of dynamic shared memory."""
     n_sm = _n_sm.get(device.index)
     if n_sm is None:
+        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+        _n_sm[device.index] = n_sm
+    return n_sm
+
+
+def _opt_in_wire(device: torch.device) -> None:
+    """Opts ``wire_emit`` in to ``SMEM_MAX`` bytes of dynamic shared memory
+    on ``device``, once."""
+    if device.index not in _wire_ready:
         lib = _library()
         with torch.cuda.device(device):
             _launch.raise_on(lib.wire_emit_init(SMEM_MAX), "wire_emit_init",
                              lib.fused_agg_error_string)
-        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-        _n_sm[device.index] = n_sm
-    return n_sm
+        _wire_ready.add(device.index)
 
 
 def _wire_outputs(n: int, nb: int, k: int, d: int, quantize: bool, device: torch.device,
@@ -225,6 +285,7 @@ def compress_wire_blocks(
     _launch.check(deltas, "deltas", torch.float32, (n, d), device)
     _launch.check(err, "err", torch.float32, (n, d), device)
     idx, q, scale, new_err = _wire_outputs(n, nb, k, d, quantize, device, out)
+    _opt_in_wire(device)
     p = wire_plan(n, d, int(k), _sm_count(device))
     if n * p.n_wide > 0x7FFFFFFF:
         raise ValueError(f"N={n} rows of d={d} need {n * p.n_wide} blocks, more than a grid holds")

@@ -172,6 +172,18 @@ def compress_aggregate_ref(
     nothing does the scale multiplies only zeros.
     """
     n, d = delta.shape
+    v, recon, t = _dense_recon(delta, err, k_per_block, quantize)
+    fogs = torch.arange(n_fog, device=fog_id.device)
+    sel = torch.where(fog_id[None, :] == fogs[:, None], weights[None, :].to(torch.float32), 0.0)
+    fog_sum = torch.tensordot(sel, recon, dims=([1], [0])).reshape(n_fog, -1)[:, :d]
+    return fog_sum, (v - recon).reshape(n, -1)[:, :d], t[..., 0]
+
+
+def _dense_recon(
+    delta: torch.Tensor, err: torch.Tensor, k_per_block: int, quantize: bool,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dense path's selection and int8 round trip: (v, recon (N, nb,
+    BLOCK_ELEMS), threshold (N, nb, 1))."""
     v = pad_blocks(delta + err)
     absv = torch.abs(v)
     amax = torch.amax(absv, dim=-1, keepdim=True)
@@ -184,10 +196,52 @@ def compress_aggregate_ref(
         recon = torch.where(scale > 0, q * scale, 0.0)
     else:
         recon = sparse
-    fogs = torch.arange(n_fog, device=fog_id.device)
-    sel = torch.where(fog_id[None, :] == fogs[:, None], weights[None, :].to(torch.float32), 0.0)
-    fog_sum = torch.tensordot(sel, recon, dims=([1], [0])).reshape(n_fog, -1)[:, :d]
-    return fog_sum, (v - recon).reshape(n, -1)[:, :d], t[..., 0]
+    return v, recon, t
+
+
+def fog_ranks(fog_id: torch.Tensor, n_fog: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(member, rank) per client: whether its id lies in [0, n_fog), and
+    its place among its fog's clients in index order (the clients of no
+    fog ranked among themselves)."""
+    n = fog_id.shape[0]
+    fog = fog_id.long()
+    member = (fog >= 0) & (fog < n_fog)
+    key = torch.where(member, fog, n_fog)
+    order = torch.sort(key, stable=True).indices
+    counts = torch.bincount(key, minlength=n_fog + 1)
+    first = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(fog)
+    rank[order] = torch.arange(n, device=fog.device) - first[key[order]]
+    return member, rank
+
+
+def dense_fold_ref(
+    delta: torch.Tensor,      # (N, d) per-client flat updates
+    err: torch.Tensor,        # (N, d) error-feedback buffers
+    fog_id: torch.Tensor,     # (N,) cluster id per client
+    weights: torch.Tensor,    # (N,) f32
+    n_fog: int,
+    k_per_block: int,
+    quantize: bool = True,
+) -> torch.Tensor:
+    """:func:`compress_aggregate_ref`'s fog sums in ``fused_agg``'s own
+    order: each coordinate of fog m takes ``w * recon`` of m's clients in
+    index order, from 0, each added to the running value, so the result is
+    the kernel's bit for bit.  Ids outside [0, n_fog) belong to no fog; an
+    empty fog's row is zeros.  The clients go in waves, the r-th member of
+    every fog in wave r, as in :func:`wire_fold_ref`."""
+    n, d = delta.shape
+    _, recon, _ = _dense_recon(delta, err, k_per_block, quantize)
+    val = weights.to(torch.float32)[:, None] * recon.reshape(n, -1)[:, :d]
+    out = torch.zeros((n_fog, d), dtype=torch.float32, device=delta.device)
+    member, rank = fog_ranks(fog_id, n_fog)
+    fog = fog_id.long()
+    waves = int(rank[member].max()) + 1 if bool(member.any()) else 0
+    for r in range(waves):
+        wave = member & (rank == r)
+        rows = fog[wave]
+        out[rows] = out[rows] + val[wave]
+    return out
 
 
 def local_train_ref(
@@ -324,23 +378,20 @@ def wire_fold_ref(
     """:func:`wire_aggregate_ref` in ``wire_agg``'s own order: each
     coordinate of ``out`` takes ``(q * scale) * w`` of its fog's clients in
     index order, each added to the running value, so the result is the
-    kernel's bit for bit.  Slots outside the real columns are skipped.  The
-    clients go in waves, the r-th member of every fog in wave r, so no two
-    adds of a wave meet at a coordinate."""
-    n, nb = idx.shape[:2]
+    kernel's bit for bit.  Slots outside the real columns, and clients of
+    ids outside [0, n_fog), are skipped.  The clients go in waves, the r-th
+    member of every fog in wave r, so no two adds of a wave meet at a
+    coordinate."""
+    nb = idx.shape[1]
     d = out.shape[1]
     fog = fog_id.long()
-    order = torch.sort(fog, stable=True).indices
-    counts = torch.bincount(fog, minlength=out.shape[0])
-    first = torch.cumsum(counts, 0) - counts
-    rank = torch.empty_like(fog)
-    rank[order] = torch.arange(n, device=fog.device) - first[fog[order]]
+    member, rank = fog_ranks(fog_id, out.shape[0])
     col = torch.arange(nb, device=idx.device)[None, :, None] * BLOCK_ELEMS + idx.long()
     real = (idx >= 0) & (idx < BLOCK_ELEMS) & (col < d)
     val = q.to(torch.float32) * scale[..., None] * weights.to(torch.float32)[:, None, None]
     flat = out.view(-1)
-    for r in range(int(rank.max()) + 1):
-        wave = rank == r
+    for r in range(int(rank[member].max()) + 1 if bool(member.any()) else 0):
+        wave = member & (rank == r)
         keep = real[wave]
         pos = (fog[wave][:, None, None] * d + col[wave])[keep]
         flat[pos] = flat[pos] + val[wave][keep]

@@ -388,6 +388,34 @@ def test_wire_plan_at_the_main_paths_shapes(n, d, k, want):
     assert max(p.smem_wide, p.smem_narrow) <= fa.SMEM_MAX
 
 
+@pytest.mark.parametrize(
+    "n,d,n_fog,want",
+    [(200, 1352, 20, (0, 24, 1, 200, 1)),        # train-200: 11 tiles x 20 fogs = 220 sum blocks
+     (200, 1352, 200, (0, 24, 1, 200, 4)),       # robust-200's identity call
+     (64, 1352, 64, (0, 24, 1, 64, 4)),          # its chunk of 64
+     (10_000, 1352, 1000, (0, 24, 4, 2500, 4)),  # fleet-10k unchunked
+     (66_000, 64, 66_000, (0, 8, 4, 16_500, 1)),
+     (200, 8209, 20, (1, 8, 1, 200, 4)),
+     (200, 65536, 20, (8, 8, 1, 0, 4))],
+)
+def test_dense_plan_at_the_main_paths_shapes(n, d, n_fog, want):
+    """fused_agg's launches on an H100 SXM's 132 SMs: the select launch's
+    teams are wire_emit's, and the fog sums' tiles lie inside one
+    8192-block, are no wider than the row unless one thread-column is, and
+    give one block per SM or more wherever some tile width does."""
+    from repro_torch.kernels import fused_agg as fa
+
+    p = fa.dense_plan(n, d, n_fog, 132)
+    assert (p.n_wide, p.slots, p.teams, p.narrow_grid, p.cols) == want
+    w = fa.wire_plan(n, d, 68, 132)
+    assert (p.n_wide, p.narrow_grid) == (w.n_wide, w.narrow_grid)
+    assert p.teams * fa.SMALL_TEAM == max(w.threads, fa.SMALL_TEAM)
+    tile = fa.SUM_THREADS * p.cols
+    assert 8192 % tile == 0 and (tile <= d or p.cols == 1)
+    if n_fog * -(-d // fa.SUM_THREADS) >= 132:
+        assert n_fog * -(-d // tile) >= 132
+
+
 @pytest.mark.parametrize("width,threads", [(1, 64), (1352, 64), (2048, 64), (2049, 256),
                                            (8192, 256)])
 def test_wire_team_size_by_width(width, threads):

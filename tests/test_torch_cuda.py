@@ -30,7 +30,10 @@ and 33 and at widths without a compile-time instance.  ``fused_score_f32``
 and ``fused_score_q8`` also at rows 1 to 65,537 at four depths, and a
 row's err bitwise equal in any batch; ``fused_score_q8``'s err bitwise
 ``fused_score_f32``'s on the dequantised weights.  ``wire_agg`` bitwise
-equal to ``ref.wire_fold_ref``, the client-order fold.
+equal to ``ref.wire_fold_ref``, the client-order fold; ``fused_agg``'s fog
+sums bitwise equal to ``ref.dense_fold_ref``, its thresholds and new_err
+to the plain version's; the member lists ``robust_agg`` builds on the
+card equal to ``robust_agg.member_lists`` element for element.
 """
 import numpy as np
 import pytest
@@ -435,6 +438,23 @@ def test_fused_agg_kernel_matches_plain(cuda, d, n, quantize):
     assert not fog_sum[1].any()
 
 
+@pytest.mark.parametrize("quantize", [True, False])
+@pytest.mark.parametrize("n", [1, 200])
+@pytest.mark.parametrize("d", [1352, 8209, 65536])
+def test_fused_agg_fog_sums_are_the_client_order_fold(cuda, d, n, quantize):
+    """The fog sums bitwise equal to ``ref.dense_fold_ref`` (each fog's
+    clients added in index order, from 0), an empty fog's row zeros; the
+    thresholds and new_err bitwise the plain version's."""
+    deltas, err, fog_id, weights = _agg_case(n, d, 20, cuda, seed=d + n)
+    k = ops.block_k(0.05)
+    fog_sum, new_err, thr = fa.compress_aggregate_blocks(
+        deltas, err, fog_id, weights, 20, k, quantize)
+    _, ne_ref, thr_ref = ref.compress_aggregate_ref(deltas, err, fog_id, weights, 20, k, quantize)
+    assert torch.equal(fog_sum, ref.dense_fold_ref(deltas, err, fog_id, weights, 20, k, quantize))
+    assert torch.equal(thr, thr_ref) and torch.equal(new_err, ne_ref)
+    assert not fog_sum[1].any()
+
+
 def test_ops_route_training_tensors_to_the_kernels(cuda):
     params, x, idx = _train_case(12, 48, 32, (16, 8, 16), cuda)
     deltas, err, fog_id, weights = _agg_case(12, 1352, 3, cuda)
@@ -496,6 +516,13 @@ def _recon_case(n, d, layout, device, seed=0):
     deltas = torch.randn((n, d), generator=g).to(device)
     err = (0.1 * torch.randn((n, d), generator=g)).to(device)
     recon, _ = agg.client_compress(deltas, err, comp.CompressorConfig())
+    fog_id, weights = _robust_layout(n, layout, g)
+    return recon, fog_id.to(device), weights.to(device)
+
+
+def _robust_layout(n, layout, g):
+    """(fog_id, weights) of a robust case: one fog, 20, half the fleet in
+    fog 0, or 1,000 fogs with 3,000 clients in fog 0."""
     if layout == "one":
         fog_id = torch.zeros((n,), dtype=torch.int32)
     elif layout == "fleet":                        # 1,000 fogs; fog 0 holds 3,000 clients
@@ -507,7 +534,7 @@ def _recon_case(n, d, layout, device, seed=0):
     else:
         fog_id = torch.randint(0, 20, (n,), generator=g, dtype=torch.int32)
     weights = 256.0 * (torch.rand((n,), generator=g) > 0.25).to(torch.float32)
-    return recon, fog_id.to(device), weights.to(device)
+    return fog_id, weights
 
 
 @pytest.mark.parametrize("layout", ["one", "twenty", "half"])
@@ -525,6 +552,26 @@ def test_robust_agg_kernel_matches_plain(cuda, d, n, layout):
                                    err_msg=f"{mode} {beta}")
 
 
+@pytest.mark.parametrize("layout", ["one", "twenty", "half", "fleet"])
+def test_robust_member_lists_on_the_card_equal_the_plain_lists(cuda, layout):
+    """The lists ``robust_agg``'s first launch builds (``member_lists_blocks``)
+    equal ``member_lists``, the plain version, element for element: members
+    and offsets, with ids outside [0, n_fog) and zero and negative weights
+    among the clients (both put every client of no fog last, in index
+    order)."""
+    n, n_fog = (30_000, 1000) if layout == "fleet" else (2000, 20)
+    fog_id, weights = _robust_layout(n, layout, torch.Generator().manual_seed(n + n_fog))
+    fog_id[::97], fog_id[5::101], fog_id[7::103] = -3, n_fog, n_fog + 9
+    weights[3::89] = -1.0
+    fog_id, weights = fog_id.to(cuda), weights.to(cuda)
+    before = ra.LAUNCHES["robust_agg"]
+    members, offsets = ra.member_lists_blocks(fog_id, weights, n_fog)
+    want_members, want_offsets = ra.member_lists(fog_id, weights, n_fog)
+    torch.cuda.synchronize()
+    assert ra.LAUNCHES["robust_agg"] == before          # the list alone is not a robust_agg call
+    assert torch.equal(offsets, want_offsets) and torch.equal(members, want_members)
+
+
 def test_robust_agg_kernel_takes_any_fleet_size(cuda):
     """N = 30,000 clients in 1,000 fogs, one of them holding 3,000: the
     kernel reads a compacted member list, so neither the fleet nor the
@@ -539,7 +586,8 @@ def test_robust_agg_kernel_takes_any_fleet_size(cuda):
 
 def test_kernels_take_more_fogs_than_grid_rows(cuda):
     """n_fog = 66,000, past the grid's 65,535 rows: ``fused_agg`` with
-    identity segments (one fog per client, as the robust path compresses),
+    identity segments (one fog per client, as the robust path compresses;
+    its fog sums bitwise the client-order fold),
     ``robust_agg`` with three populated fogs, two of them past the grid's
     rows, each against its plain version, and ``wire_agg`` into those three
     fogs bitwise equal to the client-order fold, the other rows untouched."""
@@ -547,6 +595,7 @@ def test_kernels_take_more_fogs_than_grid_rows(cuda):
     deltas, err, _, weights = _agg_case(n, d, 3, cuda, seed=11)
     ids = torch.arange(n, dtype=torch.int32, device=cuda)
     fog_sum, new_err, _ = fa.compress_aggregate_blocks(deltas, err, ids, weights, n, 3)
+    assert torch.equal(fog_sum, ref.dense_fold_ref(deltas, err, ids, weights, n, 3))
     fs_ref, ne_ref, _ = ref.compress_aggregate_ref(deltas, err, ids, weights, n, 3)
     np.testing.assert_allclose(new_err.cpu().numpy(), ne_ref.cpu().numpy(), atol=1e-5)
     np.testing.assert_allclose(fog_sum.cpu().numpy(), fs_ref.cpu().numpy(), rtol=1e-5, atol=1e-4)
@@ -571,13 +620,14 @@ def test_kernels_take_more_fogs_than_grid_rows(cuda):
 
 def test_fleet_shapes_match_plain(cuda):
     """The kernels at fleet-10k's shapes (N = 10,000, d = 1,352, 1,000
-    fogs, k = 68, int8): ``fused_agg`` unchunked, and the wire pair chunk
-    by chunk (512 clients) into running fog sums, each against its plain
-    version."""
+    fogs, k = 68, int8): ``fused_agg`` unchunked (its fog sums bitwise the
+    client-order fold), and the wire pair chunk by chunk (512 clients) into
+    running fog sums, each against its plain version."""
     n, d, n_fog, chunk = 10_000, 1352, 1000, 512
     deltas, err, fog_id, weights = _agg_case(n, d, n_fog, cuda, seed=10)
     k = ops.wire_k(comp.blockwise_k_frac(d, 0.05))
     fog_sum, new_err, thr = fa.compress_aggregate_blocks(deltas, err, fog_id, weights, n_fog, k)
+    assert torch.equal(fog_sum, ref.dense_fold_ref(deltas, err, fog_id, weights, n_fog, k))
     fs_ref, ne_ref, thr_ref = ref.compress_aggregate_ref(deltas, err, fog_id, weights, n_fog, k)
     absv = ref.pad_blocks(deltas + err).abs()
     assert torch.equal(absv > thr[..., None], absv > thr_ref[..., None])

@@ -146,7 +146,9 @@ def test_member_lists_hold_each_fogs_clients_in_index_order():
     """The compacted member lists the CUDA robust wrapper hands its kernel
     (``kernels/robust_agg.member_lists``): fog m's clients of weight > 0
     are members[offsets[m]:offsets[m + 1]] in index order; empty fogs and
-    ids outside [0, n_fog) belong to no fog."""
+    ids outside [0, n_fog) belong to no fog, and the clients of no fog
+    follow offsets[n_fog] in index order (the layout the card's list
+    kernel writes)."""
     from repro_torch.kernels import robust_agg
 
     rng = np.random.default_rng(5)
@@ -161,3 +163,5 @@ def test_member_lists_hold_each_fogs_clients_in_index_order():
     for m in range(n_fog):
         want = np.flatnonzero((fog_id == m) & (w > 0))
         np.testing.assert_array_equal(members[offsets[m]:offsets[m + 1]], want)
+    member = (fog_id >= 0) & (fog_id < n_fog) & (w > 0)
+    np.testing.assert_array_equal(members[offsets[n_fog]:], np.flatnonzero(~member))

@@ -117,6 +117,38 @@ def test_compress_aggregate_keeps_one_survivor_at_k_1():
     np.testing.assert_array_equal(moved, 1)
 
 
+@pytest.mark.parametrize("quantize", [True, False])
+@pytest.mark.parametrize("d", [1352, 8209])
+def test_dense_fold_is_the_fused_sum_in_client_order(d, quantize):
+    """``ref.dense_fold_ref``, the client-order fold that ``fused_agg``'s
+    sum launch is held to bitwise on the card, against the plain
+    ``compress_aggregate_ref`` and the JAX oracle
+    ``repro.kernels.ref.compress_aggregate_ref`` (``rtol=1e-5, atol=1e-4``:
+    those sum in another order).  Repeated fogs, an empty fog (2), zero
+    weights, and ids outside [0, n_fog), which belong to no fog."""
+    deltas, err, fog_id, weights = _agg_inputs(40, d, seed=d + 1, empty_fog=2)
+    fog_id[5], fog_id[17] = -1, N_FOG                       # in no fog
+    args = tuple(torch.from_numpy(a) for a in (deltas, err, fog_id, weights))
+    k = tops.block_k(0.05)
+    fold = tref.dense_fold_ref(*args, N_FOG, k, quantize).numpy()
+    plain, _, _ = tref.compress_aggregate_ref(*args, N_FOG, k, quantize)
+    np.testing.assert_allclose(fold, plain.numpy(), rtol=1e-5, atol=1e-4)
+    np.testing.assert_array_equal(fold[2], 0.0)
+    pad = _jax_pad
+    want, _ = jref.compress_aggregate_ref(jnp.asarray(pad(deltas)), jnp.asarray(pad(err)),
+                                          jnp.asarray(fog_id), jnp.asarray(weights), N_FOG, k,
+                                          quantize)
+    want = np.asarray(want).reshape(N_FOG, -1)[:, :d]
+    np.testing.assert_allclose(fold, want, rtol=1e-5, atol=1e-4)
+    rows = (fog_id >= 0) & (fog_id < N_FOG)                  # the fold by hand, client by client
+    _, recon, _ = tref._dense_recon(args[0], args[1], k, quantize)
+    recon = recon.reshape(40, -1)[:, :d].numpy()
+    by_hand = np.zeros((N_FOG, d), np.float32)
+    for i in np.flatnonzero(rows):
+        by_hand[fog_id[i]] = by_hand[fog_id[i]] + weights[i] * recon[i]
+    assert np.array_equal(fold, by_hand)
+
+
 def test_int8_scale_is_the_reference_oracles_product():
     """The reference's jitted oracle computes the int8 scale ``amax / 127``
     as ``amax * f32(1/127)`` (XLA folds the division by a constant); the
