@@ -76,7 +76,8 @@ exits non-zero before the result line:
              k entries at each block max): codes, scales, sparse values,
              new_err, payload bits and survivor sets bitwise, the
              survivor sets equal to ``fused_agg``'s, and ``wire_emit``'s
-             new_err equal to ``compress_q8``'s (the two selections);
+             new_err equal to ``compress_q8``'s (all of them select with
+             ``team_threshold``, a team sized to the block's real width);
 12. legacy-200 — train-200 with the per-client compressor:
              ``CompressorConfig(fused=False)`` (``compress_q8`` once a
              round) on the card and on the CPU with identical draws
@@ -139,10 +140,11 @@ too (the member list, the reduce); and ``robust_agg``, ``wire_emit`` and
 shapes of phases 9 and 10 (``wire_agg`` also as one 10,000-client call,
 and at a chunk as deep as that call's deepest fog: the difference is the
 longer member scan), ``compress_q8`` and ``topk_ef`` at train-200's
-shape and ``compress_q8`` again at fleet-10k's chunk (the unchanged
-control beside ``wire_emit``), and ``quant8`` on a 2^20-coordinate
-vector; phase 7 holds the robust and wire kernels against their plain
-versions over a grid and at fleet-10k's shapes (``fused_agg`` at N =
+shape and at N = 200, d = 8,209 (a block team and a small team a row),
+``compress_q8`` again at fleet-10k's chunk (the rows ``wire_emit``
+selects there) and at k = 1,352 (legacy-200's quantise-only trial), and
+``quant8`` on a 2^20-coordinate vector; phase 7 holds the robust and wire
+kernels against their plain versions over a grid and at fleet-10k's shapes (``fused_agg`` at N =
 10,000 into 1,000 fogs, its fog sums bitwise equal to the client-order
 fold ``ref.dense_fold_ref`` there and over phase 7's grid, with its
 thresholds and new_err bitwise the plain version's; ``robust_agg``'s
@@ -235,6 +237,7 @@ COMPRESS_KERNELS = {   # name -> (TPU kernel it replaces, CUDA source)
 }
 COMP_DS, COMP_NS = (1352, 8209, 65_536), (1, 200, 2000)
 QUANT8_D = 1 << 20               # phase 6: quant8 on one 2^20-coordinate vector
+COMP_WIDE_D = 8209               # phase 6: a full block and a 17-wide one per row
 # drift-200: benchmarks/drift_bench.py's world (a compact basin and a 135 dB
 # source-level cap, ~580 m of range) at train-200's N and M; its cells.
 DRIFT_BASIN = dict(lx_m=1200.0, ly_m=1200.0, depth_m=400.0, sensor_depth=(200.0, 350.0),
@@ -871,18 +874,24 @@ def time_new_kernels(dev, fa, ra, kops, kref, agg, comp, ae, name, smi) -> dict:
 def time_compress_kernels(dev, kq8, tk, kops, kref, comp, ae, name, smi) -> dict:
     """Phase 6 for the per-client compressor kernels: ``compress_q8`` and
     ``topk_ef`` at train-200's shape (N = 200 updates of d = 1,352, rho_s
-    0.05: k = 68), ``compress_q8`` again at fleet-10k's chunk (N = 512, the
-    old selection beside ``wire_emit``'s new one), ``quant8`` on one
-    2^20-coordinate vector."""
+    0.05: k = 68: 200 two-warp teams), ``compress_q8`` again at fleet-10k's
+    chunk (N = 512, the same rows ``wire_emit`` selects) and at
+    legacy-200's quantise-only trial (rho_s 1: k = 1,352), both at N = 200,
+    d = 8,209 (rho_s 0.05: k = 393; a block team and a 17-wide small team
+    per row), ``quant8`` on one 2^20-coordinate vector."""
     g = torch.Generator(device=dev).manual_seed(12)
     d = ae.param_count(D, HIDDEN)
     deltas = torch.randn((TRAIN_N, d), generator=g, device=dev)
     err = 0.1 * torch.randn((TRAIN_N, d), generator=g, device=dev)
     x = torch.randn((1, QUANT8_D), generator=g, device=dev)
     k = kops.block_k(comp.blockwise_k_frac(d, 0.05))
+    k_all = kops.block_k(comp.blockwise_k_frac(d, 1.0))
     cd = torch.randn((FLEET_CHUNK, d), generator=g, device=dev)
     ce = 0.1 * torch.randn((FLEET_CHUNK, d), generator=g, device=dev)
     k_chunk = kops.wire_k(comp.blockwise_k_frac(d, 0.05))
+    wd = torch.randn((TRAIN_N, COMP_WIDE_D), generator=g, device=dev)
+    we = 0.1 * torch.randn((TRAIN_N, COMP_WIDE_D), generator=g, device=dev)
+    k_wide = kops.block_k(comp.blockwise_k_frac(COMP_WIDE_D, 0.05))
     cases = {
         "compress_q8": (
             lambda: kq8.compress_blocks(deltas, err, k),
@@ -903,7 +912,28 @@ def time_compress_kernels(dev, kq8, tk, kops, kref, comp, ae, name, smi) -> dict
             lambda: kref.compress_ref(cd, ce, k_chunk),
             compress_work(FLEET_CHUNK, d, True),
             (200, 10, 50, 3),
-            f"N={FLEET_CHUNK} d={d} k={k_chunk} int8, the control beside wire_emit",
+            f"N={FLEET_CHUNK} d={d} k={k_chunk} int8, the rows wire_emit selects",
+        ),
+        "compress_q8 @ k=1,352": (
+            lambda: kq8.compress_blocks(deltas, err, k_all),
+            lambda: kref.compress_ref(deltas, err, k_all),
+            compress_work(TRAIN_N, d, True),
+            (200, 20, 50, 5),
+            f"N={TRAIN_N} d={d} k={k_all} int8, legacy-200's rho_s=1 trial",
+        ),
+        "compress_q8 @ d=8,209": (
+            lambda: kq8.compress_blocks(wd, we, k_wide),
+            lambda: kref.compress_ref(wd, we, k_wide),
+            compress_work(TRAIN_N, COMP_WIDE_D, True),
+            (200, 10, 50, 3),
+            f"N={TRAIN_N} d={COMP_WIDE_D} k={k_wide} int8, a block team and a small team a row",
+        ),
+        "topk_ef @ d=8,209": (
+            lambda: tk.topk_ef_blocks(wd, we, k_wide),
+            lambda: kref.blockwise_topk_ef_ref(wd, we, k_wide),
+            compress_work(TRAIN_N, COMP_WIDE_D, False),
+            (200, 10, 50, 3),
+            f"N={TRAIN_N} d={COMP_WIDE_D} k={k_wide}, a block team and a small team a row",
         ),
         "quant8": (
             lambda: kq8.quant8_blocks(x),
@@ -2419,10 +2449,12 @@ def main(argv: list[str]) -> int:
             "library_ms": None,
             **t,
         })
+        by_shape = {k.split(" @ ")[1]: v for k, v in train_timing.items()
+                    if k.startswith(f"{kname} @ ")}
         if kname == "fused_agg":
-            kernels[-1]["by_shape"] = {
-                **{k.split(" @ ")[1]: v for k, v in train_timing.items()
-                   if k.startswith("fused_agg @ ")}, "66,000 identity fogs": identity}
+            by_shape["66,000 identity fogs"] = identity
+        if by_shape:
+            kernels[-1]["by_shape"] = by_shape
     print(json.dumps({"training": training}))
     print(json.dumps({"robust": robust}))
     print(json.dumps({"fleet": fleet}))

@@ -1,14 +1,19 @@
 // The block selection shared by every compression kernel of the port:
 // error-feedback v = delta + err per (client, 8192-block), the bisection
-// threshold of kernels/ref.bisect_threshold and the int8 round trip.
+// threshold of kernels/ref.bisect_threshold and the int8 code.
 //
 // fused_agg.cu (the dense fused path and the sparse wire), quant8.cu (the
 // per-client compressor) and topk_ef.cu (the same without int8) include
-// this one definition, so their survivor sets cannot drift apart.
-// block_threshold (compress_q8, topk_ef) holds a whole padded block in 256
-// threads; team_threshold (wire_emit and fused_agg's select) holds about
-// the block's real width, in a team sized to it, counts the rest of the
-// padding arithmetically, and gives the same threshold bit for bit.
+// this one definition, so their survivor sets cannot drift apart.  There is
+// one selection, team_threshold: a team sized to the block's real width
+// (two warps up to kSmallWidth columns, else the whole block of kThreads)
+// holds that width, counts the rest of the zero padding arithmetically, and
+// gives ref.bisect_threshold's threshold bit for bit.  select_team and
+// select_task are the launch layout of fused_agg's select, compress_q8 and
+// topk_ef (a block team per full block, small teams for a narrow last
+// block); the three differ only in what they write per element and per
+// block (their Out types).  wire_emit runs team_threshold with launches of
+// its own, since it packs survivors instead.
 //
 // Numerics: lo = -1, hi = block max, mid = 0.5f * (lo + hi), strict >,
 // cnt > k, 32 iterations, survivors |v| > hi.  Padding positions (>= d)
@@ -36,74 +41,6 @@ __device__ __forceinline__ float code8(float v, float scale) {
   return fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -127.0f), 127.0f);
 }
 
-__device__ __forceinline__ float reconstruct(float v, float thr, float scale,
-                                             bool quantize) {
-  const float sparse = fabsf(v) > thr ? v : 0.0f;
-  if (!quantize) return sparse;
-  if (!(scale > 0.0f)) return 0.0f;
-  return __fmul_rn(code8(sparse, scale), scale);
-}
-
-// One (client, 8192-block) of v = delta + err into registers (zeros past
-// d, counted but never loaded), then the bisection of ref.bisect_threshold.
-// Returns the threshold hi (survivors: |v| > hi) and the block max in
-// *amax_out.  Ends with every thread holding the same hi and amax;
-// contains barriers, so every thread of the block must call it.
-__device__ __forceinline__ float block_threshold(
-    const float* __restrict__ delta, const float* __restrict__ err,
-    size_t row, int base, int d, int k, float (&v)[kPerThread],
-    float* amax_out) {
-  __shared__ float max_sm[kWarps];
-  __shared__ unsigned cnt_sm[2][kWarps];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  float amax = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int col = base + j * kThreads + tid;
-    float x = 0.0f;
-    if (col < d) x = __fadd_rn(delta[row + col], err[row + col]);
-    v[j] = x;
-    amax = fmaxf(amax, fabsf(x));
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  if (lane == 0) max_sm[warp] = amax;
-  __syncthreads();
-  amax = max_sm[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) amax = fmaxf(amax, max_sm[w]);
-
-  // Bisection: every thread sees the same block-wide count, so lo and hi
-  // stay uniform.  Two count slots alternate, so one barrier per step
-  // suffices (a slot is rewritten two steps later, after every thread has
-  // passed the barrier in between).
-  float lo = -1.0f;
-  float hi = amax;
-  for (int it = 0; it < kIters; ++it) {
-    const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
-    unsigned c = 0;
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) c += fabsf(v[j]) > mid ? 1u : 0u;
-    c = __reduce_add_sync(0xffffffffu, c);
-    if (lane == 0) cnt_sm[it & 1][warp] = c;
-    __syncthreads();
-    unsigned total = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) total += cnt_sm[it & 1][w];
-    if (total > static_cast<unsigned>(k)) {
-      lo = mid;
-    } else {
-      hi = mid;
-    }
-  }
-  *amax_out = amax;
-  return hi;
-}
-
-
 // --- team_threshold: the selection sized to the block's real width ------
 //
 // A team of kTeam threads (two warps for a block up to kSmallWidth wide,
@@ -113,9 +50,10 @@ __device__ __forceinline__ float block_threshold(
 // as zeros; the unheld rest of the padded block is zeros too, and |0| > mid
 // exactly when mid < 0, so each bisection step adds their number times
 // [mid < 0] to the held count: the count over the padded block, as
-// ref.bisect_threshold takes it, so lo and hi move bit for bit as
-// block_threshold's do.
+// ref.bisect_threshold takes it, so lo and hi move bit for bit as they do
+// there.
 constexpr int kSmallWidth = 2048;             // widest block a small team holds
+constexpr int kNarrowTeam = 64;               // a small team: two warps
 template <int kTeam, int kSlotsPerThread>
 struct TeamShape {
   static constexpr int kTeamWarps = kTeam / 32;
@@ -175,10 +113,14 @@ __device__ __forceinline__ float team_max(float x, TeamScratch& s, int bar, int 
 // branch; holding |v| alone keeps one register a slot through the
 // bisection.  Then the bisection of ref.bisect_threshold: kFullSteps steps
 // over every held slot, without a branch.  The team then lists its
-// candidates, lo < |v| <= hi, in cand (kHeld floats of shared memory):
-// every later mid lies in [lo, hi], so the count above mid is the count
-// above hi (fixed from there on) plus the candidates above mid, and the
-// remaining steps read only the list (a few entries on Gaussian updates;
+// candidates, 0 < |v| <= hi and |v| > lo, in cand (kHeld floats of shared
+// memory).  Every later mid lies in [lo, hi].  A mid below 0 has the whole
+// padded block above it (|v| >= 0 > mid), so its count is kBlock.  A mid
+// of 0 or more has no zero above it, so its count is the count above hi
+// (fixed from there on) plus the candidates above mid; so zeros, held
+// padding or real, are never listed (when k reaches the width, lo and hi
+// close in on 0 from both sides and each held zero would be a candidate).
+// The remaining steps read only the list (a few entries on Gaussian updates;
 // up to 32 of them, one a lane, are counted by a ballot a step, with no
 // barrier).  Returns hi (survivors: |v| > hi) and the block max in
 // *amax_out, the same in every team thread; every team thread must call it.
@@ -227,11 +169,12 @@ __device__ __forceinline__ float team_threshold(
   const int lane = t & 31;
   const int warp = t >> 5;
   const unsigned lt = (1u << lane) - 1u;
+  const float lo0 = fmaxf(lo, 0.0f);              // a candidate is nonzero
   unsigned n_warp = 0;
   unsigned above = 0;
 #pragma unroll
   for (int j = 0; j < S::kSlots; ++j) {
-    n_warp += __popc(__ballot_sync(0xffffffffu, a[j] > lo && !(a[j] > hi)));
+    n_warp += __popc(__ballot_sync(0xffffffffu, a[j] > lo0 && !(a[j] > hi)));
     above += a[j] > hi ? 1u : 0u;
   }
   above = __reduce_add_sync(0xffffffffu, above);
@@ -251,7 +194,7 @@ __device__ __forceinline__ float team_threshold(
   }
 #pragma unroll
   for (int j = 0; j < S::kSlots; ++j) {
-    const bool in = a[j] > lo && !(a[j] > hi);
+    const bool in = a[j] > lo0 && !(a[j] > hi);
     const unsigned bal = __ballot_sync(0xffffffffu, in);
     if (in) cand[run + __popc(bal & lt)] = a[j];
     run += __popc(bal);
@@ -266,8 +209,8 @@ __device__ __forceinline__ float team_threshold(
 #pragma unroll 1
     for (; it < kIters; ++it) {
       const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
-      const unsigned total = above + (mid < 0.0f ? kUnheld : 0u) +
-                             __popc(__ballot_sync(0xffffffffu, r > mid));
+      const unsigned c = __popc(__ballot_sync(0xffffffffu, r > mid));
+      const unsigned total = mid < 0.0f ? kBlock : above + c;
       if (total > static_cast<unsigned>(k)) {
         lo = mid;
       } else {
@@ -280,8 +223,8 @@ __device__ __forceinline__ float team_threshold(
     const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
     unsigned c = 0;
     for (unsigned p = t; p < m; p += kTeam) c += cand[p] > mid ? 1u : 0u;
-    const unsigned total =
-        team_sum<kTeam>(c, it & 1, sc, bar, t) + above + (mid < 0.0f ? kUnheld : 0u);
+    c = team_sum<kTeam>(c, it & 1, sc, bar, t);
+    const unsigned total = mid < 0.0f ? kBlock : above + c;
     if (total > static_cast<unsigned>(k)) {
       lo = mid;
     } else {
@@ -308,6 +251,114 @@ __device__ __forceinline__ T opaque(T x) {
 
 __device__ __forceinline__ float with_sign(float a, unsigned neg_word, int bit) {
   return __uint_as_float(__float_as_uint(a) | (((neg_word >> bit) & 1u) << 31));
+}
+
+// --- The select launch: a team per (client, block), sized to its width --
+//
+// fused_agg's select, compress_q8 and topk_ef share this layout (the plan
+// of kernels/teams.compress_plan): after `lead` blocks of the caller's own
+// (fused_agg's fog lists), N * n_wide blocks each run a block team on one
+// full block of a client, then narrow_grid blocks each run up to `teams`
+// small teams, a team on the last block of a client (at most kSmallWidth
+// wide, kNarrowTeam * kSlots held).  The kernels differ only in their Out:
+//   out.block_scale(hi, amax)              the block's scale;
+//   out.element(at, v, kept, scale)        one real column (at = its flat
+//                                          index, kept = |v| > hi);
+//   out.block(task, hi, scale)             once per (client, block), task
+//                                          = client * nb + block.
+struct SelectArgs {
+  const float* delta;                // (N, d)
+  const float* err;                  // (N, d)
+  int n, d, k;
+  int n_wide;                        // blocks of each row run by a block team (the first ones)
+  int teams;                         // small teams a block
+  int lead;                          // the caller's blocks ahead of the teams
+  int nb;                            // ceil(d / kBlock), set by launch_select
+};
+
+// One (client i, block b) for a team of kTeam threads (thread t, named
+// barrier bar): team_threshold, then what Out writes at each of the
+// block's real columns and once for the block.
+template <int kTeam, int kSlots, class Out>
+__device__ __forceinline__ void select_team(SelectArgs a, int i, int b, int t, int bar,
+                                            TeamScratch& sc, float* cand, Out out) {
+  using S = TeamShape<kTeam, kSlots>;
+  const int base = b * kBlock;
+  float abs_v[kSlots];                            // |v|
+  unsigned neg[S::kWords];                        // v's sign bits
+  float amax;
+  const float hi = team_threshold<kTeam, kSlots>(
+      a.delta, a.err, static_cast<size_t>(i) * a.d + base, min(kBlock, a.d - base), a.k, t, bar,
+      sc, abs_v, neg, cand, &amax);
+  const int width = opaque(min(kBlock, a.d - base));
+  const size_t row = opaque(static_cast<size_t>(i) * a.d + base);
+  const float scale = out.block_scale(hi, amax);
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const int e = j * kTeam + t;
+    if (e < width) out.element(row + e, with_sign(abs_v[j], neg[j / 32], j % 32), abs_v[j] > hi,
+                               scale);
+  }
+  if (t == 0) out.block(static_cast<size_t>(i) * a.nb + b, hi, scale);
+}
+
+// Block `task` of the teams (the launch's block less `lead`): a block team
+// when task < N * n_wide (kWide instances only: without it the block
+// team's registers are not reserved), else small teams.  A team past the
+// last client leaves at once; its barriers are its own (named, one per
+// team), so no other team waits on it.
+template <int kSlots, bool kWide, class Out>
+__device__ __forceinline__ void select_task(SelectArgs a, long long task, Out out) {
+  __shared__ float cand[kBlock];                  // the teams' bisection candidates
+  __shared__ TeamScratch scratch[kThreads / kNarrowTeam];
+  const long long wide_tasks = static_cast<long long>(a.n) * a.n_wide;
+  if (kWide && task < wide_tasks) {
+    const int i = static_cast<int>(task / a.n_wide);
+    const int b = static_cast<int>(task - static_cast<long long>(i) * a.n_wide);
+    select_team<kThreads, kPerThread>(a, i, b, threadIdx.x, 1, scratch[0], cand, out);
+    return;
+  }
+  const int team = threadIdx.x / kNarrowTeam;
+  const long long i = (task - wide_tasks) * a.teams + team;
+  if (team >= a.teams || i >= a.n) return;        // the whole team; no barrier follows
+  select_team<kNarrowTeam, kSlots>(a, static_cast<int>(i), a.nb - 1,
+                                   threadIdx.x - team * kNarrowTeam, team + 1, scratch[team],
+                                   cand + team * kNarrowTeam * kSlots, out);
+}
+
+// A kernel's instances by [slots / 8 - 1][kWide]: each selecting kernel is
+// a template <int kSlots, bool kWide> taking (SelectArgs, its Out).
+template <class Out>
+using SelectKernel = void (*)(SelectArgs, Out);
+#define SELECT_KERNELS(kernel)                                                               \
+  {                                                                                          \
+    {kernel<8, false>, kernel<8, true>}, {kernel<16, false>, kernel<16, true>},              \
+        {kernel<24, false>, kernel<24, true>}, {kernel<32, false>, kernel<32, true>}         \
+  }
+
+// Checks a select launch's layout (N = a.n rows of a.d; n_wide, teams and
+// `slots` from kernels/teams.compress_plan, narrow_grid blocks of small
+// teams) and launches its instance on stream s: kThreads threads a block
+// when the grid holds a leading block or a block team, else the small
+// teams alone.  Returns the cudaError_t of the launch (0 on success).
+template <class Out>
+int launch_select(const SelectKernel<Out> (&kernels)[4][2], SelectArgs a, int slots,
+                  int narrow_grid, cudaStream_t s, Out out) {
+  a.nb = (a.d + kBlock - 1) / kBlock;
+  const long long grid = a.lead + static_cast<long long>(a.n) * a.n_wide + narrow_grid;
+  const bool narrow = a.n_wide < a.nb;            // the last block goes to small teams
+  if (a.n < 1 || a.d < 1 || a.k < 1 || a.lead < 0 || a.n_wide < a.nb - 1 || a.n_wide > a.nb ||
+      a.teams < 1 || a.teams > kThreads / kNarrowTeam || slots < 8 || slots > 32 ||
+      slots % 8 != 0 ||
+      (narrow ? static_cast<long long>(narrow_grid) * a.teams < a.n ||
+                    a.d - (a.nb - 1) * kBlock > kNarrowTeam * slots
+              : narrow_grid != 0) ||
+      grid > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = a.lead > 0 || a.n_wide > 0 ? kThreads : a.teams * kNarrowTeam;
+  kernels[slots / 8 - 1][a.n_wide > 0 ? 1 : 0]<<<static_cast<unsigned>(grid), threads, 0, s>>>(
+      a, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -4,10 +4,11 @@
 //
 // Replaces the Pallas TPU kernels _fused_agg_kernel, _wire_emit_kernel and
 // _wire_agg_kernel of src/repro/kernels/fused_agg.py.  Both paths select
-// with team_threshold (block_select.cuh), the bisection of every
-// compression kernel over the block's real width only, so their survivor
-// sets cannot drift apart from each other or from block_threshold's
-// (compress_q8, topk_ef).
+// with team_threshold (block_select.cuh), the one bisection of every
+// compression kernel, over the block's real width only, so their survivor
+// sets cannot drift apart from each other or from compress_q8's and
+// topk_ef's.  The dense select's layout and launch are block_select.cuh's
+// select_task and launch_select, which compress_q8 and topk_ef run too.
 //
 // The dense path (fused_agg, two launches).  Per client i and 8192-element
 // block b of the zero-padded flat update (d real coordinates):
@@ -68,8 +69,8 @@
 // both launches are latency-bound: the select's time is a team's loads,
 // bisection and its survivors' divisions, the sum's a few dependent round
 // trips (offsets, list, the members' codes).
-// The first design ran block_threshold, 256 threads counting a
-// whole padded block in 32 barrier-separated steps however narrow the row,
+// The first design's select held a whole padded block in 256 threads and
+// counted all of it in 32 barrier-separated steps however narrow the row,
 // and its sum blocks (fog, 1,024 columns) each rescanned all N ids with
 // one warp while seven waited, then walked the members one load chain at a
 // time: O(N n_fog ceil(d / 1024)) id reads.
@@ -111,93 +112,59 @@
 
 namespace {
 
-constexpr int kNarrowTeam = 64;               // a small team: two warps
 static_assert(kListWarps * 32 == kThreads, "a list block is a select block");
 
-// One (client, block) of the dense path for a team of kTeam threads: the
-// selection, new_err at the block's real columns, and the block's
-// threshold (the bisection's hi) and scale, the operations of the first
-// design's select bit for bit.
-template <int kTeam, int kSlots>
-__device__ __forceinline__ void select_team(
-    const float* __restrict__ delta, const float* __restrict__ err, int d, int nb, int k,
-    bool quantize, int i, int b, int t, int bar, TeamScratch& sc, float* cand,
-    float* __restrict__ new_err, float* __restrict__ thr_out, float* __restrict__ scale_out,
-    void* __restrict__ codes) {
-  using S = TeamShape<kTeam, kSlots>;
-  const int base = b * kBlock;
-  float a[kSlots];                                // |v|
-  unsigned neg[S::kWords];                        // v's sign bits
-  float amax;
-  const float hi = team_threshold<kTeam, kSlots>(
-      delta, err, static_cast<size_t>(i) * d + base, min(kBlock, d - base), k, t, bar, sc, a,
-      neg, cand, &amax);
-  const int width = opaque(min(kBlock, d - base));
-  const size_t row = opaque(static_cast<size_t>(i) * d + base);
-  const float scale = __fmul_rn(amax, kInv127);
-  // A non-survivor's code and recon are +0 (0 / scale rounds to +0), so
-  // its new_err is v - 0; only survivors (at most k) take the division.
-  // The code (int8, or the f32 value without quantisation) is what the sum
-  // launch reads: recon = code * scale, the same product.
-#pragma unroll
-  for (int j = 0; j < kSlots; ++j) {
-    const int e = j * kTeam + t;
-    if (e < width) {
-      const float v = with_sign(a[j], neg[j / 32], j % 32);
-      const float code = a[j] > hi ? (quantize ? code8(v, scale) : v) : 0.0f;
-      new_err[row + e] = __fsub_rn(v, quantize ? __fmul_rn(code, scale) : code);
-      if (quantize) {
-        static_cast<int8_t*>(codes)[row + e] = static_cast<int8_t>(code);
-      } else {
-        static_cast<float*>(codes)[row + e] = code;
-      }
+// What the dense path's select writes for one (client, block), the
+// operations of the first design's select bit for bit: new_err at the
+// block's real columns, each one's code, and the block's threshold (the
+// bisection's hi) and scale.  A non-survivor's code and recon are +0 (0 /
+// scale rounds to +0), so its new_err is v - 0; only survivors (at most k)
+// take the division.  The code (int8, or the f32 value without
+// quantisation) is what the sum launch reads: recon = code * scale, the
+// same product.
+struct DenseOut {
+  const int* fog_id;
+  int n_fog;
+  bool quantize;
+  float* new_err;
+  float* thr;
+  float* scale;
+  void* codes;
+  int* members;
+  int* offsets;
+
+  __device__ __forceinline__ float block_scale(float, float amax) const {
+    return __fmul_rn(amax, kInv127);
+  }
+  __device__ __forceinline__ void element(size_t at, float v, bool kept, float sc) const {
+    const float code = kept ? (quantize ? code8(v, sc) : v) : 0.0f;
+    new_err[at] = __fsub_rn(v, quantize ? __fmul_rn(code, sc) : code);
+    if (quantize) {
+      static_cast<int8_t*>(codes)[at] = static_cast<int8_t>(code);
+    } else {
+      static_cast<float*>(codes)[at] = code;
     }
   }
-  if (t == 0) {
-    const size_t task = static_cast<size_t>(i) * nb + b;
-    thr_out[task] = hi;
-    scale_out[task] = scale;
+  __device__ __forceinline__ void block(size_t task, float hi, float sc) const {
+    thr[task] = hi;
+    scale[task] = sc;
   }
+};
+
+// The select launch: its n_fog + 1 leading blocks list the fogs' members
+// (block m bucket m); the rest are the teams of block_select.cuh's
+// select_task.
+template <int kSlots, bool kWide>
+__global__ void __launch_bounds__(kThreads) select_kernel(SelectArgs a, DenseOut out) {
+  if (static_cast<int>(blockIdx.x) < a.lead) {
+    fog_members_block(out.fog_id, nullptr, a.n, out.n_fog, static_cast<int>(blockIdx.x),
+                      out.members, out.offsets);
+    return;
+  }
+  select_task<kSlots, kWide>(a, static_cast<long long>(blockIdx.x) - a.lead, out);
 }
 
-// The select launch: blocks [0, n_fog] list the fogs' members (block m
-// bucket m); the next n * n_wide run a block team on block b < n_wide of a
-// client (kWide instances only: without it the block team's registers are
-// not reserved); the rest run `teams` two-warp teams (kSlots slots a
-// thread), each on the last block of a client.  A team past the last
-// client leaves at once; its barriers are its own (named, one per team).
-template <int kSlots, bool kWide>
-__global__ void __launch_bounds__(kThreads)
-    select_kernel(const float* __restrict__ delta, const float* __restrict__ err,
-                  const int* __restrict__ fog_id, int n, int d, int nb, int k, bool quantize,
-                  int n_fog, int n_wide, int teams, float* __restrict__ new_err,
-                  float* __restrict__ thr_out, float* __restrict__ scale_out,
-                  void* __restrict__ codes, int* __restrict__ members,
-                  int* __restrict__ offsets) {
-  __shared__ float cand[kBlock];                  // the teams' bisection candidates
-  __shared__ TeamScratch scratch[kThreads / kNarrowTeam];
-  const long long blk = blockIdx.x;
-  if (blk <= n_fog) {
-    fog_members_block(fog_id, nullptr, n, n_fog, static_cast<int>(blk), members, offsets);
-    return;
-  }
-  const long long task = blk - (n_fog + 1LL);
-  const long long wide_tasks = static_cast<long long>(n) * n_wide;
-  if (kWide && task < wide_tasks) {
-    const int i = static_cast<int>(task / n_wide);
-    const int b = static_cast<int>(task - static_cast<long long>(i) * n_wide);
-    select_team<kThreads, kPerThread>(delta, err, d, nb, k, quantize, i, b, threadIdx.x, 1,
-                                      scratch[0], cand, new_err, thr_out, scale_out, codes);
-    return;
-  }
-  const int team = threadIdx.x / kNarrowTeam;
-  const long long i = (task - wide_tasks) * teams + team;
-  if (team >= teams || i >= n) return;            // the whole team; no barrier follows
-  select_team<kNarrowTeam, kSlots>(delta, err, d, nb, k, quantize, static_cast<int>(i), nb - 1,
-                                   threadIdx.x - team * kNarrowTeam, team + 1, scratch[team],
-                                   cand + team * kNarrowTeam * kSlots, new_err, thr_out,
-                                   scale_out, codes);
-}
+const SelectKernel<DenseOut> kSelectKernels[4][2] = SELECT_KERNELS(select_kernel);
 
 // The fog sums: a block per (fog m, tile of kSumThreads * kCols columns),
 // tile-minor on a 1-D grid; a tile lies inside one 8192-block.  Thread t
@@ -655,42 +622,15 @@ int fused_agg_select(const void* delta, const void* err, const void* fog_id, int
                      int k, int quantize, int n_fog, int n_wide, int slots, int teams,
                      int narrow_grid, void* new_err, void* thr, void* scale, void* codes,
                      void* members, void* offsets, void* stream) {
-  const int nb = (d + kBlock - 1) / kBlock;
-  const long long grid = n_fog + 1LL + static_cast<long long>(n) * n_wide + narrow_grid;
-  const bool narrow = n_wide < nb;                // the last block goes to small teams
-  if (n < 1 || d < 1 || k < 1 || n_fog < 1 || n_fog == 0x7fffffff || n_wide < nb - 1 ||
-      n_wide > nb || teams < 1 || teams > kThreads / kNarrowTeam ||
-      (narrow ? static_cast<long long>(narrow_grid) * teams < n ||
-                    d - (nb - 1) * kBlock > kNarrowTeam * slots
-              : narrow_grid != 0) ||
-      grid > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SELECT_LAUNCH(S, W)                                                                \
-  select_kernel<S, W><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(                    \
-      static_cast<const float*>(delta), static_cast<const float*>(err),                    \
-      static_cast<const int*>(fog_id), n, d, nb, k, quantize != 0, n_fog, n_wide, teams,   \
-      static_cast<float*>(new_err), static_cast<float*>(thr), static_cast<float*>(scale),  \
-      codes, static_cast<int*>(members), static_cast<int*>(offsets))
-#define SELECT_CASE(S)                                                                     \
-  case S:                                                                                  \
-    if (n_wide > 0) {                                                                      \
-      SELECT_LAUNCH(S, true);                                                              \
-    } else {                                                                               \
-      SELECT_LAUNCH(S, false);                                                             \
-    }                                                                                      \
-    break;
-  switch (slots) {
-    SELECT_CASE(8)
-    SELECT_CASE(16)
-    SELECT_CASE(24)
-    SELECT_CASE(32)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef SELECT_CASE
-#undef SELECT_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  if (n_fog < 1 || n_fog == 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const SelectArgs a{static_cast<const float*>(delta), static_cast<const float*>(err), n, d, k,
+                     n_wide, teams, n_fog + 1, 0};
+  const DenseOut out{static_cast<const int*>(fog_id), n_fog, quantize != 0,
+                     static_cast<float*>(new_err), static_cast<float*>(thr),
+                     static_cast<float*>(scale), codes, static_cast<int*>(members),
+                     static_cast<int*>(offsets)};
+  return launch_select(kSelectKernels, a, slots, narrow_grid,
+                       static_cast<cudaStream_t>(stream), out);
 }
 
 // Pass 2, the fog sums: fog_sum (n_fog, d), every row written, from pass

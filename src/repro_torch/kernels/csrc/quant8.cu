@@ -9,16 +9,19 @@
 // launch per round, and count the padding zeros of a row's last block
 // without loading them.
 //
-// compress_q8, one block of 256 threads per (client, 8192-block):
-//   v = delta + err; hi = block_threshold (block_select.cuh, the bisection
-//   shared with fused_agg.cu, so the survivor sets of the fused and the
-//   per-client paths are the same); sparse = v * [|v| > hi];
+// compress_q8, a team per (client, 8192-block) sized to the block's real
+// width (block_select.cuh's select_task: a block team of 256 threads for a
+// full block, a two-warp team for a last block up to 2,048 wide):
+//   v = delta + err; hi = team_threshold (block_select.cuh, the one
+//   bisection of every compression kernel, so the survivor sets of the
+//   fused and the per-client paths are the same); sparse = v * [|v| > hi];
 //   scale = max|sparse| * f32(1/127), which is the block max of |v| when
 //   anything survives (the max survives too) and 0 when nothing does (more
 //   than k entries tied at the block max): ref.compress_ref's rule, not
 //   fused_agg's (which keeps the block max's scale over an all-zero sparse);
-//   q = clip(rint(sparse / scale), +-127), 0 where scale is 0;
-//   new_err = v - q * scale.
+//   q = clip(rint(sparse / scale), +-127), 0 where scale is 0 (a
+//   non-survivor's code is +0 under either scale, so only survivors
+//   divide); new_err = v - q * scale.
 //   Writes q int8 (N, d), scale (N, nb) and new_err (N, d), real
 //   coordinates only.
 // quant8, one block per (row, 8192-block):
@@ -34,9 +37,13 @@
 //
 // Bound: bytes.  compress_q8 at train-200 (N = 200, d = 1,352) reads delta
 // and err (8 bytes a coordinate) and writes new_err and q (5): 3.5 MB,
-// ~1 us at 3.35 TB/s; the bisection's ~70 compares and adds per coordinate
-// are far below the card's rate.  At 200 blocks of 32 barrier-separated
-// bisection steps the kernel is latency-bound, not bandwidth-bound.
+// ~1 us at 3.35 TB/s; the bisection's compares and adds per coordinate are
+// far below the card's rate.  At 200 teams the kernel is latency-bound: a
+// team's loads, 8 bisection steps over its held slots with a barrier each,
+// the rest over a short candidate list by one ballot a step, and its
+// survivors' divisions.  The first design ran a block of 256 threads per
+// (client, block) that held the whole padded block (83% padding zeros at d
+// = 1,352) and counted all of it in 32 barrier-separated steps.
 // quant8 reads 4 and writes 1 byte a coordinate.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,39 +52,30 @@
 
 namespace {
 
-__device__ __forceinline__ float int8_code(float x, float scale) {
-  if (!(scale > 0.0f)) return 0.0f;
-  return fminf(fmaxf(rintf(__fdiv_rn(x, scale)), -127.0f), 127.0f);
-}
+// What compress_q8 writes for one (client, block): each real column's code
+// and new_err, and the block's scale.
+struct CompressOut {
+  int8_t* q;
+  float* scale;
+  float* new_err;
 
-__global__ void __launch_bounds__(kThreads)
-    compress_q8_kernel(const float* __restrict__ delta,
-                       const float* __restrict__ err, int d, int nb, int k,
-                       int8_t* __restrict__ q_out,
-                       float* __restrict__ scale_out,
-                       float* __restrict__ new_err) {
-  const int i = blockIdx.x / nb;
-  const int b = blockIdx.x - i * nb;
-  const int tid = threadIdx.x;
-  const size_t row = static_cast<size_t>(i) * d;
-  const int base = b * kBlock;
-
-  float v[kPerThread];
-  float amax;
-  const float hi = block_threshold(delta, err, row, base, d, k, v, &amax);
-  const float scale = amax > hi ? __fmul_rn(amax, kInv127) : 0.0f;
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int col = base + j * kThreads + tid;
-    if (col < d) {
-      const float sparse = fabsf(v[j]) > hi ? v[j] : 0.0f;
-      const float q = int8_code(sparse, scale);
-      q_out[row + col] = static_cast<int8_t>(q);
-      new_err[row + col] = __fsub_rn(v[j], __fmul_rn(q, scale));
-    }
+  __device__ __forceinline__ float block_scale(float hi, float amax) const {
+    return amax > hi ? __fmul_rn(amax, kInv127) : 0.0f;
   }
-  if (tid == 0) scale_out[blockIdx.x] = scale;
+  __device__ __forceinline__ void element(size_t at, float v, bool kept, float sc) const {
+    const float code = kept ? code8(v, sc) : 0.0f;
+    q[at] = static_cast<int8_t>(code);
+    new_err[at] = __fsub_rn(v, __fmul_rn(code, sc));
+  }
+  __device__ __forceinline__ void block(size_t task, float, float sc) const { scale[task] = sc; }
+};
+
+template <int kSlots, bool kWide>
+__global__ void __launch_bounds__(kThreads) compress_q8_kernel(SelectArgs a, CompressOut out) {
+  select_task<kSlots, kWide>(a, blockIdx.x, out);
 }
+
+const SelectKernel<CompressOut> kCompressKernels[4][2] = SELECT_KERNELS(compress_q8_kernel);
 
 __global__ void __launch_bounds__(kThreads)
     quant8_kernel(const float* __restrict__ x, int d, int nb,
@@ -111,7 +109,7 @@ __global__ void __launch_bounds__(kThreads)
   int8_t* q = q_out + static_cast<size_t>(blockIdx.x) * kBlock;
 #pragma unroll
   for (int j = 0; j < kPerThread; ++j)
-    q[j * kThreads + tid] = static_cast<int8_t>(int8_code(v[j], scale));
+    q[j * kThreads + tid] = static_cast<int8_t>(code8(v[j], scale));
   if (tid == 0) scale_out[blockIdx.x] = scale;
 }
 
@@ -119,20 +117,17 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// q int8 (n, d), scale (n, nb) with nb = ceil(d / 8192), new_err (n, d).
+// q int8 (n, d), scale (n, nb) with nb = ceil(d / 8192), new_err (n, d);
+// n_wide, slots, teams and narrow_grid from kernels/teams.compress_plan.
 // Returns the cudaError_t of the launch (0 on success).
-int compress_q8(const void* delta, const void* err, int n, int d, int k,
-                void* q, void* scale, void* new_err, void* stream) {
-  if (n < 1 || d < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int nb = (d + kBlock - 1) / kBlock;
-  const long long grid = static_cast<long long>(n) * nb;
-  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  compress_q8_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(delta), static_cast<const float*>(err), d, nb,
-      k, static_cast<int8_t*>(q), static_cast<float*>(scale),
-      static_cast<float*>(new_err));
-  return static_cast<int>(cudaGetLastError());
+int compress_q8(const void* delta, const void* err, int n, int d, int k, int n_wide, int slots,
+                int teams, int narrow_grid, void* q, void* scale, void* new_err, void* stream) {
+  const SelectArgs a{static_cast<const float*>(delta), static_cast<const float*>(err), n, d, k,
+                     n_wide, teams, 0, 0};
+  const CompressOut out{static_cast<int8_t*>(q), static_cast<float*>(scale),
+                        static_cast<float*>(new_err)};
+  return launch_select(kCompressKernels, a, slots, narrow_grid,
+                       static_cast<cudaStream_t>(stream), out);
 }
 
 // q int8 (n, nb * 8192), zeros past d in each row's last block; scale

@@ -42,13 +42,12 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build, _launch
-from repro_torch.kernels.ref import BLOCK_ELEMS   # kBlock in csrc/fused_agg.cu
+from repro_torch.kernels.ref import BLOCK_ELEMS   # kBlock in csrc/block_select.cuh
+from repro_torch.kernels.teams import (SMALL_SLOTS, SMALL_TEAM, SMALL_WIDTH,  # noqa: F401
+                                       TEAM_THREADS, compress_plan, sm_count,
+                                       team_threads)  # noqa: F401 (re-exported)
 
 LAUNCHES = {"fused_agg": 0, "wire_emit": 0, "wire_agg": 0}
-SMALL_WIDTH = 2048         # kSmallWidth in csrc/block_select.cuh: a small team's widest block
-SMALL_TEAM = 64            # kNarrowTeam in csrc/fused_agg.cu: a small team's threads
-SMALL_SLOTS = (8, 16, 24, 32)   # its kernels' slots a thread, SMALL_TEAM * slots held
-TEAM_THREADS = 256         # kThreads: a block team, and the block of a launch
 SLOT_BYTES = 12            # shared memory per ranked survivor: a 64-bit key, an f32 value
 RANK_PAD = 8               # kRankPad: pad keys after a team's ranked survivors
 SMEM_MAX = TEAM_THREADS // SMALL_TEAM * (SLOT_BYTES * SMALL_WIDTH + 8 * RANK_PAD + 16)
@@ -56,7 +55,6 @@ SUM_THREADS = 128          # kSumThreads: threads of a fog-sum block
 SUM_COLS = (4, 2, 1)       # its instances' columns a thread, widest first
 
 _lib: ctypes.CDLL | None = None
-_n_sm: dict[int, int] = {}  # device index -> SM count
 _wire_ready: set[int] = set()   # devices whose wire_emit kernels are opted in
 
 
@@ -112,7 +110,7 @@ def compress_aggregate_blocks(
     _launch.check(err, "err", torch.float32, (n, d), device)
     _launch.check(fog_id, "fog_id", torch.int32, (n,), device)
     _launch.check(weights, "weights", torch.float32, (n,), device)
-    p = dense_plan(n, d, n_fog, _sm_count(device))
+    p = dense_plan(n, d, n_fog, sm_count(device))
     new_err = torch.empty((n, d), dtype=torch.float32, device=device)
     thr_scale = torch.empty((2, n, nb), dtype=torch.float32, device=device)
     fog_sum = torch.empty((n_fog, d), dtype=torch.float32, device=device)
@@ -166,45 +164,19 @@ def team_region(held: int, cap: int) -> int:
     return 16 * (max(4 * held, SLOT_BYTES * cap + 8 * RANK_PAD) // 16 + 1)
 
 
-def team_threads(width: int) -> int:
-    """Threads of the team that selects a block of ``width`` real columns."""
-    return SMALL_TEAM if width <= SMALL_WIDTH else TEAM_THREADS
-
-
-def _teams(n: int, d: int, n_sm: int) -> tuple[int, int, int, int]:
-    """The selection's teams for N = ``n`` rows of ``d`` on ``n_sm`` SMs,
-    the same for ``wire_emit`` and ``fused_agg``: (blocks of each row run
-    by a block team, a small team's slots a thread, small teams a block,
-    blocks of small teams).  Only a row's last block can be narrower than
-    ``BLOCK_ELEMS``; when it is at most ``SMALL_WIDTH`` wide it goes to a
-    small team, each thread holding the fewest of ``SMALL_SLOTS`` slots
-    that cover the width, and a launch packs as many small teams a block
-    (a power of two up to ``TEAM_THREADS // SMALL_TEAM``) as keep one block
-    per SM or more.  Every other block goes to a block team."""
-    nb = -(-d // BLOCK_ELEMS)
-    tail = d - (nb - 1) * BLOCK_ELEMS
-    if team_threads(tail) != SMALL_TEAM:
-        return nb, 0, 0, 0
-    slots = next(s for s in SMALL_SLOTS if SMALL_TEAM * s >= tail)
-    teams = TEAM_THREADS // SMALL_TEAM
-    while teams > 1 and -(-n // teams) < n_sm:
-        teams //= 2
-    return nb - 1, slots, teams, -(-n // teams)
-
-
 @functools.lru_cache(maxsize=256)
 def wire_plan(n: int, d: int, k: int, n_sm: int) -> WirePlan:
     """Teams and grid of ``wire_emit`` for N = ``n`` rows of ``d`` on
-    ``n_sm`` SMs (:func:`_teams`), one launch per team size.  A team keeps
-    at most min(k, width) ranked survivors in shared memory."""
-    n_wide, slots, teams, narrow_grid = _teams(n, d, n_sm)
-    cap_wide = min(k, BLOCK_ELEMS) if n_wide else 0
-    smem_wide = team_region(BLOCK_ELEMS, cap_wide) if n_wide else 0
-    if not teams:
-        return WirePlan(n_wide, cap_wide, smem_wide, 0, 0, 0, 0, 0)
-    cap_narrow = min(k, d - n_wide * BLOCK_ELEMS)
-    return WirePlan(n_wide, cap_wide, smem_wide, slots, SMALL_TEAM * teams, narrow_grid,
-                    cap_narrow, teams * team_region(SMALL_TEAM * slots, cap_narrow))
+    ``n_sm`` SMs (``teams.compress_plan``), one launch per team size.  A
+    team keeps at most min(k, width) ranked survivors in shared memory."""
+    p = compress_plan(n, d, n_sm)
+    cap_wide = min(k, BLOCK_ELEMS) if p.n_wide else 0
+    smem_wide = team_region(BLOCK_ELEMS, cap_wide) if p.n_wide else 0
+    if not p.narrow_grid:
+        return WirePlan(p.n_wide, cap_wide, smem_wide, 0, 0, 0, 0, 0)
+    cap_narrow = min(k, d - p.n_wide * BLOCK_ELEMS)
+    return WirePlan(p.n_wide, cap_wide, smem_wide, p.slots, SMALL_TEAM * p.teams, p.narrow_grid,
+                    cap_narrow, p.teams * team_region(SMALL_TEAM * p.slots, cap_narrow))
 
 
 class DensePlan(NamedTuple):
@@ -221,24 +193,15 @@ class DensePlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def dense_plan(n: int, d: int, n_fog: int, n_sm: int) -> DensePlan:
-    """Teams of the select launch (:func:`_teams`, ``wire_emit``'s) and the
-    fog sums' tile for N = ``n`` rows of ``d`` into ``n_fog`` fogs on
-    ``n_sm`` SMs: the widest of ``SUM_COLS`` columns a thread whose tiles
-    are no wider than the row and still give one block per SM or more
+    """Teams of the select launch (``teams.compress_plan``, ``wire_emit``'s)
+    and the fog sums' tile for N = ``n`` rows of ``d`` into ``n_fog`` fogs
+    on ``n_sm`` SMs: the widest of ``SUM_COLS`` columns a thread whose
+    tiles are no wider than the row and still give one block per SM or more
     (train-200's 20 fogs of d = 1,352: one, 11 tiles, 220 blocks), else
     one."""
-    n_wide, slots, teams, narrow_grid = _teams(n, d, n_sm)
     cols = next((c for c in SUM_COLS if SUM_THREADS * c <= max(d, SUM_THREADS)
                  and n_fog * -(-d // (SUM_THREADS * c)) >= n_sm), 1)
-    return DensePlan(n_wide, slots or SMALL_SLOTS[0], max(teams, 1), narrow_grid, cols)
-
-
-def _sm_count(device: torch.device) -> int:
-    n_sm = _n_sm.get(device.index)
-    if n_sm is None:
-        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-        _n_sm[device.index] = n_sm
-    return n_sm
+    return DensePlan(*compress_plan(n, d, n_sm), cols)
 
 
 def _opt_in_wire(device: torch.device) -> None:
@@ -286,7 +249,7 @@ def compress_wire_blocks(
     _launch.check(err, "err", torch.float32, (n, d), device)
     idx, q, scale, new_err = _wire_outputs(n, nb, k, d, quantize, device, out)
     _opt_in_wire(device)
-    p = wire_plan(n, d, int(k), _sm_count(device))
+    p = wire_plan(n, d, int(k), sm_count(device))
     if n * p.n_wide > 0x7FFFFFFF:
         raise ValueError(f"N={n} rows of d={d} need {n * p.n_wide} blocks, more than a grid holds")
     lib = _library()

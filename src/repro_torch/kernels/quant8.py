@@ -3,12 +3,13 @@
 
 :func:`compress_blocks` (``compress_q8``, one launch) takes CUDA tensors
 only: the (N, d) client updates and error-feedback buffers.  Per client
-and 8192-element block it selects the survivors by the bisection shared
-with ``fused_agg`` and quantises them to int8, returning q int8 (N, d),
-the block scales (N, nb) and new_err (N, d).  :func:`quant8_blocks`
-(``quant8``, one launch) quantises (N, d) rows per block: q int8 (N, nb *
-8192) in the blocked layout (zeros past d) and scales (N, nb).  Each
-wrapper checks its inputs, allocates the outputs with ``torch.empty``,
+and 8192-element block a team sized to the block's real width
+(``teams.compress_plan``, ``fused_agg``'s layout) selects the survivors by
+the bisection shared with ``fused_agg`` and quantises them to int8,
+returning q int8 (N, d), the block scales (N, nb) and new_err (N, d).
+:func:`quant8_blocks` (``quant8``, one launch) quantises (N, d) rows per
+block: q int8 (N, nb * 8192) in the blocked layout (zeros past d) and
+scales (N, nb).  Each wrapper checks its inputs, allocates the outputs with ``torch.empty``,
 launches on the current stream and adds one to its ``LAUNCHES`` entry.
 The CPU route is ``kernels/ops``', which sends CPU tensors to
 ``kernels/ref.compress_ref`` and ``kernels/ref.quant8_ref``, the plain
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.kernels import _build, _launch
 from repro_torch.kernels.ref import BLOCK_ELEMS   # kBlock in csrc/block_select.cuh
+from repro_torch.kernels.teams import compress_plan, sm_count
 
 LAUNCHES = {"compress_q8": 0, "quant8": 0}
 
@@ -38,7 +40,7 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("quant8")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.compress_q8.argtypes = [vp, vp, i, i, i, vp, vp, vp, vp]
+        lib.compress_q8.argtypes = [vp, vp, i, i, i, i, i, i, i, vp, vp, vp, vp]
         lib.compress_q8.restype = i
         lib.quant8.argtypes = [vp, i, i, vp, vp, vp]
         lib.quant8.restype = i
@@ -60,13 +62,15 @@ def compress_blocks(
         raise ValueError(f"needs 1 <= k <= {BLOCK_ELEMS}, got k={k}")
     _launch.check(deltas, "deltas", torch.float32, (n, d), device)
     _launch.check(err, "err", torch.float32, (n, d), device)
+    p = compress_plan(n, d, sm_count(device))
     q = torch.empty((n, d), dtype=torch.int8, device=device)
     scale = torch.empty((n, nb), dtype=torch.float32, device=device)
     new_err = torch.empty((n, d), dtype=torch.float32, device=device)
     lib = _library()
     with torch.cuda.device(device):
-        rc = lib.compress_q8(deltas.data_ptr(), err.data_ptr(), n, d, int(k), q.data_ptr(),
-                             scale.data_ptr(), new_err.data_ptr(), _launch.stream(device))
+        rc = lib.compress_q8(deltas.data_ptr(), err.data_ptr(), n, d, int(k), p.n_wide, p.slots,
+                             p.teams, p.narrow_grid, q.data_ptr(), scale.data_ptr(),
+                             new_err.data_ptr(), _launch.stream(device))
         _launch.raise_on(rc, "compress_q8 launch", lib.quant8_error_string)
         LAUNCHES["compress_q8"] += 1
     return q, scale, new_err

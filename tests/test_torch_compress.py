@@ -306,6 +306,7 @@ def _identity_cases():
         "ties at the max": (np.where(np.arange(1352) % 2 == 0, 5.0, -5.0)[None].astype(np.float32), 68),
         "k above the width": (rng.standard_normal((2, 17)).astype(np.float32), 68),
         "k = 8192": (rng.standard_normal((2, 8209 - 8192)).astype(np.float32), 8192),
+        "k among the padding's zeros": (rng.standard_normal((2, 17)).astype(np.float32), 8000),
         "k = 1": (gauss, 1),
         "a full block": (rng.standard_normal((2, 8192)).astype(np.float32), 410),
     }
@@ -323,6 +324,49 @@ def test_padding_count_identity(case):
     want = tref.bisect_threshold(padded, k)
     got = _bisect_counting_real(real, BLOCK - width, k)
     assert torch.equal(got, want)
+
+
+def _bisect_team(real_abs, k):
+    """team_threshold, step for step: kFullSteps (8) steps counting the
+    held slots (the real values, zeros up to the team's held width) plus
+    the unheld padding's n * [mid < 0]; then only the nonzero candidates,
+    0 < |v| <= hi and |v| > lo, beside the count above hi, and a mid below
+    0 counted as the whole block."""
+    from repro_torch.kernels import teams
+
+    width = real_abs.shape[-1]
+    slots = next((s for s in teams.SMALL_SLOTS if teams.SMALL_TEAM * s >= width), None)
+    held = teams.SMALL_TEAM * slots if teams.team_threads(width) == teams.SMALL_TEAM else BLOCK
+    out = []
+    for row in real_abs:
+        a = torch.nn.functional.pad(row, (0, held - width))
+        lo, hi = torch.tensor(-1.0), torch.amax(a)
+        for _ in range(8):
+            mid = 0.5 * (lo + hi)
+            cnt = int((a > mid).sum()) + (BLOCK - held) * bool(mid < 0)
+            lo, hi = (mid, hi) if cnt > k else (lo, mid)
+        cand = a[(a > torch.clamp(lo, min=0.0)) & ~(a > hi)]
+        above = int((a > hi).sum())
+        for _ in range(8, tref.BISECT_ITERS):
+            mid = 0.5 * (lo + hi)
+            cnt = BLOCK if mid < 0 else above + int((cand > mid).sum())
+            lo, hi = (mid, hi) if cnt > k else (lo, mid)
+        out.append(hi.reshape(1))
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("case", list(_identity_cases()))
+def test_team_candidate_list_identity(case):
+    """team_threshold's last steps, which count a mid below 0 as the whole
+    padded block and otherwise read only the nonzero candidates, give
+    ref.bisect_threshold's threshold bit for bit, with k at and above the
+    width (lo and hi close in on 0, where every held zero would be a
+    candidate), k among the padding's zeros, k = 8,192 (hi < 0), all-zero
+    rows and ties."""
+    x, k = _identity_cases()[case]
+    real = torch.from_numpy(np.abs(x))
+    padded = torch.nn.functional.pad(real, (0, BLOCK - real.shape[-1]))
+    assert torch.equal(_bisect_team(real, k), tref.bisect_threshold(padded, k))
 
 
 def _pack_order(v, hi, k):
@@ -414,6 +458,68 @@ def test_dense_plan_at_the_main_paths_shapes(n, d, n_fog, want):
     assert 8192 % tile == 0 and (tile <= d or p.cols == 1)
     if n_fog * -(-d // fa.SUM_THREADS) >= 132:
         assert n_fog * -(-d // tile) >= 132
+
+
+@pytest.mark.parametrize(
+    "n,d,want",
+    [(200, 1352, (0, 24, 1, 200)),        # train-200 and legacy-200: a two-warp team a block
+     (512, 1352, (0, 24, 2, 256)),        # fleet-10k's chunk
+     (2000, 1352, (0, 24, 4, 500)),
+     (200, 8209, (1, 8, 1, 200)),         # a block team and a 17-wide small team per row
+     (3, 65536, (8, 8, 1, 0)),            # full blocks only
+     (4, 8191, (1, 8, 1, 0))],            # a last block too wide for a small team
+)
+def test_compress_plan_is_the_wire_and_dense_teams(n, d, want):
+    """compress_q8's and topk_ef's teams on an H100 SXM's 132 SMs: (block
+    teams per row, a small team's slots, small teams a block, blocks of
+    small teams), the teams of wire_emit's and fused_agg's select launches."""
+    from repro_torch.kernels import fused_agg as fa
+    from repro_torch.kernels import teams
+
+    p = teams.compress_plan(n, d, 132)
+    assert tuple(p) == want
+    w = fa.wire_plan(n, d, 68, 132)
+    assert (p.n_wide, p.narrow_grid) == (w.n_wide, w.narrow_grid)
+    if p.narrow_grid:
+        assert (p.slots, p.teams * teams.SMALL_TEAM) == (w.slots, w.threads)
+    assert tuple(fa.dense_plan(n, d, 20, 132))[:4] == tuple(p)
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("quantize", [True, False], ids=["int8", "f32"])
+@pytest.mark.parametrize("case", list(_identity_cases()))
+def test_per_client_plain_versions_are_the_dense_select(case, quantize):
+    """compress_ref and blockwise_topk_ef_ref are the dense select's
+    outputs (compress_aggregate_ref, _dense_recon) with only the int8
+    scale's rule changed: max|sparse| / 127, so 0 where nothing survives
+    (scale = where(amax > thr, amax * f32(1/127), 0)).  What lets
+    compress_q8 and topk_ef write what fused_agg's select team writes,
+    given that scale."""
+    x, k = _identity_cases()[case]
+    rng = np.random.default_rng(11)
+    delta = torch.from_numpy(x)
+    err = torch.from_numpy((0.1 * rng.standard_normal(x.shape)).astype(np.float32))
+    if not x.any():
+        err = torch.zeros_like(err)
+    n, d = delta.shape
+    _, dense_err, thr = tref.compress_aggregate_ref(
+        delta, err, torch.zeros(n, dtype=torch.int32), torch.ones(n), 1, k, quantize)
+    _, recon, _ = tref._dense_recon(delta, err, k, quantize)
+    recon = tref.unpad_rows(recon, d)
+    if quantize:
+        q, scale, new_err = tref.compress_ref(delta, err, k)
+        amax = tref.pad_blocks(delta + err).abs().amax(-1)
+        want_scale = torch.where(amax > thr, amax * np.float32(1 / 127), 0.0)
+        assert torch.equal(_bits(scale), _bits(want_scale))
+        per_col = scale.repeat_interleave(BLOCK, dim=1)[:, :d]
+        assert torch.equal(q.to(torch.float32) * per_col, recon)
+    else:
+        sparse, new_err = tref.blockwise_topk_ef_ref(delta, err, k)
+        assert torch.equal(_bits(sparse), _bits(recon))
+    assert torch.equal(_bits(new_err), _bits(dense_err))
 
 
 @pytest.mark.parametrize("width,threads", [(1, 64), (1352, 64), (2048, 64), (2049, 256),

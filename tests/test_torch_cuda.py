@@ -737,13 +737,60 @@ def test_wire_emit_edges(cuda, d, k, quantize):
 
 
 def test_wire_emit_new_err_equals_compress_q8(cuda):
-    """The two selections (team_threshold and block_threshold) on the same
-    rows: wire_emit's new_err equals compress_q8's bit for bit."""
+    """Two kernels on the one selection (team_threshold), each with its own
+    launch and writes: wire_emit's new_err equals compress_q8's bit for
+    bit on the same rows."""
     for d in (1352, 8209):
         deltas, err = _wire_rows(200, d, 68, cuda, seed=d + 1)
         _, _, _, wire_err = fa.compress_wire_blocks(deltas, err, 68)
         _, _, q8_err = q8.compress_blocks(deltas, err, 68)
         assert torch.equal(wire_err, q8_err)
+
+
+def _assert_compressor_equal(deltas, err, k, kernel):
+    """The kernel's outputs bitwise its plain version's (floats compared by
+    their bits)."""
+    if kernel == "compress_q8":
+        got, want = q8.compress_blocks(deltas, err, k), ref.compress_ref(deltas, err, k)
+    else:
+        got, want = tk.topk_ef_blocks(deltas, err, k), ref.blockwise_topk_ef_ref(deltas, err, k)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("kernel", ["compress_q8", "topk_ef"])
+@pytest.mark.parametrize("d", [1, 31, 33, 1352, 2048, 2049, 8191, 8192, 8209, 65536])
+def test_compressor_kernels_bitwise_over_widths(cuda, d, kernel):
+    """Small teams (widths up to 2,048, every slot count), block teams and
+    both in one launch (8,209 = a full block and a 17-wide one), N = 7
+    with a zero row and a tied row, k = 68."""
+    deltas, err = _wire_rows(7, d, 68, cuda, seed=d)
+    _assert_compressor_equal(deltas, err, 68, kernel)
+
+
+@pytest.mark.parametrize("kernel", ["compress_q8", "topk_ef"])
+@pytest.mark.parametrize("d,k", [(8209, 1), (1352, 1), (31, 68), (1352, 1352), (1352, 2048),
+                                 (2049, 4096), (8209, 8000), (8209, 8192), (1, 8192),
+                                 (1352, 68)])
+def test_compressor_kernels_edges(cuda, d, k, kernel):
+    """k = 1; k at and above a block's real width; k = 8,000 on a 17-wide
+    block, where the count at mid < 0 hangs on every zero of the padding;
+    k = 8,192, where every position survives; an all-zero row (no codes, scale 0); a row tying
+    more than k entries at each block max, where nothing survives
+    (compress_q8: scale 0 and no codes; fused_agg keeps the max's scale)."""
+    deltas, err = _wire_rows(5, d, k, cuda, seed=d + k)
+    got = _assert_compressor_equal(deltas, err, k, kernel)
+    if kernel != "compress_q8":
+        return
+    q, scale, _ = got
+    assert not q[1].any() and not scale[1].any()
+    for b, lo in enumerate(range(0, d, 8192)):
+        if min(d - lo, 8192, k + 3) > k:
+            assert float(scale[2, b]) == 0.0 and not q[2, lo:lo + 8192].any()
 
 
 def test_ops_route_robust_and_wire_tensors_to_the_kernels(cuda):
