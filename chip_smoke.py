@@ -129,7 +129,18 @@ exits non-zero before the result line:
              2^30; the same check and profile as phase 15's), the card
              against the CPU in f32 (2 layers, batch 2, 32
              steps), and gemma2-27b REDUCED against the CPU (soft-capped
-             layers: no ``swa_decode`` launch).
+             layers: no ``swa_decode`` launch);
+17. flat-200 — the paper's flat baselines at train-200's settings on
+             phase 8's draws: fedavg, fedprox, fedadam (``local_train_f32``
+             and ``fused_agg`` once a round each, ``n_fog = 1``), scaffold
+             (the client scan in plain PyTorch: no kernel), fedavg under
+             robust-200's attack (trimmed 0.45: ``robust_agg`` with one
+             fog) and the centralised oracle cut to T = 1, E = 1 (1,600
+             plain SGD steps over the pooled rows), each on the card with
+             every training kernel's launches counted and against a CPU
+             twin (participation and erasures exactly, energies to
+             rtol=1e-5, loss within 1%, F1 within 0.02); ms per round and
+             idle share of fedavg; its mean participation beside phase 8's.
 
 Phase 6 also times ``fused_agg`` at robust-200's identity call (N =
 n_fog = 200), at one of its 64-client chunks and at fleet-10k's unchunked
@@ -143,7 +154,8 @@ longer member scan), ``compress_q8`` and ``topk_ef`` at train-200's
 shape and at N = 200, d = 8,209 (a block team and a small team a row),
 ``compress_q8`` again at fleet-10k's chunk (the rows ``wire_emit``
 selects there) and at k = 1,352 (legacy-200's quantise-only trial), and
-``quant8`` on a 2^20-coordinate vector; phase 7 holds the robust and wire
+``quant8`` on a 2^20-coordinate vector, at the codec's shape (N = 200, d
+= 1,352) and at N = 200, d = 8,209; phase 7 holds the robust and wire
 kernels against their plain versions over a grid and at fleet-10k's shapes (``fused_agg`` at N =
 10,000 into 1,000 fogs, its fog sums bitwise equal to the client-order
 fold ``ref.dense_fold_ref`` there and over phase 7's grid, with its
@@ -165,7 +177,8 @@ wire kernels those of phase 10's chunked trial, for ``compress_q8`` and
 ``topk_ef`` those of phase 12's first and second trials and for
 ``quant8`` those of phase 12's codec run and for ``swa_decode`` those of
 phase 15's hybrid-serve run (each zeroed just before its run, read just
-after; phases 15–16 check the other runs' counts too).  The last line is
+after; phases 15–16 check the other runs' counts too, and phase 17 every
+training kernel's count in each flat trial).  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and power limit, and the
 one before that the ``kernels`` JSON.
 """
@@ -878,7 +891,9 @@ def time_compress_kernels(dev, kq8, tk, kops, kref, comp, ae, name, smi) -> dict
     chunk (N = 512, the same rows ``wire_emit`` selects) and at
     legacy-200's quantise-only trial (rho_s 1: k = 1,352), both at N = 200,
     d = 8,209 (rho_s 0.05: k = 393; a block team and a 17-wide small team
-    per row), ``quant8`` on one 2^20-coordinate vector."""
+    per row), ``quant8`` on one 2^20-coordinate vector, on train-200's
+    updates (N = 200, d = 1,352: the codec's shape) and at N = 200, d =
+    8,209."""
     g = torch.Generator(device=dev).manual_seed(12)
     d = ae.param_count(D, HIDDEN)
     deltas = torch.randn((TRAIN_N, d), generator=g, device=dev)
@@ -941,6 +956,20 @@ def time_compress_kernels(dev, kq8, tk, kops, kref, comp, ae, name, smi) -> dict
             quant8_work(1, QUANT8_D),
             (200, 20, 50, 5),
             f"N=1 d={QUANT8_D}",
+        ),
+        "quant8 @ N=200 d=1,352": (
+            lambda: kq8.quant8_blocks(deltas),
+            lambda: kref.quant8_ref(deltas),
+            quant8_work(TRAIN_N, d),
+            (200, 20, 50, 5),
+            f"N={TRAIN_N} d={d}, the codec's shape",
+        ),
+        "quant8 @ N=200 d=8,209": (
+            lambda: kq8.quant8_blocks(wd),
+            lambda: kref.quant8_ref(wd),
+            quant8_work(TRAIN_N, COMP_WIDE_D),
+            (200, 20, 50, 5),
+            f"N={TRAIN_N} d={COMP_WIDE_D}, a full block and a 17-wide one a row",
         ),
     }
     return time_cases(cases, name, smi)
@@ -1796,6 +1825,116 @@ def drift_fleet(exp, hfl, ae, topo, ch, DriftConfig, ds, lt, fa, dev, name, smi)
     return dict(cells=out, participation_ordered=ordered)
 
 
+# --- phase 17: flat-200, the paper's flat baselines ------------------------
+
+CENTRAL_ROUNDS, CENTRAL_EPOCHS = 1, 1   # centralised cut: T * E = 1 epoch of 1,600 steps
+
+
+def kernel_counters(lt, fa, ra, kq8, tk) -> dict:
+    """Every kernel of a training path: name -> (its LAUNCHES dict, reset)."""
+    return {"local_train_f32": (lt.LAUNCHES, lt.reset_launches),
+            "fused_agg": (fa.LAUNCHES, fa.reset_launches),
+            "wire_emit": (fa.LAUNCHES, fa.reset_launches),
+            "wire_agg": (fa.LAUNCHES, fa.reset_launches),
+            "robust_agg": (ra.LAUNCHES, ra.reset_launches),
+            "compress_q8": (kq8.LAUNCHES, kq8.reset_launches),
+            "topk_ef": (tk.LAUNCHES, tk.reset_launches)}
+
+
+def flat_fleet(exp, flat_fl, ae, FaultConfig, ds, counters, training, dev, name, smi) -> dict:
+    """Phase 17: flat-200, the flat baselines at train-200's settings on
+    phase 8's draws, each trial on the card with every kernel's launches
+    counted (zeroed just before it, read just after) and held to a CPU
+    twin on identical draws (participation and erasures exactly,
+    energies to rtol=1e-5, loss within 1%, F1 within 0.02): fedavg,
+    fedprox, fedadam, scaffold, fedavg under robust-200's attack (trimmed
+    0.45) and the centralised oracle cut to T = 1, E = 1; then ms per
+    round and the idle share of fedavg's ``train_flat``."""
+    base = exp.make_config(TRAIN_N, TRAIN_FOG, ROUNDS)
+    robust = base.replace(faults=FaultConfig(**ROBUST_FAULTS), robust="trimmed",
+                          trim_frac=ROBUST_TRIM)
+    central = base.replace(rounds=CENTRAL_ROUNDS, local_epochs=CENTRAL_EPOCHS)
+    kernels = {"local_train_f32": ROUNDS, "fused_agg": 2 * ROUNDS}
+    trials = {   # label -> (method, config, the launches it must make)
+        "fedavg": ("fedavg", base, kernels),
+        "fedprox": ("fedprox", base, kernels),
+        "fedadam": ("fedadam", base, kernels),
+        "scaffold": ("scaffold", base, {}),
+        "fedavg robust": ("fedavg", robust, {**kernels, "robust_agg": ROUNDS}),
+        "centralised": ("centralised", central, {}),
+    }
+    out = {}
+    for label, (method, cfg, want) in trials.items():
+        inputs = exp.draw_trial(torch.Generator().manual_seed(0), ds, cfg, method=method)
+        for _, reset in counters.values():
+            reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gpu = exp.trial_metrics(method, None, ds, cfg, inputs=inputs)
+        torch.cuda.synchronize()
+        trial_s = time.perf_counter() - t0
+        launches = {k: launches_of[k] for k, (launches_of, _) in counters.items()}
+        check(launches == {k: want.get(k, 0) for k in counters},
+              f"flat-200 {label} launches {launches}, expected {want}")
+        check(gpu["losses"].device.type == "cuda", f"flat-200 {label} did not run on the card")
+        check(all(bool(torch.isfinite(v).all()) for v in gpu.values()),
+              f"non-finite flat-200 {label} metrics")
+        t1 = time.perf_counter()
+        cpu = exp.trial_metrics(method, None, ds, cfg, inputs=inputs, device="cpu")
+        cpu_s = time.perf_counter() - t1
+        rounds = 1 if method == "centralised" else cfg.rounds
+        loss_rel = agree_with_cpu(f"flat-200 {label}", gpu, cpu, rounds)
+        check(float(gpu["erased_total"]) == float(cpu["erased_total"]),
+              f"flat-200 {label}: erasures {float(gpu['erased_total'])} vs CPU "
+              f"{float(cpu['erased_total'])}")
+        out[label] = dict(
+            method=method, launches=launches, trial_s=trial_s, cpu_trial_s=cpu_s,
+            f1=float(gpu["f1"]), cpu_f1=float(cpu["f1"]),
+            participation=float(gpu["participation"]), e_total=float(gpu["e_total"]),
+            erased_total=float(gpu["erased_total"]), loss_first=float(gpu["losses"][0]),
+            loss_last=float(gpu["losses"][-1]), loss_rel_vs_cpu=loss_rel,
+            rounds=cfg.rounds, local_epochs=cfg.local_epochs)
+        print(f"  {label:14s} T={cfg.rounds} E={cfg.local_epochs}: trial {trial_s:.3f} s (CPU "
+              f"twin {cpu_s:.3f} s); F1 {out[label]['f1']:.4f} (CPU "
+              f"{out[label]['cpu_f1']:.4f}), "
+              f"participation {out[label]['participation']:.4f}, energy "
+              f"{out[label]['e_total']:.4f} J, erasures {out[label]['erased_total']:.0f}, loss "
+              f"{out[label]['loss_first']:.4f} -> {out[label]['loss_last']:.4f} (max rel vs CPU "
+              f"{loss_rel:.2e}); launches {launches}  on {name} ({smi})")
+
+    # ms per round and the idle share of fedavg's rounds on the card.
+    inputs = exp.draw_trial(torch.Generator().manual_seed(0), ds, base)
+    ds_dev = type(ds)(*(t.to(dev) for t in ds))
+    dep, draws = inputs.dep.to(dev), inputs.draws.to(dev)
+    params = [{k: v.to(dev) for k, v in layer.items()} for layer in inputs.params]
+
+    def train_on_card():
+        return flat_fl.train_flat(params, ae.loss, ds_dev, base, dep, draws)
+
+    round_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_on_card()
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t0) * 1e3 / ROUNDS)
+    train_ms, train_ops = device_ms(train_on_card, 1)
+    timing = dict(round_ms=round_ms, device_ms_per_round=train_ms / ROUNDS,
+                  device_ops_per_round=train_ops / ROUNDS,
+                  idle_share=max(0.0, 1.0 - train_ms / ROUNDS / min(round_ms)))
+    print(f"  fedavg train_flat {', '.join(f'{v:.3f}' for v in round_ms)} ms per round, device "
+          f"{timing['device_ms_per_round']:.3f} ms in {timing['device_ops_per_round']:.0f} ops "
+          f"per round, idle share {timing['idle_share']:.3f}  on {name} ({smi})")
+    print(f"    mean participation: fedavg {out['fedavg']['participation']:.4f} (direct links "
+          f"to the gateway) vs phase 8's hfl-selective {training['participation']:.4f}; F1 "
+          f"fedavg {out['fedavg']['f1']:.4f} vs hfl-selective {training['f1']:.4f}; "
+          f"centralised cut to T={CENTRAL_ROUNDS}, E={CENTRAL_EPOCHS}")
+    return dict(trials=out, fedavg_timing=timing,
+                hfl_selective_participation=training["participation"],
+                cut=dict(centralised_rounds=CENTRAL_ROUNDS,
+                         centralised_local_epochs=CENTRAL_EPOCHS))
+
+
 # --- phases 14-16: LM decode serving and the swa_decode kernel -------------
 
 SWA_KERNEL = ("src/repro/kernels/swa_attention.py:28", "src/repro_torch/kernels/csrc/swa_decode.cu")
@@ -2408,6 +2547,11 @@ def main(argv: list[str]) -> int:
 
     phase("16. dense-decode (main path): llama3-8b at full width, 2 layers")
     dense = dense_phase(lm_configs, lm_api, lm_layers, lm_launch, swa, kref, dev, name, smi)
+
+    phase("17. flat-200 (main path): FedAvg, FedProx, FedAdam, SCAFFOLD, centralised")
+    from repro_torch.core import flat_fl   # here, so --timing runs in checkouts without it
+    flat = flat_fleet(exp, flat_fl, ae, FaultConfig, train_ds,
+                      kernel_counters(lt, fa, ra, kq8, tk), training, dev, name, smi)
     phase("done")
 
     kernels = []
@@ -2484,6 +2628,7 @@ def main(argv: list[str]) -> int:
                              "dense-decode": dense["dense-decode"]["launches"]},
     })
     print(json.dumps({"lm": {"swa_check": swa_err, "hybrid": hybrid, "dense": dense}}))
+    print(json.dumps({"flat": flat}))
     print("phase seconds: " + ", ".join(f"{k.split('.')[0]} {v:.1f}" for k, v in PHASE_S.items()
                                         if k != "done"))
     print(json.dumps({"kernels": kernels}))

@@ -152,12 +152,14 @@ def compress_and_aggregate(
     weights: torch.Tensor,
     n_fog: int,
     cfg: comp.CompressorConfig,
+    chunk: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Eq. 30 (EF compression) and Eq. 13 (weighted fog aggregation) as
     one operator: (fog_update (n_fog, d) — the cluster means, zero for
-    empty clusters — fog_weight (n_fog,), new_err (N, d))."""
+    empty clusters — fog_weight (n_fog,), new_err (N, d)).  ``chunk`` as
+    in :func:`compress_and_accumulate`."""
     fog_sum, fog_weight, new_err = compress_and_accumulate(
-        deltas, err, fog_id, weights, n_fog, cfg
+        deltas, err, fog_id, weights, n_fog, cfg, chunk=chunk
     )
     return fog_sum / torch.clamp_min(fog_weight, 1e-12)[:, None], fog_weight, new_err
 

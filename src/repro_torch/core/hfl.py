@@ -293,14 +293,7 @@ def make_round_fn(
             erased = torch.zeros_like(active)
         delivered = active & ~erased
         weights = ds.n_samples * delivered.to(torch.float32)
-        train = ds.train
-        if drift_on:
-            # Covariate shift, 1 + shift * t in f32 as the reference computes
-            # it; a factor of exactly 1 leaves the windows as they are.
-            scale = np.float32(1.0) + np.float32(dr.covariate_shift) * np.float32(state.t)
-            if scale != 1.0:
-                train = train * float(scale)
-        deltas, losses = clients_fn(state.params, train, batches)
+        deltas, losses = clients_fn(state.params, train_windows(ds, cfg, state.t), batches)
         if fault_on:
             deltas = flt.corrupt_deltas(deltas, fl, prev_delta=state.prev_delta, noise=byz_noise)
         n_nonfinite = torch.sum(delivered & flt.nonfinite_rows(deltas))
@@ -368,6 +361,36 @@ def make_round_fn(
     return round_fn
 
 
+def train_windows(ds: SensorDataset, cfg: HFLConfig, t: int) -> torch.Tensor:
+    """Round ``t``'s client windows: with the drift layer on, scaled by the
+    covariate shift ``1 + covariate_shift * t`` in f32 as the reference
+    computes it (a factor of exactly 1 leaves them as they are)."""
+    if not cfg.drift.is_active:
+        return ds.train
+    scale = np.float32(1.0) + np.float32(cfg.drift.covariate_shift) * np.float32(t)
+    return ds.train if scale == 1.0 else ds.train * float(scale)
+
+
+def start(init_params: Params, ds: SensorDataset, cfg: HFLConfig, dep: topo.Deployment,
+          draws: RoundDraws) -> tuple[HFLState, RoundDraws]:
+    """Check ``draws`` against ``cfg`` and move a trial onto ``ds``'s
+    device: (the initial state, the draws there)."""
+    if not 1 <= cfg.rounds <= draws.mobility.shape[0]:
+        raise ValueError(f"draws cover {draws.mobility.shape[0]} rounds, cfg.rounds={cfg.rounds}")
+    if cfg.faults.is_active and (draws.crash is None or draws.erase is None or (
+            cfg.faults.byz_mode == "gauss" and draws.byz_noise is None)):
+        raise ValueError("the fault layer is on but the draws lack its uniforms or noise "
+                         "(draw them with draw_rounds(..., d=...) under the same config)")
+    dev = ds.train.device
+    params = [{k: v.to(dev) for k, v in layer.items()} for layer in init_params]
+    return init_state(params, dep.to(dev), cfg), draws.to(dev)
+
+
+def stack_metrics(per_round: list[RoundMetrics]) -> RoundMetrics:
+    """Per-round metrics stacked over the rounds."""
+    return RoundMetrics(*(torch.stack(v) for v in zip(*per_round)))
+
+
 def train(
     init_params: Params,
     loss_fn: LossFn,
@@ -390,16 +413,7 @@ def train(
     ``publish_offset``; the final round always publishes), which is what
     the serving hot-swap watches.
     """
-    dev = ds.train.device
-    if not 1 <= cfg.rounds <= draws.mobility.shape[0]:
-        raise ValueError(f"draws cover {draws.mobility.shape[0]} rounds, cfg.rounds={cfg.rounds}")
-    if cfg.faults.is_active and (draws.crash is None or draws.erase is None or (
-            cfg.faults.byz_mode == "gauss" and draws.byz_noise is None)):
-        raise ValueError("the fault layer is on but the draws lack its uniforms or noise "
-                         "(draw them with draw_rounds(..., d=...) under the same config)")
-    draws = draws.to(dev)
-    state = init_state([{k: v.to(dev) for k, v in layer.items()} for layer in init_params],
-                       dep.to(dev), cfg)
+    state, draws = start(init_params, ds, cfg, dep, draws)
     round_fn = make_round_fn(loss_fn, ds, cfg, client_mesh=client_mesh)
     per_round = []
     for t in range(cfg.rounds):
@@ -407,5 +421,4 @@ def train(
         per_round.append(m)
         if store is not None and ((t + 1) % publish_every == 0 or t + 1 == cfg.rounds):
             store.publish(publish_offset + t + 1, state.params)
-    metrics = RoundMetrics(*(torch.stack(v) for v in zip(*per_round)))
-    return state.params, metrics
+    return state.params, stack_metrics(per_round)

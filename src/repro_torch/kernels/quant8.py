@@ -8,9 +8,10 @@ and 8192-element block a team sized to the block's real width
 the bisection shared with ``fused_agg`` and quantises them to int8,
 returning q int8 (N, d), the block scales (N, nb) and new_err (N, d).
 :func:`quant8_blocks` (``quant8``, one launch) quantises (N, d) rows per
-block: q int8 (N, nb * 8192) in the blocked layout (zeros past d) and
-scales (N, nb).  Each wrapper checks its inputs, allocates the outputs with ``torch.empty``,
-launches on the current stream and adds one to its ``LAUNCHES`` entry.
+block, one CTA of 512 threads a block: q int8 (N, nb * 8192) in the
+blocked layout (zeros past d) and scales (N, nb).  Each wrapper checks its
+inputs, allocates the outputs with ``torch.empty``, launches on the
+current stream and adds one to its ``LAUNCHES`` entry.
 The CPU route is ``kernels/ops``', which sends CPU tensors to
 ``kernels/ref.compress_ref`` and ``kernels/ref.quant8_ref``, the plain
 versions of the same functions (they return the same tensors).

@@ -357,14 +357,19 @@ def wire_aggregate_ref(
 ) -> torch.Tensor:
     """Weighted scatter-add off the wire: each slot adds
     ``q * scale * w`` at its coordinate of its client's fog row.  Returns
-    fog_sum (n_fog, d) f32, unnormalised."""
+    fog_sum (n_fog, d) f32, unnormalised.  A client whose id lies outside
+    [0, n_fog) is dropped (the reference's oracle wraps a negative id to
+    a fog from the end instead; the port keeps the rule of its dense path
+    and of ``jax.ops.segment_sum``)."""
     n, nb, k = idx.shape
     contrib = q.to(torch.float32) * scale[..., None] * weights.to(torch.float32)[:, None, None]
-    row = fog_id.long()[:, None, None] * nb + torch.arange(nb, device=idx.device)[None, :, None]
+    fog = _fog_or_spill(fog_id, n_fog)
+    row = fog[:, None, None] * nb + torch.arange(nb, device=idx.device)[None, :, None]
     flat = row * BLOCK_ELEMS + idx.long()
-    fog_sum = torch.zeros((n_fog * nb * BLOCK_ELEMS,), dtype=torch.float32, device=idx.device)
+    fog_sum = torch.zeros(((n_fog + 1) * nb * BLOCK_ELEMS,), dtype=torch.float32,
+                          device=idx.device)
     fog_sum.index_add_(0, flat.reshape(-1), contrib.reshape(-1))
-    return fog_sum.reshape(n_fog, -1)[:, :d]
+    return fog_sum.reshape(n_fog + 1, -1)[:n_fog, :d]
 
 
 def wire_fold_ref(
@@ -415,10 +420,20 @@ def compress_aggregate_wire_ref(
     return wire_aggregate_ref(idx, q, scale, fog_id, weights, n_fog, delta.shape[1]), new_err
 
 
+def _fog_or_spill(fog_id: torch.Tensor, n_fog: int) -> torch.Tensor:
+    """Each client's fog id as int64, with every id outside [0, n_fog)
+    sent to row ``n_fog`` (-1 and ids above it go there; -1 by the
+    remainder): a spill row the callers add into and discard, so such a
+    client is dropped (``jax.ops.segment_sum``'s rule), never added into a
+    fog.  Two device ops, on the round's path on the card too."""
+    return torch.remainder(torch.clamp(fog_id.long(), -1, n_fog), n_fog + 1)
+
+
 def segment_sum(x: torch.Tensor, fog_id: torch.Tensor, n_fog: int) -> torch.Tensor:
-    """Sum of the rows of x (N, ...) per fog: (n_fog, ...), in O(N)."""
-    out = torch.zeros((n_fog,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
-    return out.index_add_(0, fog_id.long(), x)
+    """Sum of the rows of x (N, ...) per fog: (n_fog, ...), in O(N); rows
+    whose id lies outside [0, n_fog) are dropped."""
+    out = torch.zeros((n_fog + 1,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    return out.index_add_(0, _fog_or_spill(fog_id, n_fog), x)[:n_fog]
 
 
 ROBUST_PAIR_BUDGET = 1 << 24   # (members x members x columns) elements per chunk

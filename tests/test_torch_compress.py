@@ -528,3 +528,96 @@ def test_wire_team_size_by_width(width, threads):
     from repro_torch.kernels import fused_agg as fa
 
     assert fa.team_threads(width) == threads
+
+
+def _wire_case(d, seed, bad):
+    rng = np.random.default_rng(seed)
+    deltas = rng.standard_normal((6, d)).astype(np.float32)
+    err = (0.1 * rng.standard_normal((6, d))).astype(np.float32)
+    fog_id = np.array([0, 1, 2, bad, 0, 1], np.int32)
+    weights = np.array([48.0, 32.0, 16.0, 64.0, 48.0, 8.0], np.float32)
+    return deltas, err, fog_id, weights
+
+
+@pytest.mark.parametrize("quantize", [True, False], ids=["int8", "f32"])
+def test_compress_aggregate_wire_drops_a_fog_id_of_n_fog_as_the_reference_does(quantize):
+    """The wire operator with one client's id ``n_fog``: both packages drop
+    it (its error feedback still advances), as the dense path does."""
+    deltas, err, fog_id, weights = _wire_case(1352, 21, 3)
+    fs_t, ne_t = tops.compress_aggregate_wire(*_t(deltas, err, fog_id, weights), 3, 0.05,
+                                              quantize)
+    fs_j, ne_j = jops.compress_aggregate_wire(
+        *(jnp.asarray(x) for x in (deltas, err, fog_id, weights)), 3, 0.05, quantize,
+        use_pallas=False)
+    np.testing.assert_allclose(fs_t.numpy(), np.asarray(fs_j), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(ne_t.numpy(), np.asarray(ne_j), rtol=0, atol=1e-5)
+    dense, _ = tops.compress_aggregate(*_t(deltas, err, fog_id, weights), 3, 0.05, quantize)
+    np.testing.assert_allclose(fs_t.numpy(), dense.numpy(), rtol=1e-5, atol=1e-4)
+
+
+def test_wire_drops_a_negative_fog_id_where_the_reference_oracle_wraps_it():
+    """Pinned divergence: the reference's wire oracle adds a client of id
+    -1 into the last fog (``.at[]`` wraps negative indices), while its
+    dense path and ``jax.ops.segment_sum`` drop it; the port drops it on
+    both paths."""
+    deltas, err, fog_id, weights = _wire_case(1352, 22, -1)
+    args = (deltas, err, fog_id, weights)
+    fs_t, _ = tops.compress_aggregate_wire(*_t(*args), 3, 0.05)
+    dense_t, _ = tops.compress_aggregate(*_t(*args), 3, 0.05)
+    fs_j, _ = jops.compress_aggregate_wire(*(jnp.asarray(x) for x in args), 3, 0.05,
+                                           use_pallas=False)
+    dense_j, _ = jops.compress_aggregate(*(jnp.asarray(x) for x in args), 3, 0.05,
+                                         use_pallas=False)
+    np.testing.assert_allclose(fs_t.numpy(), dense_t.numpy(), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(dense_t.numpy(), np.asarray(dense_j), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(fs_t.numpy()[:2], np.asarray(fs_j)[:2], rtol=1e-5, atol=1e-4)
+    wrapped = np.asarray(fs_j)[2] - fs_t.numpy()[2]
+    assert np.abs(wrapped).max() > 1e-3                    # client 3 landed in fog 2 there
+    keep = fog_id >= 0
+    alone, _ = tops.compress_aggregate_wire(
+        *_t(deltas[~keep], err[~keep], np.array([2], np.int32), weights[~keep]), 3, 0.05)
+    np.testing.assert_allclose(wrapped, alone.numpy()[2], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("chunk", [None, 2, 4])
+def test_compress_and_accumulate_drops_a_fog_id_of_n_fog(chunk):
+    """The round operator with one id ``n_fog`` (the fused path, and the
+    sparse wire chunk by chunk): the reference's sums and weights."""
+    deltas, err, fog_id, weights = _wire_case(1352, 23, 3)
+    cfg_t, cfg_j = tcomp.CompressorConfig(), jcomp.CompressorConfig(mode="blockwise")
+    fs_t, fw_t, ne_t = tagg.compress_and_accumulate(*_t(deltas, err, fog_id, weights), 3, cfg_t,
+                                                    chunk=chunk)
+    fs_j, fw_j, ne_j = jagg.compress_and_accumulate(
+        *(jnp.asarray(x) for x in (deltas, err, fog_id, weights)), 3, cfg_j, chunk=chunk)
+    np.testing.assert_allclose(fs_t.numpy(), np.asarray(fs_j), rtol=1e-5, atol=1e-4)
+    np.testing.assert_array_equal(fw_t.numpy(), np.asarray(fw_j))
+    np.testing.assert_allclose(ne_t.numpy(), np.asarray(ne_j), rtol=0, atol=1e-5)
+
+
+def _quick_code8(v, scale):
+    """``quant8.cu``'s quick_code8 in numpy f32: rint(v * rn(1 / scale))
+    where that product lies farther than 3e-5 from a half-integer, else
+    None (the kernel divides there)."""
+    r = np.float32(1.0) / scale
+    y = (v * r).astype(np.float32)
+    k = np.rint(y)
+    taken = (np.abs(np.abs(y - k) - np.float32(0.5)) > np.float32(3e-5)) & (r < 3e38)
+    return np.clip(k, -127, 127), taken
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_quant8_quick_code_is_the_division_code_where_taken(seed):
+    """The kernel's shortcut gives the IEEE division's code wherever it is
+    taken, over a million values across scales, and declines near every
+    half-integer code boundary."""
+    rng = np.random.default_rng(seed)
+    for amax in (np.float32(1.0), np.float32(127.0), np.float32(3.7e-3), np.float32(2.5e30)):
+        scale = (amax * np.float32(1.0 / 127.0)).astype(np.float32)
+        v = (rng.uniform(-1.0, 1.0, 250_000) * amax).astype(np.float32)
+        want = np.clip(np.rint((v / scale).astype(np.float32)), -127, 127)
+        got, taken = _quick_code8(v, scale)
+        assert taken.mean() > 0.99
+        np.testing.assert_array_equal(got[taken], want[taken])
+        half = ((np.arange(-127, 127) + np.float32(0.5)) * scale).astype(np.float32)
+        assert not _quick_code8(half, scale)[1].any()
+

@@ -905,6 +905,55 @@ def test_quant8_kernel_matches_plain(cuda, n, d):
     assert torch.equal(q, q_ref) and torch.equal(scale, scale_ref)
 
 
+@pytest.mark.parametrize("n,d,offset", [
+    (1, 1 << 20, 0), (200, 1352, 0), (200, 8209, 0), (5, 8209, 1), (3, 4097, 3), (2, 16385, 2),
+    (7, 1, 0), (4, 8192, 1), (2, 1 << 16, 0), (3, 3, 1), (9, 5, 2), (2, 8191, 3), (1, 33, 1)])
+def test_quant8_kernel_bitwise_at_any_alignment(cuda, n, d, offset):
+    """The phase-6 shapes, widths that are not a multiple of 4, rows that
+    start off a 16-byte boundary (a contiguous view ``offset`` floats into
+    its buffer, so the first and last chunks straddle the tensor's ends),
+    an all-zero block and an all-zero row: codes (padding zeros included)
+    and scales bitwise the plain version's."""
+    g = torch.Generator().manual_seed(n * 7 + d)
+    buf = torch.randn((n * d + offset,), generator=g)
+    x = buf[offset:].view(n, d)
+    x.mul_(10.0 ** (6 * torch.rand((n, 1), generator=g) - 3))
+    x[0, :min(d, 8192)] = 0.0
+    if n > 1:
+        x[-1] = 0.0
+    buf = buf.to(cuda)
+    x = buf[offset:].view(n, d)
+    assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == (offset % 4 == 0)
+    before = q8.LAUNCHES["quant8"]
+    q, scale = q8.quant8_blocks(x)
+    torch.cuda.synchronize()
+    assert q8.LAUNCHES["quant8"] == before + 1
+    q_ref, scale_ref = ref.quant8_ref(x)
+    assert torch.equal(q, q_ref) and torch.equal(scale, scale_ref)
+    assert float(scale[0, 0]) == 0.0
+
+
+def test_quant8_kernel_bitwise_near_half_codes(cuda):
+    """Values whose quotient by the scale lies at or next to a half-integer
+    (where the kernel divides instead of multiplying by the reciprocal),
+    tiny scales (a subnormal scale's reciprocal overflows) and huge ones."""
+    rows = []
+    for amax in (127.0, 1.0, 3.0e-38, 1.0e-40, 3.0e38):
+        s = np.float32(amax) * np.float32(1.0 / 127.0)
+        k = np.arange(-127, 128, dtype=np.float32)
+        half = (k + np.float32(0.5)) * s
+        near = np.concatenate([half, np.nextafter(half, np.float32(np.inf)),
+                               np.nextafter(half, np.float32(-np.inf)), k * s])
+        row = np.zeros(2048, np.float32)
+        row[:near.size] = np.clip(near, -amax, amax)
+        row[-1] = amax
+        rows.append(row)
+    x = torch.from_numpy(np.stack(rows)).to(cuda)
+    q, scale = q8.quant8_blocks(x)
+    q_ref, scale_ref = ref.quant8_ref(x)
+    assert torch.equal(q, q_ref) and torch.equal(scale, scale_ref)
+
+
 def test_ops_route_compressor_tensors_to_the_kernels(cuda):
     deltas, err = _compress_case(12, 1352, 68, cuda)
     before = (q8.LAUNCHES["compress_q8"], q8.LAUNCHES["quant8"], tk.LAUNCHES["topk_ef"])
@@ -1086,3 +1135,73 @@ def test_reduced_hybrid_decode_on_the_card_matches_cpu(cuda):
         assert err <= 1e-3 * float(torch.max(torch.abs(want))), (t, err)
     n_attn = rglru.pattern(cfg).count("attn")
     assert swa.LAUNCHES["swa_decode"] == n_attn * steps
+
+
+def _outside_fog_case(device, bad=3, d=1352, seed=5):
+    """Six clients in three fogs, client 3's id ``bad`` (outside the fogs)."""
+    g = torch.Generator().manual_seed(seed)
+    deltas = torch.randn((6, d), generator=g)
+    err = 0.1 * torch.randn((6, d), generator=g)
+    fog_id = torch.tensor([0, 1, 2, bad, 0, 1], dtype=torch.int32)
+    weights = torch.tensor([48.0, 32.0, 16.0, 64.0, 48.0, 8.0])
+    return [t.to(device) for t in (deltas, err, fog_id, weights)]
+
+
+@pytest.mark.parametrize("bad", [3, -1])
+def test_operators_drop_a_fog_id_outside_the_fogs_on_the_card(cuda, bad):
+    """``aggregation.fog_aggregate``, ``ops.robust_aggregate`` and
+    ``ops.compress_aggregate_wire`` on CUDA tensors with one client of no
+    fog: they return, and equal their CPU routes (which drop it)."""
+    deltas, err, fog_id, weights = _outside_fog_case(cuda, bad)
+    cpu = [t.cpu() for t in (deltas, err, fog_id, weights)]
+    got = agg.fog_aggregate(deltas, fog_id, weights, 3)
+    want = agg.fog_aggregate(cpu[0], cpu[2], cpu[3], 3)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(), rtol=1e-5, atol=1e-6)
+    assert torch.equal(got[1].cpu(), want[1]) and float(got[1].sum()) == 152.0
+    before = ra.LAUNCHES["robust_agg"]
+    out, fw = ops.robust_aggregate(deltas, fog_id, weights, 3, 0.2, "trimmed")
+    torch.cuda.synchronize()
+    assert ra.LAUNCHES["robust_agg"] == before + 1
+    w_out, w_fw = ops.robust_aggregate(cpu[0], cpu[2], cpu[3], 3, 0.2, "trimmed")
+    np.testing.assert_allclose(out.cpu().numpy(), w_out.numpy(), rtol=1e-5, atol=1e-6)
+    assert torch.equal(fw.cpu(), w_fw)
+    before = fa.LAUNCHES["wire_agg"]
+    fog_sum, new_err = ops.compress_aggregate_wire(deltas, err, fog_id, weights, 3, 0.05)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["wire_agg"] == before + 1
+    w_sum, w_err = ops.compress_aggregate_wire(*cpu, 3, 0.05)
+    np.testing.assert_allclose(fog_sum.cpu().numpy(), w_sum.numpy(), rtol=1e-5, atol=1e-4)
+    assert torch.equal(new_err.cpu(), w_err)
+    fused, _ = ops.compress_aggregate(deltas, err, fog_id, weights, 3, 0.05)
+    np.testing.assert_allclose(fused.cpu().numpy(), w_sum.numpy(), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("method,kw,kernels", [
+    ("fedavg", dict(), {"local_train_f32": 3, "fused_agg": 6}),
+    ("fedprox", dict(), {"local_train_f32": 3, "fused_agg": 6}),
+    ("fedadam", dict(client_chunk=5), {"local_train_f32": 3, "wire_emit": 9, "wire_agg": 9}),
+    ("fedavg", dict(robust="trimmed", trim_frac=0.3, faults=FaultConfig(
+        byz_mode="gauss", byz_frac=0.25, byz_scale=20.0, erasure_prob=0.3)),
+     {"local_train_f32": 3, "fused_agg": 6, "robust_agg": 3}),
+    ("scaffold", dict(), {}),
+    ("centralised", dict(), {}),
+])
+def test_flat_trials_on_the_card_match_the_cpu(cuda, method, kw, kernels):
+    """Quick-size flat trials, identical draws on both devices; each
+    launches the kernels of its path, and only those."""
+    cfg = exp.make_config(n_sensors=12, n_fog=3, rounds=3, local_epochs=1, **kw)
+    ds = normalize(generate(torch.Generator().manual_seed(0), SyntheticConfig(
+        n_sensors=12, train_len=48, val_len=24, test_len=48), device="cpu"))
+    inputs = exp.draw_trial(torch.Generator().manual_seed(1), ds, cfg, method=method)
+    counts = (lt.LAUNCHES, fa.LAUNCHES, ra.LAUNCHES, q8.LAUNCHES, tk.LAUNCHES)
+    before = {k: v for c in counts for k, v in c.items()}
+    gpu = exp.trial_metrics(method, None, ds, cfg, inputs=inputs)
+    torch.cuda.synchronize()
+    after = {k: v for c in counts for k, v in c.items()}
+    assert {k: after[k] - before[k] for k in after} == {k: kernels.get(k, 0) for k in after}
+    cpu = exp.trial_metrics(method, None, ds, cfg, inputs=inputs, device="cpu")
+    assert gpu["losses"].device.type == "cuda"
+    for name in ("participation", "erased_total", "e_total", "e_s2f"):
+        np.testing.assert_allclose(gpu[name].cpu().numpy(), cpu[name].numpy(), rtol=1e-5)
+    np.testing.assert_allclose(gpu["losses"].cpu().numpy(), cpu["losses"].numpy(), rtol=1e-4)

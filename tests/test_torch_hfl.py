@@ -252,24 +252,32 @@ def test_draw_trial_is_reproducible_and_sized(data):
     ],
 )
 def test_unported_options_raise(data, change, match):
+    """An option that raised until its queue-1 item (``match``) was ported
+    now runs: ``fused=False`` takes the legacy client scan, whose round
+    agrees with the fused operator's to the round pins' tolerance."""
     _, ds_t = data
-    cfg = torch_cfg(rounds=1, **change)
-    with pytest.raises(NotImplementedError, match=match):
-        texp.trial_metrics("hfl-selective", torch.Generator().manual_seed(0), ds_t, cfg,
-                           device="cpu")
+    g = torch.Generator().manual_seed(0)
+    inputs = texp.draw_trial(g, ds_t, torch_cfg(rounds=1))
+    got = texp.trial_metrics("hfl-selective", None, ds_t, torch_cfg(rounds=1, **change),
+                             inputs=inputs, device="cpu", return_params=True)
+    want = texp.trial_metrics("hfl-selective", None, ds_t, torch_cfg(rounds=1), inputs=inputs,
+                              device="cpu", return_params=True)
+    np.testing.assert_allclose(tae.ravel(got["params"]).numpy(),
+                               tae.ravel(want["params"]).numpy(), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got["losses"].numpy(), want["losses"].numpy(), **TOL)
 
 
 def test_unported_methods_and_mesh_raise(data):
     _, ds_t = data
     g = torch.Generator().manual_seed(0)
-    for method, item in (("fedavg", "item 10"), ("scaffold", "item 10"), ("hfl-async", "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            texp.trial_metrics(method, g, ds_t, torch_cfg(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        texp.trial_metrics("hfl-async", g, ds_t, torch_cfg(), device="cpu")
     with pytest.raises(ValueError):
         texp.trial_metrics("nope", g, ds_t, torch_cfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-        texp.trial_metrics("hfl-selective", g, ds_t, torch_cfg(), client_mesh=object(),
-                           device="cpu")
+    for method in ("hfl-selective", "fedavg"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+            texp.trial_metrics(method, g, ds_t, torch_cfg(), client_mesh=object(),
+                               device="cpu")
 
 
 def test_config_leaves_out_unported_fields():

@@ -165,3 +165,46 @@ def test_member_lists_hold_each_fogs_clients_in_index_order():
         np.testing.assert_array_equal(members[offsets[m]:offsets[m + 1]], want)
     member = (fog_id >= 0) & (fog_id < n_fog) & (w > 0)
     np.testing.assert_array_equal(members[offsets[n_fog]:], np.flatnonzero(~member))
+
+
+def _outside_case(d, seed):
+    """Six clients in three fogs, the fourth client's id ``n_fog``."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((6, d)).astype(np.float32)
+    fog_id = np.array([0, 1, 2, 3, 0, 1], np.int32)
+    w = np.array([48.0, 32.0, 16.0, 64.0, 48.0, 8.0], np.float32)
+    return x, fog_id, w
+
+
+@pytest.mark.parametrize("mode,beta", MODES)
+def test_robust_aggregate_drops_a_fog_id_of_n_fog_as_the_reference_does(mode, beta):
+    """A client whose fog id is ``n_fog`` belongs to no fog: both packages
+    skip it (its weight too), and the result is that of the other five."""
+    x, fog_id, w = _outside_case(1352, 3)
+    (out, fw), (out_j, fw_j) = _both(x, fog_id, w, beta, mode, n_fog=3)
+    np.testing.assert_allclose(out, out_j, **TOL)
+    np.testing.assert_array_equal(fw, fw_j)
+    keep = fog_id < 3
+    (out_k, fw_k), _ = _both(x[keep], fog_id[keep], w[keep], beta, mode, n_fog=3)
+    np.testing.assert_array_equal(out, out_k)
+    np.testing.assert_array_equal(fw, fw_k)
+
+
+def test_fog_aggregate_drops_a_fog_id_of_n_fog_as_the_reference_does():
+    from repro.core import aggregation as jagg
+    x, fog_id, w = _outside_case(40, 4)
+    got, got_w = tagg.fog_aggregate(torch.from_numpy(x), torch.from_numpy(fog_id),
+                                    torch.from_numpy(w), 3)
+    want, want_w = jagg.fog_aggregate(jnp.asarray(x), jnp.asarray(fog_id), jnp.asarray(w), 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_array_equal(got_w.numpy(), np.asarray(want_w))
+    np.testing.assert_array_equal(got_w.numpy(), [96.0, 40.0, 16.0])
+
+
+@pytest.mark.parametrize("bad", [3, 7, -1])
+def test_segment_sum_drops_ids_outside_the_fogs(bad):
+    x = torch.arange(12, dtype=torch.float32).reshape(6, 2)
+    fog_id = torch.tensor([0, 1, 2, bad, 0, 1], dtype=torch.int32)
+    out = tref.segment_sum(x, fog_id, 3)
+    assert out.shape == (3, 2)
+    np.testing.assert_array_equal(out.numpy(), [[8.0, 10.0], [12.0, 14.0], [4.0, 5.0]])
