@@ -140,7 +140,27 @@ exits non-zero before the result line:
              every training kernel's launches counted and against a CPU
              twin (participation and erasures exactly, energies to
              rtol=1e-5, loss within 1%, F1 within 0.02); ms per round and
-             idle share of fedavg; its mean participation beside phase 8's.
+             idle share of fedavg; its mean participation beside phase 8's;
+18. engine-200 — the batched trial ``Engine`` (``repro_torch.engine``) on
+             the card: ``Engine.run`` of train-200's hfl-selective over
+             seeds 0-3 x 2 deployments (8 trials in one call, folded into
+             the kernels' client and fog axes), fedavg and robust-200's
+             attack under trim 0.45 over 2 x 2; each cell's launches equal
+             to one sequential trial's (20 ``local_train_f32`` and 40
+             ``fused_agg``; ``robust_agg`` 20 under attack) and each trial
+             (s, 0) against a sequential card trial from seed s
+             (participating sensor-rounds, coop links, erasures and
+             non-finite deltas exactly, energies to rtol=1e-5, losses to
+             rtol=1e-4, F1 within 1e-3; which metrics are bitwise is
+             printed); ``Engine.audit`` of the four hfl methods and fedavg
+             and ``Engine.reachability`` over seeds 0-7 against
+             ``audit_method`` / ``participation.reachability`` (the
+             direct-gateway fraction printed); ``Engine.score`` of the
+             cell's published trial (0, 0) over serve-200's test rows (one
+             ``fused_score_f32`` launch, bitwise ``serving.score``); ms per
+             trial-round, device ops and idle share of the batched round
+             loop at B = 1, 4 and 16 trials, and ``local_train_f32`` and
+             ``fused_agg`` timed at B = 16 (3,200 clients, 320 fogs).
 
 Phase 6 also times ``fused_agg`` at robust-200's identity call (N =
 n_fog = 200), at one of its 64-client chunks and at fleet-10k's unchunked
@@ -177,8 +197,9 @@ wire kernels those of phase 10's chunked trial, for ``compress_q8`` and
 ``topk_ef`` those of phase 12's first and second trials and for
 ``quant8`` those of phase 12's codec run and for ``swa_decode`` those of
 phase 15's hybrid-serve run (each zeroed just before its run, read just
-after; phases 15–16 check the other runs' counts too, and phase 17 every
-training kernel's count in each flat trial).  The last line is
+after; phases 15–16 check the other runs' counts too, phase 17 every
+training kernel's count in each flat trial, and phase 18 every one in
+each Engine cell, beside the phase 8 count in ``launches_by_path``).  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and power limit, and the
 one before that the ``kernels`` JSON.
 """
@@ -1935,6 +1956,341 @@ def flat_fleet(exp, flat_fl, ae, FaultConfig, ds, counters, training, dev, name,
                          centralised_local_epochs=CENTRAL_EPOCHS))
 
 
+# --- phase 18: engine-200, the batched trial Engine ------------------------
+
+ENGINE_SEEDS, ENGINE_P = (0, 1, 2, 3), 2    # engine-200: 8 trials of train-200 in one call
+ENGINE_FAMILY_SEEDS = (0, 1)                # fedavg and robust-200's attack: 2 x 2 trials
+ENGINE_AUDIT_SEEDS = tuple(range(8))
+ENGINE_AUDIT_METHODS = ("hfl-nocoop", "hfl-selective", "hfl-nearest", "hfl-adam", "fedavg")
+ENGINE_TIME_B = (1, 4, 16)                  # trials per batched round loop (P = 1)
+
+
+def engine_cell(Engine, exp, ds, cfg, method, seeds, counters, label, dev, name, smi,
+                store=None) -> dict:
+    """One ``Engine.run`` cell on the card (``ENGINE_P`` deployments a
+    seed), every training kernel's launches zeroed just before it and read
+    just after; each trial (s, 0) held against a sequential card trial
+    from ``torch.Generator().manual_seed(s)``, whose launches the cell's
+    must equal: participating sensor-rounds, coop links, erasures and
+    non-finite deltas exactly, energies to rtol=1e-5, losses to rtol=1e-4,
+    F1 within 1e-3; and which metrics came out bitwise equal."""
+    eng = Engine()
+    for _, reset in counters.values():
+        reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = eng.run(method, cfg, seeds, ds, n_deployments=ENGINE_P, store=store)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: launches_of[k] for k, (launches_of, _) in counters.items()}
+    check(eng.take_log()[0]["launches"] == {k: v for k, v in launches.items() if v},
+          f"{label}: the Engine's log disagrees with the launch counters")
+    check(all(bool(torch.isfinite(v).all()) for v in run.metrics.values()),
+          f"{label}: non-finite metrics")
+    check(run.f1.device == dev, f"{label} did not run on the card")
+    rcfg = eng.resolve_config(cfg)
+    bitwise, worst = {}, {"e_total": 0.0, "losses": 0.0, "f1": 0.0}
+    n_sensors = cfg.deployment.n_sensors
+    for s, seed in enumerate(seeds):
+        for _, reset in counters.values():
+            reset()
+        seq = exp.trial_metrics(method, torch.Generator().manual_seed(seed), ds, rcfg)
+        torch.cuda.synchronize()
+        one = {k: launches_of[k] for k, (launches_of, _) in counters.items()}
+        check(one == launches, f"{label}: the cell launched {launches}, one trial {one}")
+        got = {k: v[s, 0] for k, v in run.metrics.items()}
+        for key, per in (("participation", n_sensors * cfg.rounds), ("coop_links", cfg.rounds),
+                         ("erased_total", 1), ("nonfinite_total", 1)):
+            check(round(float(got[key]) * per) == round(float(seq[key]) * per),
+                  f"{label} trial ({seed}, 0): {key} {float(got[key])} vs sequential "
+                  f"{float(seq[key])}")
+        for key in ("e_total", "e_s2f", "e_f2f", "e_f2g"):
+            check(np.isclose(float(got[key]), float(seq[key]), rtol=1e-5, atol=0.0),
+                  f"{label} trial ({seed}, 0): {key} {float(got[key])} vs {float(seq[key])}")
+        worst["e_total"] = max(worst["e_total"], abs(float(got["e_total"] - seq["e_total"]))
+                               / abs(float(seq["e_total"])))
+        lg, ls = got["losses"].cpu().numpy(), seq["losses"].cpu().numpy()
+        loss_rel = float(np.max(np.abs(lg - ls) / np.abs(ls)))
+        check(loss_rel <= 1e-4, f"{label} trial ({seed}, 0): losses differ by {loss_rel:.3e}")
+        worst["losses"] = max(worst["losses"], loss_rel)
+        f1_diff = abs(float(got["f1"]) - float(seq["f1"]))
+        check(f1_diff <= 1e-3, f"{label} trial ({seed}, 0): F1 {float(got['f1']):.5f} vs "
+                               f"{float(seq['f1']):.5f}")
+        worst["f1"] = max(worst["f1"], f1_diff)
+        for key, v in seq.items():
+            bitwise[key] = bitwise.get(key, True) and torch.equal(got[key], v)
+    same = sorted(k for k, v in bitwise.items() if v)
+    apart = sorted(k for k, v in bitwise.items() if not v)
+    print(f"  {label}: {method} {len(seeds)} seeds x {ENGINE_P} deployments = "
+          f"{len(seeds) * ENGINE_P} trials in one call, {wall:.3f} s, peak memory "
+          f"{peak / 2**20:.1f} MiB; launches {launches} (one sequential trial's too)  on "
+          f"{name} ({smi})")
+    print(f"    trials (s, 0) vs sequential card trials: max rel e_total {worst['e_total']:.2e}, "
+          f"max rel loss {worst['losses']:.2e}, max |dF1| {worst['f1']:.2e}; bitwise: "
+          f"{', '.join(same) or 'none'}; within tolerance only: {', '.join(apart) or 'none'}")
+    print(f"    mean over the {len(seeds) * ENGINE_P} trials: F1 "
+          f"{run.seed_mean_std('f1')[0]:.4f} +- {run.seed_mean_std('f1')[1]:.4f}, "
+          f"participation {run.seed_mean_std('participation')[0]:.4f}, energy "
+          f"{run.seed_mean_std('e_total')[0]:.4f} J")
+    return dict(method=method, seeds=list(seeds), deployments=ENGINE_P, wall_s=wall,
+                peak_bytes=peak, launches=launches, bitwise=same, within_tolerance=apart,
+                worst=worst, f1_mean_std=run.seed_mean_std("f1"),
+                participation_mean=run.seed_mean_std("participation")[0],
+                e_total_mean=run.seed_mean_std("e_total")[0])
+
+
+def time_engine_rounds(exp, hfl, ae, ds_dev, cfg, name, smi) -> dict:
+    """ms per trial-round and the device idle share of the batched round
+    loop (``hfl.run_rounds`` on ``hfl.start_trials``' state and draws, on the
+    card) at B = 1, 4 and 16 trials (seeds 0..B-1, P = 1): the best of two
+    timed loops, device time and ops by torch.profiler, peak memory."""
+    inputs = [exp.draw_trial(torch.Generator().manual_seed(s), ds_dev, cfg)
+              for s in range(max(ENGINE_TIME_B))]
+    out = {}
+    for b in ENGINE_TIME_B:
+        ds_b = hfl.stack_datasets([ds_dev] * b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, draws = hfl.start_trials([i.params for i in inputs[:b]], ds_b, cfg,
+                                        [i.dep for i in inputs[:b]],
+                                        [i.draws for i in inputs[:b]])
+        round_fn = hfl.make_round_fn(ae.loss, ds_b, cfg)
+
+        def loop():
+            return hfl.run_rounds(round_fn, state, draws, cfg.rounds)
+
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loop()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        dev_ms, ops = device_ms(loop, 1)
+        best = min(walls)
+        out[b] = dict(round_ms=best / cfg.rounds, trial_round_ms=best / cfg.rounds / b,
+                      loop_ms=walls, device_ms_per_round=dev_ms / cfg.rounds,
+                      device_ops_per_round=ops / cfg.rounds,
+                      idle_share=max(0.0, 1.0 - dev_ms / best), peak_bytes=peak)
+        print(f"  B={b:2d} trials: {out[b]['round_ms']:.3f} ms per round, "
+              f"{out[b]['trial_round_ms']:.3f} ms per trial-round; device "
+              f"{out[b]['device_ms_per_round']:.3f} ms in {out[b]['device_ops_per_round']:.0f} "
+              f"ops per round, idle share {out[b]['idle_share']:.3f}; peak memory "
+              f"{peak / 2**20:.1f} MiB  on {name} ({smi})")
+    return out
+
+
+def engine_kernels(dev, lt, fa, ra, kops, kref, agg, comp, ae, multi_epoch_indices, name,
+                   smi) -> dict:
+    """``local_train_f32``, ``fused_agg`` and ``robust_agg`` at the engine's
+    B = 16 shapes: 3,200 clients of 16 trials (one start vector each),
+    their fog ids offset into 320 fogs.  Each is held against its plain
+    version first, at phase 7's tolerances: ``local_train_f32`` with and
+    without FedProx (deltas rtol=1e-4 / atol=1e-6, loss rtol=1e-5);
+    ``fused_agg``'s thresholds and new_err bitwise, its fog sums bitwise
+    equal to the client-order fold (``ref.dense_fold_ref``), within
+    rtol=1e-5 / atol=1e-4 of the plain version, and each trial's 20 fogs
+    bitwise equal to a launch on that trial's 200 clients alone;
+    ``robust_agg`` on the folded fogs in every mode (rtol=1e-5, atol=1e-6),
+    its member lists equal to the plain ones.  Then each is timed beside
+    its plain version (``fused_agg`` and ``robust_agg`` also by launch);
+    every entry carries its ``max_abs_err``."""
+    from repro_torch.core.compression import blockwise_k_frac
+
+    b = max(ENGINE_TIME_B)
+    n = b * TRAIN_N
+    g = torch.Generator().manual_seed(18)
+    dims = (D, *HIDDEN, D)
+    trials = [ae.init(g, D, HIDDEN, device="cpu") for _ in range(b)]
+    params = [{k: torch.stack([t[i][k] for t in trials]).to(dev) for k in ("w", "b")}
+              for i in range(len(dims) - 1)]
+    ws, bs = tuple(p["w"] for p in params), tuple(p["b"] for p in params)
+    theta = ae.ravel(params)
+    x = torch.randn((n, WINDOW, D), generator=g).to(dev)
+    idx = multi_epoch_indices(g, n, WINDOW, BATCH, EPOCHS).to(dev)
+    steps = int(idx.shape[1])
+    max_err = {}
+    for mu in (0.0, 0.01):
+        deltas, loss = lt.train_clients(x, idx, theta, dims, LR, mu)
+        d_ref, l_ref = kref.local_train_ref(x, idx, ws, bs, LR, mu)
+        e = close_on_device(deltas, d_ref, 1e-4, 1e-6, f"local_train deltas, theta ({b}, d)")
+        close_on_device(loss, l_ref, 1e-5, 0.0, f"local_train loss, theta ({b}, d)")
+        max_err["local_train_f32"] = max(max_err.get("local_train_f32", 0.0), e)
+        print(f"  local_train_f32 N={n} theta ({b}, {int(theta.shape[1])}) mu={mu:4.2f} "
+              f"max|delta diff|={e:.3e}  ok")
+    deltas, _ = lt.train_clients(x, idx, theta, dims, LR, 0.0)
+    d = int(deltas.shape[1])
+    err = (0.1 * torch.randn((n, d), generator=g)).to(dev)
+    offset = torch.arange(b, dtype=torch.int32).repeat_interleave(TRAIN_N) * TRAIN_FOG
+    fog_id = (torch.randint(0, TRAIN_FOG, (n,), generator=g, dtype=torch.int32)
+              + offset).to(dev)
+    weights = torch.full((n,), float(WINDOW))
+    weights[::17] = 0.0                              # non-participants
+    weights = weights.to(dev)
+    n_fog = b * TRAIN_FOG
+    k = kops.block_k(blockwise_k_frac(d, 0.05))
+
+    fs_k, ne_k, thr_k = fa.compress_aggregate_blocks(deltas, err, fog_id, weights, n_fog, k)
+    fs_r, ne_r, thr_r = kref.compress_aggregate_ref(deltas, err, fog_id, weights, n_fog, k)
+    check(torch.equal(thr_k, thr_r) and torch.equal(ne_k, ne_r),
+          f"fused_agg thresholds or new_err differ bitwise at {n} clients, {n_fog} fogs")
+    check(torch.equal(fs_k, kref.dense_fold_ref(deltas, err, fog_id, weights, n_fog, k, True)),
+          f"fused_agg fog sums differ from the client-order fold at {n} clients, {n_fog} fogs")
+    max_err["fused_agg"] = max(close_on_device(ne_k, ne_r, 0.0, 1e-5, "fused_agg new_err"),
+                               close_on_device(fs_k, fs_r, 1e-5, 1e-4, "fused_agg fog sums"))
+    for t in range(b):
+        rows, fogs = slice(t * TRAIN_N, (t + 1) * TRAIN_N), slice(t * TRAIN_FOG,
+                                                                  (t + 1) * TRAIN_FOG)
+        fs_t, _, _ = fa.compress_aggregate_blocks(deltas[rows], err[rows],
+                                                  fog_id[rows] - t * TRAIN_FOG, weights[rows],
+                                                  TRAIN_FOG, k)
+        check(torch.equal(fs_t, fs_k[fogs]),
+              f"fused_agg: trial {t}'s folded fog sums differ from its own launch")
+    print(f"  fused_agg       N={n} n_fog={n_fog} ({b} trials x {TRAIN_FOG}) thresholds, new_err "
+          f"and the client-order fold equal, each trial's fogs bitwise its own launch, "
+          f"max|diff|={max_err['fused_agg']:.3e}  ok")
+
+    recon, _ = agg.client_compress(deltas, err, comp.CompressorConfig())
+    check_member_lists(ra, fog_id, weights, n_fog, f"{n} clients in {n_fog} folded fogs")
+    max_err["robust_agg"] = 0.0
+    for mode, beta in ROBUST_MODES:
+        out = ra.robust_aggregate_blocks(recon, fog_id, weights, n_fog, beta, mode)
+        want, _ = kref.robust_aggregate_ref(recon, fog_id, weights, n_fog, beta, mode)
+        max_err["robust_agg"] = max(max_err["robust_agg"], close_on_device(
+            out, want, 1e-5, 1e-6, f"robust_agg {mode} {beta} on {n_fog} folded fogs"))
+    print(f"  robust_agg      N={n} n_fog={n_fog} member lists equal; trimmed 0/0.2/0.45 + median "
+          f"max|diff|={max_err['robust_agg']:.3e}  ok")
+
+    lt_bytes, lt_ops = train_work(dims, n, WINDOW, steps, BATCH, False)
+    cases = {
+        f"local_train_f32 @ engine B={b}": (
+            lambda: lt.train_clients(x, idx, theta, dims, LR, 0.0),
+            lambda: kref.local_train_ref(x, idx, ws, bs, LR, 0.0),
+            (lt_bytes + 4 * (b - 1) * d, lt_ops),      # B start vectors read once
+            (10, 2, 5, 1),
+            f"N={n} ({b} trials x {TRAIN_N}) window={WINDOW} {steps} steps x {BATCH} rows, "
+            f"theta ({b}, {d})",
+        ),
+        f"fused_agg @ engine B={b}": (
+            lambda: fa.compress_aggregate_blocks(deltas, err, fog_id, weights, n_fog, k),
+            lambda: kref.compress_aggregate_ref(deltas, err, fog_id, weights, n_fog, k),
+            agg_work(n, d, n_fog),
+            (50, 3, 20, 2),
+            f"N={n} d={d} n_fog={n_fog} ({b} trials x {TRAIN_FOG}) k={k} int8",
+        ),
+        f"robust_agg @ engine B={b}": (
+            lambda: ra.robust_aggregate_blocks(recon, fog_id, weights, n_fog, ROBUST_TRIM,
+                                               "trimmed"),
+            lambda: kref.robust_aggregate_ref(recon, fog_id, weights, n_fog, ROBUST_TRIM,
+                                              "trimmed"),
+            robust_work(fog_id, weights, n_fog, d),
+            (50, 2, 20, 1),
+            f"N={n} d={d} n_fog={n_fog} ({b} trials x {TRAIN_FOG}) trimmed {ROBUST_TRIM}, "
+            f"compressed recon",
+        ),
+    }
+    out = time_cases(cases, name, smi, splits={"fused_agg": FUSED_SPLIT,
+                                               "robust_agg": ROBUST_SPLIT})
+    for key, entry in out.items():
+        entry["max_abs_err"] = max_err[key.split(" @ ")[0]]
+    return out
+
+
+def engine_fleet(mods, train_ds, counters, training, dev, name, smi, workdir) -> dict:
+    """Phase 18: engine-200.  ``Engine.run`` cells on the card (train-200's
+    hfl-selective over 4 seeds x 2 deployments; fedavg and robust-200's
+    attack under the trimmed mean over 2 x 2), each trial (s, 0) against a
+    sequential card trial, launches equal to one trial's; ``Engine.audit``
+    for the hfl methods and fedavg and ``Engine.reachability`` at N = 200,
+    M = 20 over seeds 0-7 against their sequential twins;
+    ``Engine.score`` of the cell's trial (0, 0) params over serve-200's
+    test rows against ``serving.score``; then ms per trial-round and the
+    idle share at B = 1, 4 and 16, and the three kernels of the folded
+    round at B = 16, each against its plain version (:func:`engine_kernels`)."""
+    (Engine, exp, hfl, ae, part, topo, anomaly, score_mod, CheckpointStore, FaultConfig,
+     SyntheticConfig, generate, normalize, lt, fa, ra, fs, kops, kref, agg, comp,
+     multi_epoch_indices) = mods
+    cfg = exp.make_config(TRAIN_N, TRAIN_FOG, ROUNDS)
+    robust = cfg.replace(faults=FaultConfig(**ROBUST_FAULTS), robust="trimmed",
+                         trim_frac=ROBUST_TRIM)
+    store = CheckpointStore(str(workdir / "engine"), keep=2)
+    cells = {"engine-200": engine_cell(Engine, exp, train_ds, cfg, "hfl-selective",
+                                       ENGINE_SEEDS, counters, "engine-200", dev, name, smi,
+                                       store=store)}
+    want = {"local_train_f32": ROUNDS, "fused_agg": 2 * ROUNDS}
+    got = {k: cells["engine-200"]["launches"][k] for k in want}
+    check(got == want == training["launches"],
+          f"engine-200 launched {got}; one train-200 trial {training['launches']}")
+    cells["fedavg"] = engine_cell(Engine, exp, train_ds, cfg, "fedavg", ENGINE_FAMILY_SEEDS,
+                                  counters, "engine fedavg", dev, name, smi)
+    cells["robust trimmed"] = engine_cell(Engine, exp, train_ds, robust, "hfl-selective",
+                                          ENGINE_FAMILY_SEEDS, counters, "engine robust", dev,
+                                          name, smi)
+    check(cells["robust trimmed"]["launches"]["robust_agg"] == ROUNDS,
+          "robust_agg did not run once a round on the folded fogs")
+
+    eng = Engine()
+    audits = {}
+    for method in ENGINE_AUDIT_METHODS:
+        out = eng.audit(method, cfg, ENGINE_AUDIT_SEEDS)
+        for s, seed in enumerate(ENGINE_AUDIT_SEEDS):
+            want_a = exp.audit_method(method, cfg, seed=seed)
+            for key in ("e_s2f", "e_f2f", "e_f2g", "e_total", "participation", "coop_links"):
+                check(np.isclose(float(out[key][s, 0]), want_a[key], rtol=1e-5, atol=1e-9),
+                      f"audit {method} seed {seed}: {key} {float(out[key][s, 0])} vs "
+                      f"{want_a[key]}")
+        audits[method] = {k: float(v.mean()) for k, v in out.items()}
+        print(f"  audit {method:13s} {len(ENGINE_AUDIT_SEEDS)} seeds in one call: mean energy "
+              f"{audits[method]['e_total']:.4f} J, participation "
+              f"{audits[method]['participation']:.4f}, coop links "
+              f"{audits[method]['coop_links']:.2f}/round (each seed = audit_method)")
+    reach = eng.reachability(cfg, ENGINE_AUDIT_SEEDS)
+    for s, seed in enumerate(ENGINE_AUDIT_SEEDS):
+        dep = topo.sample_deployment(torch.Generator().manual_seed(seed), cfg.deployment)
+        r = part.reachability(dep, cfg.channel)
+        check(float(reach["direct_gateway"][s, 0]) == float(r.direct_gateway),
+              f"reachability seed {seed}: {float(reach['direct_gateway'][s, 0])} vs "
+              f"{float(r.direct_gateway)}")
+    reach_mean = {k: float(v.mean()) for k, v in reach.items()}
+    print(f"  reachability N={TRAIN_N} M={TRAIN_FOG}, {len(ENGINE_AUDIT_SEEDS)} deployments: "
+          f"direct gateway {reach_mean['direct_gateway']:.4f} (the paper's ~48%), fog-assisted "
+          f"{reach_mean['fog_assisted']:.4f}, fog to gateway {reach_mean['fog_to_gateway']:.4f}")
+
+    # Engine.score on the cell's published trial (0, 0) over serve-200's rows.
+    params, step = store.latest(ae.init(torch.Generator().manual_seed(0), D, HIDDEN,
+                                        device=dev))
+    check(step == ROUNDS, f"the engine published step {step}, not {ROUNDS}")
+    serve = normalize(generate(torch.Generator().manual_seed(0), SyntheticConfig(
+        n_sensors=N_SENSORS, val_len=VAL_LEN, test_len=TEST_LEN), device=dev))
+    tau = anomaly.calibrate_threshold(
+        anomaly.reconstruction_errors(ae.apply, params, serve.val.reshape(-1, D)), 99.0)
+    fs.reset_launches()
+    got_s = eng.score(params, serve.test, tau)
+    torch.cuda.synchronize()
+    score_launches = fs.LAUNCHES["fused_score_f32"]
+    want_s = score_mod.score(params, serve.test, tau)
+    check(score_launches == 1, f"Engine.score launched fused_score_f32 {score_launches} times")
+    check(torch.equal(got_s.error, want_s.error) and torch.equal(got_s.flag, want_s.flag),
+          "Engine.score differs from serving.score")
+    f1 = float(anomaly.pointwise_f1(got_s.flag.cpu(), serve.test_label.cpu()).f1)
+    print(f"  Engine.score of trial (0, 0) over serve-200's {serve.test.shape[0]} x "
+          f"{serve.test.shape[1]} test rows: 1 fused_score_f32 launch, bitwise serving.score; "
+          f"F1 {f1:.4f}")
+
+    ds_dev = type(train_ds)(*(t.to(dev) for t in train_ds))
+    timing = time_engine_rounds(exp, hfl, ae, ds_dev, cfg, name, smi)
+    for b in ENGINE_TIME_B:
+        print(f"    B={b}: {timing[b]['trial_round_ms']:.3f} ms per trial-round against phase "
+              f"8's {min(training['round_ms']):.3f} ms per round of one trial")
+    kernels = engine_kernels(dev, lt, fa, ra, kops, kref, agg, comp, ae, multi_epoch_indices,
+                             name, smi)
+    return dict(cells=cells, audit=audits, reachability=reach_mean,
+                score=dict(launches=score_launches, f1=f1), timing=timing, kernels=kernels)
+
+
 # --- phases 14-16: LM decode serving and the swa_decode kernel -------------
 
 SWA_KERNEL = ("src/repro/kernels/swa_attention.py:28", "src/repro_torch/kernels/csrc/swa_decode.cu")
@@ -2552,6 +2908,16 @@ def main(argv: list[str]) -> int:
     from repro_torch.core import flat_fl   # here, so --timing runs in checkouts without it
     flat = flat_fleet(exp, flat_fl, ae, FaultConfig, train_ds,
                       kernel_counters(lt, fa, ra, kq8, tk), training, dev, name, smi)
+
+    phase("18. engine-200 (main path): the batched trial Engine, 8 trials a call")
+    from repro_torch.core import participation
+    from repro_torch.engine import Engine
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT / "build") as tmp:
+        engine = engine_fleet(
+            (Engine, exp, hfl, ae, participation, topo, anomaly, score_mod, CheckpointStore,
+             FaultConfig, SyntheticConfig, generate, normalize, lt, fa, ra, fs, kops, kref, agg,
+             comp, multi_epoch_indices),
+            train_ds, kernel_counters(lt, fa, ra, kq8, tk), training, dev, name, smi, Path(tmp))
     phase("done")
 
     kernels = []
@@ -2573,6 +2939,9 @@ def main(argv: list[str]) -> int:
             "rows": HEADLINE_ROWS,
             "by_rows": {str(r): v for r, v in rows_table[kname].items()},
         })
+    for key, entry in engine["kernels"].items():       # the folded shapes' checks
+        kname = key.split(" @ ")[0]
+        train_err[kname] = max(train_err[kname], entry["max_abs_err"])
     launches = dict(training["launches"])
     launches["robust_agg"] = robust["launches"]["robust_agg"]
     launches.update({k: fleet["chunked"]["launches"][k] for k in ("wire_emit", "wire_agg")})
@@ -2593,8 +2962,17 @@ def main(argv: list[str]) -> int:
             "library_ms": None,
             **t,
         })
-        by_shape = {k.split(" @ ")[1]: v for k, v in train_timing.items()
+        by_shape = {k.split(" @ ")[1]: v for k, v in {**train_timing,
+                                                        **engine["kernels"]}.items()
                     if k.startswith(f"{kname} @ ")}
+        if kname in ("local_train_f32", "fused_agg"):
+            kernels[-1]["launches_by_path"] = {
+                "train-200": launches[kname],
+                "engine-200": engine["cells"]["engine-200"]["launches"][kname]}
+        if kname == "robust_agg":
+            kernels[-1]["launches_by_path"] = {
+                "robust-200": launches[kname],
+                "engine robust": engine["cells"]["robust trimmed"]["launches"][kname]}
         if kname == "fused_agg":
             by_shape["66,000 identity fogs"] = identity
         if by_shape:
@@ -2629,6 +3007,7 @@ def main(argv: list[str]) -> int:
     })
     print(json.dumps({"lm": {"swa_check": swa_err, "hybrid": hybrid, "dense": dense}}))
     print(json.dumps({"flat": flat}))
+    print(json.dumps({"engine": engine}))
     print("phase seconds: " + ", ".join(f"{k.split('.')[0]} {v:.1f}" for k, v in PHASE_S.items()
                                         if k != "done"))
     print(json.dumps({"kernels": kernels}))

@@ -6,8 +6,11 @@ cooperative mixing is a gather plus a convex combination, and global
 aggregation a weighted sum.  The client axis can be walked in chunks
 (``chunk=``: compression transients scale with the chunk, not the
 fleet), and the fog reduce can be Byzantine-robust
-(:func:`robust_compress_and_aggregate`).  The mesh-parallel paths of the
-reference are not ported yet.
+(:func:`robust_compress_and_aggregate`).  A batch of B trials folds into
+the client and fog axes of these operators: trial b's clients carry fog
+ids offset by b * M into B * M fogs, so a fog's members are all of one
+trial and its sum is that trial's own.  Mixing and the gateway step take
+(B, M, d).  The mesh-parallel paths of the reference are not ported yet.
 """
 from __future__ import annotations
 
@@ -225,15 +228,17 @@ def robust_compress_and_aggregate(
 def cooperative_mix(fog_models: torch.Tensor, decision: CoopDecision) -> torch.Tensor:
     """Cooperative fog mixing (Eq. 15, K = 1): theta~_m = alpha_mm theta_m
     + alpha_mj theta_j; non-cooperating fogs have partner m and weights
-    (1, 0), the identity."""
-    peer = fog_models[decision.partner]
-    return decision.self_weight[:, None] * fog_models + decision.partner_weight[:, None] * peer
+    (1, 0), the identity.  ``fog_models`` (..., M, d) and the decision's
+    (..., M) leaves may carry leading trial axes."""
+    peer = torch.take_along_dim(fog_models, decision.partner[..., None], dim=-2)
+    return (decision.self_weight[..., None] * fog_models
+            + decision.partner_weight[..., None] * peer)
 
 
 def global_aggregate(
-    fog_models: torch.Tensor,            # (M, d)
-    fog_weight: torch.Tensor,            # (M,) — sum of n_i over the cluster
-    prev: torch.Tensor | None = None,    # (d,) carry-through for a dead round
+    fog_models: torch.Tensor,            # (..., M, d)
+    fog_weight: torch.Tensor,            # (..., M) — sum of n_i over the cluster
+    prev: torch.Tensor | None = None,    # (..., d) carry-through for a dead round
 ) -> torch.Tensor:
     """Surface-gateway aggregation (Eq. 16): data-weighted fog average.
     With ``prev``, a round with no weight at all returns ``prev`` instead
@@ -244,11 +249,12 @@ def global_aggregate(
 def weighted_mean(
     updates: torch.Tensor, weights: torch.Tensor, prev: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Weighted average over the leading axis (FedAvg, Eq. 11); the same
-    zero-total-weight rule as :func:`global_aggregate`."""
-    total = torch.sum(weights)
-    w = weights / torch.clamp_min(total, 1e-12)
-    out = torch.tensordot(w, updates, dims=([0], [0]))
+    """Weighted average over the rows of ``updates`` (..., R, d) by
+    ``weights`` (..., R) (FedAvg, Eq. 11), per trial of the leading axes;
+    the same zero-total-weight rule as :func:`global_aggregate`."""
+    total = torch.sum(weights, dim=-1)
+    w = weights / torch.clamp_min(total, 1e-12)[..., None]
+    out = torch.matmul(w.unsqueeze(-2), updates).squeeze(-2)
     if prev is None:
         return out
-    return torch.where(total > 0.0, out, prev)
+    return torch.where((total > 0.0)[..., None], out, prev)

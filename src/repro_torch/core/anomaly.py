@@ -22,10 +22,14 @@ def reconstruction_errors(
     return torch.sum(torch.square(x - recon), dim=-1)
 
 
-def calibrate_threshold(errors: torch.Tensor, percentile: float = 99.0) -> torch.Tensor:
+def calibrate_threshold(errors: torch.Tensor, percentile: float = 99.0,
+                        dim: int | None = None) -> torch.Tensor:
     """Global threshold tau_A = p-th percentile of validation errors (Eq. 32),
-    linearly interpolated as ``numpy.percentile``."""
-    return torch.quantile(errors.reshape(-1), percentile / 100.0)
+    linearly interpolated as ``numpy.percentile``: over all of ``errors``,
+    or with ``dim`` along that axis (one threshold per trial)."""
+    if dim is None:
+        return torch.quantile(errors.reshape(-1), percentile / 100.0)
+    return torch.quantile(errors, percentile / 100.0, dim=dim)
 
 
 def flag_anomalies(errors: torch.Tensor, tau: Any) -> torch.Tensor:
@@ -39,13 +43,15 @@ class F1Result(NamedTuple):
     recall: torch.Tensor
 
 
-def pointwise_f1(pred: torch.Tensor, label: torch.Tensor) -> F1Result:
-    """Point-wise F1 over boolean prediction/label arrays."""
+def pointwise_f1(pred: torch.Tensor, label: torch.Tensor, dim: int | None = None) -> F1Result:
+    """Point-wise F1 over boolean prediction/label arrays: over all of
+    them, or with ``dim`` along that axis (one score per trial)."""
     pred = pred.to(torch.float32)
     label = label.to(torch.float32)
-    tp = torch.sum(pred * label)
-    fp = torch.sum(pred * (1.0 - label))
-    fn = torch.sum((1.0 - pred) * label)
+    kw = {} if dim is None else {"dim": dim}
+    tp = torch.sum(pred * label, **kw)
+    fp = torch.sum(pred * (1.0 - label), **kw)
+    fn = torch.sum((1.0 - pred) * label, **kw)
     precision = tp / torch.clamp(tp + fp, min=1e-12)
     recall = tp / torch.clamp(tp + fn, min=1e-12)
     f1 = 2.0 * precision * recall / torch.clamp(precision + recall, min=1e-12)
@@ -56,23 +62,27 @@ def point_adjust(pred: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     """Point-adjusted predictions (PA protocol, paper Sec. VI-F).
 
     If any point inside a contiguous anomalous segment is detected, the
-    whole segment is credited.
+    whole segment is credited.  Segments run along the last axis; leading
+    axes are trials.
     """
     label = label.to(torch.bool)
     pred = pred.to(torch.bool)
     # Segment id: cumulative count of rising edges, 0 outside segments.
-    prev = torch.cat([label.new_zeros((1,)), label[:-1]])
+    prev = torch.cat([label.new_zeros(label.shape[:-1] + (1,)), label[..., :-1]], dim=-1)
     start = label & ~prev
-    seg_id = torch.cumsum(start.to(torch.int64), 0) * label.to(torch.int64)
-    hit_per_seg = torch.zeros(pred.shape[0] + 1, dtype=torch.int64, device=pred.device)
-    hit_per_seg.index_add_(0, seg_id, (pred & label).to(torch.int64))
-    seg_hit = hit_per_seg[seg_id] > 0
+    seg_id = torch.cumsum(start.to(torch.int64), -1) * label.to(torch.int64)
+    hit_per_seg = torch.zeros(pred.shape[:-1] + (pred.shape[-1] + 1,), dtype=torch.int64,
+                              device=pred.device)
+    hit_per_seg.scatter_add_(-1, seg_id, (pred & label).to(torch.int64))
+    seg_hit = torch.gather(hit_per_seg, -1, seg_id) > 0
     return torch.where(label, seg_hit, pred)
 
 
-def point_adjusted_f1(pred: torch.Tensor, label: torch.Tensor) -> F1Result:
-    """PA-F1: point-wise F1 on point-adjusted predictions."""
-    return pointwise_f1(point_adjust(pred, label), label)
+def point_adjusted_f1(pred: torch.Tensor, label: torch.Tensor,
+                      dim: int | None = None) -> F1Result:
+    """PA-F1: point-wise F1 on point-adjusted predictions (``dim`` as in
+    :func:`pointwise_f1`)."""
+    return pointwise_f1(point_adjust(pred, label), label, dim)
 
 
 def evaluate_detector(
@@ -84,11 +94,13 @@ def evaluate_detector(
     percentile: float = 99.0,
     point_adjusted: bool = False,
 ) -> F1Result:
-    """Full paper protocol: calibrate on normal-only val, score test, F1."""
+    """Full paper protocol: calibrate on normal-only val, score test, F1.
+    Rows (R, D); with leading trial axes (x (B, R, D), params whose layers
+    lead with B) each trial has its own threshold and F1."""
     val_err = reconstruction_errors(apply_fn, params, x_val_normal)
-    tau = calibrate_threshold(val_err, percentile)
+    tau = calibrate_threshold(val_err, percentile, dim=-1)
     test_err = reconstruction_errors(apply_fn, params, x_test)
-    pred = flag_anomalies(test_err, tau)
+    pred = flag_anomalies(test_err, tau[..., None])
     if point_adjusted:
-        return point_adjusted_f1(pred, y_test)
-    return pointwise_f1(pred, y_test)
+        return point_adjusted_f1(pred, y_test, dim=-1)
+    return pointwise_f1(pred, y_test, dim=-1)

@@ -110,8 +110,9 @@ def propagation_delay_s(dist_m: Any) -> torch.Tensor:
 
 
 def pairwise_distances(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Euclidean distance matrix between position sets a:(N,3) and b:(M,3)."""
-    diff = a[:, None, :] - b[None, :, :]
+    """Euclidean distance matrix between position sets a:(..., N, 3) and
+    b:(..., M, 3): (..., N, M), leading (trial) axes broadcast."""
+    diff = a[..., :, None, :] - b[..., None, :, :]
     return torch.sqrt(torch.sum(torch.square(diff), dim=-1) + 1e-12)
 
 

@@ -7,6 +7,9 @@ All three rules return a :class:`CoopDecision` with, per fog node m:
   - ``self_weight`` / ``partner_weight``: the mixing coefficients
     (alpha_mm, alpha_mj), rows of a (sub-)stochastic mixing matrix (Eq. 14);
   - ``cooperates``: boolean mask (drives the fog-to-fog energy term, Eq. 18).
+
+Fog positions (..., M, 3) and cluster sizes (..., M) may carry leading
+trial axes; every decision is taken per trial and keeps them.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ class CoopRule(enum.Enum):
 
 
 class CoopDecision(NamedTuple):
-    partner: torch.Tensor         # (M,) int64
+    partner: torch.Tensor         # (M,) int64, an index within the trial
     self_weight: torch.Tensor     # (M,) f32
     partner_weight: torch.Tensor  # (M,) f32
     cooperates: torch.Tensor      # (M,) bool
@@ -41,11 +44,11 @@ F32 = torch.float32
 
 def _fog_distance_matrix(fog_pos: torch.Tensor) -> torch.Tensor:
     d = ch.pairwise_distances(fog_pos, fog_pos)
-    return d + torch.diag(torch.full((fog_pos.shape[0],), torch.inf, device=d.device))
+    return d + torch.diag(torch.full((fog_pos.shape[-2],), torch.inf, device=d.device))
 
 
 def _decision(coop, partner, dist, weights) -> CoopDecision:
-    idx = torch.arange(coop.shape[0], device=coop.device)
+    idx = torch.arange(coop.shape[-1], device=coop.device)
     w_self, w_peer = weights
     return CoopDecision(
         partner=torch.where(coop, partner, idx),
@@ -58,14 +61,14 @@ def _decision(coop, partner, dist, weights) -> CoopDecision:
 
 def no_cooperation(fog_pos: torch.Tensor) -> CoopDecision:
     """HFL-NoCoop: N_m = empty set for every fog."""
-    m = fog_pos.shape[0]
+    shape = tuple(fog_pos.shape[:-1])
     dev = fog_pos.device
     return CoopDecision(
-        partner=torch.arange(m, device=dev),
-        self_weight=torch.ones((m,), dtype=F32, device=dev),
-        partner_weight=torch.zeros((m,), dtype=F32, device=dev),
-        cooperates=torch.zeros((m,), dtype=torch.bool, device=dev),
-        dist_m=torch.zeros((m,), dtype=F32, device=dev),
+        partner=torch.arange(shape[-1], device=dev).expand(shape),
+        self_weight=torch.ones(shape, dtype=F32, device=dev),
+        partner_weight=torch.zeros(shape, dtype=F32, device=dev),
+        cooperates=torch.zeros(shape, dtype=torch.bool, device=dev),
+        dist_m=torch.zeros(shape, dtype=F32, device=dev),
     )
 
 
@@ -77,10 +80,10 @@ def nearest_cooperation(
     mixing, energy and latency masks agree."""
     d = _fog_distance_matrix(fog_pos)
     nonempty = cluster_size > 0
-    feas = ch.feasible(d, cparams) & nonempty[None, :]
+    feas = ch.feasible(d, cparams) & nonempty[..., None, :]
     partner = torch.argmin(torch.where(feas, d, torch.inf), dim=-1)
     has_any = torch.any(feas, dim=-1) & nonempty
-    pdist = torch.gather(d, 1, partner[:, None])[:, 0]
+    pdist = torch.gather(d, -1, partner[..., None])[..., 0]
     return _decision(has_any, partner, pdist, NEAREST_WEIGHTS)
 
 
@@ -97,24 +100,26 @@ def selective_cooperation(
     (hence nonempty) cluster lies closer than the first quartile of the
     feasible fog-fog distances; it then mixes 0.8/0.2 with the nearest
     such neighbour (29).  With no feasible pair at all the quartile is
-    taken over zeros, and no fog cooperates.
+    taken over zeros, and no fog cooperates.  The mean and the quartile are
+    each trial's own.
     """
     d = _fog_distance_matrix(fog_pos)
     feas = ch.feasible(d, cparams)
     c = cluster_size.to(F32)
     nonempty = c > 0
     ne = nonempty.to(F32)
-    mean_c = torch.sum(c * ne) / torch.clamp_min(torch.sum(ne), 1.0)
-    eligible = c <= torch.clamp_min(eligibility_factor * mean_c, 2.0)        # (28)
-    any_feasible = torch.any(feas)
+    mean_c = torch.sum(c * ne, dim=-1) / torch.clamp_min(torch.sum(ne, dim=-1), 1.0)
+    eligible = c <= torch.clamp_min(eligibility_factor * mean_c[..., None], 2.0)   # (28)
+    any_feasible = torch.any(feas.flatten(-2), dim=-1)
     feas_d = torch.where(feas, d, torch.nan)
-    q1 = torch.nanquantile(torch.where(any_feasible, feas_d, 0.0).reshape(-1), 0.25)
-    larger = (c[None, :] > c[:, None]) & nonempty[None, :]
-    candidate = feas & larger & (d < q1)
+    q1 = torch.nanquantile(torch.where(any_feasible[..., None, None], feas_d, 0.0).flatten(-2),
+                           0.25, dim=-1)
+    larger = (c[..., None, :] > c[..., :, None]) & nonempty[..., None, :]
+    candidate = feas & larger & (d < q1[..., None, None])
     partner = torch.argmin(torch.where(candidate, d, torch.inf), dim=-1)
     has_candidate = torch.any(candidate, dim=-1)
     coop = eligible & has_candidate & nonempty
-    pdist = torch.gather(d, 1, partner[:, None])[:, 0]
+    pdist = torch.gather(d, -1, partner[..., None])[..., 0]
     return _decision(coop, partner, pdist, SELECTIVE_WEIGHTS)
 
 

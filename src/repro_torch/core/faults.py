@@ -82,18 +82,19 @@ def byzantine_mask(
 
 
 def corrupt_deltas(
-    deltas: torch.Tensor,                  # (N, d) raw flat client updates
+    deltas: torch.Tensor,                  # (..., N, d) raw flat client updates
     cfg: FaultConfig,
-    prev_delta: torch.Tensor | None = None,  # (d,) last global delta (adaptive)
-    noise: torch.Tensor | None = None,       # (N, d) f32 standard normals (gauss)
+    prev_delta: torch.Tensor | None = None,  # (..., d) last global delta (adaptive)
+    noise: torch.Tensor | None = None,       # (..., N, d) f32 standard normals (gauss)
 ) -> torch.Tensor:
     """The configured Byzantine behaviour applied to the delta stream,
     before compression.  ``adaptive`` takes the mean and the population
     std (ddof 0) over all N rows; without ``prev_delta`` (or where it is
-    0) the direction is ``sign(mu)``."""
+    0) the direction is ``sign(mu)``.  Leading axes are trials: each has
+    its own colluders (its first clients) and its own statistics."""
     if cfg.byz_mode == "none":
         return deltas
-    mask = byzantine_mask(deltas.shape[0], cfg.byz_frac, deltas.device)
+    mask = byzantine_mask(deltas.shape[-2], cfg.byz_frac, deltas.device)
     scale = torch.tensor(cfg.byz_scale, dtype=torch.float32, device=deltas.device)
     if cfg.byz_mode == "sign_flip":
         attacked = -scale * deltas
@@ -105,10 +106,10 @@ def corrupt_deltas(
     elif cfg.byz_mode == "adaptive":
         if prev_delta is None:
             prev_delta = torch.zeros(deltas.shape[-1], dtype=deltas.dtype, device=deltas.device)
-        mu = torch.mean(deltas, dim=0)
-        sigma = torch.std(deltas, dim=0, correction=0)
+        mu = torch.mean(deltas, dim=-2)
+        sigma = torch.std(deltas, dim=-2, correction=0)
         dirn = torch.where(prev_delta == 0.0, torch.sign(mu), torch.sign(prev_delta))
-        attacked = torch.broadcast_to(mu - scale * sigma * dirn, deltas.shape)
+        attacked = torch.broadcast_to((mu - scale * sigma * dirn).unsqueeze(-2), deltas.shape)
     else:  # inflate
         attacked = scale * deltas
     return torch.where(mask[:, None], attacked, deltas)

@@ -18,6 +18,13 @@ fog walk, the sensor->fog assignment is refreshed only every
 ``reassoc_every`` rounds and the training windows scale by ``1 +
 covariate_shift * t``.  :func:`train` loops the round over the rounds.
 
+The round also runs B independent trials at once (:func:`train_trials`,
+what the batched ``Engine`` calls): every state tensor then leads with the
+trial axis, and the trials fold into the kernels' client and fog axes, so
+B trials make one trial's launches (with ``client_chunk`` the wire pair
+walks the B * N clients in chunks, about B times one trial's).  :func:`train` runs the same round
+on one trial's tensors, without a trial axis.
+
 Randomness is an argument: :class:`RoundDraws` holds every round's
 mobility noise, minibatch index table and, with faults on, the crash and
 erasure uniforms and the Byzantine noise; :func:`draw_rounds` makes them
@@ -29,7 +36,8 @@ ported yet: ``client_mesh`` raises.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple
+import math
+from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -113,7 +121,10 @@ class RoundMetrics(NamedTuple):
 
 
 class HFLState(NamedTuple):
-    params: Params               # global model theta^t (views of one flat vector)
+    """The round state of one trial, or of B trials run together: then
+    every tensor leads with the trial axis B."""
+
+    params: Params               # global model theta^t (views of one flat (d,) / (B, d) vector)
     err: torch.Tensor            # (N, d) error-feedback buffers
     battery: torch.Tensor        # (N,) residual energy
     dep: topo.Deployment
@@ -122,13 +133,14 @@ class HFLState(NamedTuple):
     # Drift carry (unused with drift off; round 0 always refreshes it):
     assoc_fog: torch.Tensor      # (N,) int32 frozen sensor->fog assignment
     assoc_ok: torch.Tensor       # (N,) bool, feasible at assignment time
-    t: int = 0                   # round counter, on the host
+    t: int = 0                   # round counter, on the host (shared by the trials)
 
 
 class RoundDraws(NamedTuple):
     """Per-round random inputs, stacked over the rounds.  The fault
     draws are None when the fault layer is off (``byz_noise`` also unless
-    ``byz_mode == "gauss"``)."""
+    ``byz_mode == "gauss"``).  A batch of trials stacks them on a trial
+    axis after the rounds' (:meth:`stack`): (T, B, ...)."""
 
     mobility: torch.Tensor       # (T, M, 3) f32 standard-normal Gauss-Markov noise
     batches: torch.Tensor        # (T, N, steps, bs) int32 minibatch index tables
@@ -142,6 +154,15 @@ class RoundDraws(NamedTuple):
     def round(self, t: int) -> tuple:
         """Round ``t``'s draws, in :func:`make_round_fn`'s argument order."""
         return tuple(None if x is None else x[t] for x in self)
+
+    @staticmethod
+    def stack(draws: "Sequence[RoundDraws]") -> "RoundDraws":
+        """Trials' draws stacked on a trial axis after the rounds' (one
+        trial's as a view: no copy of its index tables)."""
+        if len(draws) == 1:
+            return RoundDraws(*(None if x is None else x.unsqueeze(1) for x in draws[0]))
+        return RoundDraws(*(None if xs[0] is None else torch.stack(xs, dim=1)
+                            for xs in zip(*draws)))
 
 
 def draw_rounds(
@@ -177,18 +198,20 @@ def draw_rounds(
 
 
 def init_state(params: Params, dep: topo.Deployment, cfg: HFLConfig) -> HFLState:
+    """The first state of one trial, or of B trials from their stacked
+    params (layers leading with B) and deployments."""
     flat = ae.ravel(params)
-    n = cfg.deployment.n_sensors
+    lead, n = tuple(flat.shape[:-1]), cfg.deployment.n_sensors
     dev = flat.device
     return HFLState(
         params=ae.unravel(flat.clone(), params),
-        err=torch.zeros((n, flat.shape[0]), dtype=flat.dtype, device=dev),
-        battery=torch.full((n,), cfg.energy.e_init_j, dtype=torch.float32, device=dev),
+        err=torch.zeros(lead + (n, flat.shape[-1]), dtype=flat.dtype, device=dev),
+        battery=torch.full(lead + (n,), cfg.energy.e_init_j, dtype=torch.float32, device=dev),
         dep=dep,
-        server=srv.init_state(flat.shape[0], dev),
+        server=srv.init_state(tuple(flat.shape), dev),
         prev_delta=torch.zeros_like(flat),
-        assoc_fog=torch.zeros((n,), dtype=torch.int32, device=dev),
-        assoc_ok=torch.zeros((n,), dtype=torch.bool, device=dev),
+        assoc_fog=torch.zeros(lead + (n,), dtype=torch.int32, device=dev),
+        assoc_ok=torch.zeros(lead + (n,), dtype=torch.bool, device=dev),
     )
 
 
@@ -205,15 +228,17 @@ def comm_latency_s(
     """Eq. 21 communication term: the slowest active parallel link per
     tier (sensor->fog uplink, fog<->fog exchange, fog->gateway).  The
     fog-to-fog tier masks on ``cooperates & fog_active``, like the Eq. 18
-    energy term: an empty fog has no model to exchange."""
-    lat_up = torch.amax(torch.where(active, en.link_latency_s(l_u, sensor_dist_m, channel), 0.0))
+    energy term: an empty fog has no model to exchange.  Per trial of the
+    leading axes."""
+    lat_up = torch.amax(torch.where(
+        active, en.link_latency_s(l_u, sensor_dist_m, channel), 0.0), dim=-1)
     lat_ff = torch.amax(torch.where(
         decision.cooperates & fog_active,
         en.link_latency_s(l_full, decision.dist_m, channel), 0.0,
-    ))
+    ), dim=-1)
     lat_fg = torch.amax(torch.where(
         fog_active, en.link_latency_s(l_full, fog_gateway_dist_m, channel), 0.0
-    ))
+    ), dim=-1)
     return torch.maximum(torch.maximum(lat_up, lat_ff), lat_fg)
 
 
@@ -223,11 +248,23 @@ def make_round_fn(
     cfg: HFLConfig,
     *,
     client_mesh: Any = None,
-) -> Callable[[HFLState, torch.Tensor, torch.Tensor], tuple[HFLState, RoundMetrics]]:
+) -> Callable[..., tuple[HFLState, RoundMetrics]]:
     """Build ``round_fn(state, mobility (M, 3), batches (N, steps, bs))
     -> (state, metrics)``, one round of Algorithm 1 on ``ds``'s device;
     with the fault layer on it also takes the round's ``crash`` and
-    ``erase`` uniforms (N,) and, for ``gauss``, ``byz_noise`` (N, d)."""
+    ``erase`` uniforms (N,) and, for ``gauss``, ``byz_noise`` (N, d).
+
+    With ``ds`` stacked for B trials (train (B, N, window, D),
+    :func:`stack_datasets`) every argument and metric leads with B, and
+    the trials share the kernels' launches: the clients fold into one client axis
+    of B * N (``local_train_f32`` takes each trial's own start vector),
+    trial b's fog ids are offset by b * M into B * M fogs for the
+    compressed fog reduce (``fused_agg``, the wire pair or ``robust_agg``:
+    a fog's members are all of one trial, summed in client order), and
+    the physics, mixing and gateway step run with the trial axis leading.
+    So a round of B trials makes one trial's launches, except the chunked
+    wire pair (``client_chunk``), which walks the B * N clients a chunk at
+    a time: ceil(B * N / chunk) launches of each a round."""
     if client_mesh is not None:
         raise NotImplementedError(UNPORTED_MESH)
     n_fog = cfg.deployment.n_fog
@@ -241,7 +278,10 @@ def make_round_fn(
         loss_fn, batch_size=cfg.batch_size, epochs=cfg.local_epochs,
         lr=cfg.lr, prox_mu=cfg.prox_mu, solver=cfg.local_solver,
     )
-    n, window, dim = ds.train.shape
+    lead = tuple(ds.train.shape[:-3])                        # () or (B,)
+    b_n, (n, window, dim) = math.prod(lead), ds.train.shape[-3:]
+    # Trial b's fogs are b * M .. b * M + M - 1 of the folded fog axis.
+    fog_base = torch.arange(b_n, dtype=torch.int32, device=ds.train.device)[:, None] * n_fog
     # As in the reference, the compute cost counts the paper's hidden widths.
     flops = en.autoencoder_flops(dim, (16, 8, 16), window, cfg.local_epochs)
     lat_comp = flops / cfg.compute_rate_flops
@@ -277,13 +317,12 @@ def make_round_fn(
             # transmission, no energy this round.
             active = active & ~flt.draw_crash(crash, fl.crash_prob)
         # Cooperation sees round-active cluster sizes (battery included).
-        c_active = torch.zeros((n_fog,), dtype=torch.int32, device=active.device)
-        c_active.index_add_(0, fa.fog_id.long(), active.to(torch.int32))
+        c_active = assoc.cluster_sizes(fa.fog_id, active, n_fog)
         decision = coop.decide(cfg.rule, dep.fog_pos, c_active, cfg.channel)
 
         # --- 2+3. local training, fused compression + fog sums -----------
-        flat0 = ae.ravel(state.params)
-        d = flat0.shape[0]
+        flat0 = ae.ravel(state.params)                          # (..., d)
+        d = flat0.shape[-1]
         active_f = active.to(torch.float32)
         # Erasure strikes after the SNR gate: the packet was sent (energy
         # charged below, EF buffer advances), only its weight vanishes.
@@ -293,25 +332,29 @@ def make_round_fn(
             erased = torch.zeros_like(active)
         delivered = active & ~erased
         weights = ds.n_samples * delivered.to(torch.float32)
-        deltas, losses = clients_fn(state.params, train_windows(ds, cfg, state.t), batches)
+        x = train_windows(ds, cfg, state.t)
+        deltas, losses = clients_fn(state.params, x.reshape(b_n * n, window, dim),
+                                    batches.reshape((b_n * n,) + tuple(batches.shape[-2:])),
+                                    stacked=bool(lead))
+        deltas, losses = deltas.view(lead + (n, d)), losses.view(lead + (n,))
         if fault_on:
             deltas = flt.corrupt_deltas(deltas, fl, prev_delta=state.prev_delta, noise=byz_noise)
-        n_nonfinite = torch.sum(delivered & flt.nonfinite_rows(deltas))
+        n_nonfinite = torch.sum(delivered & flt.nonfinite_rows(deltas), dim=-1)
+        fog_id = fa.fog_id if b_n == 1 else fa.fog_id + fog_base
+        folded = (deltas.reshape(b_n * n, d), state.err.reshape(b_n * n, d), fog_id.reshape(-1),
+                  weights.reshape(-1), b_n * n_fog, cfg.compressor)
         if cfg.robust == "mean":
             fog_sum, fog_weight, new_err = agg.compress_and_accumulate(
-                deltas, state.err, fa.fog_id, weights, n_fog, cfg.compressor,
-                chunk=cfg.client_chunk,
-            )
+                *folded, chunk=cfg.client_chunk)
             fog_delta = fog_sum / torch.clamp_min(fog_weight, 1e-12)[:, None]
         else:
             fog_delta, fog_weight, new_err = agg.robust_compress_and_aggregate(
-                deltas, state.err, fa.fog_id, weights, n_fog, cfg.compressor,
-                cfg.trim_frac, cfg.robust, chunk=cfg.client_chunk,
-            )
+                *folded, cfg.trim_frac, cfg.robust, chunk=cfg.client_chunk)
+        fog_delta, fog_weight = fog_delta.view(lead + (n_fog, d)), fog_weight.view(lead + (n_fog,))
         # Non-participants keep their error buffer and contribute nothing.
-        new_err = torch.where(active[:, None], new_err, state.err)
+        new_err = torch.where(active[..., None], new_err.view(lead + (n, d)), state.err)
 
-        fog_model = fog_delta + flat0[None, :]                 # theta_m^{t+1/2}
+        fog_model = fog_delta + flat0[..., None, :]             # theta_m^{t+1/2}
         mixed = agg.cooperative_mix(fog_model, decision)       # Eq. 15
 
         # --- 4. global aggregation (Eq. 16, lines 19-21) -----------------
@@ -326,12 +369,12 @@ def make_round_fn(
         l_u = comp.payload_bits(d, cfg.compressor)           # sensor uplink bits
         l_full = 32.0 * d                                    # fog exchanges, dense
         e_up = torch.where(active, en.tx_energy_j(l_u, fa.dist_m, cfg.channel, cfg.energy), 0.0)
-        e_s2f = torch.sum(e_up)
+        e_s2f = torch.sum(e_up, dim=-1)
         fog_active = fog_weight > 0
         e_ff = en.tx_energy_j(l_full, decision.dist_m, cfg.channel, cfg.energy)
-        e_f2f = torch.sum(torch.where(decision.cooperates & fog_active, e_ff, 0.0))
+        e_f2f = torch.sum(torch.where(decision.cooperates & fog_active, e_ff, 0.0), dim=-1)
         e_fg = en.tx_energy_j(l_full, fa.fog_gateway_dist_m, cfg.channel, cfg.energy)
-        e_f2g = torch.sum(torch.where(fog_active & fa.fog_gateway_feasible, e_fg, 0.0))
+        e_f2g = torch.sum(torch.where(fog_active & fa.fog_gateway_feasible, e_fg, 0.0), dim=-1)
         lat_comm = comm_latency_s(
             l_u, l_full, active, fa.dist_m, decision, fog_active,
             fa.fog_gateway_dist_m, cfg.channel,
@@ -340,18 +383,19 @@ def make_round_fn(
         battery, _ = en.battery_step(state.battery, spent, cfg.energy)
 
         metrics = RoundMetrics(
-            loss=torch.sum(losses * active_f) / torch.clamp_min(torch.sum(active_f), 1.0),
+            loss=(torch.sum(losses * active_f, dim=-1)
+                  / torch.clamp_min(torch.sum(active_f, dim=-1), 1.0)),
             e_s2f=e_s2f,
             e_f2f=e_f2f,
             e_f2g=e_f2g,
             e_total=e_s2f + e_f2f + e_f2g,
             latency_s=lat_comm + lat_comp,
-            participation=torch.mean(active_f),
-            coop_links=torch.sum(decision.cooperates.to(torch.int32)),
-            battery_min=torch.amin(battery),
+            participation=torch.mean(active_f, dim=-1),
+            coop_links=torch.sum(decision.cooperates.to(torch.int32), dim=-1),
+            battery_min=torch.amin(battery, dim=-1),
             n_nonfinite=n_nonfinite.to(torch.int32),
-            n_erased=torch.sum(erased.to(torch.int32)),
-            global_finite=torch.all(torch.isfinite(new_flat)),
+            n_erased=torch.sum(erased.to(torch.int32), dim=-1),
+            global_finite=torch.all(torch.isfinite(new_flat), dim=-1),
         )
         # Adaptive colluders observe the realised global movement.
         prev_delta = new_flat - flat0 if adaptive else state.prev_delta
@@ -371,24 +415,92 @@ def train_windows(ds: SensorDataset, cfg: HFLConfig, t: int) -> torch.Tensor:
     return ds.train if scale == 1.0 else ds.train * float(scale)
 
 
-def start(init_params: Params, ds: SensorDataset, cfg: HFLConfig, dep: topo.Deployment,
-          draws: RoundDraws) -> tuple[HFLState, RoundDraws]:
-    """Check ``draws`` against ``cfg`` and move a trial onto ``ds``'s
-    device: (the initial state, the draws there)."""
+def stack_datasets(ds: Sequence[SensorDataset]) -> SensorDataset:
+    """Trials' datasets stacked on a new leading trial axis (one dataset
+    alone as a view); every split keeps its device."""
+    if len(ds) == 1:
+        return SensorDataset(*(t.unsqueeze(0) for t in ds[0]))
+    return SensorDataset(*(torch.stack(ts) for ts in zip(*ds)))
+
+
+def check_draws(cfg: HFLConfig, draws: RoundDraws) -> None:
+    """Raise unless ``draws`` cover ``cfg``'s rounds and fault layer."""
     if not 1 <= cfg.rounds <= draws.mobility.shape[0]:
         raise ValueError(f"draws cover {draws.mobility.shape[0]} rounds, cfg.rounds={cfg.rounds}")
     if cfg.faults.is_active and (draws.crash is None or draws.erase is None or (
             cfg.faults.byz_mode == "gauss" and draws.byz_noise is None)):
         raise ValueError("the fault layer is on but the draws lack its uniforms or noise "
                          "(draw them with draw_rounds(..., d=...) under the same config)")
+
+
+def start(init_params: Params, ds: SensorDataset, cfg: HFLConfig, dep: topo.Deployment,
+          draws: RoundDraws) -> tuple[HFLState, RoundDraws]:
+    """Check ``draws`` against ``cfg`` and move a trial onto ``ds``'s
+    device: (the initial state, the draws there)."""
+    check_draws(cfg, draws)
     dev = ds.train.device
     params = [{k: v.to(dev) for k, v in layer.items()} for layer in init_params]
     return init_state(params, dep.to(dev), cfg), draws.to(dev)
 
 
+def start_trials(init_params: Sequence[Params], ds: SensorDataset, cfg: HFLConfig,
+                 deps: Sequence[topo.Deployment], draws: Sequence[RoundDraws],
+                 ) -> tuple[HFLState, RoundDraws]:
+    """:func:`start` for B trials on the device of ``ds`` (stacked, (B, N,
+    ...)): (their first state, their draws stacked (T, B, ...))."""
+    for one in draws:
+        check_draws(cfg, one)
+    dev = ds.train.device
+    params = [{k: torch.stack([p[i][k] for p in init_params]).to(dev) for k in layer}
+              for i, layer in enumerate(init_params[0])]
+    dep = topo.Deployment.stack(list(deps)).to(dev)
+    return init_state(params, dep, cfg), RoundDraws.stack(draws).to(dev)
+
+
 def stack_metrics(per_round: list[RoundMetrics]) -> RoundMetrics:
-    """Per-round metrics stacked over the rounds."""
+    """Per-round metrics stacked over the rounds: (T, ...) leaves."""
     return RoundMetrics(*(torch.stack(v) for v in zip(*per_round)))
+
+
+def run_rounds(
+    round_fn: Callable[..., tuple[HFLState, RoundMetrics]],
+    state: HFLState,
+    draws: RoundDraws,
+    rounds: int,
+    store: Any | None = None,
+    publish_every: int = 1,
+    publish_offset: int = 0,
+) -> tuple[Params, RoundMetrics]:
+    """Loop ``round_fn`` over ``rounds`` rounds of ``draws``; returns (the
+    final params, metrics stacked over rounds).  With ``store`` the loop
+    publishes the global params every ``publish_every`` rounds (step =
+    round index + ``publish_offset``; the final round always publishes)."""
+    per_round = []
+    for t in range(rounds):
+        state, m = round_fn(state, *draws.round(t))
+        per_round.append(m)
+        if store is not None and ((t + 1) % publish_every == 0 or t + 1 == rounds):
+            store.publish(publish_offset + t + 1, state.params)
+    return state.params, stack_metrics(per_round)
+
+
+def train_trials(
+    init_params: Sequence[Params],
+    loss_fn: LossFn,
+    ds: SensorDataset,
+    cfg: HFLConfig,
+    deps: Sequence[topo.Deployment],
+    draws: Sequence[RoundDraws],
+    *,
+    client_mesh: Any = None,
+) -> tuple[Params, RoundMetrics]:
+    """T federated rounds of B trials at once on the device of ``ds``
+    (stacked, :func:`stack_datasets`), trial b from ``init_params[b]``,
+    ``deps[b]`` and ``draws[b]``; returns (final params, layers leading
+    with B, and metrics (T, B))."""
+    round_fn = make_round_fn(loss_fn, ds, cfg, client_mesh=client_mesh)
+    # No name holds the first state: run_rounds frees each state as it goes.
+    return run_rounds(round_fn, *start_trials(init_params, ds, cfg, deps, draws), cfg.rounds)
 
 
 def train(
@@ -404,21 +516,16 @@ def train(
     publish_every: int = 1,
     publish_offset: int = 0,
 ) -> tuple[Params, RoundMetrics]:
-    """Run T federated rounds; returns (final params, metrics stacked over
-    rounds).  Everything runs on the device of ``ds``; ``dep`` and
-    ``draws`` (see :func:`draw_rounds`) are moved there once.
+    """Run T federated rounds of one trial; returns (final params, metrics
+    stacked over rounds).  Everything runs on the device of ``ds``; ``dep``
+    and ``draws`` (see :func:`draw_rounds`) are moved there once.
 
     With ``store`` (a ``checkpoint.CheckpointStore``) the loop publishes
     the global params every ``publish_every`` rounds (step = round index +
     ``publish_offset``; the final round always publishes), which is what
     the serving hot-swap watches.
     """
-    state, draws = start(init_params, ds, cfg, dep, draws)
     round_fn = make_round_fn(loss_fn, ds, cfg, client_mesh=client_mesh)
-    per_round = []
-    for t in range(cfg.rounds):
-        state, m = round_fn(state, *draws.round(t))
-        per_round.append(m)
-        if store is not None and ((t + 1) % publish_every == 0 or t + 1 == cfg.rounds):
-            store.publish(publish_offset + t + 1, state.params)
-    return state.params, stack_metrics(per_round)
+    # No name holds the first state: run_rounds frees each state as it goes.
+    return run_rounds(round_fn, *start(init_params, ds, cfg, dep, draws), cfg.rounds, store,
+                      publish_every, publish_offset)

@@ -40,7 +40,8 @@ class DeploymentParams:
 
 @dataclasses.dataclass
 class Deployment:
-    """Dynamic node state: positions and fog velocities (f32)."""
+    """Dynamic node state: positions and fog velocities (f32).  A batch of
+    trials carries a leading trial axis on every field (``stack``)."""
 
     sensor_pos: torch.Tensor      # (N, 3)
     fog_pos: torch.Tensor         # (M, 3)
@@ -49,6 +50,12 @@ class Deployment:
 
     def to(self, device: torch.device | str) -> "Deployment":
         return Deployment(*(t.to(device) for t in dataclasses.astuple(self)))
+
+    @staticmethod
+    def stack(deps: "list[Deployment]") -> "Deployment":
+        """Deployments stacked along a new leading trial axis."""
+        return Deployment(*(torch.stack([getattr(dep, f.name) for dep in deps])
+                            for f in dataclasses.fields(Deployment)))
 
 
 def _box(params: DeploymentParams, depth: tuple[float, float], device) -> tuple:
@@ -80,9 +87,9 @@ def gauss_markov_step(
     """Drift fog nodes one round with a Gauss-Markov mobility model.
 
     v_{t+1} = a v_t + sqrt(1-a^2) sigma w, with ``noise`` = w ~ N(0, I) of
-    shape (M, 3).  Positions reflect into the deployment volume and are
-    clamped to the fog stratum's depth band; a reflected component flips
-    its velocity.
+    shape (M, 3) (or (B, M, 3) for a batch of trials).  Positions reflect
+    into the deployment volume and are clamped to the fog stratum's depth
+    band; a reflected component flips its velocity.
     """
     a = params.gm_alpha
     noise = noise * params.fog_speed_m_s
@@ -122,7 +129,7 @@ def current_advection_step(
     """
     rate = float(np.float32(2.0 * math.pi) * (np.float32(1.0) / np.float32(params.depth_m)))
     s = float(np.float32(speed_m_s))
-    z = dep.sensor_pos[:, 2]
+    z = dep.sensor_pos[..., 2]
     phase = z * rate
     vel = torch.stack([s * torch.cos(phase), s * torch.sin(phase), torch.zeros_like(z)], dim=-1)
     pos, _ = _reflect(dep.sensor_pos + vel * params.round_interval_s, params,

@@ -61,6 +61,12 @@
 // (chip_smoke.py phase 6), ~9x the bound: a warp's instructions are mostly
 // addressing, shuffles, tanh and barriers around the FMAs, so the SMs
 // holding two clients are bound by instruction issue.
+//
+// Trials.  A batch of B independent trials (the batched trial engine)
+// folds into the client axis: B runs of N clients, trial b's clients
+// training from row b of a (B, n_params) theta.  A block only offsets its
+// theta pointer by its trial; nothing else changes, so each trial's
+// deltas and losses are bitwise those of a launch of its N clients alone.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -393,9 +399,9 @@ template <class Net>
 __global__ void __launch_bounds__(kThreads)
     local_train_kernel(const float* __restrict__ x, int window,
                        const int* __restrict__ idx, int steps, int batch_arg,
-                       const float* __restrict__ theta, const Layout lay, bool vec_rows,
-                       float lr, float mu, float* __restrict__ delta,
-                       float* __restrict__ loss) {
+                       const float* __restrict__ theta, int clients_per_theta,
+                       const Layout lay, bool vec_rows, float lr, float mu,
+                       float* __restrict__ delta, float* __restrict__ loss) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float red[kWarps];
   const int L = n_layers<Net>(lay);
@@ -406,6 +412,9 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = tid >> 5;
   const int d = Net::dim(lay, 0);
   int* ring = reinterpret_cast<int*>(smem + lay.idx_off);
+  // The client's trial's start vector: trials fold into the client axis,
+  // clients_per_theta clients each (all clients share row 0 when it is n).
+  theta += static_cast<size_t>(client / clients_per_theta) * lay.n_params;
 
   // The working parameters, from the ravel order into padded weight rows
   // (and back into deltas at the end).
@@ -550,15 +559,16 @@ __global__ void __launch_bounds__(kThreads)
 
 template <class Net>
 cudaError_t launch(const float* x, int n, int window, const int* idx, int steps, int batch,
-                   const float* theta, const Layout& lay, float lr, float mu, float* delta,
-                   float* loss, int smem_bytes, cudaStream_t stream) {
+                   const float* theta, int clients_per_theta, const Layout& lay, float lr,
+                   float mu, float* delta, float* loss, int smem_bytes, cudaStream_t stream) {
   cudaError_t rc = cudaFuncSetAttribute(local_train_kernel<Net>,
                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
                                         smem_bytes);
   if (rc != cudaSuccess) return rc;
   const bool vec_rows = lay.dims[0] % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   local_train_kernel<Net><<<n, kThreads, smem_bytes, stream>>>(
-      x, window, idx, steps, batch, theta, lay, vec_rows, lr, mu, delta, loss);
+      x, window, idx, steps, batch, theta, clients_per_theta, lay, vec_rows, lr, mu, delta,
+      loss);
   return cudaGetLastError();
 }
 
@@ -567,18 +577,21 @@ cudaError_t launch(const float* x, int n, int window, const int* idx, int steps,
 extern "C" {
 
 // x (n, window, dims[0]) f32; idx (n, steps, batch) int32 rows of the
-// window; theta (n_params,) f32 in the ravel order; delta (n, n_params) f32
+// window; theta (n / clients_per_theta, n_params) f32 in the ravel order, one
+// start vector per run of clients_per_theta clients; delta (n, n_params) f32
 // and loss (n,) f32 out.  The offsets and strides are local_train.py's
 // layout(), per layer in `per_layer` (seg_off, pseg_off, w_off, w_stride:
 // 4 x n_layers) and per width in `per_width` (stride, act_off, grad_off:
 // 3 x (n_layers + 1)); smem_bytes its size.  Returns the cudaError_t of the
 // launch (0 on success).
 int local_train_f32(const void* x, int n, int window, const void* idx, int steps, int batch,
-                    const void* theta, int n_layers, const int* dims, const int* per_layer,
+                    const void* theta, int clients_per_theta, int n_layers, const int* dims,
+                    const int* per_layer,
                     const int* per_width, const int* x_off, int idx_off, int n_params,
                     float lr, float mu, void* delta, void* loss, int smem_bytes,
                     void* stream) {
-  if (n < 1 || steps < 1 || batch < 1 || n_layers < 1 || n_layers > kMaxLayers)
+  if (n < 1 || steps < 1 || batch < 1 || n_layers < 1 || n_layers > kMaxLayers ||
+      clients_per_theta < 1 || n % clients_per_theta != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Layout lay = {};
   lay.n_layers = n_layers;
@@ -602,12 +615,13 @@ int local_train_f32(const void* x, int n, int window, const void* idx, int steps
   const float* xf = static_cast<const float*>(x);
   const int* ip = static_cast<const int*>(idx);
   const float* tp = static_cast<const float*>(theta);
+  const int cpt = clients_per_theta;
   float* dp = static_cast<float*>(delta);
   float* lp = static_cast<float*>(loss);
   if (is_paper(lay, batch))
-    return static_cast<int>(launch<PaperAE>(xf, n, window, ip, steps, batch, tp, lay, lr, mu,
-                                            dp, lp, smem_bytes, s));
-  return static_cast<int>(launch<Generic>(xf, n, window, ip, steps, batch, tp, lay, lr, mu,
+    return static_cast<int>(launch<PaperAE>(xf, n, window, ip, steps, batch, tp, cpt, lay, lr,
+                                            mu, dp, lp, smem_bytes, s));
+  return static_cast<int>(launch<Generic>(xf, n, window, ip, steps, batch, tp, cpt, lay, lr, mu,
                                           dp, lp, smem_bytes, s));
 }
 

@@ -6,7 +6,9 @@ the ravel order (``models/autoencoder.ravel``).  It checks them, allocates
 the outputs with ``torch.empty``, launches on the current stream (one block
 of 8 warps per client) and raises when the launch is refused.  The CPU
 route is ``kernels/ops``', which sends CPU tensors to
-``kernels/ref.local_train_ref``.
+``kernels/ref.local_train_ref``.  A (B, d) theta gives each of B runs of
+N / B clients its own start vector: the batched trial engine folds its
+trials into the client axis, one launch for all of them.
 
 ``LAUNCHES["local_train_f32"]`` counts launches; :func:`layout` sizes the
 shared memory and refuses widths that do not fit.  Design: each warp takes
@@ -47,7 +49,7 @@ def _library() -> ctypes.CDLL:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         ip = ctypes.POINTER(ctypes.c_int)
         lib.local_train_f32.argtypes = [
-            vp, i, i, vp, i, i, vp, i, ip, ip, ip, ip, i, i, f, f, vp, vp, i, vp,
+            vp, i, i, vp, i, i, vp, i, i, ip, ip, ip, ip, i, i, f, f, vp, vp, i, vp,
         ]
         lib.local_train_f32.restype = i
         lib.local_train_error_string.argtypes = [i]
@@ -119,13 +121,15 @@ def layout(dims: tuple[int, ...], batch: int) -> dict:
 def train_clients(
     x: torch.Tensor,                  # (N, window, D) f32 client windows
     idx: torch.Tensor,                # (N, steps, batch) int32 window rows
-    theta: torch.Tensor,              # (d,) f32 broadcast params, ravel order
+    theta: torch.Tensor,              # (d,) or (B, d) f32 start params, ravel order
     dims: tuple[int, ...],            # (D, hidden..., D)
     lr: float,
     mu: float = 0.0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``local_train_f32``: (deltas (N, d) f32 in the ravel order,
-    mean loss (N,) f32).  Index entries must lie in ``[0, window)``."""
+    mean loss (N,) f32).  Index entries must lie in ``[0, window)``.  A
+    (B, d) ``theta`` holds one start vector per trial: the N = B * (N / B)
+    clients are B runs, run b training from ``theta[b]``."""
     device = _launch.require_cuda(x, "local-train")
     dims = tuple(int(v) for v in dims)
     if x.dim() != 3 or idx.dim() != 3:
@@ -140,7 +144,11 @@ def train_clients(
     lay = layout(dims, batch)
     _launch.check(x, "x", torch.float32, (n, window, d), device)
     _launch.check(idx, "idx", torch.int32, (n, steps, batch), device)
-    _launch.check(theta, "theta", torch.float32, (lay["n_params"],), device)
+    trials = int(theta.shape[0]) if theta.dim() == 2 else 1
+    if trials < 1 or n % trials != 0:
+        raise ValueError(f"theta {tuple(theta.shape)} does not split {n} clients into trials")
+    _launch.check(theta, "theta", torch.float32,
+                  (trials, lay["n_params"]) if theta.dim() == 2 else (lay["n_params"],), device)
     deltas = torch.empty((n, lay["n_params"]), dtype=torch.float32, device=device)
     loss = torch.empty((n,), dtype=torch.float32, device=device)
     lib = _library()
@@ -148,7 +156,7 @@ def train_clients(
     with torch.cuda.device(device):
         rc = lib.local_train_f32(
             x.data_ptr(), n, window, idx.data_ptr(), steps, batch, theta.data_ptr(),
-            len(dims) - 1, ints(dims),
+            n // trials, len(dims) - 1, ints(dims),
             ints(lay["seg_off"] + lay["pseg_off"] + lay["w_off"] + lay["w_stride"]),
             ints(lay["stride"] + lay["act_off"] + lay["grad_off"]), ints(lay["x_off"]),
             lay["idx_off"], lay["n_params"], float(lr), float(mu), deltas.data_ptr(),

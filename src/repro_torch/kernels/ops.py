@@ -211,10 +211,13 @@ def local_train(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The client phase of a round for every client in one operator: E
     epochs of minibatch SGD (FedProx when ``prox_mu != 0``).  Returns
-    (flat deltas (N, d) f32 in the ravel order, mean losses (N,))."""
+    (flat deltas (N, d) f32 in the ravel order, mean losses (N,)).  Layers
+    with a leading trial axis (w (B, d_in, d_out), b (B, d_out)) give each
+    of B runs of N / B clients its own start point, as ``jax.vmap`` of the
+    reference's local-train step over B trials computes it."""
     ws = tuple(layer["w"] for layer in params)
     if _route(data) == "cuda":
-        dims = (int(ws[0].shape[0]),) + tuple(int(w.shape[1]) for w in ws)
+        dims = (int(ws[0].shape[-2]),) + tuple(int(w.shape[-1]) for w in ws)
         return _lt.train_clients(data, idx, ae.ravel(params), dims, lr, prox_mu)
     return _ref.local_train_ref(data, idx, ws, tuple(layer["b"] for layer in params), lr, prox_mu)
 

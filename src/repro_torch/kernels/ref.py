@@ -247,14 +247,16 @@ def dense_fold_ref(
 def local_train_ref(
     x: torch.Tensor,                  # (N, window, D) resident client windows
     idx: torch.Tensor,                # (N, steps, bsz) minibatch row indices
-    ws: tuple[torch.Tensor, ...],     # per-layer weights, (d_in, d_out)
-    bs: tuple[torch.Tensor, ...],     # per-layer biases, (d_out,)
+    ws: tuple[torch.Tensor, ...],     # per-layer weights, (d_in, d_out) or (B, d_in, d_out)
+    bs: tuple[torch.Tensor, ...],     # per-layer biases, (d_out,) or (B, d_out)
     lr: float,
     mu: float = 0.0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """E-epoch minibatch SGD on the autoencoder loss for every client at
     once, each minibatch indexed out of the client's window; FedProx adds
     ``mu * (theta - theta_anchor)`` to the gradient when ``mu != 0``.
+    Weights with a leading trial axis B start the clients in B runs of
+    N / B, run b from trial b's weights (``jax.vmap`` over trials).
 
     The backward pass is written out: tanh' is ``1 - a**2`` from the stored
     tanh output, the gradient of layer l-1 uses layer l's pre-update
@@ -266,8 +268,12 @@ def local_train_ref(
     n_layers = len(ws)
     anchor_w = [w.to(torch.float32) for w in ws]
     anchor_b = [b.to(torch.float32) for b in bs]
-    cur_w = [w.expand(n, *w.shape).clone() for w in anchor_w]
-    cur_b = [b.expand(n, *b.shape).clone() for b in anchor_b]
+    if anchor_b[0].dim() == 2:        # one start point per trial
+        per = n // anchor_b[0].shape[0]
+        anchor_w = [w.repeat_interleave(per, dim=0) for w in anchor_w]
+        anchor_b = [b.repeat_interleave(per, dim=0) for b in anchor_b]
+    cur_w = [w.expand(n, *w.shape[-2:]).clone() for w in anchor_w]
+    cur_b = [b.expand(n, b.shape[-1]).clone() for b in anchor_b]
     rows = torch.arange(n, device=x.device)[:, None]
     inv_b = 1.0 / bsz
     loss_sum = torch.zeros((n,), dtype=torch.float32, device=x.device)

@@ -19,11 +19,15 @@ init params, deployment, per-round draws, and the centralised oracle's
 per-epoch index tables) come from :func:`draw_trial` and a
 ``torch.Generator``, or are handed in by the caller, so one trial can run
 on the card and on the CPU, or in both packages, on identical inputs.
+:func:`batched_trial_metrics` runs B trials at once, each on its own
+inputs, sharing every round's kernel launches (the batched ``Engine``'s
+trial function); :func:`trial_metrics` runs one trial through the same
+round, without a trial axis.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Sequence
 
 import torch
 
@@ -63,6 +67,8 @@ _UNPORTED = {
 }
 
 FLAT_METHODS = ("fedavg", "fedprox", "fedadam")
+# Methods that run no kernel: their trials run one after another.
+UNBATCHED = ("centralised", "scaffold")
 
 # FedProx proximal coefficient (paper uses mu ~ 0.01 scale defaults).
 PROX_MU = 0.01
@@ -130,12 +136,123 @@ def _dataset_to(ds: SensorDataset, dev: torch.device) -> SensorDataset:
 def _detector_eval(
     params: Any, ds: SensorDataset, percentile: float, point_adjusted: bool
 ) -> anomaly.F1Result:
-    """Paper protocol with the GLOBAL threshold variant (Sec. V-D)."""
-    d = ds.val.shape[-1]
+    """Paper protocol with the GLOBAL threshold variant (Sec. V-D); with
+    ``params`` and ``ds`` leading with a trial axis, each trial has its own
+    threshold and F1."""
+    lead, d = tuple(ds.val.shape[:-3]), ds.val.shape[-1]
     return anomaly.evaluate_detector(
-        ae.apply, params, ds.val.reshape(-1, d), ds.test.reshape(-1, d),
-        ds.test_label.reshape(-1), percentile=percentile, point_adjusted=point_adjusted,
+        ae.apply, params, ds.val.reshape(lead + (-1, d)), ds.test.reshape(lead + (-1, d)),
+        ds.test_label.reshape(lead + (-1,)), percentile=percentile,
+        point_adjusted=point_adjusted,
     )
+
+
+def _run_cfg(method: str, cfg: hfl.HFLConfig) -> hfl.HFLConfig:
+    """``cfg`` as the reference routes ``method``: ``fedprox`` with
+    ``prox_mu = PROX_MU``, ``fedadam`` / ``hfl-adam`` with the FedAdam
+    gateway, the hfl methods with their cooperation rule."""
+    if method in FLAT_METHODS:
+        return cfg.replace(prox_mu=PROX_MU if method == "fedprox" else 0.0,
+                           server_opt="adam" if method == "fedadam" else cfg.server_opt)
+    return cfg.replace(rule=_RULES[method], prox_mu=0.0,
+                       server_opt="adam" if method == "hfl-adam" else cfg.server_opt)
+
+
+def _summary(m: Any) -> dict[str, torch.Tensor]:
+    """A round loop's metrics (T, ...) as the trial metrics, each (...)
+    (the losses (..., T))."""
+    return {
+        "e_total": torch.sum(m.e_total, dim=0),
+        "e_s2f": torch.sum(m.e_s2f, dim=0),
+        "e_f2f": torch.sum(m.e_f2f, dim=0),
+        "e_f2g": torch.sum(m.e_f2g, dim=0),
+        "participation": torch.mean(m.participation, dim=0),
+        "coop_links": torch.mean(m.coop_links.to(torch.float32), dim=0),
+        "losses": torch.movedim(m.loss, 0, -1),
+        "sim_time_s": torch.sum(m.latency_s, dim=0),
+        "nonfinite_total": torch.sum(m.n_nonfinite.to(torch.float32), dim=0),
+        "erased_total": torch.sum(m.n_erased.to(torch.float32), dim=0),
+        "nonfinite_rounds": torch.sum(1.0 - m.global_finite.to(torch.float32), dim=0),
+    }
+
+
+def _one_trial(method, ds, cfg, inputs) -> tuple[Any, dict[str, torch.Tensor]]:
+    """SCAFFOLD or the centralised oracle, one trial on ``ds``'s device
+    (neither runs a kernel, so batching them would save no launch): (its
+    params, its metrics but the F1s)."""
+    dev = ds.train.device
+    if method == "scaffold":
+        params, m = flat_fl.train_scaffold(inputs.params, ae.loss, ds, cfg, inputs.dep,
+                                           inputs.draws)
+        return params, _summary(m)
+    if inputs.pooled is None:
+        raise ValueError("the centralised oracle needs TrialInputs.pooled "
+                         "(draw_trial(..., method='centralised'))")
+    params, losses, e_up = flat_fl.train_centralised(
+        inputs.params, ae.loss, ds, cfg, inputs.dep, inputs.pooled)
+    zero = torch.zeros((), device=dev)
+    # The oracle sees everything; it has no federated uplinks, so the
+    # robustness counters are 0.
+    return params, {
+        "e_s2f": zero, "e_f2f": zero, "e_f2g": zero, "e_total": e_up,
+        "participation": torch.ones((), device=dev), "coop_links": zero,
+        "losses": losses, "sim_time_s": zero, "nonfinite_total": zero,
+        "erased_total": zero, "nonfinite_rounds": zero,
+    }
+
+
+def batched_trial_metrics(
+    method: str,
+    inputs: Sequence[TrialInputs],
+    ds: SensorDataset | Sequence[SensorDataset],
+    cfg: hfl.HFLConfig,
+    *,
+    percentile: float = 99.0,
+    point_adjusted: bool = False,
+    client_mesh: Any = None,
+    return_params: bool = False,
+    device: torch.device | str | None = None,
+) -> dict[str, Any]:
+    """B trials of ``method`` at once, trial b on ``inputs[b]`` and its
+    dataset (``ds[b]``, or one dataset shared by every trial): the
+    :func:`trial_metrics` dict with a leading B axis on every value
+    (``"params"`` layers lead with B).
+
+    The round methods run their B trials through one round loop
+    (``hfl.train_trials``, ``flat_fl.train_flat_trials``), so a round of B
+    trials launches each kernel as often as one trial's round does (the
+    chunked wire pair excepted: ceil(B * N / chunk) launches a round); the
+    evaluation takes a threshold and an F1 per trial.  SCAFFOLD and the
+    centralised oracle run their trials one after another."""
+    _check_method(method)
+    dev = _device.resolve(device)
+    b_n = len(inputs)
+    if b_n < 1:
+        raise ValueError("needs at least one trial")
+    per_trial = [ds] * b_n if isinstance(ds, SensorDataset) else list(ds)
+    if len(per_trial) != b_n:
+        raise ValueError(f"got {len(per_trial)} datasets for {b_n} trials")
+    on_dev: dict[int, SensorDataset] = {}
+    for one in per_trial:          # each distinct dataset goes to the device once
+        on_dev.setdefault(id(one), _dataset_to(one, dev))
+    stacked = hfl.stack_datasets([on_dev[id(one)] for one in per_trial])
+    if method in UNBATCHED:
+        runs = [_one_trial(method, on_dev[id(one)], cfg, inp)
+                for one, inp in zip(per_trial, inputs)]
+        params = [{k: torch.stack([p[i][k] for p, _ in runs]) for k in layer}
+                  for i, layer in enumerate(runs[0][0])]
+        out = {k: torch.stack([m[k] for _, m in runs]) for k in runs[0][1]}
+    else:
+        train = flat_fl.train_flat_trials if method in FLAT_METHODS else hfl.train_trials
+        params, m = train([i.params for i in inputs], ae.loss, stacked, _run_cfg(method, cfg),
+                          [i.dep for i in inputs], [i.draws for i in inputs],
+                          client_mesh=client_mesh)
+        out = _summary(m)
+    f1 = _detector_eval(params, stacked, percentile, point_adjusted)
+    out.update(f1=f1.f1, precision=f1.precision, recall=f1.recall)
+    if return_params:
+        out["params"] = params
+    return out
 
 
 def trial_metrics(
@@ -169,55 +286,15 @@ def trial_metrics(
     if inputs is None:
         inputs = draw_trial(generator, ds, cfg, hidden, method)
     ds = _dataset_to(ds, dev)
-    if method == "centralised":
-        if inputs.pooled is None:
-            raise ValueError("the centralised oracle needs TrialInputs.pooled "
-                             "(draw_trial(..., method='centralised'))")
-        params, losses, e_up = flat_fl.train_centralised(
-            inputs.params, ae.loss, ds, cfg, inputs.dep, inputs.pooled)
-        zero = torch.zeros((), device=dev)
-        # The oracle sees everything; it has no federated uplinks, so the
-        # robustness counters are 0.
-        out = {
-            "e_s2f": zero, "e_f2f": zero, "e_f2g": zero, "e_total": e_up,
-            "participation": torch.ones((), device=dev), "coop_links": zero,
-            "losses": losses, "sim_time_s": zero, "nonfinite_total": zero,
-            "erased_total": zero, "nonfinite_rounds": zero,
-        }
+    if method in UNBATCHED:
+        params, out = _one_trial(method, ds, cfg, inputs)
     else:
+        args = (inputs.params, ae.loss, ds, _run_cfg(method, cfg), inputs.dep, inputs.draws)
         if method in FLAT_METHODS:
-            run_cfg = cfg.replace(
-                prox_mu=PROX_MU if method == "fedprox" else 0.0,
-                server_opt="adam" if method == "fedadam" else cfg.server_opt,
-            )
-            params, m = flat_fl.train_flat(inputs.params, ae.loss, ds, run_cfg, inputs.dep,
-                                           inputs.draws, client_mesh=client_mesh)
-        elif method == "scaffold":
-            params, m = flat_fl.train_scaffold(inputs.params, ae.loss, ds, cfg, inputs.dep,
-                                               inputs.draws)
+            params, m = flat_fl.train_flat(*args, client_mesh=client_mesh)
         else:
-            run_cfg = cfg.replace(
-                rule=_RULES[method],
-                prox_mu=0.0,
-                server_opt="adam" if method == "hfl-adam" else cfg.server_opt,
-            )
-            params, m = hfl.train(
-                inputs.params, ae.loss, ds, run_cfg, inputs.dep, inputs.draws,
-                client_mesh=client_mesh, store=store,
-            )
-        out = {
-            "e_total": torch.sum(m.e_total),
-            "e_s2f": torch.sum(m.e_s2f),
-            "e_f2f": torch.sum(m.e_f2f),
-            "e_f2g": torch.sum(m.e_f2g),
-            "participation": torch.mean(m.participation),
-            "coop_links": torch.mean(m.coop_links.to(torch.float32)),
-            "losses": m.loss,
-            "sim_time_s": torch.sum(m.latency_s),
-            "nonfinite_total": torch.sum(m.n_nonfinite.to(torch.float32)),
-            "erased_total": torch.sum(m.n_erased.to(torch.float32)),
-            "nonfinite_rounds": torch.sum(1.0 - m.global_finite.to(torch.float32)),
-        }
+            params, m = hfl.train(*args, client_mesh=client_mesh, store=store)
+        out = _summary(m)
     f1 = _detector_eval(params, ds, percentile, point_adjusted)
     out.update(f1=f1.f1, precision=f1.precision, recall=f1.recall)
     if return_params:
@@ -267,7 +344,9 @@ def audit_trial(
 ) -> dict[str, torch.Tensor]:
     """Replay Algorithm 1's association / cooperation / energy accounting
     over ``cfg.rounds`` rounds WITHOUT training (see :func:`audit_method`);
-    returns summed energies, mean participation and mean coop links."""
+    returns summed energies, mean participation and mean coop links.  A
+    deployment with leading trial axes (``Deployment.stack``) and mobility
+    (T, B, M, 3) replay B trials at once, each value (B,)."""
     if method in ("fedavg", "fedprox", "fedadam", "scaffold"):
         kind = "flat"
     elif method in _RULES:
@@ -277,7 +356,7 @@ def audit_trial(
     if l_u is None:
         l_u = comp.payload_bits(d, cfg.compressor)
     l_full = 32.0 * d
-    zero = torch.zeros((), device=dep.fog_pos.device)
+    zero = torch.zeros(dep.fog_pos.shape[:-2], device=dep.fog_pos.device)
     rows = []
     for t in range(cfg.rounds):
         if cfg.fog_mobility:
@@ -286,9 +365,9 @@ def audit_trial(
             fa = assoc.flat_association(dep, cfg.channel)
             e_up = en.tx_energy_j(l_u, fa.dist_m, cfg.channel, cfg.energy)
             rows.append(dict(
-                e_s2f=torch.sum(torch.where(fa.participates, e_up, 0.0)),
+                e_s2f=torch.sum(torch.where(fa.participates, e_up, 0.0), dim=-1),
                 e_f2f=zero, e_f2g=zero,
-                participation=torch.mean(fa.participates.to(torch.float32)),
+                participation=torch.mean(fa.participates.to(torch.float32), dim=-1),
                 coop_links=zero,
             ))
             continue
@@ -299,17 +378,18 @@ def audit_trial(
         e_ff = en.tx_energy_j(l_full, decision.dist_m, cfg.channel, cfg.energy)
         e_fg = en.tx_energy_j(l_full, fa.fog_gateway_dist_m, cfg.channel, cfg.energy)
         rows.append(dict(
-            e_s2f=torch.sum(torch.where(fa.participates, e_up, 0.0)),
-            e_f2f=torch.sum(torch.where(decision.cooperates & fog_active, e_ff, 0.0)),
-            e_f2g=torch.sum(torch.where(fog_active & fa.fog_gateway_feasible, e_fg, 0.0)),
-            participation=torch.mean(fa.participates.to(torch.float32)),
-            coop_links=torch.sum(decision.cooperates.to(torch.float32)),
+            e_s2f=torch.sum(torch.where(fa.participates, e_up, 0.0), dim=-1),
+            e_f2f=torch.sum(torch.where(decision.cooperates & fog_active, e_ff, 0.0), dim=-1),
+            e_f2g=torch.sum(torch.where(fog_active & fa.fog_gateway_feasible, e_fg, 0.0),
+                            dim=-1),
+            participation=torch.mean(fa.participates.to(torch.float32), dim=-1),
+            coop_links=torch.sum(decision.cooperates.to(torch.float32), dim=-1),
         ))
     m = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
-    total = {k: torch.sum(m[k]) for k in ("e_s2f", "e_f2f", "e_f2g")}
+    total = {k: torch.sum(m[k], dim=0) for k in ("e_s2f", "e_f2f", "e_f2g")}
     total["e_total"] = total["e_s2f"] + total["e_f2f"] + total["e_f2g"]
-    total["participation"] = torch.mean(m["participation"])
-    total["coop_links"] = torch.mean(m["coop_links"])
+    total["participation"] = torch.mean(m["participation"], dim=0)
+    total["coop_links"] = torch.mean(m["coop_links"], dim=0)
     return total
 
 

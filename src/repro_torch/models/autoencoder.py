@@ -38,10 +38,12 @@ def init(generator: torch.Generator, feature_dim: int = 32,
 
 
 def apply(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Forward pass; tanh on hidden layers, linear output."""
+    """Forward pass of rows ``x`` (..., R, D); tanh on hidden layers,
+    linear output.  Layers with a leading trial axis (w (B, d_in, d_out),
+    b (B, d_out)) take x (B, R, D), trial by trial."""
     h = x
     for i, layer in enumerate(params):
-        h = h @ layer["w"] + layer["b"]
+        h = h @ layer["w"] + layer["b"].unsqueeze(-2)
         if i < len(params) - 1:
             h = torch.tanh(h)
     return h
@@ -61,20 +63,29 @@ def param_count(feature_dim: int = 32, hidden: tuple[int, ...] = (16, 8, 16)) ->
 def ravel(params: Params) -> torch.Tensor:
     """Flat (d,) vector in ``jax.flatten_util.ravel_pytree`` order: per
     layer the bias, then the row-major weight (dict keys sort "b" < "w").
-    Error-feedback buffers and the kernels' deltas are indexed this way."""
-    return torch.cat([t.reshape(-1) for layer in params for t in (layer["b"], layer["w"])])
+    Error-feedback buffers and the kernels' deltas are indexed this way.
+    Layers with leading trial axes give (..., d), one vector per trial."""
+    lead = tuple(params[0]["b"].shape[:-1])
+    leaves = [t for layer in params for t in (layer["b"], layer["w"])]
+    if math.prod(lead) == 1:   # one trial: a 1-D cat, the cheapest on the host
+        return torch.cat([t.reshape(-1) for t in leaves]).view(lead + (-1,))
+    return torch.cat([t.reshape(lead + (-1,)) for t in leaves], dim=-1)
 
 
 def unravel(flat: torch.Tensor, like: Params) -> Params:
-    """Inverse of :func:`ravel`: views of ``flat`` shaped as ``like``."""
-    total = sum(layer["b"].numel() + layer["w"].numel() for layer in like)
-    if flat.shape != (total,):
+    """Inverse of :func:`ravel`: views of ``flat`` (..., d) shaped as the
+    layers of ``like`` (whose own leading axes are not read), with
+    ``flat``'s leading axes."""
+    sizes = [(layer["b"].shape[-1], tuple(layer["w"].shape[-2:])) for layer in like]
+    total = sum(nb + math.prod(w_shape) for nb, w_shape in sizes)
+    if flat.dim() < 1 or flat.shape[-1] != total:
         raise ValueError(f"flat vector has shape {tuple(flat.shape)}, the tree {total} entries")
+    lead = tuple(flat.shape[:-1])
     out, off = [], 0
-    for layer in like:
-        nb, nw = layer["b"].numel(), layer["w"].numel()
-        b = flat[off: off + nb]
-        w = flat[off + nb: off + nb + nw].view(layer["w"].shape)
+    for nb, w_shape in sizes:
+        nw = math.prod(w_shape)
+        b = flat[..., off: off + nb]
+        w = flat[..., off + nb: off + nb + nw].view(lead + w_shape)
         out.append({"w": w, "b": b})
         off += nb + nw
     return out

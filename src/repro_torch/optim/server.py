@@ -13,15 +13,18 @@ import torch
 
 
 class ServerOptState(NamedTuple):
-    m: torch.Tensor       # (d,) first moment
-    v: torch.Tensor       # (d,) second moment
+    m: torch.Tensor       # (d,) or (B, d) first moment
+    v: torch.Tensor       # (d,) or (B, d) second moment
     step: torch.Tensor    # () int32
 
 
-def init_state(d: int, device: torch.device | str = "cpu") -> ServerOptState:
+def init_state(d: int | tuple[int, ...], device: torch.device | str = "cpu") -> ServerOptState:
+    """Zero moments of shape ``d`` ((d,), or (B, d) for a batch of trials:
+    Adam is elementwise, so the trials share only the step count)."""
+    shape = (d,) if isinstance(d, int) else tuple(d)
     return ServerOptState(
-        m=torch.zeros((d,), dtype=torch.float32, device=device),
-        v=torch.zeros((d,), dtype=torch.float32, device=device),
+        m=torch.zeros(shape, dtype=torch.float32, device=device),
+        v=torch.zeros(shape, dtype=torch.float32, device=device),
         step=torch.zeros((), dtype=torch.int32, device=device),
     )
 

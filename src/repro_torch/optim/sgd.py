@@ -124,17 +124,19 @@ def clients_sgd(
     idx: torch.Tensor,         # (N, steps, bs) minibatch row indices
     lr: float,
     correct: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
+    theta0: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Local SGD for every client at once from the shared ``params``:
-    step s takes client i's rows ``idx[i, s]`` of its window, and the
-    per-client gradient of ``loss_fn`` (one ``torch.func.vmap`` over the
-    clients), optionally corrected by ``correct(g, theta)`` on the flat
-    (N, d) gradients and parameters (FedProx's proximal term, SCAFFOLD's
-    control variates).  Returns (theta (N, d) after the last step, flat in
-    :func:`ravel_tree`'s order, mean step loss (N,))."""
+    """Local SGD for every client at once from the shared ``params`` (or
+    from each client's own flat start ``theta0`` (N, d), ``params`` then
+    giving only the tree's shapes): step s takes client i's rows ``idx[i,
+    s]`` of its window, and the per-client gradient of ``loss_fn`` (one
+    ``torch.func.vmap`` over the clients), optionally corrected by
+    ``correct(g, theta)`` on the flat (N, d) gradients and parameters
+    (FedProx's proximal term, SCAFFOLD's control variates).  Returns
+    (theta (N, d) after the last step, flat in :func:`ravel_tree`'s order,
+    mean step loss (N,))."""
     n, steps, _ = idx.shape
-    flat0 = ravel_tree(params)
-    theta = flat0.expand(n, -1).clone()
+    theta = (ravel_tree(params).expand(n, -1) if theta0 is None else theta0).clone()
     step = torch.func.vmap(torch.func.grad_and_value(
         lambda flat, batch: loss_fn(unravel_tree(flat, params), batch)))
     rows = torch.arange(n, device=data.device)[:, None]
@@ -159,10 +161,11 @@ class LocalTrainConfig:
     fused: bool = True
 
 
-def fusable_params(params: Any) -> bool:
+def fusable_params(params: Any, lead: int = 0) -> bool:
     """True when ``params`` is the AE-style MLP the fused kernel handles:
     a list/tuple of ``{"w", "b"}`` layers with chained 2-D weights and an
-    output dimension equal to the input dimension (reconstruction)."""
+    output dimension equal to the input dimension (reconstruction), each
+    leaf behind ``lead`` leading (trial) axes."""
     if not isinstance(params, (list, tuple)) or not params:
         return False
     prev = None
@@ -170,14 +173,14 @@ def fusable_params(params: Any) -> bool:
         if not isinstance(layer, dict) or set(layer) != {"w", "b"}:
             return False
         w, b = layer["w"], layer["b"]
-        if getattr(w, "ndim", 0) != 2 or getattr(b, "ndim", 0) != 1:
+        if getattr(w, "ndim", 0) != 2 + lead or getattr(b, "ndim", 0) != 1 + lead:
             return False
-        if b.shape[0] != w.shape[1]:
+        if b.shape[-1] != w.shape[-1]:
             return False
-        if prev is not None and w.shape[0] != prev:
+        if prev is not None and w.shape[-2] != prev:
             return False
-        prev = w.shape[1]
-    return params[0]["w"].shape[0] == params[-1]["w"].shape[1]
+        prev = w.shape[-1]
+    return params[0]["w"].shape[-2] == params[-1]["w"].shape[-1]
 
 
 def make_client_solver(
@@ -188,34 +191,42 @@ def make_client_solver(
     lr: float,
     prox_mu: float = 0.0,
     solver: LocalTrainConfig = LocalTrainConfig(),
-) -> Callable[[Params, torch.Tensor, torch.Tensor], tuple[torch.Tensor, torch.Tensor]]:
-    """Build ``clients_fn(params, data (N, window, D), idx (N, steps, bs))
-    -> (flat deltas (N, d), mean losses (N,))``.  ``idx`` is the minibatch
-    index table of ``data/pipeline.multi_epoch_indices`` (steps = epochs *
-    window // batch_size); the deltas are in the ravel order, ready for
-    the fused compress-and-aggregate operator.  The paper autoencoder
-    with ``solver.fused`` takes the fused operator; anything else the
-    scan, proximal when ``prox_mu != 0``."""
+) -> Callable[..., tuple[torch.Tensor, torch.Tensor]]:
+    """Build ``clients_fn(params, data (N, window, D), idx (N, steps, bs),
+    stacked=False) -> (flat deltas (N, d), mean losses (N,))``.  ``idx``
+    is the minibatch index table of ``data/pipeline.multi_epoch_indices``
+    (steps = epochs * window // batch_size); the deltas are in the ravel
+    order, ready for the fused compress-and-aggregate operator.  With
+    ``stacked`` every leaf of ``params`` leads with a trial axis B and the
+    N clients are B runs of N / B, run b starting from trial b's params
+    (one launch for all the trials).  The paper autoencoder with
+    ``solver.fused`` takes the fused operator; anything else the scan,
+    proximal when ``prox_mu != 0``."""
     from repro_torch.kernels import ops as kops
     from repro_torch.models import autoencoder as ae
 
-    def clients_fn(params, data, idx):
+    def clients_fn(params, data, idx, stacked=False):
         steps = epochs * (data.shape[1] // batch_size)
         if tuple(idx.shape) != (data.shape[0], steps, batch_size):
             raise ValueError(
                 f"index table {tuple(idx.shape)} does not match {data.shape[0]} clients, "
                 f"{steps} steps of {batch_size} rows"
             )
-        if solver.fused and loss_fn is ae.loss and fusable_params(params):
+        if solver.fused and loss_fn is ae.loss and fusable_params(params, int(stacked)):
             return kops.local_train(params, data, idx, lr, prox_mu)
+        if stacked:
+            like = _map(lambda t: t[0], params)      # one trial's tree: the shapes
+            flat = torch.cat([leaf.reshape(leaf.shape[0], -1) for leaf in _leaves(params)], 1)
+            anchor = flat.repeat_interleave(data.shape[0] // flat.shape[0], dim=0)
+        else:
+            like, anchor = params, ravel_tree(params)
         correct = None
         if prox_mu != 0.0:
-            anchor = ravel_tree(params)
-
             def correct(g, theta):
                 return g + prox_mu * (theta - anchor)
 
-        theta, losses = clients_sgd(loss_fn, params, data, idx, lr, correct)
-        return theta - ravel_tree(params), losses
+        theta, losses = clients_sgd(loss_fn, like, data, idx, lr, correct,
+                                    anchor if stacked else None)
+        return theta - anchor, losses
 
     return clients_fn

@@ -29,7 +29,9 @@ bitwise equal across calls.  ``local_train_f32`` also at batches 1, 7
 and 33 and at widths without a compile-time instance.  ``fused_score_f32``
 and ``fused_score_q8`` also at rows 1 to 65,537 at four depths, and a
 row's err bitwise equal in any batch; ``fused_score_q8``'s err bitwise
-``fused_score_f32``'s on the dequantised weights.  ``wire_agg`` bitwise
+``fused_score_f32``'s on the dequantised weights.  ``local_train_f32`` with
+one start vector per trial (theta (B, d)) bitwise equal to B launches; an
+``Engine`` cell launching each kernel as often as one trial does.  ``wire_agg`` bitwise
 equal to ``ref.wire_fold_ref``, the client-order fold; ``fused_agg``'s fog
 sums bitwise equal to ``ref.dense_fold_ref``, its thresholds and new_err
 to the plain version's; the member lists ``robust_agg`` builds on the
@@ -46,6 +48,7 @@ from repro_torch.core.drift import DriftConfig
 from repro_torch.core.faults import FaultConfig
 from repro_torch.data.pipeline import multi_epoch_indices
 from repro_torch.data.synthetic import SyntheticConfig, generate, normalize
+from repro_torch.engine import Engine
 from repro_torch.kernels import fused_agg as fa
 from repro_torch.kernels import fused_score as fs
 from repro_torch.kernels import local_train as lt
@@ -406,6 +409,37 @@ def test_local_train_kernel_takes_other_widths(cuda, d, hidden):
     np.testing.assert_allclose(loss.cpu().numpy(), l_ref.cpu().numpy(), rtol=1e-5)
 
 
+@pytest.mark.parametrize("mu", [0.0, 0.01])
+@pytest.mark.parametrize("d,hidden", WIDTHS)
+def test_local_train_kernel_per_trial_start_is_bitwise_b_launches(cuda, d, hidden, mu):
+    """theta (B, d): B runs of N / B clients in one launch, run b training
+    from theta[b], bitwise what B launches of theta[b] give; the paper
+    AE's compile-time instance and the run-time-width one."""
+    b_n, n, window = 3, 7, 100
+    g = torch.Generator().manual_seed(d)
+    thetas = torch.stack([ae.ravel(ae.init(g, d, hidden, device="cpu"))
+                          for _ in range(b_n)]).to(cuda)
+    x = torch.randn((b_n * n, window, d), generator=g).to(cuda)
+    idx = multi_epoch_indices(g, b_n * n, window, 32, 2).to(cuda)
+    dims = (d, *hidden, d)
+    before = lt.LAUNCHES["local_train_f32"]
+    deltas, loss = lt.train_clients(x, idx, thetas, dims, 0.01, mu)
+    torch.cuda.synchronize()
+    assert lt.LAUNCHES["local_train_f32"] == before + 1
+    for b in range(b_n):
+        rows = slice(b * n, (b + 1) * n)
+        d_b, l_b = lt.train_clients(x[rows], idx[rows], thetas[b], dims, 0.01, mu)
+        assert torch.equal(deltas[rows], d_b) and torch.equal(loss[rows], l_b), b
+    layers = ae.unravel(thetas, ae.init(g, d, hidden, device="cpu"))
+    d_ref, l_ref = ref.local_train_ref(x, idx, tuple(p["w"] for p in layers),
+                                       tuple(p["b"] for p in layers), 0.01, mu)
+    np.testing.assert_allclose(deltas.cpu().numpy(), d_ref.cpu().numpy(), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(loss.cpu().numpy(), l_ref.cpu().numpy(), rtol=1e-5)
+    assert torch.equal(ops.local_train(layers, x, idx, 0.01, mu)[0], deltas)
+    with pytest.raises(ValueError, match="into trials"):
+        lt.train_clients(x[:-1], idx[:-1], thetas, dims, 0.01, mu)
+
+
 def _agg_case(n, d, n_fog, device, seed=0):
     g = torch.Generator().manual_seed(seed)
     deltas = torch.randn((n, d), generator=g)
@@ -506,6 +540,44 @@ def test_trial_on_the_card_matches_the_cpu_trial(cuda):
     for name in ("participation", "coop_links", "e_total", "e_s2f", "e_f2f", "e_f2g"):
         np.testing.assert_allclose(gpu[name].cpu().numpy(), cpu[name].numpy(), rtol=1e-5)
     np.testing.assert_allclose(gpu["losses"].cpu().numpy(), cpu["losses"].numpy(), rtol=1e-4)
+
+
+@pytest.mark.parametrize("method,kw", [
+    ("hfl-selective", dict()),
+    ("fedavg", dict()),
+    ("hfl-selective", dict(faults=FaultConfig(byz_mode="gauss", byz_frac=0.25, byz_scale=20.0,
+                                               erasure_prob=0.3),
+                           robust="trimmed", trim_frac=0.45)),
+])
+def test_engine_run_on_the_card_launches_as_one_trial(cuda, method, kw):
+    """An Engine cell of 2 x 2 trials launches each kernel as often as one
+    trial does, and its trial (s, 0) agrees with the sequential trial."""
+    cfg = exp.make_config(n_sensors=12, n_fog=3, rounds=3, local_epochs=1, **kw)
+    ds = normalize(generate(torch.Generator().manual_seed(0), SyntheticConfig(
+        n_sensors=12, train_len=48, val_len=24, test_len=48), device="cpu"))
+    counts = (lt.LAUNCHES, fa.LAUNCHES, ra.LAUNCHES, q8.LAUNCHES, tk.LAUNCHES)
+
+    def launched(fn):
+        before = {k: v for c in counts for k, v in c.items()}
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v - before[k] for c in counts for k, v in c.items()}
+
+    eng = Engine()
+    run, cell = launched(lambda: eng.run(method, cfg, (0, 1), ds, n_deployments=2))
+    assert eng.take_log()[0]["launches"] == {k: v for k, v in cell.items() if v}
+    for s in (0, 1):
+        seq, one = launched(lambda: exp.trial_metrics(
+            method, torch.Generator().manual_seed(s), ds, eng.resolve_config(cfg)))
+        assert cell == one and one["local_train_f32"] == 3
+        for name, per in (("participation", 12 * 3), ("coop_links", 3), ("erased_total", 1),
+                          ("nonfinite_total", 1)):   # counts exactly
+            assert round(float(run[name][s, 0]) * per) == round(float(seq[name]) * per), name
+        for name in ("e_total", "e_s2f", "e_f2f", "e_f2g"):
+            np.testing.assert_allclose(float(run[name][s, 0]), float(seq[name]), rtol=1e-5)
+        np.testing.assert_allclose(run["losses"][s, 0].cpu().numpy(),
+                                   seq["losses"].cpu().numpy(), rtol=1e-4)
+        assert abs(float(run["f1"][s, 0]) - float(seq["f1"])) <= 1e-3
 
 
 def _recon_case(n, d, layout, device, seed=0):
