@@ -160,7 +160,28 @@ exits non-zero before the result line:
              ``fused_score_f32`` launch, bitwise ``serving.score``); ms per
              trial-round, device ops and idle share of the batched round
              loop at B = 1, 4 and 16 trials, and ``local_train_f32`` and
-             ``fused_agg`` timed at B = 16 (3,200 clients, 320 fogs).
+             ``fused_agg`` timed at B = 16 (3,200 clients, 320 fogs);
+19. async-200 — the event-driven async family (``core/async_fl``,
+             method ``hfl-async``) at train-200's width: the sync limit
+             (``async_fl.sync_limit``, 20 events) on phase 8's draws
+             against phase 8's trial (losses within 1%, participation
+             exactly, energy to rtol=1e-5, F1 within 0.02, 20 merges,
+             staleness 0, one trial's launches); ``async_bench``'s three
+             staleness cells (alpha, buffer fraction (0, 0.5), (0.5, 0.25),
+             (1, 0.25); fog_k 2; 60 events) through one ``Engine.sweep``
+             over seeds 0-2, the sync baseline (``Engine.run`` of the sync
+             limit) and the MMPP replay cell (per-sensor delays from
+             ``mmpp_trace(1047, ...)``), robust-200's attack under trimmed
+             0.45 on cell (0.5, 0.25): each Engine call's launches n_events
+             x one event's (1 ``local_train_f32``, 2 ``fused_agg``, + 1
+             ``robust_agg`` under attack) for its 3 folded trials; sim s
+             per merge, ``speedup_vs_sync``, F1, staleness per cell; cell
+             (0.5, 0.25)'s seed-0 trial (60 events) on the card against
+             the CPU (merges, launches, arrivals, erasures
+             and links exactly per event, energies and the clock to
+             rtol=1e-5, losses within 1%); ms per event at B = 1 and per
+             trial-event at B = 3, device ops and idle share, and host
+             syncs per event under ``torch.cuda.set_sync_debug_mode``.
 
 Phase 6 also times ``fused_agg`` at robust-200's identity call (N =
 n_fog = 200), at one of its 64-client chunks and at fleet-10k's unchunked
@@ -198,8 +219,9 @@ wire kernels those of phase 10's chunked trial, for ``compress_q8`` and
 ``quant8`` those of phase 12's codec run and for ``swa_decode`` those of
 phase 15's hybrid-serve run (each zeroed just before its run, read just
 after; phases 15–16 check the other runs' counts too, phase 17 every
-training kernel's count in each flat trial, and phase 18 every one in
-each Engine cell, beside the phase 8 count in ``launches_by_path``).  The last line is
+training kernel's count in each flat trial, phase 18 every one in
+each Engine cell and phase 19 every one in each async Engine call,
+beside the phase 8 count in ``launches_by_path``).  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and power limit, and the
 one before that the ``kernels`` JSON.
 """
@@ -2291,6 +2313,447 @@ def engine_fleet(mods, train_ds, counters, training, dev, name, smi, workdir) ->
                 score=dict(launches=score_launches, f1=f1), timing=timing, kernels=kernels)
 
 
+# --- phase 19: async-200, the event-driven async family --------------------
+
+ASYNC_CELLS = ((0.0, 0.5), (0.5, 0.25), (1.0, 0.25))   # async_bench's (alpha, buffer fraction)
+ASYNC_EVENTS, ASYNC_FOG_K, ASYNC_SEEDS = 60, 2.0, (0, 1, 2)
+ASYNC_CPU_EVENTS = 60       # the card-vs-CPU trial: the whole cell
+ASYNC_TIME_EVENTS = 20      # events per timed loop at B = 1 and B = 3
+ASYNC_PATH = ("local_train_f32", "fused_agg", "robust_agg")
+
+
+def async_cell(async_fl, base, alpha, frac, n_events=None):
+    """One of ``async_bench``'s staleness cells at ``base``'s fleet
+    (``ASYNC_EVENTS`` events unless ``n_events``)."""
+    n = base.deployment.n_sensors
+    return async_fl.AsyncFLConfig(base=base, n_events=n_events or ASYNC_EVENTS,
+                                  buffer_k=max(2.0, frac * n),
+                                  fog_k=ASYNC_FOG_K, alpha=alpha)
+
+
+def mmpp_delays(mmpp_trace, n, n_fog):
+    """``async_bench``'s replay: each sensor's launch-to-arrival delay is
+    its mean inter-event gap in an MMPP trace (seed 1047, 0.5 N events/s
+    on, 10 / 20 s sojourns, 120 s)."""
+    trace = mmpp_trace(1047, rate_on_hz=0.5 * n, mean_on_s=10.0, mean_off_s=20.0,
+                       duration_s=120.0, fleet=n, n_fog=n_fog)
+    counts = torch.zeros(n).index_add_(0, torch.as_tensor(trace.sensor, dtype=torch.long),
+                                       torch.ones(trace.n_events))
+    return trace, torch.tensor(trace.duration_s, dtype=torch.float32) / torch.clamp_min(counts, 1.0)
+
+
+ASYNC_FLOATS = ("e_total", "e_s2f", "e_f2f", "e_f2g", "sim_time_s", "staleness")
+
+
+def async_vs_sequential(exp, eng, ds, cfg, got, per_cell, counters, label) -> dict:
+    """Each trial (s, 0) of an async Engine cell (``got``: (S, P) leaves)
+    against a sequential card trial of the resolved ``cfg`` from
+    ``torch.Generator().manual_seed(s)``, whose launches must equal the
+    cell's (``per_cell``): merges, participating sensor-events, coop
+    links, erasures and non-finite counts exactly; energies, the clock
+    and staleness to rtol=1e-5; losses within 1% and F1 within 0.02, the
+    family's card tolerances: the fog buffers' ``index_add_`` adds in no
+    fixed order on the card, so even one trial run twice drifts apart
+    (seed 0's trial is, and that drift is reported as ``repeat_losses``).
+    Returns the largest relative difference of each."""
+    rcfg = eng.resolve_config(cfg)
+    n, t = rcfg.base.deployment.n_sensors, rcfg.n_events
+    worst = {k: 0.0 for k in (*ASYNC_FLOATS, "losses", "f1", "repeat_losses")}
+
+    def trial(seed):
+        return exp.trial_metrics("hfl-async", torch.Generator().manual_seed(seed), ds, rcfg)
+
+    def loss_rel(a, b):
+        a, b = a["losses"].cpu().numpy(), b["losses"].cpu().numpy()
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+    for s, seed in enumerate(ASYNC_SEEDS):
+        for _, reset in counters.values():
+            reset()
+        seq = trial(seed)
+        torch.cuda.synchronize()
+        one = {k: counters[k][0][k] for k in ASYNC_PATH if counters[k][0][k]}
+        check(one == per_cell, f"{label}: a cell launched {per_cell}, one trial {one}")
+        if s == 0:
+            worst["repeat_losses"] = loss_rel(trial(seed), seq)
+        mine = {k: v[s, 0] for k, v in got.items()}
+        for key, per in (("merges", 1), ("participation", n * t), ("coop_links", t),
+                         ("erased_total", 1), ("nonfinite_total", 1), ("nonfinite_rounds", 1)):
+            check(round(float(mine[key]) * per) == round(float(seq[key]) * per),
+                  f"{label} trial ({seed}, 0): {key} {float(mine[key])} vs sequential "
+                  f"{float(seq[key])}")
+        for key in ASYNC_FLOATS:
+            a, b = float(mine[key]), float(seq[key])
+            check(np.isclose(a, b, rtol=1e-5, atol=0.0),
+                  f"{label} trial ({seed}, 0): {key} {a} vs sequential {b}")
+            worst[key] = max(worst[key], abs(a - b) / max(abs(b), 1e-30))
+        rel = loss_rel(mine, seq)
+        check(rel <= 0.01, f"{label} trial ({seed}, 0): losses differ by {rel:.3e}")
+        worst["losses"] = max(worst["losses"], rel)
+        f1_diff = abs(float(mine["f1"]) - float(seq["f1"]))
+        check(f1_diff <= 0.02, f"{label} trial ({seed}, 0): F1 {float(mine['f1']):.5f} vs "
+                               f"{float(seq['f1']):.5f}")
+        worst["f1"] = max(worst["f1"], f1_diff)
+    return worst
+
+
+def async_engine_cell(eng, exp, ds, run, label, counters, cfgs, robust=False) -> tuple:
+    """One Engine call on the card over ``cfgs``' cells and
+    ``ASYNC_SEEDS``, every count zeroed just before it and read just
+    after, checked against one trial's per event: each event one
+    ``local_train_f32`` and one ``fused_agg`` call (two launches) for its
+    folded trials, plus one ``robust_agg`` with the trimmed reduce.  Then
+    each cell's trials (s, 0) against sequential card trials
+    (:func:`async_vs_sequential`).  Returns (the result, its launches, the
+    worst relative differences over its cells, the call's seconds)."""
+    for _, reset in counters.values():
+        reset()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: launches_of[k] for k, (launches_of, _) in counters.items()}
+    check(eng.take_log()[-1]["launches"] == {k: v for k, v in launches.items() if v},
+          f"{label}: the Engine's log disagrees with the launch counters")
+    n_events = cfgs[0].n_events
+    per_cell = {k: v for k, v in (("local_train_f32", n_events), ("fused_agg", 2 * n_events),
+                                  ("robust_agg", n_events if robust else 0)) if v}
+    got = {k: launches[k] for k in ASYNC_PATH if launches[k]}
+    want = {k: len(cfgs) * v for k, v in per_cell.items()}
+    check(got == want, f"{label}: launched {got}, one trial per cell launches {want}")
+    cells = [out.cell(i) for i in range(len(cfgs))] if hasattr(out, "cell") else [out.metrics]
+    worst: dict[str, float] = {}
+    for i, (cfg, metrics) in enumerate(zip(cfgs, cells)):
+        for k, v in async_vs_sequential(exp, eng, ds, cfg, metrics, per_cell, counters,
+                                        f"{label} cell {i}").items():
+            worst[k] = max(worst.get(k, 0.0), v)
+    print(f"    {label}: every trial (s, 0) of {len(cfgs)} cell(s) vs its sequential card trial: "
+          f"counts equal, launches per cell {per_cell} as one trial's; max rel "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items() if k not in ("f1", "repeat_losses"))
+          + f", max |dF1| {worst['f1']:.2e}; seed 0's sequential trial twice: max rel loss "
+          f"{worst['repeat_losses']:.2e}")
+    return out, got, worst, wall
+
+
+class KernelCalls:
+    """Inside ``with``, every call of ``local_train_f32``'s,
+    ``fused_agg``'s and ``robust_agg``'s wrappers is made as usual (its
+    launches counted as usual) and its arguments and outputs are kept:
+    the first call of the first two, every call of ``robust_agg``."""
+
+    def __init__(self, lt, fa, ra):
+        self.sites = ((lt, "train_clients", False), (fa, "compress_aggregate_blocks", False),
+                      (ra, "robust_aggregate_blocks", True))
+        self.calls = {name: [] for _, name, _ in self.sites}
+
+    def __enter__(self):
+        self.saved = [getattr(mod, name) for mod, name, _ in self.sites]
+        for (mod, name, every), launch in zip(self.sites, self.saved):
+            def recording(*args, _launch=launch, _calls=self.calls[name], _every=every):
+                out = _launch(*args)
+                if _every or not _calls:
+                    _calls.append((out, args))
+                return out
+            setattr(mod, name, recording)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name, _), launch in zip(self.sites, self.saved):
+            setattr(mod, name, launch)
+
+
+def check_async_kernels(calls, kref, ra, ae, dev) -> dict:
+    """The three kernels on the inputs that the async robust cell's
+    Engine call gave them (B = 3 trials folded: 600 clients, theta (3, d),
+    60 fogs), each output held against its plain version on the same
+    inputs: ``local_train_f32``'s first event (deltas rtol=1e-4 /
+    atol=1e-6, loss rtol=1e-5); ``fused_agg``'s first event on 600
+    identity segments (thresholds and new_err bitwise, fog sums bitwise
+    the client-order fold and within rtol=1e-5 / atol=1e-4); and every
+    event's ``robust_agg`` merge input (the per-client means, the folded
+    ``cli_fog`` of the latest arrivals, ``cli_w`` with the zero weights of
+    clients that did not arrive) at rtol=1e-5 / atol=1e-6, member lists
+    equal.  Returns the max |diff| per kernel and what the inputs held."""
+    (deltas, loss), (x, idx, theta, dims, lr, mu) = calls["train_clients"][0]
+    layers = ae.unravel(theta, ae.init(torch.Generator().manual_seed(0), D, HIDDEN, device=dev))
+    d_ref, l_ref = kref.local_train_ref(x, idx, tuple(p["w"] for p in layers),
+                                        tuple(p["b"] for p in layers), lr, mu)
+    err = {"local_train_f32": close_on_device(deltas, d_ref, 1e-4, 1e-6,
+                                              f"async local_train, theta {tuple(theta.shape)}")}
+    close_on_device(loss, l_ref, 1e-5, 0.0, "async local_train loss")
+    (fs_k, ne_k, thr_k), args = calls["compress_aggregate_blocks"][0]
+    fs_r, ne_r, thr_r = kref.compress_aggregate_ref(*args)
+    n_rows, n_seg = int(args[0].shape[0]), int(args[4])
+    check(torch.equal(thr_k, thr_r) and torch.equal(ne_k, ne_r),
+          f"async fused_agg thresholds or new_err differ bitwise on {n_seg} identity segments")
+    check(torch.equal(fs_k, kref.dense_fold_ref(*args)),
+          "async fused_agg fog sums differ from the client-order fold")
+    err["fused_agg"] = max(close_on_device(ne_k, ne_r, 0.0, 1e-5, "async fused_agg new_err"),
+                           close_on_device(fs_k, fs_r, 1e-5, 1e-4, "async fused_agg fog sums"))
+    err["robust_agg"], members, zeros = 0.0, 0, 0
+    for i, (out, (recon, fog_id, weights, n_fog, beta, mode)) in enumerate(
+            calls["robust_aggregate_blocks"]):
+        want, _ = kref.robust_aggregate_ref(recon, fog_id, weights, n_fog, beta, mode)
+        err["robust_agg"] = max(err["robust_agg"], close_on_device(
+            out, want, 1e-5, 1e-6, f"async robust_agg {mode} {beta} event {i}, {n_fog} fogs"))
+        check_member_lists(ra, fog_id, weights, n_fog, f"async merge input of event {i}")
+        held = int((weights > 0).sum())
+        if held > members:
+            members, zeros = held, int((weights == 0).sum())
+    n_merge = len(calls["robust_aggregate_blocks"])
+    print(f"  the async robust cell's own kernel inputs vs the plain versions: local_train_f32 "
+          f"N={int(x.shape[0])} theta {tuple(theta.shape)} max|delta diff|="
+          f"{err['local_train_f32']:.3e}; fused_agg N={n_rows} on {n_seg} identity segments, "
+          f"thresholds, new_err and the fold equal, max|diff|={err['fused_agg']:.3e}; robust_agg "
+          f"on {n_merge} events' merge inputs into {n_fog} folded fogs (fullest {members} rows "
+          f"of weight > 0, {zeros} of weight 0), member lists equal, "
+          f"max|diff|={err['robust_agg']:.3e}  ok")
+    return dict(max_abs_err=err, robust_events=n_merge, fullest_members=members,
+                fullest_zero_weight=zeros)
+
+
+def async_row(run, i, sync_s_per_round) -> dict:
+    """A staleness cell's trial means: sim s per merge, speedup over the
+    sync limit's sim s per round, F1, staleness."""
+    m = run.cell(i) if i is not None else run.metrics
+    sim, merges = float(m["sim_time_s"].mean()), float(m["merges"].mean())
+    s_per_merge = sim / max(merges, 1.0)
+    return dict(sim_time_s=sim, merges=merges, sim_s_per_merge=s_per_merge,
+                speedup_vs_sync=sync_s_per_round / max(s_per_merge, 1e-9),
+                f1_mean=float(m["f1"].mean()), f1_std=float(m["f1"].std(correction=0)),
+                staleness_mean=float(m["staleness"].mean()),
+                participation=float(m["participation"].mean()),
+                e_total=float(m["e_total"].mean()))
+
+
+def async_card_vs_cpu(async_fl, exp, ae, ds, ds_dev, base) -> dict:
+    """Cell (0.5, 0.25) (``ASYNC_CPU_EVENTS`` events) on the card and on
+    the CPU from identical draws: every event's merge, launches, arrivals,
+    erasures and links exactly, energies and the clock to rtol=1e-5,
+    losses within 1%; the trial must merge."""
+    cfg = async_cell(async_fl, base, *ASYNC_CELLS[1], n_events=ASYNC_CPU_EVENTS)
+    inputs = exp.draw_trial(torch.Generator().manual_seed(0), ds, cfg, method="hfl-async")
+    _, m_g = async_fl.train(inputs.params, ae.loss, ds_dev, cfg, inputs.dep, inputs.draws)
+    t0 = time.perf_counter()
+    _, m_c = async_fl.train(inputs.params, ae.loss, ds, cfg, inputs.dep, inputs.draws)
+    cpu_s = time.perf_counter() - t0
+    check(bool(m_c.merged.any()), "async card vs CPU: the compared trial never merged")
+    for field in ("merged", "n_launched", "n_arrived", "n_erased", "coop_links", "n_nonfinite"):
+        check(torch.equal(getattr(m_g, field).cpu(), getattr(m_c, field)),
+              f"async card vs CPU: {field} differs per event")
+    worst = {}
+    for field in ("e_s2f", "e_f2f", "e_f2g", "e_total", "t_sim", "staleness"):
+        got = getattr(m_g, field).cpu().to(torch.float64).numpy()
+        want = getattr(m_c, field).to(torch.float64).numpy()
+        check(np.allclose(got, want, rtol=1e-5, atol=0.0),
+              f"async card vs CPU: {field} {got} vs {want}")
+        worst[field] = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)))
+    lg, lc = m_g.loss.cpu().numpy(), m_c.loss.numpy()
+    worst["loss"] = float(np.max(np.abs(lg - lc) / np.abs(lc)))
+    check(worst["loss"] <= 0.01, f"async card vs CPU: loss differs by {worst['loss']:.3e}")
+    return dict(events=ASYNC_CPU_EVENTS, merges=int(m_c.merged.sum()),
+                arrivals=int(m_c.n_arrived.sum()), max_rel=worst, cpu_s=cpu_s)
+
+
+def sync_chain(frames) -> str:
+    """Where a host sync came from: the innermost Python frame (the call
+    that synchronised) and the frames of the repository that led to it."""
+    frames = [f for f in frames if not f.filename.endswith("warnings.py")]
+    mine = [f for f in frames if "repro_torch" in f.filename or f.filename.endswith("chip_smoke.py")]
+    return " <- ".join(f"{'/'.join(Path(f.filename).parts[-2:])}:{f.lineno}"
+                       for f in [frames[-1]] + mine[::-1][:3])
+
+
+def time_async_events(async_fl, exp, hfl, ae, ds_dev, base, name, smi) -> dict:
+    """ms per event of cell (0.5, 0.25) at B = 1 and per trial-event at
+    B = 3 (seeds 0..B-1; best of two ``ASYNC_TIME_EVENTS``-event loops of
+    ``hfl.run_rounds`` over ``async_fl``'s event), device time and ops per
+    event by torch.profiler, the idle share, and the host syncs per event:
+    the warnings ``torch.cuda.set_sync_debug_mode("warn")`` raises over one
+    loop, each by the call that synchronised and the repository's frames
+    that led to it.  The loop must make none: an event reads nothing back.
+    Those raised while the mode turns on (the process's first switch to
+    "warn" raises one, before the loop) are reported apart."""
+    import traceback
+    import warnings
+
+    cfg = async_cell(async_fl, base, *ASYNC_CELLS[1], n_events=ASYNC_TIME_EVENTS)
+    out = {}
+    for b in (1, 3):
+        inputs = [exp.draw_trial(torch.Generator().manual_seed(s), ds_dev, cfg,
+                                 method="hfl-async") for s in range(b)]
+        if b == 1:
+            ds_b = ds_dev
+            params, dep, draws = hfl.place(inputs[0].params, inputs[0].dep, inputs[0].draws,
+                                           ds_dev.train.device)
+        else:
+            ds_b = hfl.stack_datasets([ds_dev] * b)
+            params, dep, draws = hfl.place_trials([i.params for i in inputs],
+                                                  [i.dep for i in inputs],
+                                                  [i.draws for i in inputs], ds_dev.train.device)
+        state = async_fl.init_state(params, dep, cfg)
+        event_fn = async_fl.make_event_fn(ae.loss, ds_b, cfg)
+
+        def loop():
+            return hfl.run_rounds(event_fn, state, draws, cfg.n_events)
+
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loop()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        dev_ms, ops = device_ms(loop, 1)
+        sites: dict[str, int] = {}
+        switch: dict[str, int] = {}     # raised while the mode turns on, before the loop
+
+        def seen(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" in str(message):
+                site = sync_chain(traceback.extract_stack()[:-1])
+                into = sites if looping else switch
+                into[site] = into.get(site, 0) + 1
+
+        looping = False
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = seen
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                looping = True
+                loop()
+                looping = False
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum(sites.values())
+        check(syncs == 0, f"the async event loop at B={b} synchronised with the card {syncs} "
+                          f"times: {sites}")
+        best = min(walls)
+        out[b] = dict(event_ms=best / cfg.n_events, trial_event_ms=best / cfg.n_events / b,
+                      loop_ms=walls, device_ms_per_event=dev_ms / cfg.n_events,
+                      device_ops_per_event=ops / cfg.n_events,
+                      idle_share=max(0.0, 1.0 - dev_ms / best),
+                      host_syncs_per_event=syncs / cfg.n_events, host_sync_sites=sites,
+                      syncs_turning_the_mode_on=switch)
+        print(f"  B={b}: {out[b]['event_ms']:.3f} ms per event, {out[b]['trial_event_ms']:.3f} ms "
+              f"per trial-event; device {out[b]['device_ms_per_event']:.3f} ms in "
+              f"{out[b]['device_ops_per_event']:.0f} ops per event, idle share "
+              f"{out[b]['idle_share']:.3f}; host syncs per event "
+              f"{out[b]['host_syncs_per_event']:.2f}"
+              + (f" (turning the mode on: {', '.join(f'{k} x{v}' for k, v in switch.items())})"
+                 if switch else "")
+              + f"  on {name} ({smi})")
+    return out
+
+
+def async_fleet(mods, train_ds, counters, training, dev, name, smi) -> dict:
+    """Phase 19: async-200.  The sync limit (20 events) against phase 8's
+    hfl-selective trial on the same draws; ``async_bench``'s three
+    staleness cells (60 events, fog_k 2) through one ``Engine.sweep`` over
+    seeds 0-2, its sync baseline and its MMPP replay cell; robust-200's
+    attack under trimmed 0.45 on cell (0.5, 0.25), with the kernels'
+    inputs of that call held against their plain versions
+    (:func:`check_async_kernels`); every Engine trial (s, 0) against its
+    sequential card trial; cell (0.5, 0.25)'s trial on the card against
+    its CPU twin; ms per event, device ops, idle share and host syncs per
+    event (:func:`time_async_events`)."""
+    Engine, exp, async_fl, hfl, ae, FaultConfig, mmpp_trace, lt, fa, ra, kref = mods
+    cfg = exp.make_config(TRAIN_N, TRAIN_FOG, ROUNDS)
+    sync = async_fl.sync_limit(cfg)
+    inputs = exp.draw_trial(torch.Generator().manual_seed(0), train_ds, cfg)   # phase 8's draws
+    for _, reset in counters.values():
+        reset()
+    got = exp.trial_metrics("hfl-async", None, train_ds, sync, inputs=inputs)
+    torch.cuda.synchronize()
+    launches = {k: counters[k][0][k] for k in ASYNC_PATH}
+    check(launches == {**training["launches"], "robust_agg": 0},
+          f"sync limit launched {launches}; phase 8's trial {training['launches']}")
+    loss_g = got["losses"].cpu().numpy()
+    loss_rel = float(np.max(np.abs(loss_g - np.array(training["losses"]))
+                            / np.abs(np.array(training["losses"]))))
+    check(loss_rel <= 0.01, f"sync limit: losses differ from phase 8's by {loss_rel:.3e}")
+    per = TRAIN_N * ROUNDS
+    check(round(float(got["participation"]) * per) == round(training["participation"] * per),
+          f"sync limit: participation {float(got['participation'])} vs "
+          f"{training['participation']}")
+    check(np.isclose(float(got["e_total"]), training["e_total"], rtol=1e-5, atol=0.0),
+          f"sync limit: energy {float(got['e_total'])} vs {training['e_total']}")
+    f1_diff = abs(float(got["f1"]) - training["f1"])
+    check(f1_diff <= 0.02, f"sync limit: F1 {float(got['f1']):.4f} vs {training['f1']:.4f}")
+    check(float(got["merges"]) == ROUNDS and float(got["staleness"]) == 0.0,
+          f"sync limit: {float(got['merges'])} merges, staleness {float(got['staleness'])}")
+    sync_trial = dict(launches=launches, loss_rel_vs_hfl=loss_rel, f1=float(got["f1"]),
+                      f1_hfl=training["f1"], e_total=float(got["e_total"]),
+                      sim_time_s=float(got["sim_time_s"]))
+    print(f"  sync limit ({ROUNDS} events) vs phase 8's hfl-selective trial on its draws: max rel loss "
+          f"{loss_rel:.2e}, participation equal, energy {sync_trial['e_total']:.4f} J, F1 "
+          f"{sync_trial['f1']:.4f} vs {training['f1']:.4f}; {ROUNDS} merges, staleness 0; launches "
+          f"{launches}")
+
+    eng = Engine()
+    cells = [async_cell(async_fl, cfg, a, f) for a, f in ASYNC_CELLS]
+    sync_run, sync_l, sync_w, sync_wall = async_engine_cell(
+        eng, exp, train_ds, lambda: eng.run("hfl-async", sync, ASYNC_SEEDS, train_ds),
+        "async sync baseline", counters, [sync])
+    sync_s = float(sync_run["sim_time_s"].mean()) / max(float(sync_run["merges"].mean()), 1.0)
+    sw, sweep_l, sweep_w, sweep_wall = async_engine_cell(
+        eng, exp, train_ds, lambda: eng.sweep("hfl-async", cells, ASYNC_SEEDS, train_ds),
+        "async sweep", counters, cells)
+    check(sw.n_classes == 1, f"the staleness sweep split into {sw.n_classes} classes")
+    rows = {f"alpha {a} buffer {f}": async_row(sw, i, sync_s)
+            for i, (a, f) in enumerate(ASYNC_CELLS)}
+    trace, delays = mmpp_delays(mmpp_trace, TRAIN_N, TRAIN_FOG)
+    replay_cfg = cells[1].replace(arrival_delay_s=delays)
+    mm, mm_l, mm_w, mm_wall = async_engine_cell(
+        eng, exp, train_ds, lambda: eng.run("hfl-async", replay_cfg, ASYNC_SEEDS, train_ds),
+        "async mmpp replay", counters, [replay_cfg])
+    rows["mmpp replay, alpha 0.5 buffer 0.25"] = async_row(mm, None, sync_s)
+    robust_cfg = cells[1].replace(base=cfg.replace(faults=FaultConfig(**ROBUST_FAULTS),
+                                                   robust="trimmed", trim_frac=ROBUST_TRIM))
+    recorded = KernelCalls(lt, fa, ra)
+
+    def run_robust():
+        with recorded:
+            return eng.run("hfl-async", robust_cfg, ASYNC_SEEDS, train_ds)
+
+    rb, robust_l, robust_w, robust_wall = async_engine_cell(
+        eng, exp, train_ds, run_robust, "async robust", counters, [robust_cfg], robust=True)
+    rows["robust trimmed 0.45, alpha 0.5 buffer 0.25"] = async_row(rb, None, sync_s)
+    check(float(rb["erased_total"].sum()) > 0, "the robust cell erased nothing")
+    for run in (sync_run, sw, mm, rb):
+        check(all(bool(torch.isfinite(v).all()) for v in run.metrics.values()),
+              "non-finite async metrics")
+        check(run["f1"].device == dev, "an async cell did not run on the card")
+    kernel_checks = check_async_kernels(recorded.calls, kref, ra, ae, dev)
+    cells_s = sync_wall + sweep_wall + mm_wall + robust_wall
+    print(f"  sync baseline (sync_limit, {ROUNDS} events, seeds {ASYNC_SEEDS}): {sync_s:.3f} sim s per "
+          f"round, F1 {float(sync_run['f1'].mean()):.4f}; launches {sync_l}")
+    print(f"  staleness sweep: 1 class, {len(cells)} cells x {len(ASYNC_SEEDS)} trials x "
+          f"{ASYNC_EVENTS} events (fog_k {ASYNC_FOG_K:g}), launches {sweep_l}; replay launches "
+          f"{mm_l} (trace {trace.n_events} events, {trace.mean_rate_hz():.1f} /s); robust "
+          f"launches {robust_l}; the four Engine calls {cells_s:.1f} s  on {name} ({smi})")
+    for label, r in rows.items():
+        print(f"    {label:42s} {r['sim_s_per_merge']:.3f} sim s per merge (speedup vs sync "
+              f"{r['speedup_vs_sync']:.2f}), {r['merges']:.1f} merges, F1 {r['f1_mean']:.4f} +- "
+              f"{r['f1_std']:.4f}, staleness {r['staleness_mean']:.3f}, participation "
+              f"{r['participation']:.4f}, energy {r['e_total']:.3f} J")
+
+    ds_dev = type(train_ds)(*(t.to(dev) for t in train_ds))
+    versus = async_card_vs_cpu(async_fl, exp, ae, train_ds, ds_dev, cfg)
+    print(f"  cell (0.5, 0.25), {versus['events']} events, card vs CPU ({versus['cpu_s']:.1f} s "
+          f"on the CPU): merges, launches, arrivals, erasures, links equal per event "
+          f"({versus['merges']} merges, {versus['arrivals']} arrivals); max rel "
+          + ", ".join(f"{k} {v:.2e}" for k, v in versus["max_rel"].items()))
+    timing = time_async_events(async_fl, exp, hfl, ae, ds_dev, cfg, name, smi)
+    return dict(sync_limit=sync_trial, sync_s_per_round=sync_s, rows=rows,
+                launches={"sync baseline": sync_l, "sweep (3 cells)": sweep_l, "mmpp replay": mm_l,
+                          "robust": robust_l},
+                vs_sequential={"sync baseline": sync_w, "sweep (3 cells)": sweep_w,
+                               "mmpp replay": mm_w, "robust": robust_w},
+                kernel_checks=kernel_checks, card_vs_cpu=versus, timing=timing, cells_s=cells_s,
+                trace=dict(n_events=trace.n_events, mean_rate_hz=trace.mean_rate_hz()))
+
+
 # --- phases 14-16: LM decode serving and the swa_decode kernel -------------
 
 SWA_KERNEL = ("src/repro/kernels/swa_attention.py:28", "src/repro_torch/kernels/csrc/swa_decode.cu")
@@ -2918,6 +3381,12 @@ def main(argv: list[str]) -> int:
              FaultConfig, SyntheticConfig, generate, normalize, lt, fa, ra, fs, kops, kref, agg,
              comp, multi_epoch_indices),
             train_ds, kernel_counters(lt, fa, ra, kq8, tk), training, dev, name, smi, Path(tmp))
+
+    phase("19. async-200 (main path): the event-driven async family, N=200")
+    from repro_torch.core import async_fl
+    async_res = async_fleet((Engine, exp, async_fl, hfl, ae, FaultConfig, mmpp_trace, lt, fa, ra,
+                             kref), train_ds, kernel_counters(lt, fa, ra, kq8, tk), training,
+                            dev, name, smi)
     phase("done")
 
     kernels = []
@@ -2942,6 +3411,8 @@ def main(argv: list[str]) -> int:
     for key, entry in engine["kernels"].items():       # the folded shapes' checks
         kname = key.split(" @ ")[0]
         train_err[kname] = max(train_err[kname], entry["max_abs_err"])
+    for kname, e in async_res["kernel_checks"]["max_abs_err"].items():   # the async inputs'
+        train_err[kname] = max(train_err[kname], e)
     launches = dict(training["launches"])
     launches["robust_agg"] = robust["launches"]["robust_agg"]
     launches.update({k: fleet["chunked"]["launches"][k] for k in ("wire_emit", "wire_agg")})
@@ -2968,11 +3439,13 @@ def main(argv: list[str]) -> int:
         if kname in ("local_train_f32", "fused_agg"):
             kernels[-1]["launches_by_path"] = {
                 "train-200": launches[kname],
-                "engine-200": engine["cells"]["engine-200"]["launches"][kname]}
+                "engine-200": engine["cells"]["engine-200"]["launches"][kname],
+                "async-200 sweep": async_res["launches"]["sweep (3 cells)"][kname]}
         if kname == "robust_agg":
             kernels[-1]["launches_by_path"] = {
                 "robust-200": launches[kname],
-                "engine robust": engine["cells"]["robust trimmed"]["launches"][kname]}
+                "engine robust": engine["cells"]["robust trimmed"]["launches"][kname],
+                "async robust": async_res["launches"]["robust"][kname]}
         if kname == "fused_agg":
             by_shape["66,000 identity fogs"] = identity
         if by_shape:
@@ -3008,6 +3481,7 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"lm": {"swa_check": swa_err, "hybrid": hybrid, "dense": dense}}))
     print(json.dumps({"flat": flat}))
     print(json.dumps({"engine": engine}))
+    print(json.dumps({"async": async_res}))
     print("phase seconds: " + ", ".join(f"{k.split('.')[0]} {v:.1f}" for k, v in PHASE_S.items()
                                         if k != "done"))
     print(json.dumps({"kernels": kernels}))

@@ -19,7 +19,8 @@ Semantics, as the round loop (``core/hfl``) applies them:
 
 Randomness is an argument: the crash and erasure draws are f32 uniforms
 and the ``gauss`` noise f32 normals, injected by the caller
-(``hfl.RoundDraws``).
+(``hfl.RoundDraws``).  The f32 thresholds and scales are CPU scalars, so
+a round on the card copies nothing to it (a copy would sync the host).
 """
 from __future__ import annotations
 
@@ -77,7 +78,7 @@ def byzantine_mask(
 ) -> torch.Tensor:
     """(N,) bool: client i is Byzantine when ``(i + 0.5) / n < byz_frac``
     in f32, the first ``ceil(byz_frac * n - 1/2)`` clients."""
-    frac = torch.tensor(byz_frac, dtype=torch.float32, device=device)
+    frac = torch.tensor(byz_frac, dtype=torch.float32)      # a CPU scalar: no copy to the card
     return (torch.arange(n, dtype=torch.float32, device=device) + 0.5) / n < frac
 
 
@@ -95,7 +96,7 @@ def corrupt_deltas(
     if cfg.byz_mode == "none":
         return deltas
     mask = byzantine_mask(deltas.shape[-2], cfg.byz_frac, deltas.device)
-    scale = torch.tensor(cfg.byz_scale, dtype=torch.float32, device=deltas.device)
+    scale = torch.tensor(cfg.byz_scale, dtype=torch.float32)   # a CPU scalar: no copy to the card
     if cfg.byz_mode == "sign_flip":
         attacked = -scale * deltas
     elif cfg.byz_mode == "gauss":
@@ -117,13 +118,13 @@ def corrupt_deltas(
 
 def draw_crash(uniform: torch.Tensor, crash_prob: float) -> torch.Tensor:
     """(N,) bool crash mask from (N,) f32 uniforms in [0, 1)."""
-    return uniform < torch.tensor(crash_prob, dtype=torch.float32, device=uniform.device)
+    return uniform < torch.tensor(crash_prob, dtype=torch.float32)
 
 
 def draw_erasure(uniform: torch.Tensor, erasure_prob: float) -> torch.Tensor:
     """(N,) bool packet-erasure mask from (N,) f32 uniforms, applied after
     SNR feasibility."""
-    return uniform < torch.tensor(erasure_prob, dtype=torch.float32, device=uniform.device)
+    return uniform < torch.tensor(erasure_prob, dtype=torch.float32)
 
 
 def nonfinite_rows(deltas: torch.Tensor) -> torch.Tensor:

@@ -433,14 +433,30 @@ def check_draws(cfg: HFLConfig, draws: RoundDraws) -> None:
                          "(draw them with draw_rounds(..., d=...) under the same config)")
 
 
+def place(init_params: Params, dep: topo.Deployment, draws: RoundDraws,
+          dev: torch.device) -> tuple[Params, topo.Deployment, RoundDraws]:
+    """One trial's params, deployment and draws on ``dev``."""
+    params = [{k: v.to(dev) for k, v in layer.items()} for layer in init_params]
+    return params, dep.to(dev), draws.to(dev)
+
+
+def place_trials(init_params: Sequence[Params], deps: Sequence[topo.Deployment],
+                 draws: Sequence[RoundDraws], dev: torch.device,
+                 ) -> tuple[Params, topo.Deployment, RoundDraws]:
+    """B trials' params (layers leading with B), deployments and draws
+    ((T, B, ...)) stacked on ``dev``."""
+    params = [{k: torch.stack([p[i][k] for p in init_params]).to(dev) for k in layer}
+              for i, layer in enumerate(init_params[0])]
+    return params, topo.Deployment.stack(list(deps)).to(dev), RoundDraws.stack(draws).to(dev)
+
+
 def start(init_params: Params, ds: SensorDataset, cfg: HFLConfig, dep: topo.Deployment,
           draws: RoundDraws) -> tuple[HFLState, RoundDraws]:
     """Check ``draws`` against ``cfg`` and move a trial onto ``ds``'s
     device: (the initial state, the draws there)."""
     check_draws(cfg, draws)
-    dev = ds.train.device
-    params = [{k: v.to(dev) for k, v in layer.items()} for layer in init_params]
-    return init_state(params, dep.to(dev), cfg), draws.to(dev)
+    params, dep, draws = place(init_params, dep, draws, ds.train.device)
+    return init_state(params, dep, cfg), draws
 
 
 def start_trials(init_params: Sequence[Params], ds: SensorDataset, cfg: HFLConfig,
@@ -450,16 +466,14 @@ def start_trials(init_params: Sequence[Params], ds: SensorDataset, cfg: HFLConfi
     ...)): (their first state, their draws stacked (T, B, ...))."""
     for one in draws:
         check_draws(cfg, one)
-    dev = ds.train.device
-    params = [{k: torch.stack([p[i][k] for p in init_params]).to(dev) for k in layer}
-              for i, layer in enumerate(init_params[0])]
-    dep = topo.Deployment.stack(list(deps)).to(dev)
-    return init_state(params, dep, cfg), RoundDraws.stack(draws).to(dev)
+    params, dep, draws = place_trials(init_params, deps, draws, ds.train.device)
+    return init_state(params, dep, cfg), draws
 
 
-def stack_metrics(per_round: list[RoundMetrics]) -> RoundMetrics:
-    """Per-round metrics stacked over the rounds: (T, ...) leaves."""
-    return RoundMetrics(*(torch.stack(v) for v in zip(*per_round)))
+def stack_metrics(per_round: list[NamedTuple]) -> NamedTuple:
+    """Per-round metrics (``RoundMetrics``, or any family's record type)
+    stacked over the rounds: (T, ...) leaves of the same type."""
+    return type(per_round[0])(*(torch.stack(v) for v in zip(*per_round)))
 
 
 def run_rounds(
@@ -471,8 +485,9 @@ def run_rounds(
     publish_every: int = 1,
     publish_offset: int = 0,
 ) -> tuple[Params, RoundMetrics]:
-    """Loop ``round_fn`` over ``rounds`` rounds of ``draws``; returns (the
-    final params, metrics stacked over rounds).  With ``store`` the loop
+    """Loop ``round_fn`` over ``rounds`` rounds of ``draws`` (or an async
+    ``event_fn`` over its events); returns (the final params, metrics
+    stacked over rounds).  With ``store`` the loop
     publishes the global params every ``publish_every`` rounds (step =
     round index + ``publish_offset``; the final round always publishes)."""
     per_round = []

@@ -59,9 +59,11 @@ class Deployment:
 
 
 def _box(params: DeploymentParams, depth: tuple[float, float], device) -> tuple:
-    lo = torch.tensor([0.0, 0.0, depth[0]], dtype=F32, device=device)
-    hi = torch.tensor([params.lx_m, params.ly_m, depth[1]], dtype=F32, device=device)
-    return lo, hi
+    """The stratum's (lo, hi) corners on ``device``, copied without a
+    host sync (an asynchronous copy from the host)."""
+    lo = torch.tensor([0.0, 0.0, depth[0]], dtype=F32)
+    hi = torch.tensor([params.lx_m, params.ly_m, depth[1]], dtype=F32)
+    return lo.to(device, non_blocking=True), hi.to(device, non_blocking=True)
 
 
 def sample_deployment(

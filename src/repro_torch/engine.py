@@ -34,7 +34,10 @@ times a round, about B times one trial's.  Each call's log entry
 carries those launches (:meth:`Engine.take_log`), the port's counterpart
 of the reference's compile counts.  SCAFFOLD and the centralised oracle
 run no kernel; their trials run one after another (``batched: false`` in
-the log).  Results come back with leading (S, P) axes.
+the log).  The async family (``hfl-async``, ``core/async_fl``) folds its
+trials the same way, an event for a round: one ``local_train_f32``, one
+``fused_agg`` and, with a robust reduce, one ``robust_agg`` call an event
+for the whole cell.  Results come back with leading (S, P) axes.
 
 Compressor default
 ------------------
@@ -59,6 +62,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import itertools
 import time
 from typing import Any, Callable, Sequence
@@ -66,6 +70,7 @@ from typing import Any, Callable, Sequence
 import torch
 
 from repro_torch import device as _device
+from repro_torch.core import async_fl
 from repro_torch.core import compression as comp
 from repro_torch.core import drift as drf
 from repro_torch.core import faults as flt
@@ -99,20 +104,46 @@ def _describe_compressor(cc: comp.CompressorConfig, dev: torch.device) -> str:
     return f"{cc.mode}[{backend}] rho={cc.rho_s:g} q{cc.quant_bits}"
 
 
-def _structure(x: Any) -> Any:
-    """A config's static structure: every float leaf blanked (a swept
-    knob), every other field kept (enums, counts, modes, flags, widths)."""
+def _base_cfg(cfg: Any) -> hfl.HFLConfig:
+    """The round-loop config of an async config, else the config itself."""
+    return cfg.base if isinstance(cfg, async_fl.AsyncFLConfig) else cfg
+
+
+def _map_leaves(x: Any, leaf: Callable[[Any], Any]) -> Any:
+    """A config as nested tuples of (field, value), ``leaf`` applied to
+    every value that is not a dataclass or a tuple."""
     if dataclasses.is_dataclass(x):
         return (type(x).__name__,) + tuple(
-            (f.name, _structure(getattr(x, f.name))) for f in dataclasses.fields(x))
+            (f.name, _map_leaves(getattr(x, f.name), leaf)) for f in dataclasses.fields(x))
     if isinstance(x, tuple):
-        return tuple(_structure(v) for v in x)
-    return None if isinstance(x, float) else x
+        return tuple(_map_leaves(v, leaf) for v in x)
+    return leaf(x)
 
 
-def _float_leaves(x: Any, path: str = "") -> dict[str, float]:
+def _tensor_key(x: torch.Tensor, content: bool) -> tuple:
+    t = x.detach().to("cpu", torch.float32).contiguous()
+    shape = ("tensor", tuple(t.shape))
+    return shape + (hashlib.sha1(t.numpy().tobytes()).hexdigest(),) if content else shape
+
+
+def _structure(x: Any) -> Any:
+    """A config's static structure: every float leaf blanked (a swept
+    knob), a tensor leaf (``AsyncFLConfig.arrival_delay_s``) kept as its
+    shape, every other field kept (enums, counts, modes, flags, widths)."""
+    return _map_leaves(x, lambda v: None if isinstance(v, float) else (
+        _tensor_key(v, False) if isinstance(v, torch.Tensor) else v))
+
+
+def _cfg_key(x: Any) -> Any:
+    """A config as a hashable cache key: a tensor leaf by its shape and
+    its bytes, never by the tensor object."""
+    return _map_leaves(x, lambda v: _tensor_key(v, True) if isinstance(v, torch.Tensor) else v)
+
+
+def _float_leaves(x: Any, path: str = "") -> dict[str, Any]:
+    """Every float or tensor leaf of a config by its dotted path."""
     if dataclasses.is_dataclass(x):
-        out: dict[str, float] = {}
+        out: dict[str, Any] = {}
         for f in dataclasses.fields(x):
             out.update(_float_leaves(getattr(x, f.name), f"{path}{f.name}."))
         return out
@@ -121,7 +152,7 @@ def _float_leaves(x: Any, path: str = "") -> dict[str, float]:
         for i, v in enumerate(x):
             out.update(_float_leaves(v, f"{path}{i}."))
         return out
-    return {path[:-1]: x} if isinstance(x, float) else {}
+    return {path[:-1]: x} if isinstance(x, (float, torch.Tensor)) else {}
 
 
 def _grid(out: dict[str, Any], s_n: int, p_n: int) -> dict[str, Any]:
@@ -210,9 +241,11 @@ class Engine:
     """Unified batched front-end for the round-loop families.
 
     * ``run``   — the trainable families: flat FL (``core/flat_fl``:
-      fedavg/fedprox/fedadam/scaffold/centralised) and hierarchical FL
-      (``core/hfl``: the hfl-* cooperation rules); the asynchronous
-      family (``hfl-async``) raises until it is ported (queue 1 item 13);
+      fedavg/fedprox/fedadam/scaffold/centralised), hierarchical FL
+      (``core/hfl``: the hfl-* cooperation rules) and the asynchronous
+      family (``core/async_fl``: ``hfl-async`` with an ``AsyncFLConfig``,
+      its B trials' events folded into the kernels' axes as the rounds
+      are);
     * ``sweep`` — ``run``/``audit`` over a whole CONFIG GRID: cells are
       grouped into shape-classes (identical static structure — enums,
       counts, compressor mode/bits, deployment geometry), one trial
@@ -278,9 +311,12 @@ class Engine:
         return ls
 
     def resolve_config(self, cfg: hfl.HFLConfig) -> hfl.HFLConfig:
-        """Apply the engine's defaults.  ``Engine(client_chunk=...)``
-        stamps the fleet-axis chunk size into configs that leave it unset;
-        an explicit per-config value always wins."""
+        """Apply the engine's defaults; an async config resolves through
+        its ``base``.  ``Engine(client_chunk=...)`` stamps the fleet-axis
+        chunk size into configs that leave it unset; an explicit
+        per-config value always wins."""
+        if isinstance(cfg, async_fl.AsyncFLConfig):
+            return cfg.replace(base=self.resolve_config(cfg.base))
         kw: dict[str, Any] = dict(
             compressor=self.resolve_compressor(cfg.compressor),
             local_solver=self.resolve_local_solver(cfg.local_solver),
@@ -434,19 +470,19 @@ class Engine:
         keys = self._trial_keys(seeds, p_n)           # (S, P)
         return_params = store is not None
         shapes = _shapes(per_seed)
-        cache_key = ("run", method, cfg, s_n, p_n, shapes, self.hidden, self.percentile,
-                     self.point_adjusted, 0, return_params)
+        cache_key = ("run", method, _cfg_key(cfg), s_n, p_n, shapes, self.hidden,
+                     self.percentile, self.point_adjusted, 0, return_params)
         fn, fresh = self._get_program(cache_key,
                                       lambda: self._run_program(method, dev, return_params))
         out, wall, launches = self._run_cell(fn, method, cfg, keys, self._place(per_seed, s_n),
                                              dev)
         if store is not None:
             params = out.pop("params")
-            store.publish(cfg.rounds if publish_step is None else publish_step,
+            store.publish(_base_cfg(cfg).rounds if publish_step is None else publish_step,
                           [{k: v[0, 0] for k, v in layer.items()} for layer in params])
         self._log(kind="run", method=method, label=label or method,
                   n_trials=s_n * p_n, wall_s=wall, fresh_compile=fresh,
-                  compressor=_describe_compressor(cfg.compressor, dev),
+                  compressor=_describe_compressor(_base_cfg(cfg).compressor, dev),
                   client_sharded=False, batched=method not in exp.UNBATCHED, launches=launches)
         return EngineRun(method, cfg, seeds, p_n, out, wall, fresh)
 
@@ -475,6 +511,7 @@ class Engine:
         Returns summed energies / mean participation with (S, P) leading
         axes; trial (s, 0) matches ``experiment.audit_method(seed=s)``.
         """
+        self._sync_only(cfg)
         dev = self._device()
         cfg = self.resolve_config(cfg)
         seeds = tuple(int(s) for s in seeds)
@@ -498,10 +535,17 @@ class Engine:
     @staticmethod
     def stack_configs(cfgs: Sequence[hfl.HFLConfig]) -> dict[str, torch.Tensor]:
         """Stack same-shape-class configs: every float leaf (a swept knob),
-        by its dotted field path, as a (C,) f32 tensor."""
+        by its dotted field path, as a (C,) f32 tensor; a tensor leaf (the
+        replayed ``arrival_delay_s``) as (C, ...)."""
         leaves = [_float_leaves(c) for c in cfgs]
-        return {k: torch.tensor([lv[k] for lv in leaves], dtype=torch.float32)
+        return {k: torch.stack([torch.as_tensor(lv[k], dtype=torch.float32) for lv in leaves])
                 for k in leaves[0]}
+
+    @staticmethod
+    def _sync_only(cfg: Any) -> None:
+        if isinstance(cfg, async_fl.AsyncFLConfig):
+            raise ValueError("the audit family is training-free and synchronous; it does not "
+                             "take AsyncFLConfig cells")
 
     @staticmethod
     def _audit_normal(cfg: hfl.HFLConfig) -> hfl.HFLConfig:
@@ -511,6 +555,7 @@ class Engine:
         size — which the sweep feeds per cell — so cells that differ only
         in compressor/solver/server statics collapse into one shape-class.
         """
+        Engine._sync_only(cfg)
         return cfg.replace(
             local_epochs=1,
             batch_size=32,
@@ -531,9 +576,10 @@ class Engine:
         """Group sweep cells into shape-classes.
 
         The signature is the config's static structure (every field but
-        the float knobs: rule enum, round/epoch counts, compressor
-        mode/bits/flags, deployment geometry) plus, for per-cell datasets,
-        the data shapes.  Mixed enums/static shapes never share a class.
+        the float knobs: rule enum, round/epoch/event counts, compressor
+        mode/bits/flags, deployment geometry, the shape of a replayed
+        ``arrival_delay_s``) plus, for per-cell datasets, the data shapes.
+        Mixed enums/static shapes never share a class.
         """
         norm, groups = [], {}
         for i, rcfg in enumerate(cfgs):
@@ -636,7 +682,7 @@ class Engine:
             stacked_knobs = self.stack_configs([norm[i] for i in idxs])
             info = dict(
                 indices=tuple(idxs), n_cells=len(idxs), wall_s=wall, fresh_compile=fresh,
-                compressor=_describe_compressor(rep.compressor, dev),
+                compressor=_describe_compressor(_base_cfg(rep).compressor, dev),
                 knobs=sorted(k for k, v in stacked_knobs.items() if bool((v != v[0]).any())),
             )
             classes.append(info)

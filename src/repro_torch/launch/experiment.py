@@ -6,13 +6,14 @@ validation -> score test -> F1 / PA-F1), beside the per-round energy and
 participation traces.  The hierarchical methods (``hfl-*``,
 ``core/hfl``) and the flat baselines (``fedavg``, ``fedprox``,
 ``fedadam``, ``scaffold`` and the ``centralised`` oracle,
-``core/flat_fl``) are ported, with every option of their config: the
-compressor's fused and per-client paths (``CompressorConfig(fused=False)``,
-quantise-only ``rho_s=1``), the legacy client scan
-(``LocalTrainConfig(fused=False)``), the fault layer, robust reduces,
-client chunking and the dynamic world (``drift=DriftConfig(...)``), all
-through :func:`make_config`'s overrides; the async family raises until
-its slice, and so does ``client_mesh``.
+``core/flat_fl``) and the event-driven async family (``hfl-async``,
+``core/async_fl``: ``cfg`` may be an ``AsyncFLConfig``, a plain
+``HFLConfig`` is wrapped with the async defaults) are ported, with every
+option of their config: the compressor's fused and per-client paths
+(``CompressorConfig(fused=False)``, quantise-only ``rho_s=1``), the legacy
+client scan (``LocalTrainConfig(fused=False)``), the fault layer, robust
+reduces, client chunking and the dynamic world (``drift=DriftConfig(...)``),
+all through :func:`make_config`'s overrides; ``client_mesh`` raises.
 
 Randomness is injected: a trial's random inputs (:class:`TrialInputs`:
 init params, deployment, per-round draws, and the centralised oracle's
@@ -32,7 +33,7 @@ from typing import Any, Callable, NamedTuple, Sequence
 import torch
 
 from repro_torch import device as _device
-from repro_torch.core import anomaly, flat_fl, hfl
+from repro_torch.core import anomaly, async_fl, flat_fl, hfl
 from repro_torch.core import association as assoc
 from repro_torch.core import compression as comp
 from repro_torch.core import cooperation as coop
@@ -60,10 +61,6 @@ _RULES = {
     "hfl-selective": coop.CoopRule.SELECTIVE,
     "hfl-nearest": coop.CoopRule.NEAREST,
     "hfl-adam": coop.CoopRule.SELECTIVE,   # FedAdam server + selective coop
-}
-
-_UNPORTED = {
-    "hfl-async": "ROADMAP.md queue 1 item 13",
 }
 
 FLAT_METHODS = ("fedavg", "fedprox", "fedadam")
@@ -95,12 +92,19 @@ class TrialInputs(NamedTuple):
 
     params: Any                # initial autoencoder params
     dep: topo.Deployment       # initial deployment
-    draws: hfl.RoundDraws | None   # per-round mobility noise, minibatch tables, fault draws
+    draws: hfl.RoundDraws | None   # per-round (per-event) mobility noise, minibatch tables, fault draws
     pooled: torch.Tensor | None = None   # (T * E, N * window // bs, bs) pooled-row tables
 
 
+def async_config(cfg: hfl.HFLConfig | async_fl.AsyncFLConfig) -> async_fl.AsyncFLConfig:
+    """``cfg`` as the async family runs it: a plain ``HFLConfig`` wrapped
+    with the async defaults."""
+    return cfg if isinstance(cfg, async_fl.AsyncFLConfig) else async_fl.AsyncFLConfig(base=cfg)
+
+
 def draw_trial(
-    generator: torch.Generator, ds: SensorDataset, cfg: hfl.HFLConfig,
+    generator: torch.Generator, ds: SensorDataset,
+    cfg: hfl.HFLConfig | async_fl.AsyncFLConfig,
     hidden: tuple[int, ...] = (16, 8, 16), method: str = "hfl-selective",
 ) -> TrialInputs:
     """Draw a trial's inputs on the CPU from ``generator``, in this order:
@@ -110,7 +114,10 @@ def draw_trial(
     minibatch tables over the pooled N * window rows
     (``data/pipeline.multi_epoch_indices``, one epoch a row), for any
     other method the per-round draws (``core/hfl.draw_rounds``, fault
-    draws included when the fault layer is on)."""
+    draws included when the fault layer is on); ``"hfl-async"`` draws
+    ``n_events`` of them, one an event."""
+    if method == "hfl-async":
+        cfg = async_fl.draw_config(async_config(cfg))
     n, window, dim = ds.train.shape
     params = ae.init(generator, dim, hidden, device="cpu")
     dep = topo.sample_deployment(generator, cfg.deployment, device="cpu")
@@ -125,8 +132,6 @@ def draw_trial(
 def _check_method(method: str) -> None:
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; one of {METHODS}")
-    if method in _UNPORTED:
-        raise NotImplementedError(f"method {method!r} is not ported yet ({_UNPORTED[method]})")
 
 
 def _dataset_to(ds: SensorDataset, dev: torch.device) -> SensorDataset:
@@ -176,6 +181,17 @@ def _summary(m: Any) -> dict[str, torch.Tensor]:
     }
 
 
+def _async_summary(m: async_fl.AsyncEventMetrics) -> dict[str, torch.Tensor]:
+    """An async loop's metrics (T, ...) as the trial metrics: the round
+    loops' keys, with ``sim_time_s`` the final simulated clock, plus the
+    merge count and the arrival-weighted mean staleness."""
+    arrived = m.n_arrived.to(torch.float32)
+    return {**_summary(m), "sim_time_s": m.t_sim[-1],
+            "merges": torch.sum(m.merged.to(torch.float32), dim=0),
+            "staleness": (torch.sum(m.staleness * arrived, dim=0)
+                          / torch.clamp_min(torch.sum(arrived, dim=0), 1.0))}
+
+
 def _one_trial(method, ds, cfg, inputs) -> tuple[Any, dict[str, torch.Tensor]]:
     """SCAFFOLD or the centralised oracle, one trial on ``ds``'s device
     (neither runs a kernel, so batching them would save no launch): (its
@@ -219,7 +235,8 @@ def batched_trial_metrics(
     (``"params"`` layers lead with B).
 
     The round methods run their B trials through one round loop
-    (``hfl.train_trials``, ``flat_fl.train_flat_trials``), so a round of B
+    (``hfl.train_trials``, ``flat_fl.train_flat_trials``,
+    ``async_fl.train_trials``: an event is its round), so a round of B
     trials launches each kernel as often as one trial's round does (the
     chunked wire pair excepted: ceil(B * N / chunk) launches a round); the
     evaluation takes a threshold and an F1 per trial.  SCAFFOLD and the
@@ -242,6 +259,13 @@ def batched_trial_metrics(
         params = [{k: torch.stack([p[i][k] for p, _ in runs]) for k in layer}
                   for i, layer in enumerate(runs[0][0])]
         out = {k: torch.stack([m[k] for _, m in runs]) for k in runs[0][1]}
+    elif method == "hfl-async":
+        if client_mesh is not None:
+            raise NotImplementedError(hfl.UNPORTED_MESH)
+        params, m = async_fl.train_trials([i.params for i in inputs], ae.loss, stacked,
+                                          async_config(cfg), [i.dep for i in inputs],
+                                          [i.draws for i in inputs])
+        out = _async_summary(m)
     else:
         train = flat_fl.train_flat_trials if method in FLAT_METHODS else hfl.train_trials
         params, m = train([i.params for i in inputs], ae.loss, stacked, _run_cfg(method, cfg),
@@ -275,11 +299,15 @@ def trial_metrics(
 
     ``inputs`` (else :func:`draw_trial` from ``generator``) are moved to
     ``device`` (``None`` = the card) with ``ds``.  ``store`` publishes the
-    global params every round of a hierarchical trial (``hfl.train``);
+    global params every round of a synchronous hierarchical trial
+    (``hfl.train``; the flat and async families do not publish);
     ``return_params`` adds the trained model under ``"params"``.  The
     flat methods run as the reference routes them: ``fedprox`` with
     ``prox_mu = PROX_MU``, ``fedadam`` with the FedAdam gateway, and
-    ``scaffold`` and ``centralised`` with ``cfg`` as it is.
+    ``scaffold`` and ``centralised`` with ``cfg`` as it is.  ``hfl-async``
+    runs ``async_fl.train`` on :func:`async_config` of ``cfg`` and adds
+    ``merges`` and ``staleness``; its ``sim_time_s`` is the final simulated
+    clock, where the round loops report their summed Eq. 21 latency.
     """
     _check_method(method)
     dev = _device.resolve(device)
@@ -288,6 +316,12 @@ def trial_metrics(
     ds = _dataset_to(ds, dev)
     if method in UNBATCHED:
         params, out = _one_trial(method, ds, cfg, inputs)
+    elif method == "hfl-async":
+        if client_mesh is not None:
+            raise NotImplementedError(hfl.UNPORTED_MESH)
+        params, m = async_fl.train(inputs.params, ae.loss, ds, async_config(cfg), inputs.dep,
+                                   inputs.draws)
+        out = _async_summary(m)
     else:
         args = (inputs.params, ae.loss, ds, _run_cfg(method, cfg), inputs.dep, inputs.draws)
         if method in FLAT_METHODS:

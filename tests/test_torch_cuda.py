@@ -31,7 +31,9 @@ and ``fused_score_q8`` also at rows 1 to 65,537 at four depths, and a
 row's err bitwise equal in any batch; ``fused_score_q8``'s err bitwise
 ``fused_score_f32``'s on the dequantised weights.  ``local_train_f32`` with
 one start vector per trial (theta (B, d)) bitwise equal to B launches; an
-``Engine`` cell launching each kernel as often as one trial does.  ``wire_agg`` bitwise
+``Engine`` cell launching each kernel as often as one trial does; an
+``hfl-async`` trial on the card against its CPU twin event by event, and
+its ``Engine`` cells' launches.  ``wire_agg`` bitwise
 equal to ``ref.wire_fold_ref``, the client-order fold; ``fused_agg``'s fog
 sums bitwise equal to ``ref.dense_fold_ref``, its thresholds and new_err
 to the plain version's; the member lists ``robust_agg`` builds on the
@@ -896,6 +898,104 @@ def test_robust_and_wire_wrappers_check_inputs(cuda):
         fa.wire_aggregate_blocks(idx, q, scale, fog_id, weights, 3, 9000)
     with pytest.raises(ValueError, match="n_fog"):
         fa.wire_aggregate_blocks(idx, q, scale, fog_id, weights, 0, 100)
+
+
+ASYNC_CELLS = {   # name -> (round-config overrides, async knobs)
+    "default": (dict(), dict(buffer_k=4.0, fog_k=1.0, alpha=0.5)),
+    "robust": (dict(robust="trimmed", trim_frac=0.3, client_chunk=5,
+                    faults=FaultConfig(byz_mode="gauss", byz_frac=0.25, byz_scale=5.0,
+                                       erasure_prob=0.3, crash_prob=0.2)),
+               dict(buffer_k=4.0, fog_k=2.0, alpha=0.5)),
+    "replay": (dict(server_opt="adam"),
+               dict(buffer_k=4.0, fog_k=2.0, alpha=1.0, tau_max=2.0,
+                    arrival_delay_s=torch.linspace(0.5, 3.0, 12).flip(0))),
+}
+
+
+def _async_cfg(name, n_events=8):
+    from repro_torch.core.async_fl import AsyncFLConfig
+    over, knobs = ASYNC_CELLS[name]
+    return AsyncFLConfig(base=exp.make_config(n_sensors=12, n_fog=3, rounds=3, local_epochs=1,
+                                              **over), n_events=n_events, **knobs)
+
+
+def _launch_counts():
+    return {k: v for c in (lt.LAUNCHES, fa.LAUNCHES, ra.LAUNCHES, q8.LAUNCHES, tk.LAUNCHES)
+            for k, v in c.items()}
+
+
+@pytest.mark.parametrize("name", list(ASYNC_CELLS))
+def test_async_events_on_the_card_match_the_cpu(cuda, name):
+    """An hfl-async trial on the card and on the CPU from identical draws:
+    every event's merge, launches, arrivals and erasures exactly, energies
+    and the clock to rtol 1e-5, losses to rtol 1e-4; one
+    ``local_train_f32`` and one ``fused_agg`` call (two launches) an event,
+    and one ``robust_agg`` with the trimmed reduce."""
+    from repro_torch.core import async_fl
+    acfg = _async_cfg(name)
+    ds = normalize(generate(torch.Generator().manual_seed(0), SyntheticConfig(
+        n_sensors=12, train_len=48, val_len=24, test_len=48), device="cpu"))
+    inputs = exp.draw_trial(torch.Generator().manual_seed(1), ds, acfg, method="hfl-async")
+    before = _launch_counts()
+    _, m_g = async_fl.train(inputs.params, ae.loss, ds._replace(**{
+        k: v.to(cuda) for k, v in ds._asdict().items()}), acfg, inputs.dep, inputs.draws)
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    want = {"local_train_f32": 8, "fused_agg": 16}
+    if name == "robust":
+        want = {"local_train_f32": 8, "fused_agg": 48, "robust_agg": 8}   # 3 chunks of 5 an event
+    assert launched == want
+    _, m_c = async_fl.train(inputs.params, ae.loss, ds, acfg, inputs.dep, inputs.draws)
+    assert m_g.loss.device.type == "cuda"
+    for field in ("merged", "n_launched", "n_arrived", "n_erased", "coop_links",
+                  "n_nonfinite", "global_finite"):
+        np.testing.assert_array_equal(getattr(m_g, field).cpu().numpy(),
+                                      getattr(m_c, field).numpy(), err_msg=field)
+    for field in ("e_s2f", "e_f2f", "e_f2g", "e_total", "t_sim", "event_s", "latency_s",
+                  "participation", "battery_min"):
+        np.testing.assert_allclose(getattr(m_g, field).cpu().numpy(),
+                                   getattr(m_c, field).numpy(), rtol=1e-5, err_msg=field)
+    np.testing.assert_allclose(m_g.loss.cpu().numpy(), m_c.loss.numpy(), rtol=1e-4)
+    np.testing.assert_allclose(m_g.staleness.cpu().numpy(), m_c.staleness.numpy(), rtol=1e-6)
+    assert bool(m_c.merged.any()) and not bool(m_c.merged.all())
+
+
+@pytest.mark.parametrize("name", ["default", "robust"])
+def test_async_engine_cell_launches_as_one_trial(cuda, name):
+    """An hfl-async Engine cell of 2 x 2 trials launches each kernel as
+    often as one trial does, and its trials (s, 0) agree with sequential
+    card trials."""
+    acfg = _async_cfg(name)
+    ds = normalize(generate(torch.Generator().manual_seed(0), SyntheticConfig(
+        n_sensors=12, train_len=48, val_len=24, test_len=48), device="cpu"))
+    eng = Engine()
+    before = _launch_counts()
+    run = eng.run("hfl-async", acfg, (0, 1), ds, n_deployments=2)
+    torch.cuda.synchronize()
+    cell = {k: v - before[k] for k, v in _launch_counts().items()}
+    assert eng.take_log()[0]["launches"] == {k: v for k, v in cell.items() if v}
+    if name == "default":
+        assert cell["local_train_f32"] == 8 and cell["fused_agg"] == 16
+    for s in (0, 1):
+        before = _launch_counts()
+        seq = exp.trial_metrics("hfl-async", torch.Generator().manual_seed(s), ds,
+                                eng.resolve_config(acfg))
+        torch.cuda.synchronize()
+        one = {k: v - before[k] for k, v in _launch_counts().items()}
+        if name == "default":
+            assert cell == one
+        else:   # the chunked compressor walks B * N rows: 48 / 5 chunks against 12 / 5
+            assert {k: cell[k] for k in ("local_train_f32", "robust_agg")} == {
+                k: one[k] for k in ("local_train_f32", "robust_agg")}
+        for key, per in (("participation", 12 * 8), ("coop_links", 8), ("erased_total", 1),
+                         ("merges", 1), ("nonfinite_total", 1)):
+            assert round(float(run[key][s, 0]) * per) == round(float(seq[key]) * per), key
+        for key in ("e_total", "e_s2f", "e_f2f", "e_f2g", "sim_time_s", "staleness"):
+            np.testing.assert_allclose(float(run[key][s, 0]), float(seq[key]), rtol=1e-5)
+        np.testing.assert_allclose(run["losses"][s, 0].cpu().numpy(),
+                                   seq["losses"].cpu().numpy(), rtol=1e-4)
+        assert abs(float(run["f1"][s, 0]) - float(seq["f1"])) <= 1e-3
 
 
 @pytest.mark.parametrize("kw", [

@@ -19,7 +19,8 @@
   as often as one trial does; with ``client_chunk`` the wire pair's route
   ceil(B * N / chunk) times a round.
 * ``audit``, ``reachability``, ``sweep``, ``score``, ``store=`` and the
-  program cache; the three ``NotImplementedError``s.
+  program cache; the two ``NotImplementedError``s left (``hfl-async``,
+  which raised a third, now runs).
 * ``ref.local_train_ref`` with a per-trial start (w (B, ...)) against
   ``jax.vmap`` of the reference's local-train oracle over the trials.
 """
@@ -33,6 +34,7 @@ from repro.kernels import ops as jops
 from repro_torch import engine as teng
 from repro_torch.checkpoint import CheckpointStore
 from repro_torch.core import compression as tcomp
+from repro_torch.core.async_fl import AsyncFLConfig
 from repro_torch.core import participation as tpart
 from repro_torch.core import topology as ttopo
 from repro_torch.core.drift import DriftConfig
@@ -344,10 +346,13 @@ def test_score_one_launch_or_one_per_trial(monkeypatch):
 
 
 def test_unported_paths_raise(data, monkeypatch):
+    """``hfl-async`` raised until its queue-1 item 13 was ported; it now
+    runs batched (``tests/test_torch_async.py`` holds it).  Sharding and
+    ``pod_train_step`` still raise."""
     _, ds_t = data
     eng = _cpu_engine()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        eng.run("hfl-async", torch_cfg(), SEEDS, ds_t)
+    run = eng.run("hfl-async", AsyncFLConfig(base=torch_cfg(), n_events=4), SEEDS, ds_t)
+    assert run.losses.shape == (len(SEEDS), 1, 4) and eng.take_log()[0]["batched"]
     with pytest.raises(NotImplementedError, match="item 15"):
         eng.pod_train_step(None)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
