@@ -181,7 +181,30 @@ exits non-zero before the result line:
              and links exactly per event, energies and the clock to
              rtol=1e-5, losses within 1%); ms per event at B = 1 and per
              trial-event at B = 3, device ops and idle share, and host
-             syncs per event under ``torch.cuda.set_sync_debug_mode``.
+             syncs per event under ``torch.cuda.set_sync_debug_mode``;
+20. mesh-200 — the client-sharded round loop over ``torch.distributed``
+             (``launch/sharding.ClientMesh``), ranks spawned (``spawn``,
+             a ``file://`` rendezvous under ``build/``) after the earlier
+             phases built the kernels: a mesh rank's ``local_train_f32``
+             and ``fused_agg`` at 100 clients against their plain
+             versions; (a) one NCCL rank, ``hfl.train`` on phase 8's
+             draws bitwise equal to the unsharded card run (losses,
+             params, counters, energies); (b) two gloo ranks sharing the
+             card, ``hfl-selective`` and ``fedavg`` at train-200 against
+             the unsharded card trials (participation, erasures and coop
+             links exactly and equal to phases 8 / 17, energies rtol
+             1e-5, losses within 1%, F1 within 0.02; the params after 20
+             rounds reported), the ranks' params bitwise equal, each
+             rank one trial's launches (20 ``local_train_f32``, 40
+             ``fused_agg``) on 100 clients each; both families cut to 2
+             rounds, the reference's test's depth, with params to atol
+             1e-5 and losses to rtol 1e-4; ms per round and the ms per round in ``all_reduce``;
+             (c) mesh-10k, phase 10's chunked fleet on the two ranks: ms
+             per round and each rank's peak device memory beside phase
+             10's; (d) ``Engine(shard_clients=True)`` and
+             ``Engine(shard_trials=True)`` over train-200 cut to 2 rounds,
+             seeds 0-1 x 2 deployments, against ``Engine()`` (losses rtol
+             1e-4, F1 atol 1e-6, counters exactly).
 
 Phase 6 also times ``fused_agg`` at robust-200's identity call (N =
 n_fog = 200), at one of its 64-client chunks and at fleet-10k's unchunked
@@ -220,8 +243,9 @@ wire kernels those of phase 10's chunked trial, for ``compress_q8`` and
 phase 15's hybrid-serve run (each zeroed just before its run, read just
 after; phases 15–16 check the other runs' counts too, phase 17 every
 training kernel's count in each flat trial, phase 18 every one in
-each Engine cell and phase 19 every one in each async Engine call,
-beside the phase 8 count in ``launches_by_path``).  The last line is
+each Engine cell, phase 19 every one in each async Engine call and
+phase 20 each mesh rank's, beside the phase 8 count in
+``launches_by_path``).  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and power limit, and the
 one before that the ``kernels`` JSON.
 """
@@ -231,6 +255,7 @@ import ctypes
 import importlib
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -239,6 +264,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 
@@ -2754,6 +2780,493 @@ def async_fleet(mods, train_ds, counters, training, dev, name, smi) -> dict:
                 trace=dict(n_events=trace.n_events, mean_rate_hz=trace.mean_rate_hz()))
 
 
+# --- phase 20: mesh-200, the client-sharded round loop ---------------------
+
+MESH_WORLD = 2                 # (b)-(d): two gloo ranks sharing the one card
+MESH_TIMEOUT_S = 240.0         # per spawn of ranks
+MESH_ENGINE_SEEDS = (0, 1)     # (d): 2 seeds x ENGINE_P deployments
+MESH_TIME_REPS = 3             # timed 20-round hfl.train runs per rank
+# The reference's sharded-vs-unsharded test runs 2 rounds
+# (tests/test_fused_agg.py:195-228); its tolerances (params atol 1e-5,
+# losses rtol 1e-4) hold the mesh's rounds and its Engine cells there.
+# Over train-200's 20 rounds the reassociated fog sums flip a block's
+# survivor set once in a while (phase 8's draws on the CPU: params within
+# 3.6e-7 through round 12, 2.3e-3 from round 13 on), so at 20 rounds the
+# losses take the port's summation-order gate (1%, phases 8 and 17) and
+# the params are reported, not gated.
+MESH_SHORT_ROUNDS = 2
+
+
+def mesh_rank(rank: int, world: int, backend: str, workdir: str) -> None:
+    """One rank of phase 20, in a spawned process: meets the others in a
+    ``file://`` rendezvous in ``workdir``, runs the jobs of
+    ``workdir/jobs.pt`` on its card (``cuda:rank % count``) with the client
+    mesh of the default group, and writes ``rank<r>.pt``."""
+    from repro_torch.launch import sharding
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dev = torch.device("cuda", torch.cuda.current_device())
+    work = Path(workdir)
+    spec = torch.load(work / "jobs.pt", weights_only=False)
+    spec["seen"] = _mesh_clients()
+    dist.init_process_group(backend, init_method=f"file://{work / 'rendezvous'}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = sharding.client_mesh()
+        out = {}
+        for job in spec["jobs"]:
+            out[job[0]] = MESH_JOBS[job[0].split(":")[0]](job, spec, mesh, dev)
+        torch.save(out, work / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_clients():
+    """Wrap the launch wrappers of the mesh's round so that each call
+    records its client count (rows of its first argument); returns the
+    record, kernel name -> list, and a function that clears it."""
+    from repro_torch.kernels import fused_agg as fa
+    from repro_torch.kernels import local_train as lt
+    seen = {"local_train_f32": [], "fused_agg": [], "wire_emit": []}
+    for mod, attr, kernel in ((lt, "train_clients", "local_train_f32"),
+                              (fa, "compress_aggregate_blocks", "fused_agg"),
+                              (fa, "compress_wire_blocks", "wire_emit")):
+        def wrapped(x, *args, _launch=getattr(mod, attr), _seen=seen[kernel], **kw):
+            _seen.append(int(x.shape[0]))
+            return _launch(x, *args, **kw)
+        setattr(mod, attr, wrapped)
+    return seen
+
+
+def _mesh_counts():
+    from repro_torch.kernels import fused_agg as fa
+    from repro_torch.kernels import local_train as lt
+    return {**lt.LAUNCHES, **fa.LAUNCHES}
+
+
+def _mesh_reset(seen):
+    from repro_torch.kernels import fused_agg as fa
+    from repro_torch.kernels import local_train as lt
+    lt.reset_launches()
+    fa.reset_launches()
+    for v in seen.values():
+        v.clear()
+    torch.cuda.synchronize()
+
+
+def mesh_train_job(job, spec, mesh, dev) -> dict:
+    """``hfl.train`` of train-200 on phase 8's draws with the mesh (job
+    ``train``, (a)), or ``hfl.train`` / ``flat_fl.train_flat`` cut to
+    ``MESH_SHORT_ROUNDS`` (``short:hfl``, ``short:flat``, (b)): final
+    params, metrics, launches and clients per launch."""
+    from repro_torch.core import flat_fl, hfl
+    from repro_torch.models import autoencoder as ae
+    seen = spec["seen"]
+    ds, cfg, inputs = spec["ds"], spec["cfg"], spec["inputs"]
+    train = hfl.train
+    if job[0].startswith("short:"):
+        cfg = cfg.replace(rounds=MESH_SHORT_ROUNDS)
+        train = flat_fl.train_flat if job[0] == "short:flat" else hfl.train
+    ds_dev = type(ds)(*(t.to(dev) for t in ds))
+    _mesh_reset(seen)
+    params, m = train(inputs.params, ae.loss, ds_dev, cfg, inputs.dep, inputs.draws,
+                      client_mesh=mesh)
+    torch.cuda.synchronize()
+    return dict(params=ae.ravel(params).cpu(), metrics={k: v.cpu() for k, v in
+                                                        m._asdict().items()},
+                launches=_mesh_counts(), clients={k: list(v) for k, v in seen.items()})
+
+
+def mesh_trial_job(job, spec, mesh, dev) -> dict:
+    """``experiment.trial_metrics`` of ``job``'s method at train-200 with
+    the mesh (b): its metrics, final params, launches, clients per launch."""
+    from repro_torch.launch import experiment as exp
+    from repro_torch.models import autoencoder as ae
+    method = job[0].split(":")[1]
+    seen = spec["seen"]
+    _mesh_reset(seen)
+    out = exp.trial_metrics(method, None, spec["ds"], spec["cfg"], inputs=spec["inputs"],
+                            client_mesh=mesh, return_params=True)
+    torch.cuda.synchronize()
+    params = out.pop("params")
+    return dict(metrics={k: v.cpu() for k, v in out.items()}, params=ae.ravel(params).cpu(),
+                launches=_mesh_counts(), clients={k: list(v) for k, v in seen.items()})
+
+
+def mesh_time_job(job, spec, mesh, dev) -> dict:
+    """ms per round of train-200's ``hfl.train`` with the mesh, then one
+    more run with every ``all_reduce`` of the round timed between two
+    synchronisations: the ms per round spent in them."""
+    from repro_torch.core import hfl
+    from repro_torch.launch import sharding
+    from repro_torch.models import autoencoder as ae
+    ds, cfg, inputs = spec["ds"], spec["cfg"], spec["inputs"]
+    ds_dev = type(ds)(*(t.to(dev) for t in ds))
+    dep, draws = inputs.dep.to(dev), inputs.draws.to(dev)
+    params = [{k: v.to(dev) for k, v in layer.items()} for layer in inputs.params]
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hfl.train(params, ae.loss, ds_dev, cfg, dep, draws, client_mesh=mesh)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / cfg.rounds
+
+    round_ms = [run() for _ in range(MESH_TIME_REPS)]
+    plain_sum, spent = sharding.ClientMesh.sum_, []
+
+    def timed_sum(self, t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_sum(self, t)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    sharding.ClientMesh.sum_ = timed_sum
+    try:
+        instrumented = run()
+    finally:
+        sharding.ClientMesh.sum_ = plain_sum
+    return dict(round_ms=round_ms, instrumented_round_ms=instrumented,
+                all_reduce_ms_per_round=sum(spent) * 1e3 / cfg.rounds,
+                all_reduces_per_round=len(spent) / cfg.rounds)
+
+
+def mesh_fleet_job(job, spec, mesh, dev) -> dict:
+    """(c) mesh-10k: phase 10's chunked fleet (N = 10,000, M = 1,000, T =
+    5, client_chunk 512) with the mesh, its data made on the card and its
+    draws from seed 0 on every rank; ms per round and this rank's peak
+    device memory over the ``hfl.train`` run, measured as phase 10 does."""
+    from repro_torch.core import hfl
+    from repro_torch.data.synthetic import SyntheticConfig, generate, normalize
+    from repro_torch.launch import experiment as exp
+    from repro_torch.models import autoencoder as ae
+    seen = spec["seen"]
+    ds = normalize(generate(
+        torch.Generator().manual_seed(0),
+        SyntheticConfig(n_sensors=FLEET_N, train_len=WINDOW, val_len=VAL_LEN, test_len=TEST_LEN),
+        device=dev,
+    ))
+    cfg = exp.make_config(FLEET_N, FLEET_FOG, FLEET_ROUNDS, client_chunk=FLEET_CHUNK)
+    inputs = exp.draw_trial(torch.Generator().manual_seed(0), ds, cfg)
+    dep, draws = inputs.dep.to(dev), inputs.draws.to(dev)
+    params = [{k: v.to(dev) for k, v in layer.items()} for layer in inputs.params]
+    _mesh_reset(seen)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    _, m = hfl.train(params, ae.loss, ds, cfg, dep, draws, client_mesh=mesh)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / FLEET_ROUNDS
+    return dict(ms_per_round=ms, peak_bytes=torch.cuda.max_memory_allocated(dev),
+                metrics={k: v.cpu() for k, v in m._asdict().items()}, launches=_mesh_counts(),
+                clients={k: list(v) for k, v in seen.items()})
+
+
+def mesh_engine_job(job, spec, mesh, dev) -> dict:
+    """(d) ``Engine(shard_clients=True)`` or ``Engine(shard_trials=True)``
+    over train-200's cell cut to ``MESH_SHORT_ROUNDS``, seeds 0-1 x
+    ``ENGINE_P`` deployments."""
+    from repro_torch.engine import Engine
+    mode = job[0].split(":")[1]
+    seen = spec["seen"]
+    eng = Engine(shard_clients=mode == "clients", shard_trials=mode == "trials")
+    _mesh_reset(seen)
+    run = eng.run("hfl-selective", spec["cfg"].replace(rounds=MESH_SHORT_ROUNDS),
+                  MESH_ENGINE_SEEDS, spec["ds"], n_deployments=ENGINE_P)
+    torch.cuda.synchronize()
+    return dict(metrics={k: v.cpu() for k, v in run.metrics.items()}, log=eng.take_log(),
+                clients={k: list(v) for k, v in seen.items()})
+
+
+MESH_JOBS = {"train": mesh_train_job, "short": mesh_train_job, "trial": mesh_trial_job,
+             "time": mesh_time_job, "fleet": mesh_fleet_job, "engine": mesh_engine_job}
+
+
+def spawn_mesh(jobs, world, backend, spec, workdir: Path) -> list[dict]:
+    """Run ``jobs`` on ``world`` spawned ranks (``mesh_rank``); each rank's
+    results.  A rank that raises, or ranks that outlive
+    ``MESH_TIMEOUT_S``, fail the phase; every rank is stopped."""
+    import torch.multiprocessing as mp
+    workdir.mkdir(parents=True)
+    torch.save({**spec, "jobs": jobs}, workdir / "jobs.pt")
+    ctx = mp.start_processes(mesh_rank, args=(world, backend, str(workdir)), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            check(time.monotonic() < deadline,
+                  f"{world} {backend} ranks did not finish in {MESH_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join(10)
+    return [torch.load(workdir / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def mesh_kernels(dev, lt, fa, kops, kref, ae, ds, inputs) -> dict:
+    """The two kernels of a mesh rank's round at its shapes (the first
+    rank's 100 of train-200's clients, round 0's windows and index table;
+    100 clients into 20 fogs), each against its plain version at phase 7's
+    tolerances; max |diff| per kernel."""
+    n = TRAIN_N // MESH_WORLD
+    params = [{k: v.to(dev) for k, v in layer.items()} for layer in inputs.params]
+    x, idx = ds.train[:n].to(dev), inputs.draws.batches[0][:n].to(dev)
+    deltas, loss = lt.train_clients(x, idx, ae.ravel(params), (D, *HIDDEN, D), LR, 0.0)
+    d_ref, l_ref = kref.local_train_ref(x, idx, tuple(p["w"] for p in params),
+                                        tuple(p["b"] for p in params), LR, 0.0)
+    errs = {"local_train_f32": close_on_device(deltas, d_ref, 1e-4, 1e-6,
+                                               "mesh local_train deltas")}
+    close_on_device(loss, l_ref, 1e-5, 0.0, "mesh local_train loss")
+    g = torch.Generator().manual_seed(20)
+    err = (0.1 * torch.randn(deltas.shape, generator=g)).to(dev)
+    fog_id = torch.randint(0, TRAIN_FOG, (n,), generator=g, dtype=torch.int32).to(dev)
+    weights = torch.full((n,), float(WINDOW), device=dev)
+    k = kops.block_k(0.05)
+    fs_k, ne_k, thr_k = fa.compress_aggregate_blocks(deltas, err, fog_id, weights, TRAIN_FOG, k,
+                                                     True)
+    fs_r, ne_r, thr_r = kref.compress_aggregate_ref(deltas, err, fog_id, weights, TRAIN_FOG, k,
+                                                    True)
+    check(torch.equal(thr_k, thr_r) and torch.equal(ne_k, ne_r),
+          "mesh fused_agg thresholds or new_err differ bitwise")
+    check(torch.equal(fs_k, kref.dense_fold_ref(deltas, err, fog_id, weights, TRAIN_FOG, k,
+                                                 True)),
+          "mesh fused_agg fog sums differ from the client-order fold")
+    errs["fused_agg"] = close_on_device(fs_k, fs_r, 1e-5, 1e-4, "mesh fused_agg fog sums")
+    print(f"  the mesh rank's kernels at {n} clients: local_train_f32 max|delta diff| "
+          f"{errs['local_train_f32']:.3e}, fused_agg into {TRAIN_FOG} fogs bitwise the "
+          f"client-order fold, max|diff| {errs['fused_agg']:.3e}  ok")
+    return errs
+
+
+def _bitwise(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def mesh_phase(mods, train_ds, training, flat, fleet, dev, name, smi, workdir) -> dict:
+    """Phase 20: mesh-200, the client-sharded round loop over
+    ``torch.distributed`` (``launch/sharding.ClientMesh``), its ranks
+    spawned after the earlier phases built the kernels.  The mesh rank's
+    two kernels at its shapes against their plain versions; then
+    (a) one NCCL rank: ``hfl.train`` with the mesh on phase 8's draws
+    bitwise equal to the unsharded card run (losses, params, counters,
+    energies), ms per round; (b) two gloo ranks sharing the card:
+    ``hfl-selective`` and ``fedavg`` trials with the mesh against the
+    unsharded card trials (participation, erasures and coop links exactly
+    and equal to phases 8 / 17, energies rtol 1e-5, losses within 1%, F1
+    within 0.02; params reported), the ranks' params bitwise equal, each
+    rank one trial's launches on 100 clients a launch; both families at
+    ``MESH_SHORT_ROUNDS`` with params to atol 1e-5 and losses to rtol
+    1e-4; ms per round and the
+    ms per round in ``all_reduce``; (c) mesh-10k: phase 10's chunked fleet
+    on the two ranks, ms per round and each rank's peak device memory
+    beside phase 10's; (d) ``Engine(shard_clients=True)`` and
+    ``Engine(shard_trials=True)`` against ``Engine()`` over seeds 0-1 x 2
+    deployments at ``MESH_SHORT_ROUNDS`` (losses rtol 1e-4, F1 atol 1e-6,
+    counters exactly)."""
+    exp, hfl, flat_fl, ae, Engine, lt, fa, kops, kref = mods
+    cfg = exp.make_config(TRAIN_N, TRAIN_FOG, ROUNDS)
+    inputs = exp.draw_trial(torch.Generator().manual_seed(0), train_ds, cfg)   # phase 8's draws
+    kernel_err = mesh_kernels(dev, lt, fa, kops, kref, ae, train_ds, inputs)
+
+    # The unsharded references, on the card in this process.
+    ds_dev = type(train_ds)(*(t.to(dev) for t in train_ds))
+    params_u, m_u = hfl.train(inputs.params, ae.loss, ds_dev, cfg, inputs.dep, inputs.draws)
+    m_u = {k: v.cpu() for k, v in m_u._asdict().items()}
+    check([float(x) for x in m_u["loss"]] == training["losses"],
+          "the unsharded hfl.train's losses differ from phase 8's trial")
+    dep, draws = inputs.dep.to(dev), inputs.draws.to(dev)
+    params_dev = [{k: v.to(dev) for k, v in layer.items()} for layer in inputs.params]
+    unsharded_ms = []
+    for _ in range(MESH_TIME_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hfl.train(params_dev, ae.loss, ds_dev, cfg, dep, draws)
+        torch.cuda.synchronize()
+        unsharded_ms.append((time.perf_counter() - t0) * 1e3 / ROUNDS)
+    trials_u = {m: exp.trial_metrics(m, None, train_ds, cfg, inputs=inputs, return_params=True)
+                for m in ("hfl-selective", "fedavg")}
+    earlier = {"hfl-selective": training, "fedavg": flat["trials"]["fedavg"]}
+    for method, t in trials_u.items():
+        check(float(t["participation"]) == earlier[method]["participation"],
+              f"the unsharded {method} trial's participation differs from its earlier phase's")
+    check(float(trials_u["hfl-selective"]["coop_links"]) == training["coop_links"],
+          "the unsharded hfl-selective trial's coop links differ from phase 8's")
+    short = cfg.replace(rounds=MESH_SHORT_ROUNDS)
+    short_u = {}
+    for family, train in (("hfl", hfl.train), ("flat", flat_fl.train_flat)):
+        p, m = train(inputs.params, ae.loss, ds_dev, short, inputs.dep, inputs.draws)
+        short_u[family] = (ae.ravel(p).cpu(), {k: v.cpu() for k, v in m._asdict().items()})
+    eng_u = Engine().run("hfl-selective", short, MESH_ENGINE_SEEDS, train_ds,
+                         n_deployments=ENGINE_P).metrics
+    spec = {"ds": train_ds, "cfg": cfg, "inputs": inputs}
+    path = {"local_train_f32": ROUNDS, "fused_agg": 2 * ROUNDS}
+
+    # (a) one rank, NCCL: bitwise the unsharded card run.
+    t0 = time.perf_counter()
+    (one,) = spawn_mesh([("train",), ("time",)], 1, "nccl", spec, workdir / "nccl")
+    nccl_s = time.perf_counter() - t0
+    a = one["train"]
+    check(torch.equal(a["params"], ae.ravel(params_u).cpu()),
+          "(a) one NCCL rank: params differ from the unsharded card run")
+    check(_bitwise(a["metrics"], m_u), "(a) one NCCL rank: per-round metrics differ from the "
+          "unsharded card run: " + ", ".join(k for k in m_u
+                                             if not torch.equal(a["metrics"][k], m_u[k])))
+    check({k: a["launches"][k] for k in path} == path, f"(a) launches {a['launches']}")
+    check(a["clients"]["local_train_f32"] == [TRAIN_N] * ROUNDS
+          and a["clients"]["fused_agg"] == [TRAIN_N] * ROUNDS, f"(a) clients {a['clients']}")
+    print(f"  (a) 1 NCCL rank: hfl.train on phase 8's draws bitwise the unsharded card run "
+          f"(losses, params, counters, energies); {ROUNDS} local_train_f32 + {ROUNDS} "
+          f"fused_agg calls of {TRAIN_N} clients; "
+          f"{', '.join(f'{v:.3f}' for v in one['time']['round_ms'])} ms per round, of which "
+          f"{one['time']['all_reduce_ms_per_round']:.3f} ms in "
+          f"{one['time']['all_reduces_per_round']:.0f} all_reduces (unsharded "
+          f"{', '.join(f'{v:.3f}' for v in unsharded_ms)} ms); spawn to results {nccl_s:.1f} s"
+          f"  on {name} ({smi})")
+
+    # (b)-(d): two gloo ranks on the one card.
+    jobs = [("trial:hfl-selective",), ("trial:fedavg",), ("short:hfl",), ("short:flat",),
+            ("time",), ("fleet",), ("engine:clients",), ("engine:trials",)]
+    t0 = time.perf_counter()
+    ranks = spawn_mesh(jobs, MESH_WORLD, "gloo", spec, workdir / "gloo")
+    gloo_s = time.perf_counter() - t0
+    half = TRAIN_N // MESH_WORLD
+    trials = {}
+    for method, want in trials_u.items():
+        got = [r[f"trial:{method}"] for r in ranks]
+        for other in got[1:]:
+            check(torch.equal(other["params"], got[0]["params"])
+                  and _bitwise(other["metrics"], got[0]["metrics"]),
+                  f"(b) {method}: the ranks' params or metrics differ")
+        for r, g in enumerate(got):
+            check({k: g["launches"][k] for k in path} == path,
+                  f"(b) {method} rank {r}: launches {g['launches']}")
+            check(g["clients"]["local_train_f32"] == [half] * ROUNDS
+                  and g["clients"]["fused_agg"] == [half] * ROUNDS,
+                  f"(b) {method} rank {r}: clients per launch {g['clients']}")
+        g = got[0]["metrics"]
+        for key in ("participation", "coop_links", "erased_total", "nonfinite_total"):
+            check(torch.equal(g[key], want[key].cpu()),
+                  f"(b) {method}: {key} {float(g[key])} vs unsharded {float(want[key])}")
+        check(float(g["participation"]) == earlier[method]["participation"]
+              and float(g["erased_total"]) == earlier[method].get("erased_total", 0.0),
+              f"(b) {method}: participation or erasures differ from the earlier phase's")
+        for key in ("e_total", "e_s2f", "e_f2f", "e_f2g"):
+            check(np.isclose(float(g[key]), float(want[key]), rtol=1e-5, atol=0.0),
+                  f"(b) {method}: {key} {float(g[key])} vs unsharded {float(want[key])}")
+        lg, lu = g["losses"].numpy(), want["losses"].cpu().numpy()
+        loss_rel = float(np.max(np.abs(lg - lu) / np.abs(lu)))
+        check(loss_rel <= 0.01, f"(b) {method}: losses differ by {loss_rel:.3e}")
+        p_diff = float((got[0]["params"] - ae.ravel(want["params"]).cpu()).abs().max())
+        f1_diff = abs(float(g["f1"]) - float(want["f1"]))
+        check(f1_diff <= 0.02, f"(b) {method}: F1 {float(g['f1']):.4f} vs unsharded "
+                               f"{float(want['f1']):.4f}")
+        trials[method] = dict(loss_rel=loss_rel, max_param_diff=p_diff, f1=float(g["f1"]),
+                              unsharded_f1=float(want["f1"]),
+                              participation=float(g["participation"]),
+                              e_total=float(g["e_total"]), launches_per_rank=path,
+                              clients_per_launch=half)
+        print(f"  (b) {MESH_WORLD} gloo ranks, {method}: both ranks' params bitwise equal; "
+              f"participation, coop links, erasures exactly; max rel loss {loss_rel:.2e}, "
+              f"max |dparam| after {ROUNDS} rounds {p_diff:.2e} (not gated), F1 "
+              f"{float(g['f1']):.4f} (unsharded "
+              f"{float(want['f1']):.4f}); each rank {ROUNDS} local_train_f32 + {ROUNDS} "
+              f"fused_agg calls of {half} clients")
+    for family, (p_u, m_s) in short_u.items():
+        got = [r[f"short:{family}"] for r in ranks]
+        check(all(torch.equal(o["params"], got[0]["params"]) for o in got[1:]),
+              f"(b) {family} at {MESH_SHORT_ROUNDS} rounds: the ranks' params differ")
+        p_diff = float((got[0]["params"] - p_u).abs().max())
+        check(p_diff <= 1e-5, f"(b) {family} at {MESH_SHORT_ROUNDS} rounds: params differ by "
+                              f"{p_diff:.3e}")
+        for k, v in m_s.items():
+            g = got[0]["metrics"][k]
+            if k == "loss":
+                ok = bool(torch.allclose(g, v, rtol=1e-4, atol=0.0))
+            elif v.dtype.is_floating_point and k != "participation":
+                ok = bool(torch.allclose(g, v, rtol=1e-5, atol=0.0))
+            else:
+                ok = torch.equal(g, v)
+            check(ok, f"(b) {family} at {MESH_SHORT_ROUNDS} rounds: {k} {g} vs {v}")
+        trials[f"{family} at {MESH_SHORT_ROUNDS} rounds"] = dict(max_param_diff=p_diff)
+        print(f"  (b) {family} at {MESH_SHORT_ROUNDS} rounds (the reference's depth): max "
+              f"|dparam| {p_diff:.2e} (gate 1e-5), per-round metrics at rtol 1e-5 (losses "
+              f"1e-4), counters exactly")
+    timing = [r["time"] for r in ranks]
+    print(f"      hfl.train ms per round by rank: "
+          + "; ".join(f"rank {i} {', '.join(f'{v:.3f}' for v in t['round_ms'])} "
+                      f"({t['all_reduce_ms_per_round']:.3f} ms in "
+                      f"{t['all_reduces_per_round']:.0f} all_reduces, instrumented run "
+                      f"{t['instrumented_round_ms']:.3f})" for i, t in enumerate(timing))
+          + f"  on {name} ({smi})")
+
+    # (c) mesh-10k.
+    fl = [r["fleet"] for r in ranks]
+    chunks = -(-(FLEET_N // MESH_WORLD) // FLEET_CHUNK)
+    for r, f in enumerate(fl):
+        check(f["launches"]["wire_emit"] == chunks * FLEET_ROUNDS
+              and f["launches"]["wire_agg"] == chunks * FLEET_ROUNDS
+              and sum(f["clients"]["wire_emit"]) == FLEET_N // MESH_WORLD * FLEET_ROUNDS,
+              f"(c) rank {r}: launches {f['launches']}")
+    check(_bitwise(fl[0]["metrics"], fl[1]["metrics"]), "(c) the ranks' metrics differ")
+    m10 = fl[0]["metrics"]
+    part10 = float(torch.mean(m10["participation"]))
+    check(part10 == fleet["chunked"]["participation"],
+          f"(c) participation {part10} vs phase 10's {fleet['chunked']['participation']}")
+    loss10 = [float(m10["loss"][0]), float(m10["loss"][-1])]
+    want10 = [fleet["chunked"]["loss_first"], fleet["chunked"]["loss_last"]]
+    rel10 = max(abs(g - w) / abs(w) for g, w in zip(loss10, want10))
+    check(rel10 <= 0.01, f"(c) losses {loss10} vs phase 10's {want10}")
+    peaks = [f["peak_bytes"] for f in fl]
+    print(f"  (c) mesh-10k N={FLEET_N} M={FLEET_FOG} T={FLEET_ROUNDS} chunk {FLEET_CHUNK} on "
+          f"{MESH_WORLD} gloo ranks: "
+          + ", ".join(f"rank {i} {f['ms_per_round']:.3f} ms per round, peak "
+                      f"{f['peak_bytes'] / 2**20:.1f} MiB" for i, f in enumerate(fl))
+          + f" (phase 10 unsharded, same chunk: {fleet['chunked']['ms_per_round']:.3f} ms, "
+          f"{fleet['chunked']['peak_bytes'] / 2**20:.1f} MiB); participation as phase 10's, "
+          f"max rel loss {rel10:.2e}; each rank {chunks} wire_emit + {chunks} wire_agg a round"
+          f"  on {name} ({smi})")
+
+    # (d) the Engine.
+    engine = {}
+    for mode in ("clients", "trials"):
+        got = [r[f"engine:{mode}"] for r in ranks]
+        check(_bitwise(got[0]["metrics"], got[1]["metrics"]), f"(d) {mode}: ranks differ")
+        (entry,) = got[0]["log"]
+        check(entry["client_sharded"] is (mode == "clients")
+              and entry["trial_sharded"] is (mode == "trials"), f"(d) {mode}: log {entry}")
+        g = got[0]["metrics"]
+        for key in ("participation", "coop_links", "erased_total", "nonfinite_total",
+                    "nonfinite_rounds"):
+            check(torch.equal(g[key], eng_u[key].cpu()), f"(d) {mode}: {key} differs")
+        lg, lu = g["losses"].numpy(), eng_u["losses"].cpu().numpy()
+        loss_rel = float(np.max(np.abs(lg - lu) / np.abs(lu)))
+        check(loss_rel <= 1e-4, f"(d) {mode}: losses differ by {loss_rel:.3e}")
+        f1_diff = float((g["f1"] - eng_u["f1"].cpu()).abs().max())
+        check(f1_diff <= 1e-6, f"(d) {mode}: F1 differs by {f1_diff:.3e}")
+        engine[mode] = dict(loss_rel=loss_rel, f1_diff=f1_diff, launches=entry["launches"],
+                            wall_s=entry["wall_s"])
+        print(f"  (d) Engine(shard_{mode}=True), T={MESH_SHORT_ROUNDS}, over seeds "
+              f"{MESH_ENGINE_SEEDS} x {ENGINE_P} on "
+              f"{MESH_WORLD} gloo ranks vs Engine(): counters exactly, max rel loss "
+              f"{loss_rel:.2e}, max |dF1| {f1_diff:.2e}; rank 0 launched {entry['launches']} "
+              f"in {entry['wall_s']:.3f} s")
+    print(f"    spawn to results: {gloo_s:.1f} s for the {MESH_WORLD} gloo ranks")
+    return dict(kernel_max_abs_err=kernel_err, unsharded_round_ms=unsharded_ms,
+                nccl_one_rank=dict(time=one["time"], launches={k: a["launches"][k]
+                                                               for k in path}),
+                gloo_two_ranks=dict(trials=trials, time=timing, launches_per_rank=path),
+                mesh_10k=dict(ms_per_round=[f["ms_per_round"] for f in fl],
+                              peak_bytes=peaks, chunks_per_rank_round=chunks,
+                              loss_rel_vs_phase_10=rel10,
+                              phase_10_peak_bytes=fleet["chunked"]["peak_bytes"],
+                              wire_launches_per_rank={k: fl[0]["launches"][k]
+                                                      for k in ("wire_emit", "wire_agg")}),
+                engine=engine, spawn_s=dict(nccl=nccl_s, gloo=gloo_s))
+
+
 # --- phases 14-16: LM decode serving and the swa_decode kernel -------------
 
 SWA_KERNEL = ("src/repro/kernels/swa_attention.py:28", "src/repro_torch/kernels/csrc/swa_decode.cu")
@@ -3387,6 +3900,11 @@ def main(argv: list[str]) -> int:
     async_res = async_fleet((Engine, exp, async_fl, hfl, ae, FaultConfig, mmpp_trace, lt, fa, ra,
                              kref), train_ds, kernel_counters(lt, fa, ra, kq8, tk), training,
                             dev, name, smi)
+
+    phase("20. mesh-200 (main path): the client-sharded round loop over torch.distributed")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT / "build") as tmp:
+        mesh = mesh_phase((exp, hfl, flat_fl, ae, Engine, lt, fa, kops, kref), train_ds,
+                          training, flat, fleet, dev, name, smi, Path(tmp))
     phase("done")
 
     kernels = []
@@ -3412,6 +3930,8 @@ def main(argv: list[str]) -> int:
         kname = key.split(" @ ")[0]
         train_err[kname] = max(train_err[kname], entry["max_abs_err"])
     for kname, e in async_res["kernel_checks"]["max_abs_err"].items():   # the async inputs'
+        train_err[kname] = max(train_err[kname], e)
+    for kname, e in mesh["kernel_max_abs_err"].items():   # a mesh rank's shapes
         train_err[kname] = max(train_err[kname], e)
     launches = dict(training["launches"])
     launches["robust_agg"] = robust["launches"]["robust_agg"]
@@ -3440,7 +3960,12 @@ def main(argv: list[str]) -> int:
             kernels[-1]["launches_by_path"] = {
                 "train-200": launches[kname],
                 "engine-200": engine["cells"]["engine-200"]["launches"][kname],
-                "async-200 sweep": async_res["launches"]["sweep (3 cells)"][kname]}
+                "async-200 sweep": async_res["launches"]["sweep (3 cells)"][kname],
+                "mesh-200 per gloo rank (W=2)": mesh["gloo_two_ranks"]["launches_per_rank"][kname]}
+        if kname in ("wire_emit", "wire_agg"):
+            kernels[-1]["launches_by_path"] = {
+                "fleet-10k": launches[kname],
+                "mesh-10k per gloo rank (W=2)": mesh["mesh_10k"]["wire_launches_per_rank"][kname]}
         if kname == "robust_agg":
             kernels[-1]["launches_by_path"] = {
                 "robust-200": launches[kname],
@@ -3482,6 +4007,7 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"flat": flat}))
     print(json.dumps({"engine": engine}))
     print(json.dumps({"async": async_res}))
+    print(json.dumps({"mesh": mesh}))
     print("phase seconds: " + ", ".join(f"{k.split('.')[0]} {v:.1f}" for k, v in PHASE_S.items()
                                         if k != "done"))
     print(json.dumps({"kernels": kernels}))

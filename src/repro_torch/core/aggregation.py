@@ -10,11 +10,17 @@ fleet), and the fog reduce can be Byzantine-robust
 the client and fog axes of these operators: trial b's clients carry fog
 ids offset by b * M into B * M fogs, so a fog's members are all of one
 trial and its sum is that trial's own.  Mixing and the gateway step take
-(B, M, d).  The mesh-parallel paths of the reference are not ported yet.
+(B, M, d).  Over a client mesh (``launch/sharding.ClientMesh``, a
+``torch.distributed`` process group) :func:`compress_and_aggregate` sums
+each rank's partial fog sums before dividing; :func:`hierarchical_mean`
+and :func:`ring_mix` are the reference's mesh-parallel mean and gossip.
 """
 from __future__ import annotations
 
+from typing import Any
+
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import compression as comp
 from repro_torch.core.cooperation import CoopDecision
@@ -155,15 +161,24 @@ def compress_and_aggregate(
     weights: torch.Tensor,
     n_fog: int,
     cfg: comp.CompressorConfig,
+    axis: Any = None,
     chunk: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Eq. 30 (EF compression) and Eq. 13 (weighted fog aggregation) as
     one operator: (fog_update (n_fog, d) — the cluster means, zero for
     empty clusters — fog_weight (n_fog,), new_err (N, d)).  ``chunk`` as
-    in :func:`compress_and_accumulate`."""
+    in :func:`compress_and_accumulate`, within this rank's clients.
+
+    With ``axis`` a ``launch/sharding.ClientMesh`` the inputs are this
+    rank's slice of the clients, and the partial fog sums and weights are
+    summed over the mesh before dividing (the sensor->fog hop);
+    ``new_err`` stays this rank's slice."""
     fog_sum, fog_weight, new_err = compress_and_accumulate(
         deltas, err, fog_id, weights, n_fog, cfg, chunk=chunk
     )
+    if axis is not None:
+        axis.sum_(fog_sum)
+        axis.sum_(fog_weight)
     return fog_sum / torch.clamp_min(fog_weight, 1e-12)[:, None], fog_weight, new_err
 
 
@@ -258,3 +273,71 @@ def weighted_mean(
     if prev is None:
         return out
     return torch.where((total > 0.0)[..., None], out, prev)
+
+
+# ---------------------------------------------------------------------------
+# Mesh-parallel hierarchical aggregation over process groups.
+# ---------------------------------------------------------------------------
+
+def tree_map(fn, tree: Any) -> Any:
+    """``fn`` on every tensor of a tensor, or of lists, tuples and dicts
+    of them (a params pytree)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def hierarchical_mean(
+    update: Any,
+    weight: torch.Tensor,
+    *,
+    intra_axis: Any,
+    inter_axis: Any = None,
+) -> Any:
+    """Two-level weighted mean of every rank's ``update`` (a tensor or a
+    params pytree) by its ``weight`` (a scalar tensor): within
+    ``intra_axis`` (a ``ClientMesh``: the cheap hop, fog aggregation),
+    then across ``inter_axis`` (the expensive hop, fog->gateway), each
+    weighted by the summed weight below it.  ``inter_axis=None`` is flat
+    FedAvg over ``intra_axis``.  At size 1 both hops are the identity
+    (up to ``w * x / w``)."""
+    wsum_local = intra_axis.sum_(weight.clone())
+
+    def intra(leaf):
+        return intra_axis.sum_(leaf * weight) / torch.clamp_min(wsum_local, 1e-12)
+
+    fog_model = tree_map(intra, update)
+    if inter_axis is None:
+        return fog_model
+    wsum_global = inter_axis.sum_(wsum_local.clone())
+
+    def inter(leaf):
+        return inter_axis.sum_(leaf * wsum_local) / torch.clamp_min(wsum_global, 1e-12)
+
+    return tree_map(inter, fog_model)
+
+
+def ring_mix(update: Any, mix_weight: float, axis: Any) -> Any:
+    """Gossip with the ring neighbour over ``axis`` (a ``ClientMesh``),
+    the mesh analogue of fog-to-fog cooperation: rank r mixes in rank
+    r - 1's leaf, ``(1 - w) x_r + w x_{r-1}``.  At size 1 the neighbour
+    is the rank itself, with no communication."""
+    n = axis.size
+    if n > 1:   # the ring neighbours' ranks in the default group
+        nxt, prv = ((axis.rank + 1) % n, (axis.rank - 1) % n) if axis.group is None else (
+            dist.get_global_rank(axis.group, (axis.rank + 1) % n),
+            dist.get_global_rank(axis.group, (axis.rank - 1) % n))
+
+    def peer_of(leaf):
+        if n == 1:
+            return leaf
+        peer = torch.empty_like(leaf)
+        ops = [dist.P2POp(dist.isend, leaf.contiguous(), nxt, axis.group),
+               dist.P2POp(dist.irecv, peer, prv, axis.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return peer
+
+    return tree_map(lambda leaf: (1.0 - mix_weight) * leaf + mix_weight * peer_of(leaf), update)

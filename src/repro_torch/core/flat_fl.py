@@ -19,11 +19,14 @@ else the 2-hop sensor->fog->gateway relay).
 Randomness is injected as in ``core/hfl``: the flat and SCAFFOLD rounds
 take ``hfl.RoundDraws`` (the reference splits its key per round exactly
 as its hierarchical round does), the centralised oracle its per-epoch
-index tables over the pooled rows.  The rounds loop in Python;
-``client_mesh`` raises.  The FedAvg / FedProx / FedAdam round runs B
-trials at once (:func:`train_flat_trials`): trial b's gateway is fog b of
-B, so the trials share one round's launches.  SCAFFOLD and the oracle run
-no kernel and take one trial at a time.
+index tables over the pooled rows.  The rounds loop in Python.  The
+FedAvg / FedProx / FedAdam round runs B trials at once
+(:func:`train_flat_trials`): trial b's gateway is fog b of B, so the
+trials share one round's launches; it takes ``client_mesh`` as the
+hierarchical round does (``core/hfl``: each rank trains and compresses
+its slice of the clients, the gateway sums are summed over the mesh).
+SCAFFOLD and the oracle run no kernel, take one trial at a time and no
+mesh, as in the reference.
 """
 from __future__ import annotations
 
@@ -40,8 +43,8 @@ from repro_torch.core import energy as en
 from repro_torch.core import faults as flt
 from repro_torch.core import topology as topo
 from repro_torch.core.hfl import (
-    UNPORTED_MESH, HFLConfig, HFLState, RoundDraws, RoundMetrics, check_draws, run_rounds,
-    stack_metrics, start, start_trials, train_windows,
+    HFLConfig, HFLState, RoundDraws, RoundMetrics, check_draws, check_mesh, client_rows,
+    run_rounds, stack_metrics, start, start_trials, train_windows,
 )
 from repro_torch.data.synthetic import SensorDataset
 from repro_torch.kernels import ops as kops
@@ -100,9 +103,9 @@ def make_flat_round_fn(
     stacked ``ds`` (``hfl.stack_datasets``).  The gateway is a single
     cluster: compression and the weighted mean (or the robust reduce) run
     with one fog a trial, the B * N folded clients into B fogs, trial b's
-    gateway fog b."""
-    if client_mesh is not None:
-        raise NotImplementedError(UNPORTED_MESH)
+    gateway fog b.  ``client_mesh`` slices the clients as in
+    ``core/hfl.make_round_fn``, with its refusals."""
+    check_mesh(cfg, ds.train.shape[-3], client_mesh)
     fl = cfg.faults
     fault_on = fl.is_active
     adaptive = fault_on and fl.byz_mode == "adaptive"
@@ -112,7 +115,9 @@ def make_flat_round_fn(
     )
     lead = tuple(ds.train.shape[:-3])                        # () or (B,)
     b_n, (n, window, dim) = math.prod(lead), ds.train.shape[-3:]
-    gateway_id = torch.arange(b_n * n, dtype=torch.int32, device=ds.train.device) // n
+    rows = client_rows(client_mesh, n)                       # this rank's clients
+    n_loc = rows.stop - rows.start
+    gateway_id = torch.arange(b_n * n_loc, dtype=torch.int32, device=ds.train.device) // n_loc
     flops = en.autoencoder_flops(dim, (16, 8, 16), window, cfg.local_epochs)
     lat_comp = flops / cfg.compute_rate_flops
     e_comp = float(en.compute_energy_j(flops, cfg.energy))
@@ -132,25 +137,30 @@ def make_flat_round_fn(
         delivered = active & ~erased
         weights = ds.n_samples * delivered.to(torch.float32)
 
-        x = train_windows(ds, cfg, state.t)
-        deltas, losses = clients_fn(state.params, x.reshape(b_n * n, window, dim),
-                                    batches.reshape((b_n * n,) + tuple(batches.shape[-2:])),
-                                    stacked=bool(lead))
-        deltas, losses = deltas.view(lead + (n, d)), losses.view(lead + (n,))
+        x = train_windows(ds, cfg, state.t)[..., rows, :, :]
+        deltas, losses = clients_fn(
+            state.params, x.reshape(b_n * n_loc, window, dim),
+            batches[..., rows, :, :].reshape((b_n * n_loc,) + tuple(batches.shape[-2:])),
+            stacked=bool(lead))
+        deltas, losses = deltas.view(lead + (n_loc, d)), losses.view(lead + (n_loc,))
         if fault_on:
             deltas = flt.corrupt_deltas(deltas, fl, prev_delta=state.prev_delta, noise=byz_noise)
-        n_nonfinite = torch.sum(delivered & flt.nonfinite_rows(deltas), dim=-1)
-        folded = (deltas.reshape(b_n * n, d), state.err.reshape(b_n * n, d), gateway_id,
-                  weights.reshape(-1), b_n, cfg.compressor)
+        if client_mesh is None:
+            n_nonfinite = torch.sum(delivered & flt.nonfinite_rows(deltas), dim=-1)
+        else:
+            n_nonfinite = torch.zeros(lead, dtype=torch.int32, device=deltas.device)
+            losses = client_mesh.gather_rows(losses, n)
+        folded = (deltas.reshape(b_n * n_loc, d), state.err.reshape(b_n * n_loc, d), gateway_id,
+                  weights[..., rows].reshape(-1), b_n, cfg.compressor)
         if cfg.robust == "mean":
-            fog_sum, fog_weight, new_err = agg.compress_and_accumulate(
-                *folded, chunk=cfg.client_chunk)
-            mean_delta = fog_sum / torch.clamp_min(fog_weight, 1e-12)[:, None]
+            mean_delta, _, new_err = agg.compress_and_aggregate(
+                *folded, axis=client_mesh, chunk=cfg.client_chunk)
         else:
             mean_delta, _, new_err = agg.robust_compress_and_aggregate(
                 *folded, cfg.trim_frac, cfg.robust, chunk=cfg.client_chunk)
         mean_delta = mean_delta.view(lead + (d,))
-        new_err = torch.where(active[..., None], new_err.view(lead + (n, d)), state.err)
+        new_err = torch.where(active[..., rows, None], new_err.view(lead + (n_loc, d)),
+                              state.err)
         server = state.server
         if cfg.server_opt == "adam":
             # FedAdam [34] at the gateway: the mean delta is the pseudo-gradient.
@@ -203,7 +213,8 @@ def train_flat_trials(
     trial b from ``init_params[b]``, ``deps[b]`` and ``draws[b]``; returns
     (final params, layers leading with B, and metrics (T, B))."""
     round_fn = make_flat_round_fn(loss_fn, ds, cfg, client_mesh=client_mesh)
-    return run_rounds(round_fn, *start_trials(init_params, ds, cfg, deps, draws), cfg.rounds)
+    return run_rounds(round_fn, *start_trials(init_params, ds, cfg, deps, draws, client_mesh),
+                      cfg.rounds)
 
 
 def train_flat(
@@ -220,7 +231,8 @@ def train_flat(
     ``draws`` (``core/hfl.draw_rounds``); returns (final params, metrics
     stacked over rounds)."""
     round_fn = make_flat_round_fn(loss_fn, ds, cfg, client_mesh=client_mesh)
-    return run_rounds(round_fn, *start(init_params, ds, cfg, dep, draws), cfg.rounds)
+    return run_rounds(round_fn, *start(init_params, ds, cfg, dep, draws, client_mesh),
+                      cfg.rounds)
 
 
 def train_scaffold(

@@ -30,8 +30,21 @@ mobility noise, minibatch index table and, with faults on, the crash and
 erasure uniforms and the Byzantine noise; :func:`draw_rounds` makes them
 from a ``torch.Generator`` in a fixed order, so a run on the card and one
 on the CPU see identical inputs, and a test can hand both packages the
-reference's own draws.  Drift draws nothing.  The client mesh is not
-ported yet: ``client_mesh`` raises.
+reference's own draws.  Drift draws nothing.
+
+With ``client_mesh`` (``launch/sharding.ClientMesh``, a
+``torch.distributed`` process group, one process per card) the round is
+SPMD, as the reference's ``shard_map``: every rank runs the physics,
+mixing and gateway step on replicated state, and only the client phase is
+sliced.  Rank r trains and compresses clients ``[r * N / W, (r + 1) * N /
+W)`` (of every trial, folded as above into one ``local_train_f32`` launch
+and one ``fused_agg`` call, or the wire pair chunk by chunk within the
+slice), then the partial fog sums and weights are summed over the group
+and the per-client losses put back together by a zero-filled
+``all_reduce``.  Each rank keeps only its (..., N / W, d) slice of the
+error-feedback buffers, which is the memory that sharding saves.  The
+draws are the same on every rank, which slices its rows of the minibatch
+tables, so a client sees what it sees unsharded.
 """
 from __future__ import annotations
 
@@ -59,8 +72,6 @@ from repro_torch.optim.sgd import LocalTrainConfig, make_client_solver
 
 Params = Any
 LossFn = Callable[[Params, torch.Tensor], torch.Tensor]
-
-UNPORTED_MESH = "client_mesh (sharded client axis) is not ported yet (ROADMAP.md queue 1 item 15)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,7 +136,7 @@ class HFLState(NamedTuple):
     every tensor leads with the trial axis B."""
 
     params: Params               # global model theta^t (views of one flat (d,) / (B, d) vector)
-    err: torch.Tensor            # (N, d) error-feedback buffers
+    err: torch.Tensor            # (N, d) error-feedback buffers (a mesh rank's (N / W, d) slice)
     battery: torch.Tensor        # (N,) residual energy
     dep: topo.Deployment
     server: srv.ServerOptState   # gateway optimiser state (FedAdam)
@@ -197,15 +208,42 @@ def draw_rounds(
                         for xs in (noise, batches, crash, erase, byz)))
 
 
-def init_state(params: Params, dep: topo.Deployment, cfg: HFLConfig) -> HFLState:
+def client_rows(client_mesh: Any, n: int) -> slice:
+    """The clients of ``n`` this process trains: all of them, or its rank's
+    slice of a client mesh (which raises unless the mesh size divides
+    ``n``)."""
+    return slice(0, n) if client_mesh is None else client_mesh.rows(n)
+
+
+def check_mesh(cfg: HFLConfig, n: int, client_mesh: Any) -> None:
+    """The reference's refusals of a client mesh, in its order: fault
+    injection or a robust reduce, then drift, then a sensor count the mesh
+    size does not divide."""
+    if client_mesh is None:
+        return
+    if cfg.faults.is_active or cfg.robust != "mean":
+        raise ValueError("client-sharded rounds do not support fault injection or robust "
+                         "aggregation (the per-client reconstructions never leave their shard)")
+    if cfg.drift.is_active:
+        raise ValueError("client-sharded rounds do not support the drift layer yet")
+    if n % client_mesh.size != 0:
+        raise ValueError(f"client axis ({n} sensors) must divide the ({client_mesh.size})-device "
+                         "client mesh")
+
+
+def init_state(params: Params, dep: topo.Deployment, cfg: HFLConfig,
+               client_mesh: Any = None) -> HFLState:
     """The first state of one trial, or of B trials from their stacked
-    params (layers leading with B) and deployments."""
+    params (layers leading with B) and deployments; with ``client_mesh``
+    the error-feedback buffers are this rank's clients' only."""
     flat = ae.ravel(params)
     lead, n = tuple(flat.shape[:-1]), cfg.deployment.n_sensors
+    rows = client_rows(client_mesh, n)
     dev = flat.device
     return HFLState(
         params=ae.unravel(flat.clone(), params),
-        err=torch.zeros(lead + (n, flat.shape[-1]), dtype=flat.dtype, device=dev),
+        err=torch.zeros(lead + (rows.stop - rows.start, flat.shape[-1]), dtype=flat.dtype,
+                        device=dev),
         battery=torch.full(lead + (n,), cfg.energy.e_init_j, dtype=torch.float32, device=dev),
         dep=dep,
         server=srv.init_state(tuple(flat.shape), dev),
@@ -264,9 +302,16 @@ def make_round_fn(
     the physics, mixing and gateway step run with the trial axis leading.
     So a round of B trials makes one trial's launches, except the chunked
     wire pair (``client_chunk``), which walks the B * N clients a chunk at
-    a time: ceil(B * N / chunk) launches of each a round."""
-    if client_mesh is not None:
-        raise NotImplementedError(UNPORTED_MESH)
+    a time: ceil(B * N / chunk) launches of each a round.
+
+    ``client_mesh`` (``launch/sharding.ClientMesh``) slices the client
+    phase over its ranks (see the module docstring): this rank's B * N / W
+    clients make the launches, the fog sums are summed over the mesh.
+    Fault injection, a robust reduce, the drift layer and a sensor count
+    the mesh size does not divide raise ``ValueError``, as in the
+    reference; ``n_nonfinite`` is 0 under a mesh (the isfinite guard in
+    ``compress_and_accumulate`` still zeroes such rows)."""
+    check_mesh(cfg, ds.train.shape[-3], client_mesh)
     n_fog = cfg.deployment.n_fog
     fl = cfg.faults
     fault_on = fl.is_active          # off: exactly the fault-free round
@@ -280,6 +325,8 @@ def make_round_fn(
     )
     lead = tuple(ds.train.shape[:-3])                        # () or (B,)
     b_n, (n, window, dim) = math.prod(lead), ds.train.shape[-3:]
+    rows = client_rows(client_mesh, n)                       # this rank's clients
+    n_loc = rows.stop - rows.start
     # Trial b's fogs are b * M .. b * M + M - 1 of the folded fog axis.
     fog_base = torch.arange(b_n, dtype=torch.int32, device=ds.train.device)[:, None] * n_fog
     # As in the reference, the compute cost counts the paper's hidden widths.
@@ -332,27 +379,32 @@ def make_round_fn(
             erased = torch.zeros_like(active)
         delivered = active & ~erased
         weights = ds.n_samples * delivered.to(torch.float32)
-        x = train_windows(ds, cfg, state.t)
-        deltas, losses = clients_fn(state.params, x.reshape(b_n * n, window, dim),
-                                    batches.reshape((b_n * n,) + tuple(batches.shape[-2:])),
-                                    stacked=bool(lead))
-        deltas, losses = deltas.view(lead + (n, d)), losses.view(lead + (n,))
+        x = train_windows(ds, cfg, state.t)[..., rows, :, :]
+        deltas, losses = clients_fn(
+            state.params, x.reshape(b_n * n_loc, window, dim),
+            batches[..., rows, :, :].reshape((b_n * n_loc,) + tuple(batches.shape[-2:])),
+            stacked=bool(lead))
+        deltas, losses = deltas.view(lead + (n_loc, d)), losses.view(lead + (n_loc,))
         if fault_on:
             deltas = flt.corrupt_deltas(deltas, fl, prev_delta=state.prev_delta, noise=byz_noise)
-        n_nonfinite = torch.sum(delivered & flt.nonfinite_rows(deltas), dim=-1)
-        fog_id = fa.fog_id if b_n == 1 else fa.fog_id + fog_base
-        folded = (deltas.reshape(b_n * n, d), state.err.reshape(b_n * n, d), fog_id.reshape(-1),
-                  weights.reshape(-1), b_n * n_fog, cfg.compressor)
+        if client_mesh is None:
+            n_nonfinite = torch.sum(delivered & flt.nonfinite_rows(deltas), dim=-1)
+        else:
+            # The deltas never leave their rank: only the counter is lost.
+            n_nonfinite = torch.zeros(lead, dtype=torch.int32, device=deltas.device)
+            losses = client_mesh.gather_rows(losses, n)
+        fog_id = fa.fog_id[..., rows] if b_n == 1 else fa.fog_id[..., rows] + fog_base
+        folded = (deltas.reshape(b_n * n_loc, d), state.err.reshape(b_n * n_loc, d),
+                  fog_id.reshape(-1), weights[..., rows].reshape(-1), b_n * n_fog, cfg.compressor)
         if cfg.robust == "mean":
-            fog_sum, fog_weight, new_err = agg.compress_and_accumulate(
-                *folded, chunk=cfg.client_chunk)
-            fog_delta = fog_sum / torch.clamp_min(fog_weight, 1e-12)[:, None]
+            fog_delta, fog_weight, new_err = agg.compress_and_aggregate(
+                *folded, axis=client_mesh, chunk=cfg.client_chunk)
         else:
             fog_delta, fog_weight, new_err = agg.robust_compress_and_aggregate(
                 *folded, cfg.trim_frac, cfg.robust, chunk=cfg.client_chunk)
         fog_delta, fog_weight = fog_delta.view(lead + (n_fog, d)), fog_weight.view(lead + (n_fog,))
         # Non-participants keep their error buffer and contribute nothing.
-        new_err = torch.where(active[..., None], new_err.view(lead + (n, d)), state.err)
+        new_err = torch.where(active[..., rows, None], new_err.view(lead + (n_loc, d)), state.err)
 
         fog_model = fog_delta + flat0[..., None, :]             # theta_m^{t+1/2}
         mixed = agg.cooperative_mix(fog_model, decision)       # Eq. 15
@@ -451,23 +503,23 @@ def place_trials(init_params: Sequence[Params], deps: Sequence[topo.Deployment],
 
 
 def start(init_params: Params, ds: SensorDataset, cfg: HFLConfig, dep: topo.Deployment,
-          draws: RoundDraws) -> tuple[HFLState, RoundDraws]:
+          draws: RoundDraws, client_mesh: Any = None) -> tuple[HFLState, RoundDraws]:
     """Check ``draws`` against ``cfg`` and move a trial onto ``ds``'s
     device: (the initial state, the draws there)."""
     check_draws(cfg, draws)
     params, dep, draws = place(init_params, dep, draws, ds.train.device)
-    return init_state(params, dep, cfg), draws
+    return init_state(params, dep, cfg, client_mesh), draws
 
 
 def start_trials(init_params: Sequence[Params], ds: SensorDataset, cfg: HFLConfig,
                  deps: Sequence[topo.Deployment], draws: Sequence[RoundDraws],
-                 ) -> tuple[HFLState, RoundDraws]:
+                 client_mesh: Any = None) -> tuple[HFLState, RoundDraws]:
     """:func:`start` for B trials on the device of ``ds`` (stacked, (B, N,
     ...)): (their first state, their draws stacked (T, B, ...))."""
     for one in draws:
         check_draws(cfg, one)
     params, dep, draws = place_trials(init_params, deps, draws, ds.train.device)
-    return init_state(params, dep, cfg), draws
+    return init_state(params, dep, cfg, client_mesh), draws
 
 
 def stack_metrics(per_round: list[NamedTuple]) -> NamedTuple:
@@ -512,10 +564,12 @@ def train_trials(
     """T federated rounds of B trials at once on the device of ``ds``
     (stacked, :func:`stack_datasets`), trial b from ``init_params[b]``,
     ``deps[b]`` and ``draws[b]``; returns (final params, layers leading
-    with B, and metrics (T, B))."""
+    with B, and metrics (T, B)).  ``client_mesh`` as in
+    :func:`make_round_fn`."""
     round_fn = make_round_fn(loss_fn, ds, cfg, client_mesh=client_mesh)
     # No name holds the first state: run_rounds frees each state as it goes.
-    return run_rounds(round_fn, *start_trials(init_params, ds, cfg, deps, draws), cfg.rounds)
+    return run_rounds(round_fn, *start_trials(init_params, ds, cfg, deps, draws, client_mesh),
+                      cfg.rounds)
 
 
 def train(
@@ -538,9 +592,11 @@ def train(
     With ``store`` (a ``checkpoint.CheckpointStore``) the loop publishes
     the global params every ``publish_every`` rounds (step = round index +
     ``publish_offset``; the final round always publishes), which is what
-    the serving hot-swap watches.
+    the serving hot-swap watches.  With ``client_mesh`` every rank calls
+    this with the same arguments and returns the same params and metrics
+    (:func:`make_round_fn`); give the store to one rank.
     """
     round_fn = make_round_fn(loss_fn, ds, cfg, client_mesh=client_mesh)
     # No name holds the first state: run_rounds frees each state as it goes.
-    return run_rounds(round_fn, *start(init_params, ds, cfg, dep, draws), cfg.rounds, store,
-                      publish_every, publish_offset)
+    return run_rounds(round_fn, *start(init_params, ds, cfg, dep, draws, client_mesh), cfg.rounds,
+                      store, publish_every, publish_offset)

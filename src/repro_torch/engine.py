@@ -51,12 +51,23 @@ sequential comparisons can run the identical numerics.
 
 Devices
 -------
-Entry points run on the card (``device=None``) unless the engine is built
-with ``device="cpu"``.  The reference shards trials or clients over more
-than one device; the port does not yet (``ROADMAP.md`` queue 1 item 15):
-on one device placement is the identity, as the reference's, and with
-more than one CUDA device visible a call raises ``NotImplementedError``
-(build the engine with ``shard_trials=False`` to run on ``cuda:0``).
+Entry points run on the card (``device=None``: the current CUDA device)
+unless the engine is built with ``device="cpu"``.  Without an initialised
+``torch.distributed`` process group the engine runs on that one device,
+however many are visible.  Under a group of W > 1 ranks (one process per
+card, ``torchrun``; every rank makes the same calls):
+
+* ``shard_clients=True`` slices a ``run`` cell's client axis over the
+  ranks (``launch/sharding.ClientMesh``, ``core/hfl``'s client mesh) when
+  the method is a hierarchical or flat round (not ``centralised``,
+  ``scaffold`` or ``hfl-async``) and W divides the sensor count; the log
+  entry says ``client_sharded``;
+* otherwise ``shard_trials=True`` (the default) gives rank r the seeds
+  ``[r * S / W, (r + 1) * S / W)`` of a ``run`` or ``sweep`` cell with all
+  P deployments of each, so every trial draws what it draws unsharded,
+  and every rank then assembles the whole result by a zero-filled
+  ``all_reduce``; it applies when W divides S, and the log entry says
+  ``trial_sharded``.  Otherwise every rank runs every trial.
 """
 from __future__ import annotations
 
@@ -68,8 +79,10 @@ import time
 from typing import Any, Callable, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import device as _device
+from repro_torch.core import aggregation as agg
 from repro_torch.core import async_fl
 from repro_torch.core import compression as comp
 from repro_torch.core import drift as drf
@@ -80,10 +93,11 @@ from repro_torch.core import topology as topo
 from repro_torch.data.synthetic import SensorDataset
 from repro_torch.kernels import fused_agg, fused_score, local_train, quant8, robust_agg, topk_ef
 from repro_torch.launch import experiment as exp
+from repro_torch.launch import sharding
 from repro_torch.optim.sgd import LocalTrainConfig
 
-UNPORTED_DEVICES = ("sharding over more than one device is not ported yet "
-                    "(ROADMAP.md queue 1 item 15)")
+# Methods that run whole on every rank: no client mesh, as in the reference.
+UNSHARDED = ("centralised", "scaffold", "hfl-async")
 UNPORTED_POD = "pod_train_step (the TPU-mesh family) is not ported yet (ROADMAP.md queue 1 item 15)"
 
 _COUNTERS = (local_train, fused_agg, robust_agg, quant8, topk_ef, fused_score)
@@ -370,14 +384,31 @@ class Engine:
     # ------------------------------------------------------------------
 
     def _device(self) -> torch.device:
-        """The engine's device.  ``shard_clients=True`` on one device runs
-        the default placement, as the reference's on one device; with more
-        than one CUDA device visible, sharding raises (item 15)."""
-        dev = _device.resolve(self.device)
-        if dev.type == "cuda" and torch.cuda.device_count() > 1 and (
-                self.shard_trials or self.shard_clients):
-            raise NotImplementedError(UNPORTED_DEVICES)
-        return dev
+        """The engine's device: this process's card unless built with one."""
+        return _device.resolve(self.device)
+
+    @staticmethod
+    def _world() -> int:
+        """Ranks of the initialised default process group, else 1."""
+        return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+    def _client_mesh(self, method: str, per_seed: Sequence[SensorDataset]):
+        """The client mesh of a ``run`` cell, or None: ``shard_clients``,
+        more than one rank, a hierarchical or flat round method, and a
+        sensor count the ranks divide."""
+        world = self._world()
+        if (not self.shard_clients or method in UNSHARDED or world <= 1
+                or per_seed[0].train.shape[-3] % world):
+            return None
+        return sharding.client_mesh()
+
+    def _trial_mesh(self, s_n: int, client_mesh: Any):
+        """The ranks that split a cell's S seeds, or None: ``shard_trials``,
+        no client mesh, more than one rank, and S a multiple of the ranks."""
+        world = self._world()
+        if not self.shard_trials or client_mesh is not None or world <= 1 or s_n % world:
+            return None
+        return sharding.client_mesh()
 
     def _get_program(self, cache_key: Any, build: Callable[[], Callable]):
         """The built trial function of ``cache_key`` (a partial of the
@@ -389,10 +420,6 @@ class Engine:
             self._programs[cache_key] = fn
             self.compile_count += 1
         return fn, fresh
-
-    def _place(self, tree: Any, n_leading: int) -> Any:
-        """Placement of the inputs: the identity on one device."""
-        return tree
 
     def _timed_call(self, dev: torch.device, fn, *args, **kw):
         """(fn's output, wall seconds, kernel launches during the call)."""
@@ -425,19 +452,31 @@ class Engine:
     # the families
     # ------------------------------------------------------------------
 
-    def _run_program(self, method: str, dev: torch.device, return_params: bool) -> Callable:
+    def _run_program(self, method: str, dev: torch.device, return_params: bool,
+                     client_mesh: Any = None) -> Callable:
         return functools.partial(
             exp.batched_trial_metrics, method, percentile=self.percentile,
-            point_adjusted=self.point_adjusted, return_params=return_params, device=dev)
+            point_adjusted=self.point_adjusted, client_mesh=client_mesh,
+            return_params=return_params, device=dev)
 
-    def _run_cell(self, fn, method, cfg, keys, per_seed: list[SensorDataset], dev):
+    def _run_cell(self, fn, method, cfg, keys, per_seed: list[SensorDataset], dev,
+                  trial_mesh: Any = None):
         """Draw every trial of the (S, P) grid on the host, then run them
-        in one batched call: (metrics (S, P, ...), wall, launches)."""
+        in one batched call: (metrics (S, P, ...), wall, launches).  With
+        ``trial_mesh`` this rank draws and runs only its rows of seeds, and
+        the grid is put back together on every rank."""
+        s_n = len(keys)
+        if trial_mesh is not None:
+            mine = trial_mesh.rows(s_n)
+            keys, per_seed = keys[mine], per_seed[mine]
         inputs = self._draw(keys, lambda s, g: exp.draw_trial(g, per_seed[s], cfg, self.hidden,
                                                               method))
         ds_list = [per_seed[s] for s, row in enumerate(keys) for _ in row]
         out, wall, launches = self._timed_call(dev, fn, inputs, ds_list, cfg)
-        return _grid(out, len(keys), len(keys[0])), wall, launches
+        out = _grid(out, len(keys), len(keys[0]))
+        if trial_mesh is not None:
+            out = agg.tree_map(lambda t: trial_mesh.gather_rows(t, s_n, dim=0), out)
+        return out, wall, launches
 
     def run(
         self,
@@ -459,7 +498,9 @@ class Engine:
         ``store``: optional ``checkpoint.CheckpointStore`` — publishes the
         trained params of trial (seeds[0], deployment 0) as round
         ``publish_step`` (default ``cfg.rounds``), the hand-off point to
-        the serving path (``serving/service.ScoringService``).
+        the serving path (``serving/service.ScoringService``).  Under a
+        process group every rank returns the whole run: give the store to
+        one rank.
         """
         exp._check_method(method)
         dev = self._device()
@@ -470,12 +511,14 @@ class Engine:
         keys = self._trial_keys(seeds, p_n)           # (S, P)
         return_params = store is not None
         shapes = _shapes(per_seed)
+        client_mesh = self._client_mesh(method, per_seed)
+        trial_mesh = self._trial_mesh(s_n, client_mesh)
         cache_key = ("run", method, _cfg_key(cfg), s_n, p_n, shapes, self.hidden,
-                     self.percentile, self.point_adjusted, 0, return_params)
-        fn, fresh = self._get_program(cache_key,
-                                      lambda: self._run_program(method, dev, return_params))
-        out, wall, launches = self._run_cell(fn, method, cfg, keys, self._place(per_seed, s_n),
-                                             dev)
+                     self.percentile, self.point_adjusted,
+                     client_mesh.size if client_mesh is not None else 0, return_params)
+        fn, fresh = self._get_program(cache_key, lambda: self._run_program(
+            method, dev, return_params, client_mesh))
+        out, wall, launches = self._run_cell(fn, method, cfg, keys, per_seed, dev, trial_mesh)
         if store is not None:
             params = out.pop("params")
             store.publish(_base_cfg(cfg).rounds if publish_step is None else publish_step,
@@ -483,7 +526,8 @@ class Engine:
         self._log(kind="run", method=method, label=label or method,
                   n_trials=s_n * p_n, wall_s=wall, fresh_compile=fresh,
                   compressor=_describe_compressor(_base_cfg(cfg).compressor, dev),
-                  client_sharded=False, batched=method not in exp.UNBATCHED, launches=launches)
+                  client_sharded=client_mesh is not None, trial_sharded=trial_mesh is not None,
+                  batched=method not in exp.UNBATCHED, launches=launches)
         return EngineRun(method, cfg, seeds, p_n, out, wall, fresh)
 
     def _audit_draws(self, cfg: hfl.HFLConfig, keys, dev):
@@ -653,6 +697,7 @@ class Engine:
             ds_shapes = [_shapes(one) for one in stacked_ds]
 
         norm, groups = self._sweep_classes(rcfgs, family, ds_shapes)
+        trial_mesh = self._trial_mesh(s_n, None) if family == "run" else None
         per_cfg: list[Any] = [None] * len(rcfgs)
         classes, wall_total = [], 0.0
         for sig, idxs in groups.items():
@@ -668,7 +713,8 @@ class Engine:
             wall, launches = 0.0, {}
             for i in idxs:
                 if family == "run":
-                    out, w, ln = self._run_cell(fn, uniq[0], norm[i], keys, stacked_ds[i], dev)
+                    out, w, ln = self._run_cell(fn, uniq[0], norm[i], keys, stacked_ds[i], dev,
+                                                trial_mesh)
                 else:
                     dep, mobility = self._audit_draws(norm[i], keys, dev)
                     l_u = float(comp.payload_bits(d, rcfgs[i].compressor))
@@ -690,7 +736,7 @@ class Engine:
             self._log(kind=f"sweep-{family}", method=method_desc,
                       label=label or f"sweep:{method_desc}", n_cells=len(idxs),
                       n_trials=len(idxs) * s_n * p_n, wall_s=wall, fresh_compile=fresh,
-                      compressor=info["compressor"],
+                      compressor=info["compressor"], trial_sharded=trial_mesh is not None,
                       batched=family == "audit" or uniq[0] not in exp.UNBATCHED,
                       launches=launches)
 

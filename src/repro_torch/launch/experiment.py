@@ -13,7 +13,12 @@ option of their config: the compressor's fused and per-client paths
 (``CompressorConfig(fused=False)``, quantise-only ``rho_s=1``), the legacy
 client scan (``LocalTrainConfig(fused=False)``), the fault layer, robust
 reduces, client chunking and the dynamic world (``drift=DriftConfig(...)``),
-all through :func:`make_config`'s overrides; ``client_mesh`` raises.
+all through :func:`make_config`'s overrides.  ``client_mesh``
+(``launch/sharding.ClientMesh``) slices the client phase of the
+hierarchical and flat rounds over a ``torch.distributed`` group (every
+rank calls with the same arguments and gets the same result);
+``hfl-async``, ``scaffold`` and ``centralised`` run whole on every rank
+and ignore it, as the reference's runner does.
 
 Randomness is injected: a trial's random inputs (:class:`TrialInputs`:
 init params, deployment, per-round draws, and the centralised oracle's
@@ -240,7 +245,8 @@ def batched_trial_metrics(
     trials launches each kernel as often as one trial's round does (the
     chunked wire pair excepted: ceil(B * N / chunk) launches a round); the
     evaluation takes a threshold and an F1 per trial.  SCAFFOLD and the
-    centralised oracle run their trials one after another."""
+    centralised oracle run their trials one after another.  ``client_mesh``
+    slices the hierarchical and flat rounds' clients (:func:`trial_metrics`)."""
     _check_method(method)
     dev = _device.resolve(device)
     b_n = len(inputs)
@@ -260,8 +266,6 @@ def batched_trial_metrics(
                   for i, layer in enumerate(runs[0][0])]
         out = {k: torch.stack([m[k] for _, m in runs]) for k in runs[0][1]}
     elif method == "hfl-async":
-        if client_mesh is not None:
-            raise NotImplementedError(hfl.UNPORTED_MESH)
         params, m = async_fl.train_trials([i.params for i in inputs], ae.loss, stacked,
                                           async_config(cfg), [i.dep for i in inputs],
                                           [i.draws for i in inputs])
@@ -308,6 +312,12 @@ def trial_metrics(
     runs ``async_fl.train`` on :func:`async_config` of ``cfg`` and adds
     ``merges`` and ``staleness``; its ``sim_time_s`` is the final simulated
     clock, where the round loops report their summed Eq. 21 latency.
+
+    ``client_mesh`` (``launch/sharding.ClientMesh``) shards the client
+    axis of the hierarchical and flat rounds over its ranks; every rank
+    makes this call with the same arguments and returns the same values.
+    ``hfl-async``, ``scaffold`` and ``centralised`` ignore it and run
+    whole on every rank, as in the reference.
     """
     _check_method(method)
     dev = _device.resolve(device)
@@ -317,8 +327,6 @@ def trial_metrics(
     if method in UNBATCHED:
         params, out = _one_trial(method, ds, cfg, inputs)
     elif method == "hfl-async":
-        if client_mesh is not None:
-            raise NotImplementedError(hfl.UNPORTED_MESH)
         params, m = async_fl.train(inputs.params, ae.loss, ds, async_config(cfg), inputs.dep,
                                    inputs.draws)
         out = _async_summary(m)

@@ -1377,3 +1377,51 @@ def test_flat_trials_on_the_card_match_the_cpu(cuda, method, kw, kernels):
     for name in ("participation", "erased_total", "e_total", "e_s2f"):
         np.testing.assert_allclose(gpu[name].cpu().numpy(), cpu[name].numpy(), rtol=1e-5)
     np.testing.assert_allclose(gpu["losses"].cpu().numpy(), cpu["losses"].numpy(), rtol=1e-4)
+
+
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_client_mesh_on_the_card_matches_the_unsharded_round(cuda, tmp_path, world, backend):
+    """``hfl.train`` and ``flat_fl.train_flat`` with a client mesh of
+    spawned ranks on the card (``tests/torch_mesh_ranks.py``; at W = 2 both
+    ranks share the card over gloo) at ``tests/test_torch_mesh.py``'s size,
+    against the unsharded card run on the same draws: bitwise at W = 1;
+    at W = 2 energies to rtol 1e-5, losses to rtol 1e-4, params to atol
+    1e-5 and counters exactly.  Every rank holds the same bits and makes
+    one unsharded trial's launches, on its half of the clients."""
+    from torch_mesh_ranks import run_ranks
+
+    from repro_torch.core import flat_fl, hfl
+
+    cfg = exp.make_config(n_sensors=8, n_fog=3, rounds=2, local_epochs=1)
+    ds = normalize(generate(torch.Generator().manual_seed(0), SyntheticConfig(
+        n_sensors=8, train_len=48, val_len=24, test_len=48), device="cpu"))
+    inputs = exp.draw_trial(torch.Generator().manual_seed(2), ds, cfg)
+    families = {"hfl": hfl.train, "flat": flat_fl.train_flat}
+    ds_dev = type(ds)(*(t.to(cuda) for t in ds))
+    want = []      # first, so that the kernels are built before the ranks start
+    for train in families.values():
+        params, m = train(inputs.params, ae.loss, ds_dev, cfg, inputs.dep, inputs.draws)
+        want.append((ae.ravel(params).cpu(), {k: v.cpu() for k, v in m._asdict().items()}))
+    ranks = run_ranks([("train", f, cfg, ds, inputs) for f in families], world, tmp_path,
+                      device="cuda", backend=backend, timeout_s=300.0)
+    for i, (want_p, want_m) in enumerate(want):
+        got = ranks[0][i]
+        assert got["launches"]["local_train_f32"] == cfg.rounds
+        assert got["launches"]["fused_agg"] == 2 * cfg.rounds
+        assert got["clients"] == {"local_train_f32": [8 // world] * cfg.rounds,
+                                  "fused_agg": [8 // world] * cfg.rounds}
+        for other in ranks[1:]:
+            assert torch.equal(other[i]["params"], got["params"])
+            assert all(torch.equal(other[i]["metrics"][k], v) for k, v in got["metrics"].items())
+        if world == 1:
+            assert torch.equal(got["params"], want_p)
+            assert all(torch.equal(got["metrics"][k], v) for k, v in want_m.items())
+            continue
+        np.testing.assert_allclose(got["params"].numpy(), want_p.numpy(), rtol=0, atol=1e-5)
+        for k, v in want_m.items():
+            if k == "loss":
+                np.testing.assert_allclose(got["metrics"][k].numpy(), v.numpy(), rtol=1e-4)
+            elif v.dtype.is_floating_point and k != "participation":
+                np.testing.assert_allclose(got["metrics"][k].numpy(), v.numpy(), rtol=1e-5)
+            else:
+                assert torch.equal(got["metrics"][k], v), k

@@ -347,8 +347,11 @@ def test_score_one_launch_or_one_per_trial(monkeypatch):
 
 def test_unported_paths_raise(data, monkeypatch):
     """``hfl-async`` raised until its queue-1 item 13 was ported; it now
-    runs batched (``tests/test_torch_async.py`` holds it).  Sharding and
-    ``pod_train_step`` still raise."""
+    runs batched (``tests/test_torch_async.py`` holds it).  Sharding with
+    several devices visible raised until queue-1 item 15's federated half
+    was ported: without a process group the engine now runs on its one
+    device and shards nothing (``tests/test_torch_mesh.py`` runs it
+    sharded).  ``pod_train_step`` still raises."""
     _, ds_t = data
     eng = _cpu_engine()
     run = eng.run("hfl-async", AsyncFLConfig(base=torch_cfg(), n_events=4), SEEDS, ds_t)
@@ -356,8 +359,11 @@ def test_unported_paths_raise(data, monkeypatch):
     with pytest.raises(NotImplementedError, match="item 15"):
         eng.pod_train_step(None)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        teng.Engine(device="cuda").run("hfl-selective", torch_cfg(), SEEDS, ds_t)
+    sharding = _cpu_engine(shard_trials=True, shard_clients=True)
+    run = sharding.run("hfl-selective", torch_cfg(), SEEDS, ds_t)
+    assert run.losses.shape == (len(SEEDS), 1, T)
+    (entry,) = sharding.take_log()
+    assert not entry["client_sharded"] and not entry["trial_sharded"]
 
 
 # --- the kernel's plain version with a start point per trial -----------------

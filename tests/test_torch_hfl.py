@@ -14,6 +14,7 @@ sensors and the cooperation links exactly.
 """
 import dataclasses
 import tempfile
+import types
 
 import jax
 import numpy as np
@@ -32,6 +33,8 @@ from repro_torch.checkpoint import CheckpointStore
 from repro_torch.core import compression as tcomp
 from repro_torch.core import hfl as thfl
 from repro_torch.core import topology as ttopo
+from repro_torch.core.drift import DriftConfig
+from repro_torch.core.faults import FaultConfig
 from repro_torch.data.pipeline import multi_epoch_indices
 from repro_torch.data.synthetic import SyntheticConfig, generate, normalize
 from repro_torch.launch import experiment as texp
@@ -269,8 +272,13 @@ def test_unported_options_raise(data, change, match):
 
 def test_unported_methods_and_mesh_raise(data):
     """``hfl-async`` raised until its queue-1 item 13 was ported; it now
-    runs (a plain config takes the async defaults).  An unknown method and
-    the client mesh still raise."""
+    runs (a plain config takes the async defaults).  An unknown method
+    still raises.  The client mesh raised until queue-1 item 15 was
+    ported (``tests/test_torch_mesh.py`` runs it); it now refuses what the
+    reference refuses, with its ``ValueError``s and in its order (a
+    stand-in mesh, as ``tests/test_drift.py`` uses): fault injection or a
+    robust reduce, then drift, then a sensor count the mesh size does not
+    divide."""
     _, ds_t = data
     g = torch.Generator().manual_seed(0)
     out = texp.trial_metrics("hfl-async", g, ds_t, torch_cfg(), device="cpu")
@@ -278,10 +286,20 @@ def test_unported_methods_and_mesh_raise(data):
     assert float(out["merges"]) > 0 and bool(torch.isfinite(out["f1"]))
     with pytest.raises(ValueError):
         texp.trial_metrics("nope", g, ds_t, torch_cfg(), device="cpu")
+    indivisible = types.SimpleNamespace(size=5)
+    drift = DriftConfig(sensor_current_m_s=1.0)
+    refused = (
+        (dict(faults=FaultConfig(crash_prob=0.2)), object(), "fault injection"),
+        (dict(robust="trimmed", trim_frac=0.2), object(), "robust aggregation"),
+        (dict(robust="median", drift=drift), object(), "robust aggregation"),
+        (dict(drift=drift), indivisible, "drift layer"),
+        (dict(), indivisible, r"client axis \(12 sensors\) must divide"),
+    )
     for method in ("hfl-selective", "fedavg"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-            texp.trial_metrics(method, g, ds_t, torch_cfg(), client_mesh=object(),
-                               device="cpu")
+        for kw, mesh, match in refused:
+            with pytest.raises(ValueError, match=match):
+                texp.trial_metrics(method, g, ds_t, torch_cfg(**kw), client_mesh=mesh,
+                                   device="cpu")
 
 
 def test_config_leaves_out_unported_fields():
