@@ -204,7 +204,40 @@ exits non-zero before the result line:
              10's; (d) ``Engine(shard_clients=True)`` and
              ``Engine(shard_trials=True)`` over train-200 cut to 2 rounds,
              seeds 0-1 x 2 deployments, against ``Engine()`` (losses rtol
-             1e-4, F1 atol 1e-6, counters exactly).
+             1e-4, F1 atol 1e-6, counters exactly);
+21. lm-train — language-model training and the full-sequence forward, and
+             the pod family: (a) hybrid-train, the main path:
+             ``launch/train.main(["production", "--arch",
+             "recurrentgemma-2b", "--full", "--steps", "5", "--batch",
+             "4", "--seq", "512"])`` on the card (26 layers, d 2,560,
+             vocab 256,000, bf16, remat): ms a step after the first,
+             tokens/s, peak memory, finite losses; a REDUCED checkpoint
+             saved and restored on the card bitwise, and the launcher
+             resuming from its own; (b) dense-train, llama3-8b uncut, the
+             same; (c) one train step on the card against the CPU from the
+             same f32 weights and tokens (recurrentgemma-2b at full width
+             cut to 3 layers, llama3-8b cut to 2, gemma2-27b and
+             internvl2-26b REDUCED; batch 2 x 64, lr 1e-2): loss within
+             1e-4 relative, every leaf's update within 1e-3 of the
+             largest update coordinate; REDUCED bf16 recorded; (d)
+             ``make_prefill_step`` at hybrid-serve's shape beside phase
+             15's token-stepped prefill, and in f32 cut to 3 layers the
+             forward's last hidden state through the tied embedding held
+             to the token-stepped prefill's last logits (``LM_GATE``), the
+             token-stepped side's ``swa_decode`` launches n_attn x 256;
+             (e) ``mesh_fl``'s pod step, llama3-8b at full width cut to 2
+             layers, int8, E = 1 and 2, 3 steps, as one NCCL rank and as
+             the one-process 2-pod loop (ms a step, bytes a pod a step,
+             peak memory), then two gloo ranks sharing the card at
+             REDUCED in both modes, bitwise the 2-pod loop; (f) the
+             federated-LLM example at REDUCED on the card against the CPU
+             (f32 losses within 1e-4, bf16 recorded, 5 ``compress_q8``
+             launches each), and one
+             ``compress_update`` of llama3-8b cut to 2 layers (one f32 row
+             of 1,486,901,248 coordinates): ``compress_q8``'s device time
+             against its bound, peak memory, and whole-block slices (first,
+             middle, last, and the last of the row cut by 4,113, a ragged
+             block) bitwise the plain version.
 
 Phase 6 also times ``fused_agg`` at robust-200's identity call (N =
 n_fog = 200), at one of its 64-client chunks and at fleet-10k's unchunked
@@ -245,7 +278,10 @@ after; phases 15–16 check the other runs' counts too, phase 17 every
 training kernel's count in each flat trial, phase 18 every one in
 each Engine cell, phase 19 every one in each async Engine call and
 phase 20 each mesh rank's, beside the phase 8 count in
-``launches_by_path``).  The last line is
+``launches_by_path``; phase 21 adds ``compress_q8``'s launches in the
+federated-LLM example and ``swa_decode``'s in its token-stepped prefill
+check there, and ``compress_q8``'s time at the example's d to its
+``by_shape``).  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and power limit, and the
 one before that the ``kernels`` JSON.
 """
@@ -3638,6 +3674,385 @@ def dense_phase(configs, api, layers, serve, swa, kref, dev, name, smi) -> dict:
     return {"dense-decode": run, "card_vs_cpu": vs_cpu}
 
 
+# --- phase 21: lm-train --------------------------------------------------------------
+
+TRAIN_FULL = ["--full", "--steps", "5", "--batch", "4", "--seq", "512"]   # (a), (b)
+HYBRID_TRAIN_ARCH, DENSE_TRAIN_ARCH = "recurrentgemma-2b", "llama3-8b"
+# (c) one train step on the card against the CPU, f32, same weights and
+# tokens: (arch, layers at full width or None for REDUCED).
+TRAIN_VS_CPU = {"hybrid full width": ("recurrentgemma-2b", 3),
+                "dense full width": ("llama3-8b", 2),
+                "gemma2 REDUCED": ("gemma2-27b", None),
+                "internvl2 REDUCED": ("internvl2-26b", None)}
+TRAIN_VS_CPU_BATCH, TRAIN_VS_CPU_SEQ = 2, 64
+# The f32 params round each new value to one ulp of |p|; at the configs'
+# lr 3e-4 that is ~4e-4 of the largest update coordinate on either side
+# (CPU against the JAX package, tests/test_torch_lm_train.py), so the
+# update is compared at lr 1e-2, the reference's pod tests' rate.
+TRAIN_VS_CPU_LR = 1e-2
+TRAIN_LOSS_GATE, TRAIN_UPDATE_GATE = 1e-4, 1e-3
+PREFILL_CHECK_LAYERS = 3        # (d) forward vs token-stepped prefill, f32
+POD_ARCH, POD_LAYERS, POD_BATCH, POD_SEQ, POD_STEPS = "llama3-8b", 2, 4, 128, 3
+FED_STEPS, FED_LOSS_GATE = 5, 1e-4
+FED_SLICE_BLOCKS = 4            # (f) blocks a slice held bitwise to the plain version
+FED_TAIL = 4113                 # (f) the row cut by this much leaves an 8,175-wide last block
+                                # (d = 1,486,901,248 is 4,096 past its last whole block)
+
+
+def train_run(label, train, arch, name, smi) -> dict:
+    """``launch/train.main`` production at the published config
+    (``TRAIN_FULL``) on the card: ms a step (the first excluded), tokens/s,
+    peak memory; the losses must be finite."""
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = train.main(["production", "--arch", arch, *TRAIN_FULL])
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(out["finite"], f"{label}: non-finite losses {out['losses']}")
+    step_ms = [s * 1e3 for s in out["step_s"]]
+    res = dict(arch=arch, losses=out["losses"], step_ms=step_ms,
+               ms_per_step=sum(step_ms[1:]) / len(step_ms[1:]), tokens_per_s=out["tokens_per_s"],
+               peak_gib=peak_gib)
+    print(f"  {label}: {arch} published config, batch 4 x 512, 5 steps: "
+          f"{res['ms_per_step']:.1f} ms a step after the first ({step_ms[0]:.1f} ms), "
+          f"{res['tokens_per_s']:.0f} tokens/s, peak {peak_gib:.2f} GiB, losses "
+          f"{[round(x, 4) for x in out['losses']]}  on {name} ({smi})")
+    torch.cuda.empty_cache()
+    return res
+
+
+def checkpoint_on_card(train, configs, api, sgd, CheckpointStore, dev, workdir) -> dict:
+    """At REDUCED on the card: a train step's params saved and restored
+    bitwise, and ``launch/train`` resuming from its own checkpoint."""
+    cfg = configs.get(HYBRID_TRAIN_ARCH, reduced=True)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = api.init_params(g, cfg)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 32), generator=g, device=dev)}
+    params, _ = api.make_train_step(cfg)(params, batch)
+    store = CheckpointStore(str(workdir / "store"))
+    store.save(1, params)
+    back, step = store.restore(api.init_params(torch.Generator(device=dev).manual_seed(9), cfg))
+    same = all(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+               for a, b in zip(sgd.tree_leaves(back), sgd.tree_leaves(params)))
+    check(step == 1 and same, "a REDUCED checkpoint restored on the card differs from the saved")
+    argv = ["production", "--arch", HYBRID_TRAIN_ARCH, "--batch", "2", "--seq", "32",
+            "--ckpt-dir", str(workdir / "launch"), "--steps"]
+    first, second = train.main(argv + ["2"]), train.main(argv + ["1"])
+    check(first["start"] == 0 and second["start"] == 2,
+          f"launch/train resumed at {second['start']}, expected 2")
+    print(f"  checkpoint: {cfg.name} ({cfg.dtype}) params restored on the card bitwise; "
+          f"launch/train resumed at step {second['start']}")
+    return dict(bitwise=same, resumed_at=second["start"])
+
+
+def train_card_vs_cpu(label, api, layers, sgd, cfg, dev) -> dict:
+    """One ``make_train_step`` on the card and on the CPU from the same
+    weights (drawn on the card from seed 1, copied) and tokens: loss within
+    ``TRAIN_LOSS_GATE`` relative and every leaf's update (new - old) within
+    ``TRAIN_UPDATE_GATE`` of the largest update coordinate, in f32."""
+    gpu = api.init_params(torch.Generator(device=dev).manual_seed(1), cfg)
+    cpu = layers.map_leaves(lambda t: t.cpu(), gpu)
+    g = torch.Generator().manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_VS_CPU_BATCH, TRAIN_VS_CPU_SEQ),
+                                     generator=g, dtype=torch.int32)}
+    if cfg.n_visual_tokens:
+        batch["visual_embeds"] = torch.randn((TRAIN_VS_CPU_BATCH, cfg.n_visual_tokens,
+                                              cfg.d_model), generator=g).to(cfg.dtype)
+    step = api.make_train_step(cfg)
+    new_g, loss_g = step(gpu, {k: v.to(dev) for k, v in batch.items()})
+    new_c, loss_c = step(cpu, batch)
+    loss_rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    worst, biggest = 0.0, 0.0
+    for pg, ng, pc, nc in zip(*(sgd.tree_leaves(t) for t in (gpu, new_g, cpu, new_c))):
+        uc = nc.float() - pc.float()
+        ug = (ng.float() - pg.float()).cpu()
+        worst = max(worst, float((ug - uc).abs().max()))
+        biggest = max(biggest, float(uc.abs().max()))
+    upd_rel = worst / biggest
+    gate = cfg.dtype == torch.float32
+    if gate:
+        check(math.isfinite(float(loss_g)) and loss_rel <= TRAIN_LOSS_GATE,
+              f"{label}: card loss {float(loss_g)} vs CPU {float(loss_c)} ({loss_rel:.3e})")
+        check(upd_rel <= TRAIN_UPDATE_GATE,
+              f"{label}: update max |diff| {worst:.3e} > {TRAIN_UPDATE_GATE} * {biggest:.3e}")
+    print(f"  {label} card vs CPU ({cfg.name}, {cfg.n_layers} layers d={cfg.d_model} "
+          f"{cfg.dtype}, batch {TRAIN_VS_CPU_BATCH} x {TRAIN_VS_CPU_SEQ}, lr "
+          f"{cfg.learning_rate:g}): loss {float(loss_g):.6f} vs {float(loss_c):.6f} (rel "
+          f"{loss_rel:.3e}), update max |diff| / max |update| {upd_rel:.3e}"
+          + (f" (gates {TRAIN_LOSS_GATE}, {TRAIN_UPDATE_GATE})" if gate else " (recorded)"))
+    del gpu, cpu, new_g, new_c
+    torch.cuda.empty_cache()
+    return dict(loss_card=float(loss_g), loss_cpu=float(loss_c), loss_rel=loss_rel,
+                update_rel=upd_rel, layers=cfg.n_layers, dtype=str(cfg.dtype))
+
+
+def prefill_phase(configs, api, serve, rglru, swa, hybrid_serve, dev, name, smi) -> dict:
+    """(d) ``make_prefill_step`` at hybrid-serve's shape (its params and
+    prompts: seed 0 on the card) beside phase 15's token-stepped prefill;
+    then, in f32 cut to ``PREFILL_CHECK_LAYERS`` layers, the forward's last
+    hidden state through the tied embedding held to the token-stepped
+    prefill's last logits (``LM_GATE``), whose ``swa_decode`` launches
+    must be n_attn x the prompt."""
+    full = configs.get(HYBRID_ARCH)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = api.init_params(g, full)
+    prompts = torch.randint(0, full.vocab_size, (HYBRID_BATCH, HYBRID_PROMPT), generator=g,
+                            device=dev, dtype=torch.int32)
+    prefill = api.make_prefill_step(full)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        h = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(h.shape == (HYBRID_BATCH, full.d_model) and bool(torch.isfinite(h.float()).all()),
+          "prefill: bad last hidden state")
+    ms = sum(times[1:]) / len(times[1:])
+    tok_s = HYBRID_BATCH * HYBRID_PROMPT / (ms / 1e3)
+    stepped = hybrid_serve["prefill_s"] * 1e3
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = cut(full, PREFILL_CHECK_LAYERS).replace(dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(1)
+    params = api.init_params(g, cfg)
+    prompts32 = torch.randint(0, cfg.vocab_size, (HYBRID_BATCH, HYBRID_PROMPT), generator=g,
+                              device=dev, dtype=torch.int32)
+    h = api.make_prefill_step(cfg)(params, {"tokens": prompts32})
+    logits = (h @ params.embed.T).float()
+    cache = api.init_cache(cfg, HYBRID_BATCH, HYBRID_PROMPT + 1, device=dev)
+    swa.reset_launches()
+    _, stepped_logits = serve.prefill_into_cache(cfg, params, cache, prompts32)
+    torch.cuda.synchronize()
+    launches = swa.LAUNCHES["swa_decode"]
+    want = rglru.pattern(cfg).count("attn") * HYBRID_PROMPT
+    check(launches == want, f"prefill check: {launches} swa_decode launches, expected {want}")
+    ref_logits = stepped_logits[:, -1, :]
+    rel = float((logits - ref_logits).abs().max() / ref_logits.abs().max())
+    check(rel <= LM_GATE, f"prefill: forward vs token-stepped max |dlogit| / max |logit| "
+          f"{rel:.3e} > {LM_GATE}")
+    print(f"  prefill: {full.name} {full.dtype}, batch {HYBRID_BATCH}, prompt {HYBRID_PROMPT}: "
+          f"make_prefill_step {ms:.2f} ms ({tok_s:.0f} prompt tokens/s; first call "
+          f"{times[0]:.1f} ms), peak {peak_gib:.2f} GiB; phase 15's token-stepped prefill "
+          f"{stepped:.1f} ms ({hybrid_serve['prefill_tok_s']:.0f} tokens/s)  on {name} ({smi})")
+    print(f"  prefill check ({cfg.n_layers} layers, f32): forward's last hidden through the "
+          f"tied embedding vs the token-stepped prefill's last logits: max |dlogit| / max |logit| "
+          f"{rel:.3e} (gate {LM_GATE}); swa_decode launches {launches}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return dict(ms=ms, first_ms=times[0], prompt_tok_s=tok_s, peak_gib=peak_gib,
+                token_stepped_ms=stepped, token_stepped_tok_s=hybrid_serve["prefill_tok_s"],
+                check_rel=rel, swa_launches=launches)
+
+
+def pod_job(job, spec, mesh, dev) -> dict:
+    """A pod step run (phase 21 (e)): ``job`` = ("pod:<label>", cfg, kw,
+    keep); params from seed 0 on the card, tokens (POD_BATCH, POD_SEQ) from
+    seed 3; ``mesh`` a client mesh (rank r is pod r) or None (``kw``'s
+    n_pods looped in this process).  ms a step, losses, peak memory, the
+    bytes a pod sends a step; with ``keep`` the flat params and error
+    buffers."""
+    from repro_torch.core import mesh_fl
+    from repro_torch.models import api
+    from repro_torch.optim import sgd
+    _, cfg, kw, keep = job
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (POD_BATCH, POD_SEQ),
+                                     generator=torch.Generator().manual_seed(3),
+                                     dtype=torch.int32).to(dev)}
+    step = mesh_fl.make_pod_hfl_train_step(cfg, mesh, **kw)
+    err = mesh_fl.init_err(params, None if mesh is not None else kw.get("n_pods", 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for _ in range(POD_STEPS):
+        t0 = time.perf_counter()
+        params, err, loss = step(params, err, batch)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    out = dict(step_ms=step_ms, losses=losses,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               payload_bytes=mesh_fl.payload_bytes(params, kw.get("mode", "int8")),
+               d=sum(p.numel() for p in sgd.tree_leaves(params)))
+    if keep:
+        out["params"] = sgd.ravel_tree([p.float() for p in sgd.tree_leaves(params)]).cpu()
+        out["err"] = [e.cpu() for e in sgd.tree_leaves(err)]
+    del params, err
+    torch.cuda.empty_cache()
+    return out
+
+
+MESH_JOBS["pod"] = pod_job
+
+
+def pod_phase(configs, dev, name, smi, workdir) -> dict:
+    """(e) The pod family: llama3-8b at full width cut to ``POD_LAYERS``
+    layers, int8, E = 1 and 2, ``POD_STEPS`` steps, as one NCCL rank (one
+    pod) and as the one-process 2-pod loop; then two gloo ranks sharing
+    the card at REDUCED in both modes, their params bitwise equal to each
+    other and to the one-process 2-pod loop's, each rank's error buffers
+    to the loop's pod r."""
+    cfg = cut(configs.get(POD_ARCH), POD_LAYERS)
+    runs = {}
+    torch.cuda.empty_cache()
+    nccl_jobs = [(f"pod:nccl-e{e}", cfg, dict(mode="int8", local_epochs=e), False)
+                 for e in (1, 2)]
+    (one,) = spawn_mesh(nccl_jobs, 1, "nccl", {}, workdir / "pod_nccl")
+    for e in (1, 2):
+        runs[f"1 NCCL rank, E={e}"] = one[f"pod:nccl-e{e}"]
+        runs[f"2-pod loop, E={e}"] = pod_job(
+            ("pod:loop", cfg, dict(mode="int8", local_epochs=e, n_pods=2), False), {}, None, dev)
+    for label, r in runs.items():
+        check(all(math.isfinite(x) for x in r["losses"]), f"pods {label}: non-finite losses")
+        ms = sum(r["step_ms"][1:]) / len(r["step_ms"][1:])
+        r["ms_per_step"] = ms
+        print(f"  pods {label}: {cfg.name} {cfg.n_layers} layers (d={r['d']:,}), int8, batch "
+              f"{POD_BATCH} x {POD_SEQ}: {ms:.1f} ms a step after the first "
+              f"({r['step_ms'][0]:.1f}), {r['payload_bytes']:,} bytes a pod a step "
+              f"({r['payload_bytes'] / (4 * r['d']):.3f} of dense f32), peak "
+              f"{r['peak_gib']:.2f} GiB, losses {[round(x, 4) for x in r['losses']]}  "
+              f"on {name} ({smi})")
+    small = configs.get(POD_ARCH, reduced=True).replace(learning_rate=1e-2)
+    modes = ("int8", "topk")
+    gloo = spawn_mesh([(f"pod:{m}", small, dict(mode=m), True) for m in modes], 2, "gloo", {},
+                      workdir / "pod_gloo")
+    for m in modes:
+        loop = pod_job(("pod:loop", small, dict(mode=m, n_pods=2), True), {}, None, dev)
+        for r in range(2):
+            got = gloo[r][f"pod:{m}"]
+            check(torch.equal(got["params"], loop["params"]),
+                  f"pods gloo {m}: rank {r}'s params differ from the 2-pod loop's")
+            check(all(torch.equal(a, b[r]) for a, b in zip(got["err"], loop["err"])),
+                  f"pods gloo {m}: rank {r}'s error buffers differ from the loop's pod {r}")
+            check(got["losses"] == loop["losses"], f"pods gloo {m}: rank {r}'s losses differ")
+        runs[f"2 gloo ranks REDUCED {m}"] = dict(
+            step_ms=gloo[0][f"pod:{m}"]["step_ms"], losses=loop["losses"],
+            payload_bytes=loop["payload_bytes"], bitwise_loop=True)
+        print(f"  pods 2 gloo ranks on the card, {small.name} {m}: both ranks' params bitwise "
+              f"the 2-pod loop's, error buffers the loop's pod r; losses "
+              f"{[round(x, 4) for x in loop['losses']]}")
+    for r in runs.values():
+        r.pop("params", None)
+        r.pop("err", None)
+    return runs
+
+
+def fed_llm_phase(federated_llm, configs, api, sgd, comp, kops, kq8, kref, lm_batches, dev,
+                  name, smi) -> dict:
+    """(f) One ``compress_update`` at llama3-8b full width cut to 2 layers
+    (one f32 row of d ~ 1.49e9, the example's update of a real gradient):
+    ``compress_q8``'s time a launch against its bound, peak memory, and its
+    output on whole-block slices (the first, a middle and the last blocks,
+    and the last of the row cut by ``FED_TAIL``, a ragged one) bitwise
+    equal to the plain version run on the same blocks; then the
+    federated-LLM example at REDUCED on the card against the CPU (f32:
+    losses within ``FED_LOSS_GATE`` relative; bf16 recorded; one
+    ``compress_q8`` launch a step)."""
+    cfg = cut(configs.get(POD_ARCH), POD_LAYERS)
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    stream = torch.randint(0, cfg.vocab_size, (4096,), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": lm_batches(torch.Generator().manual_seed(2), stream, 2, 32).to(dev)}
+    grads, _ = sgd.grad_and_value(api.loss_fn(cfg))(params, batch)
+    del params
+    delta = (-1e-3 * sgd.ravel_tree([g.float() for g in sgd.tree_leaves(grads)]))[None]
+    del grads
+    torch.cuda.empty_cache()
+    err = torch.zeros_like(delta)
+    d = delta.shape[1]
+    cc = comp.CompressorConfig(rho_s=0.05, quant_bits=8)
+    k = kops.block_k(comp.blockwise_k_frac(d, cc.rho_s))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kq8.reset_launches()
+    recon, new_err = comp.compress_update(delta, err, cc)
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(kq8.LAUNCHES["compress_q8"] == 1 and bool(torch.isfinite(recon).all()),
+          "federated-llm full width: compress_update did not run compress_q8 once")
+    del recon, new_err
+    torch.cuda.empty_cache()
+
+    # CUDA events over back-to-back launches: at ~10 ms a launch the host
+    # is idle, and torch.profiler's CUPTI trace of these launches came back
+    # empty more often than not on the H100.
+    ms = call_ms(lambda: kq8.compress_blocks(delta, err, k), 3)
+    bound_ms, bound_by = bound_from(*compress_work(1, d, True))
+    checked = 0
+    for dd in (d, d - FED_TAIL):
+        q, scale, ne = kq8.compress_blocks(delta[:, :dd], err[:, :dd], k)
+        nb = scale.shape[1]
+        for b0 in (0, nb // 2, nb - FED_SLICE_BLOCKS):
+            a0, a1 = b0 * kops.BLOCK_ELEMS, min(dd, (b0 + FED_SLICE_BLOCKS) * kops.BLOCK_ELEMS)
+            wq, ws, we = kref.compress_ref(delta[:, a0:a1].contiguous(),
+                                           err[:, a0:a1].contiguous(), k)
+            same = (torch.equal(q[:, a0:a1], wq) and torch.equal(ne[:, a0:a1], we)
+                    and torch.equal(scale[:, b0:b0 + FED_SLICE_BLOCKS], ws))
+            check(same, f"compress_q8 at d={dd:,}: blocks {b0}.. differ from the plain version")
+            checked += a1 - a0
+        del q, scale, ne
+        torch.cuda.empty_cache()
+    print(f"  federated-llm full width: one compress_update of d={d:,} ({d % kops.BLOCK_ELEMS} "
+          f"past the last whole block) at k={k}: peak {peak_gib:.2f} GiB ({base / 2 ** 30:.2f} "
+          f"resident before it); compress_q8 {ms:.3f} ms a launch (CUDA events), "
+          f"bound {bound_ms:.3f} ms ({bound_by}); {checked:,} coordinates of whole-block slices "
+          f"bitwise the plain version (first, middle, last; and at d={d - FED_TAIL:,}, a "
+          f"{(d - FED_TAIL) % kops.BLOCK_ELEMS}-wide last block)  on {name} ({smi})")
+    del delta, err
+    torch.cuda.empty_cache()
+
+    reduced, launches = {}, {}
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        cfg = configs.get(POD_ARCH, reduced=True).replace(dtype=dtype)
+        kq8.reset_launches()
+        card = federated_llm.main([], cfg=cfg, steps=FED_STEPS)
+        launches[tag] = kq8.LAUNCHES["compress_q8"]
+        host = federated_llm.main([], cfg=cfg, steps=FED_STEPS, device="cpu")
+        check(launches[tag] == FED_STEPS, f"federated-llm {tag}: {launches[tag]} compress_q8 "
+              f"launches, expected {FED_STEPS}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], host["losses"]))
+        if tag == "f32":
+            check(rel <= FED_LOSS_GATE, f"federated-llm: card vs CPU losses {rel:.3e} apart")
+        reduced[tag] = dict(d=card["d"], losses=card["losses"], cpu_losses=host["losses"],
+                            max_rel=rel, compress_q8_launches=launches[tag])
+        print(f"  federated-llm REDUCED {tag} (d={card['d']:,}), {FED_STEPS} steps: losses card "
+              f"{[round(x, 5) for x in card['losses']]}, max rel vs CPU {rel:.3e}"
+              f"{' (gate ' + str(FED_LOSS_GATE) + ')' if tag == 'f32' else ' (recorded)'}; "
+              f"compress_q8 launches {launches[tag]}")
+    return dict(reduced=reduced,
+                full=dict(d=d, k=k, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                          peak_gib=peak_gib, resident_gib=base / 2 ** 30,
+                          checked_coordinates=checked))
+
+
+def lm_train_phase(mods, hybrid_serve, dev, name, smi, workdir) -> dict:
+    """Phase 21: language-model training and the full-sequence forward,
+    and the pod family; (a)-(f) of the module docstring."""
+    (train, configs, api, layers, serve, rglru, swa, kref, sgd, CheckpointStore, comp, kops,
+     kq8, federated_llm, lm_batches) = mods
+    out = {"hybrid-train": train_run("hybrid-train", train, HYBRID_TRAIN_ARCH, name, smi)}
+    out["checkpoint"] = checkpoint_on_card(train, configs, api, sgd, CheckpointStore, dev,
+                                           workdir)
+    out["dense-train"] = train_run("dense-train", train, DENSE_TRAIN_ARCH, name, smi)
+    vs_cpu = {}
+    for label, (arch, lay) in TRAIN_VS_CPU.items():
+        base = configs.get(arch, reduced=lay is None)
+        for dtype in ((torch.float32,) if lay is not None else (torch.float32, torch.bfloat16)):
+            cfg = cut(base, lay).replace(dtype=dtype, learning_rate=TRAIN_VS_CPU_LR)
+            key = f"{label} {'f32' if dtype == torch.float32 else 'bf16'}"
+            vs_cpu[key] = train_card_vs_cpu(key, api, layers, sgd, cfg, dev)
+    out["train_card_vs_cpu"] = vs_cpu
+    out["prefill"] = prefill_phase(configs, api, serve, rglru, swa, hybrid_serve, dev, name, smi)
+    out["pods"] = pod_phase(configs, dev, name, smi, workdir)
+    out["federated-llm"] = fed_llm_phase(federated_llm, configs, api, sgd, comp, kops, kq8,
+                                         kref, lm_batches, dev, name, smi)
+    return out
+
+
 def main(argv: list[str]) -> int:
     timing_only = argv == ["--timing"]
     if argv and not timing_only:
@@ -3905,6 +4320,16 @@ def main(argv: list[str]) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT / "build") as tmp:
         mesh = mesh_phase((exp, hfl, flat_fl, ae, Engine, lt, fa, kops, kref), train_ds,
                           training, flat, fleet, dev, name, smi, Path(tmp))
+
+    phase("21. lm-train (main path): LM training, prefill by forward, the pod family")
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.examples import federated_llm
+    from repro_torch.launch import train as lm_train
+    from repro_torch.optim import sgd
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT / "build") as tmp:
+        lm = lm_train_phase((lm_train, lm_configs, lm_api, lm_layers, lm_launch, rglru, swa, kref,
+                             sgd, CheckpointStore, comp, kops, kq8, federated_llm, lm_batches),
+                            hybrid["hybrid-serve"], dev, name, smi, Path(tmp))
     phase("done")
 
     kernels = []
@@ -3973,6 +4398,14 @@ def main(argv: list[str]) -> int:
                 "async robust": async_res["launches"]["robust"][kname]}
         if kname == "fused_agg":
             by_shape["66,000 identity fogs"] = identity
+        if kname == "compress_q8":
+            full = lm["federated-llm"]["full"]
+            by_shape[f"federated-llm, 1 x {full['d']:,}"] = {
+                k: full[k] for k in ("ms", "bound_ms", "bound_by", "peak_gib")}
+            kernels[-1]["launches_by_path"] = {
+                "legacy-200": launches[kname],
+                "federated-llm REDUCED f32, 5 steps": lm["federated-llm"]["reduced"]["f32"][
+                    "compress_q8_launches"]}
         if by_shape:
             kernels[-1]["by_shape"] = by_shape
     print(json.dumps({"training": training}))
@@ -4001,13 +4434,16 @@ def main(argv: list[str]) -> int:
         **swa_timing,
         "launches_by_path": {"hybrid-serve": hybrid["hybrid-serve"]["launches"],
                              "hybrid-window": hybrid["hybrid-window"]["launches"],
-                             "dense-decode": dense["dense-decode"]["launches"]},
+                             "dense-decode": dense["dense-decode"]["launches"],
+                             "lm-train prefill check (token-stepped)":
+                                 lm["prefill"]["swa_launches"]},
     })
     print(json.dumps({"lm": {"swa_check": swa_err, "hybrid": hybrid, "dense": dense}}))
     print(json.dumps({"flat": flat}))
     print(json.dumps({"engine": engine}))
     print(json.dumps({"async": async_res}))
     print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"lm_train": lm}))
     print("phase seconds: " + ", ".join(f"{k.split('.')[0]} {v:.1f}" for k, v in PHASE_S.items()
                                         if k != "done"))
     print(json.dumps({"kernels": kernels}))

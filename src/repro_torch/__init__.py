@@ -9,7 +9,11 @@ with the local-train and compress-aggregate kernels in
 chunked, per-client-compressor and drift options, and LM decode serving
 (``repro_torch.launch.serve`` over ``models/{rglru,transformer}``, with
 the sliding-window decode-attention kernel in
-``kernels/csrc/swa_decode.cu``).  Entry points run
+``kernels/csrc/swa_decode.cu``), and since then the flat baselines, the
+batched ``Engine``, the async family, the client mesh, language-model
+training (``repro_torch.launch.train``), the pod family
+(``core/mesh_fl``) and the federated-LLM example
+(``repro_torch.examples.federated_llm``).  Entry points run
 on the CUDA card unless the caller passes ``device="cpu"``, which selects
 the plain PyTorch versions.
 """

@@ -1,10 +1,15 @@
 """Flat-npz pytree checkpointing, key-compatible with ``repro.checkpoint``.
 
 Keys are the key paths that ``jax.tree_util.keystr`` gives (``[0]['b']``
-for layer 0's bias), built here without JAX, so either package loads the
-other's rounds.  Trees are nests of lists, tuples and dicts (keys sorted,
-as JAX flattens them) over tensor or array leaves.  ``CheckpointStore``
-adds step management (latest, retention) for the trainer and the serving
+for layer 0's bias, ``.embed`` for a NamedTuple's field), built here
+without JAX, so either package loads the other's rounds.  Trees are nests
+of lists, tuples, NamedTuples and dicts (keys sorted, as JAX flattens
+them) over tensor or array leaves; ``None`` is an empty subtree (no key),
+as in JAX.  A bf16 tensor is stored as the reference's ``np.savez``
+stores a bf16 array, a 2-byte void (``V2``) holding its bit pattern: the
+reference reads it back as it reads its own bf16 rounds (as those voids),
+and this module into a bf16 leaf of ``like``, bit for bit.
+``CheckpointStore`` adds step management (latest, retention) for the trainer and the serving
 hot-swap; ``save`` is atomic — the payload is staged to a unique temp file
 in the same directory, fsynced, and ``os.replace``d into place — so a
 concurrent reader never observes a half-written round.
@@ -22,8 +27,13 @@ import torch
 
 def _walk(tree: Any, prefix: str, visit: Callable[[str, Any], Any]) -> Any:
     """Rebuild ``tree`` with ``visit(keystr, leaf)`` at every leaf."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _walk(tree[k], f"{prefix}[{k!r}]", visit) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_walk(v, f"{prefix}.{name}", visit)
+                            for name, v in zip(tree._fields, tree)))
     if isinstance(tree, (list, tuple)):
         out = [_walk(v, f"{prefix}[{i}]", visit) for i, v in enumerate(tree)]
         return out if isinstance(tree, list) else tuple(out)
@@ -32,7 +42,10 @@ def _walk(tree: Any, prefix: str, visit: Callable[[str, Any], Any]) -> Any:
 
 def _host(leaf: Any) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.dtype("V2"))
+        return t.numpy()
     return np.asarray(leaf)
 
 
@@ -79,6 +92,9 @@ def load_pytree(path: str, like: Any) -> Any:
                     f"shape mismatch at {key!r}: {arr.shape} vs {tuple(ref.shape)}"
                 )
             dev = ref.device if isinstance(ref, torch.Tensor) else "cpu"
+            if (isinstance(ref, torch.Tensor) and ref.dtype == torch.bfloat16
+                    and arr.dtype == np.dtype("V2")):
+                return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(dev)
             return torch.from_numpy(arr).to(dev)
 
         return _walk(like, "", visit)

@@ -1,6 +1,6 @@
 """Architecture config registry: ``repro_torch.configs.get("<arch>")``.
 
-The ported architectures (the decode-serving slice) each export CONFIG
+The ported architectures (dense, vlm and hybrid families) each export CONFIG
 (exact published spec, source cited in its docstring) and REDUCED (the
 small variant of the CPU tests), copied from ``repro.configs``.  The other
 architectures of the reference raise ``NotImplementedError``: their
@@ -12,12 +12,12 @@ import importlib
 
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig  # noqa: F401
 
-ARCHS = ("gemma2_27b", "llama3_8b", "recurrentgemma_2b")
+ARCHS = ("gemma2_27b", "internvl2_26b", "llama3_8b", "recurrentgemma_2b")
 
 
 def canonical(name: str) -> str:
-    """Arch id of a published name ("recurrentgemma-2b" -> "recurrentgemma_2b");
-    the reference's alias table gives the same ids."""
+    """Arch id of a published name ("recurrentgemma-2b" -> "recurrentgemma_2b"),
+    as the reference's alias table gives it."""
     return name.replace("-", "_").replace(".", "_")
 
 

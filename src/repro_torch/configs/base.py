@@ -1,9 +1,9 @@
 """Configuration system: architecture + input-shape configs.
 
 A copy of ``repro.configs.base`` with ``dtype`` a torch dtype, cut to the
-fields of the ported families (dense, vlm, hybrid): the MoE, SSM,
-enc-dec, dry-run and training fields and the parameter counts wait for the
-slices that port them.  Each ported architecture has a module
+fields of the ported families (dense, vlm, hybrid) and training: the MoE,
+SSM, enc-dec and dry-run fields wait for the slice that ports them
+(ROADMAP queue 1 item 16).  Each ported architecture has a module
 ``repro_torch/configs/<id>.py`` exporting ``CONFIG`` (exact published
 spec, source cited) and ``REDUCED`` (the small smoke variant), the
 reference's values of those fields.  ``repro_torch.configs.get(name)``
@@ -43,14 +43,33 @@ class ModelConfig:
     block_pattern: tuple[str, ...] = ()
     rglru_c: float = 8.0
     conv_width: int = 4                 # temporal conv of the recurrent block
+    # vlm
+    n_visual_tokens: int = 0            # prefix patch-embedding tokens (stub)
     # numerics
     dtype: Any = torch.bfloat16
     # long-context: archs that can serve long_500k (sub-quadratic path)
     supports_long_context: bool = False
     long_context_window: int = 4096
+    # training
+    learning_rate: float = 3e-4
+    remat: bool = True                  # checkpoint every block in the backward pass
+    loss_chunks: int = 8                # token chunks of the cross-entropy
 
     def replace(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def param_count(self) -> int:
+        """Approximate parameter count, the reference's formula for the
+        ported families (the recurrent blocks are counted as attention, as
+        there)."""
+        if self.family not in ("dense", "vlm", "hybrid"):
+            raise NotImplementedError(
+                f"the {self.family!r} family is not ported (ROADMAP queue 1 item 16)")
+        d, hd = self.d_model, self.head_dim
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
+        per = attn + 3 * d * self.d_ff + 2 * d
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per + emb
 
 
 @dataclasses.dataclass(frozen=True)

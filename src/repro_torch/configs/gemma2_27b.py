@@ -34,6 +34,6 @@ CONFIG = ModelConfig(
 REDUCED = CONFIG.replace(
     name="gemma2-27b-reduced",
     n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
-    vocab_size=512, head_dim=64, sliding_window=64,
+    vocab_size=512, head_dim=64, sliding_window=64, loss_chunks=1,
     query_scale=(256 / 4) ** -0.5,
 )

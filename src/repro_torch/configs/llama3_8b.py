@@ -18,5 +18,5 @@ CONFIG = ModelConfig(
 REDUCED = CONFIG.replace(
     name="llama3-8b-reduced",
     n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
-    vocab_size=512, head_dim=64,
+    vocab_size=512, head_dim=64, loss_chunks=1,
 )

@@ -26,5 +26,5 @@ CONFIG = ModelConfig(
 REDUCED = CONFIG.replace(
     name="recurrentgemma-reduced",
     n_layers=3, d_model=256, n_heads=2, n_kv_heads=1, d_ff=512,
-    vocab_size=512, head_dim=128, sliding_window=64,
+    vocab_size=512, head_dim=128, sliding_window=64, loss_chunks=1,
 )

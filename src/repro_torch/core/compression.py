@@ -146,3 +146,8 @@ def compress_update(
         return recon.reshape(delta.shape), new_err.reshape(delta.shape)
     raise ValueError(f"unknown compression mode: {cfg.mode}")
 
+
+
+def compression_ratio(d: int, cfg: CompressorConfig) -> float:
+    """Effective ratio rho vs uncompressed 32-bit transmission (Sec. V-C)."""
+    return payload_bits(d, cfg) / (32.0 * d)

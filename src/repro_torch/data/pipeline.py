@@ -1,4 +1,5 @@
-"""Minibatch index tables for local training.
+"""Minibatch index tables for local training, and token windows for the
+language models.
 
 Local SGD runs E epochs over a client's window; an epoch is a random
 permutation of the window's rows cut to whole minibatches (a ragged tail
@@ -25,3 +26,17 @@ def multi_epoch_indices(
     keys = torch.rand((clients, epochs, n), generator=generator, dtype=torch.float64)
     perms = torch.argsort(keys, dim=-1)[..., : nb * batch_size]
     return perms.reshape(clients, epochs * nb, batch_size).to(torch.int32)
+
+
+def lm_batches(
+    generator: torch.Generator, tokens: torch.Tensor, batch: int, seq_len: int,
+) -> torch.Tensor:
+    """(batch, seq_len + 1) windows of a token stream at uniform starts in
+    [0, max(len - seq_len - 1, 1)) (the federated-LLM example's client
+    batches); the starts are drawn on the generator's device, the windows
+    gathered on the stream's."""
+    n = tokens.shape[0] - seq_len - 1
+    starts = torch.randint(0, max(n, 1), (batch,), generator=generator,
+                           device=generator.device).to(tokens.device)
+    idx = starts[:, None] + torch.arange(seq_len + 1, device=tokens.device)[None, :]
+    return tokens[idx]

@@ -98,7 +98,6 @@ from repro_torch.optim.sgd import LocalTrainConfig
 
 # Methods that run whole on every rank: no client mesh, as in the reference.
 UNSHARDED = ("centralised", "scaffold", "hfl-async")
-UNPORTED_POD = "pod_train_step (the TPU-mesh family) is not ported yet (ROADMAP.md queue 1 item 15)"
 
 _COUNTERS = (local_train, fused_agg, robust_agg, quant8, topk_ef, fused_score)
 
@@ -269,7 +268,8 @@ class Engine:
       family at paper scale, all trials at once;
     * ``reachability`` — the geometry-only Fig. 5 study;
     * ``score`` — fused anomaly scoring (``serving/score``);
-    * ``pod_train_step`` — the TPU-mesh family, not ported (item 15).
+    * ``pod_train_step`` — the pod family (``core/mesh_fl``), returned as
+      a cached step for callers that own the pod and batch loop.
     """
 
     def __init__(
@@ -848,6 +848,36 @@ class Engine:
                   launches=launches)
         return out
 
-    def pod_train_step(self, *args: Any, **kwargs: Any) -> Callable:
-        """The TPU-mesh pod step (reference ``core/mesh_fl``): not ported."""
-        raise NotImplementedError(UNPORTED_POD)
+    def pod_train_step(
+        self,
+        model_cfg: Any,
+        mesh: Any = None,
+        *,
+        rho_s: float = 0.05,
+        self_weight: float = 0.5,
+        mode: str = "int8",
+        local_epochs: int = 1,
+    ) -> Callable:
+        """The pod family's compressed step (``core/mesh_fl``), built once
+        per key and cached: ``step(params, err, batch) -> (params', err',
+        loss)``.  ``mesh`` is a ``launch/sharding.ClientMesh`` whose ranks
+        are the pods; ``None`` means one pod on the engine's device (err
+        from ``mesh_fl.init_err(params, 1)``).  ``local_epochs > 1`` runs E
+        local passes per pod (delta exchange)."""
+        from repro_torch.core import mesh_fl
+
+        dev = _device.resolve(self.device)
+        cache_key = ("pod", repr(model_cfg), mesh, rho_s, self_weight, mode, local_epochs)
+
+        def build():
+            step = mesh_fl.make_pod_hfl_train_step(
+                model_cfg, mesh, rho_s=rho_s, self_weight=self_weight, mode=mode,
+                local_epochs=local_epochs)
+
+            def on_device(params, err, batch):
+                return step(params, err, {k: v.to(dev) for k, v in batch.items()})
+
+            return on_device
+
+        fn, _ = self._get_program(cache_key, build)
+        return fn

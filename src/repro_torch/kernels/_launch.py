@@ -6,6 +6,8 @@ from typing import Callable
 
 import torch
 
+INT_LIMIT = 2 ** 31     # the C entries take N and d as int
+
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
           device: torch.device) -> None:
@@ -36,6 +38,9 @@ def rows(x: torch.Tensor, what: str, block: int) -> tuple[torch.device, int, int
     n, d = (int(s) for s in x.shape)
     if n < 1 or d < 1:
         raise ValueError(f"needs N, d >= 1, got N={n}, d={d}")
+    if n >= INT_LIMIT or d >= INT_LIMIT:
+        raise ValueError(f"the {what} kernel takes N and d below 2^31 (its C entry's int), "
+                         f"got N={n}, d={d}")
     return device, n, d, -(-d // block)
 
 

@@ -18,6 +18,7 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import fused_agg as _fa
 from repro_torch.kernels import fused_score as _fs
@@ -83,11 +84,14 @@ def compress(
     coordinates times (8 + ceil(log2 d)) bits."""
     fn = _q8.compress_blocks if _route(delta) == "cuda" else _ref.compress_ref
     q, scale, new_err = fn(delta, err, block_k(k_frac))
-    d = delta.shape[1]
-    block_of = torch.arange(d, device=q.device) // BLOCK_ELEMS
-    recon = q.to(torch.float32) * scale[:, block_of]
+    n, d = delta.shape
+    nb = scale.shape[1]
+    # Each code times its block's scale, on the (N, nb, 8192) view of the
+    # zero-padded codes: no per-coordinate block index is built.
+    blocks = F.pad(q, (0, nb * BLOCK_ELEMS - d)).reshape(n, nb, BLOCK_ELEMS)
+    recon = blocks.to(torch.float32).mul_(scale[:, :, None]).reshape(n, nb * BLOCK_ELEMS)[:, :d]
     b_idx = math.ceil(math.log2(max(d, 2)))
-    payload_bits = torch.sum(q != 0, dim=1).to(torch.float32) * (8.0 + b_idx)
+    payload_bits = torch.count_nonzero(q, dim=1).to(torch.float32) * (8.0 + b_idx)
     return recon, new_err, payload_bits
 
 

@@ -1,0 +1,166 @@
+"""Training launcher, the port of ``repro.launch.train``.
+
+Two entry modes:
+
+  federated  — the paper's pipeline: hierarchical (or flat) federated
+               anomaly-detector training over the simulated underwater
+               acoustic network (``launch/experiment.run_method`` over the
+               synthetic fleet of ``data/synthetic``).
+
+      PYTHONPATH=src python -m repro_torch.launch.train federated \\
+          --method hfl-selective --sensors 100 --fog 10 --rounds 20
+
+  production — plain-SGD training of an assigned language model
+               (``models/api.make_train_step``) on random token batches
+               drawn on the device; REDUCED config unless ``--full``; with
+               ``--ckpt-dir`` it resumes from the latest checkpoint there
+               and saves every ``--ckpt-every`` steps and at the end.
+
+      PYTHONPATH=src python -m repro_torch.launch.train production \\
+          --arch llama3-8b --steps 20 --batch 8 --seq 128
+
+Both run on the card unless ``--device cpu`` (or ``device="cpu"``) is
+given.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import time
+
+import torch
+
+from repro_torch import configs
+from repro_torch import device as _device
+from repro_torch.checkpoint import CheckpointStore
+from repro_torch.data.synthetic import SyntheticConfig, generate, normalize
+from repro_torch.launch import experiment as exp
+from repro_torch.models import api
+
+
+def run_federated(args: argparse.Namespace, dev: torch.device) -> dict:
+    cfg = exp.make_config(
+        n_sensors=args.sensors,
+        n_fog=args.fog,
+        rounds=args.rounds,
+        local_epochs=args.local_epochs,
+        lr=args.lr,
+    )
+    ds = normalize(generate(
+        torch.Generator().manual_seed(args.seed),
+        SyntheticConfig(n_sensors=args.sensors, dirichlet_alpha=args.dirichlet_alpha),
+        device=dev,
+    ))
+    t0 = time.time()
+    res = exp.run_method(args.method, ds, cfg, seed=args.seed, device=dev)
+    wall = time.time() - t0
+    return {
+        "mode": "federated",
+        "method": res.method,
+        "f1": res.f1,
+        "participation": res.participation,
+        "energy_j": {
+            "total": res.e_total,
+            "s2f": res.e_s2f,
+            "f2f": res.e_f2f,
+            "f2g": res.e_f2g,
+        },
+        "final_loss": res.losses[-1] if res.losses else None,
+        "wall_s": round(wall, 1),
+    }
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_production(args: argparse.Namespace, dev: torch.device) -> dict:
+    cfg = configs.get(args.arch, reduced=not args.full)
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    params = api.init_params(g, cfg)
+    step = api.make_train_step(cfg)
+
+    store = CheckpointStore(args.ckpt_dir) if args.ckpt_dir else None
+    start = 0
+    if store is not None and store.latest_step() is not None:
+        params, start = store.restore(params)
+        print(f"restored checkpoint at step {start}")
+
+    losses, step_s = [], []
+    t0 = time.time()
+    for i in range(start, start + args.steps):
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (args.batch, args.seq), generator=g,
+                                         device=dev, dtype=torch.int32)}
+        if cfg.n_visual_tokens > 0:
+            batch["visual_embeds"] = torch.randn(
+                (args.batch, cfg.n_visual_tokens, cfg.d_model), generator=g, device=dev,
+            ).to(cfg.dtype)
+        _sync(dev)
+        ts = time.perf_counter()
+        params, loss = step(params, batch)
+        losses.append(float(loss))        # reads the loss back: the step has ended
+        step_s.append(time.perf_counter() - ts)
+        if store is not None and (i + 1) % args.ckpt_every == 0:
+            store.save(i + 1, params)
+    wall = time.time() - t0
+    if store is not None:
+        store.save(start + args.steps, params)
+    later = step_s[1:] or step_s
+    return {
+        "mode": "production",
+        "arch": args.arch,
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "start": start,
+        "steps": args.steps,
+        "loss_first": losses[0],
+        "loss_last": losses[-1],
+        "losses": losses,
+        "step_s": step_s,
+        "tokens_per_s": args.batch * args.seq * len(later) / sum(later),
+        "wall_s": round(wall, 1),
+        "finite": all(math.isfinite(x) for x in losses),
+    }
+
+
+def main(argv: list[str] | None = None, device: torch.device | str | None = None) -> dict:
+    """Run the launcher; ``argv`` defaults to ``sys.argv[1:]``.
+    ``device=None`` (and no ``--device``) means the card.  Prints and
+    returns the summary (``production`` adds each step's seconds and the
+    tokens/s of the steps after the first)."""
+    ap = argparse.ArgumentParser(description=__doc__)
+    sub = ap.add_subparsers(dest="mode", required=True)
+
+    fed = sub.add_parser("federated")
+    fed.add_argument("--method", default="hfl-selective", choices=exp.METHODS)
+    fed.add_argument("--sensors", type=int, default=100)
+    fed.add_argument("--fog", type=int, default=10)
+    fed.add_argument("--rounds", type=int, default=20)
+    fed.add_argument("--local-epochs", type=int, default=5)
+    fed.add_argument("--lr", type=float, default=0.01)
+    fed.add_argument("--dirichlet-alpha", type=float, default=1.0)
+    fed.add_argument("--seed", type=int, default=0)
+
+    prod = sub.add_parser("production")
+    prod.add_argument("--arch", required=True)
+    prod.add_argument("--steps", type=int, default=10)
+    prod.add_argument("--batch", type=int, default=4)
+    prod.add_argument("--seq", type=int, default=64)
+    prod.add_argument("--full", action="store_true",
+                      help="the published config (needs the card's memory)")
+    prod.add_argument("--ckpt-dir", default=None)
+    prod.add_argument("--ckpt-every", type=int, default=100)
+    prod.add_argument("--seed", type=int, default=0)
+
+    for p in (fed, prod):
+        p.add_argument("--device", default=None, help="cpu, or a CUDA device (default cuda:0)")
+    args = ap.parse_args(argv)
+    dev = _device.resolve(device if device is not None else args.device)
+    out = run_federated(args, dev) if args.mode == "federated" else run_production(args, dev)
+    print(json.dumps(out, indent=1))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,17 @@
-"""Model API over the ported language-model families: init / decode step
-/ cache, the serving subset of ``repro.models.api``.
+"""Model API over the ported language-model families: init, loss, the
+train / prefill / serve step builders and the decode cache of
+``repro.models.api``.
 
 Ported families: ``dense`` and ``vlm`` (``models/transformer``) and
 ``hybrid`` (``models/rglru``).  ``moe``, ``ssm`` and ``encdec`` raise
-``NotImplementedError`` (ROADMAP queue 1 item 16), as do the train,
-prefill-by-``forward`` and dry-run builders, which are not ported.
+``NotImplementedError`` (ROADMAP queue 1 item 16), as do the dry-run
+builders (``abstract_params``, ``input_specs``, ...), which are not
+ported.
+
+Gradients come from ``optim/sgd.grad_and_value``, ``torch.autograd.grad``
+over copies of the leaves: ``torch.func.grad`` refuses a loss that runs
+non-reentrant checkpointing (the blocks under ``cfg.remat`` and every
+cross-entropy chunk), since it does not support saved-tensor hooks.
 """
 from __future__ import annotations
 
@@ -14,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rglru, transformer
+from repro_torch.optim import sgd
 
 Params = Any
 
@@ -35,6 +43,61 @@ def module(cfg: ModelConfig):
 def init_params(generator: torch.Generator, cfg: ModelConfig) -> Params:
     """Random params drawn on the generator's device."""
     return module(cfg).init(generator, cfg)
+
+
+def loss_fn(cfg: ModelConfig) -> Callable[[Params, dict], torch.Tensor]:
+    """``loss(params, batch) -> f32 scalar``, the family's next-token
+    cross-entropy; ``batch["tokens"]`` (b, s) int (+ a VLM's
+    ``visual_embeds``)."""
+    mod = module(cfg)
+    return lambda params, batch: mod.loss(params, batch, cfg)
+
+
+SGD_CHUNK = 2 ** 26      # elements of a leaf updated at a time
+
+
+def sgd_update(p: torch.Tensor, g: torch.Tensor, step: float) -> torch.Tensor:
+    """``(p.f32 + step * g.f32).to(p.dtype)`` as a new tensor, made in
+    slices along the leading axis of at most ``SGD_CHUNK`` elements (a
+    whole number of rows, at least one), so the f32 transients stay small:
+    a stacked leaf goes a layer at a time."""
+    out = torch.empty_like(p)
+    if p.dim() == 0:
+        return out.copy_(p.to(torch.float32) + step * g.to(torch.float32))
+    rows = max(1, SGD_CHUNK // max(1, p[0].numel()))
+    for o, pp, gg in zip(out.split(rows), p.split(rows), g.split(rows)):
+        o.copy_(pp.to(torch.float32) + step * gg.to(torch.float32))
+    return out
+
+
+def make_train_step(cfg: ModelConfig) -> Callable:
+    """Plain-SGD step ``train_step(params, batch) -> (new params, loss)``:
+    each leaf ``(p.f32 - lr * g.f32).to(p.dtype)``, as in the reference.
+    The given params are left as they are."""
+    lfn = loss_fn(cfg)
+
+    def train_step(params: Params, batch: dict) -> tuple[Params, torch.Tensor]:
+        grads, loss = sgd.grad_and_value(lfn)(params, batch)
+        grads = sgd.tree_leaves(grads)
+        new = []
+        for i, p in enumerate(sgd.tree_leaves(params)):
+            new.append(sgd_update(p, grads[i], -cfg.learning_rate))
+            grads[i] = None    # drop each gradient once its leaf is updated
+        return sgd.tree_unflatten(params, new), loss
+
+    return train_step
+
+
+def make_prefill_step(cfg: ModelConfig) -> Callable:
+    """Forward-only full-sequence step: ``prefill_step(params, batch) ->
+    the last position's hidden state (b, d)`` after the final norm."""
+    mod = module(cfg)
+
+    def prefill_step(params: Params, batch: dict) -> torch.Tensor:
+        with torch.no_grad():
+            return mod.forward(params, batch, cfg)[:, -1, :]
+
+    return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig, long_context: bool = False) -> Callable:

@@ -1,7 +1,6 @@
 """Attention for the language models: GQA with optional qk-norm,
-soft-capping and sliding-window masking; the single-token decode path of
-``repro.models.attention`` (the full-sequence path waits with prefill by
-``forward``).
+soft-capping and sliding-window masking; the full-sequence (train and
+prefill) and single-token decode paths of ``repro.models.attention``.
 
 Shapes follow the (batch, seq, heads, head_dim) convention; KV caches are
 (batch, max_seq, kv_heads, head_dim).  Unlike the reference, which updates
@@ -66,6 +65,52 @@ def _project_qkv(
         q = L.apply_rope(q, positions, rope_theta)
         k = L.apply_rope(k, positions, rope_theta)
     return q, k, v
+
+
+def full_attention(
+    p: AttnParams,
+    x: torch.Tensor,              # (b, s, d)
+    positions: torch.Tensor,      # (b, s)
+    window: int | None = None,    # sliding window (tokens) or None
+    attn_softcap: float | None = None,
+    rope_theta: float = 10000.0,
+    cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Dense masked attention over the whole sequence (train / prefill):
+    (b, s, d) in x's dtype.  Scores in f32 (the product of the f32
+    upcasts), soft-capped, masked with ``NEG_INF`` outside the causal
+    window (key positions t with q - window < t <= q), softmax in f32 cast
+    back to x's dtype before the PV product, as in the reference.  Plain
+    PyTorch, as the reference's plain ``jnp`` is.  ``cross_kv`` is the
+    enc-dec family's cross-attention, not ported."""
+    if cross_kv is not None:
+        raise NotImplementedError(
+            "cross-attention (the encdec family) is not ported (ROADMAP queue 1 item 16)")
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, positions, rope_theta)
+    n_heads, head_dim = q.shape[-2], q.shape[-1]
+    n_kv = k.shape[-2]
+    g = n_heads // n_kv
+
+    qg = q.reshape(b, s, n_kv, g, head_dim)
+    scores = torch.einsum(
+        "bqhgd,bthd->bhgqt", qg.to(torch.float32), k.to(torch.float32)
+    ) * (head_dim ** -0.5)                          # (b, n_kv, g, s_q, s_k)
+    if attn_softcap is not None:
+        scores = L.softcap(scores, attn_softcap)
+    qpos = positions[:, :, None]                    # (b, s_q, 1)
+    kpos = torch.arange(k.shape[1], device=x.device)[None, None, :]
+    mask = torch.ones((b, s, k.shape[1]), dtype=torch.bool, device=x.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bhgqt,bthk->bqhgk", probs, v)
+    out = out.reshape(b, s, n_heads, head_dim)
+    return torch.einsum("bshk,hkd->bsd", out, p.wo)
 
 
 class KVCache(NamedTuple):

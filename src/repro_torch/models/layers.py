@@ -1,13 +1,13 @@
-"""Shared layers of the language models, the decode subset of
-``repro.models.layers``.
+"""Shared layers of the language models, the decode and training subset
+of ``repro.models.layers``.
 
 Plain functions over tensors; the compute dtype is the params' (bf16 for
 the published configs) with f32 norms, softmax and logits, as in the
-reference.  ``shard_hint`` is not ported (one device; ROADMAP queue 1
-item 15).  Initialisers draw from a ``torch.Generator``, on its device, with
-the reference's distributions and dtypes (not its numbers: threefry is
-not reproduced; tests carry the reference's own params across with
-``from_numpy``).
+reference.  ``shard_hint`` is not ported (the logical-axis rules wait
+with the launch tooling, ROADMAP queue 1 item 16).  Initialisers draw
+from a ``torch.Generator``, on its device, with the reference's
+distributions and dtypes (not its numbers: threefry is not reproduced;
+tests carry the reference's own params across with ``from_numpy``).
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from typing import Callable
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -78,6 +79,45 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     """Gated MLP: down( act(x @ gate) * (x @ up) )."""
     h = act(x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+def _chunk_loss(hc: torch.Tensor, unembed: torch.Tensor, tc: torch.Tensor, mc: torch.Tensor,
+                softcap_value: float | None) -> torch.Tensor:
+    logits = (hc @ unembed).to(torch.float32)
+    if softcap_value is not None:
+        logits = softcap(logits, softcap_value)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, 1, tc[:, None].long())[:, 0]
+    return torch.sum((logz - gold) * mc)
+
+
+def chunked_cross_entropy(
+    hidden: torch.Tensor,       # (tokens, d_model)
+    unembed: torch.Tensor,      # (d_model, vocab)
+    targets: torch.Tensor,      # (tokens,) int
+    mask: torch.Tensor,         # (tokens,) f32
+    n_chunks: int = 8,
+    softcap_value: float | None = None,
+) -> torch.Tensor:
+    """Mean masked cross-entropy without the full (tokens, vocab) logits.
+
+    Each token chunk's logits are made in f32 (soft-capped before the
+    ``logsumexp``) under a non-reentrant ``torch.utils.checkpoint``, so
+    only one chunk's logits exist at a time, in the forward and again in
+    the backward pass: what keeps a 256,000-word vocabulary on one card.
+    One chunk when ``n_chunks`` does not divide the tokens; the chunk sums
+    add in order from zero and divide by ``max(sum(mask), 1)``, as the
+    reference's scan does."""
+    tokens = hidden.shape[0]
+    if tokens % n_chunks != 0:
+        n_chunks = 1
+    chunk = tokens // n_chunks
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(n_chunks):
+        rows = slice(c * chunk, (c + 1) * chunk)
+        total = total + checkpoint(_chunk_loss, hidden[rows], unembed, targets[rows], mask[rows],
+                                   softcap_value, use_reentrant=False)
+    return total / torch.clamp_min(torch.sum(mask), 1.0)
 
 
 def tensor_from_array(a, device: torch.device | str) -> torch.Tensor:

@@ -1,15 +1,19 @@
 """RecurrentGemma / Griffin hybrid: RG-LRU recurrent blocks + local MQA
-attention in a (rec, rec, attn) pattern (arXiv:2402.19427); the decode
-path of ``repro.models.rglru``.
+attention in a (rec, rec, attn) pattern (arXiv:2402.19427); the
+full-sequence (train, prefill) and decode paths of ``repro.models.rglru``.
 
-Every temporal-mixing block is followed by a gated-MLP.  One decode step
-of the RG-LRU recurrence:
+Every temporal-mixing block is followed by a gated-MLP.  The RG-LRU
+recurrence
 
     r_t = sigmoid(W_r x + b_r);  i_t = sigmoid(W_i x + b_i)
     log a_t = -c * softplus(lambda) * r_t
     h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-Layers are a Python loop (heterogeneous structure).  The attention layers
+runs over the sequence as a log-depth scan (:func:`_rglru_scan`, where
+the reference calls ``jax.lax.associative_scan``) and as one update per
+decode step.  Layers are a Python loop (heterogeneous structure); with
+``cfg.remat`` :func:`forward` checkpoints every temporal block and every
+MLP, as the reference does.  The attention layers
 have a window and no soft-cap, so on the card each runs the
 ``swa_decode`` kernel (``models/attention.decode_step``'s routing).
 """
@@ -18,6 +22,8 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
@@ -142,6 +148,91 @@ def _mlp_apply(p: MLPParams, x: torch.Tensor) -> torch.Tensor:
     return x + L.swiglu(L.rms_norm(x, p.ln), p.w_gate, p.w_up, p.w_down, act=L.gelu)
 
 
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _rglru_scan(a: torch.Tensor, bx: torch.Tensor,
+                h0: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t h_{t-1} + bx_t over axis 1; a, bx: (b, l, r).  Returns
+    (every h (b, l, r), the last (b, r)).
+
+    An inclusive Hillis-Steele scan of the (a, b) pairs under
+    (a1, b1) . (a2, b2) = (a1 a2, a2 b1 + b2): ceil(log2 l) rounds of one
+    shifted multiply-add each, differentiable by autograd.  ``h0`` is
+    folded into the first element (b_0 + a_0 h0), as in the reference; the
+    association order is not the reference's, so the two agree to
+    rounding."""
+    if h0 is not None:
+        bx = torch.cat([bx[:, :1] + a[:, :1] * h0[:, None], bx[:, 1:]], dim=1)
+    shift, length = 1, a.shape[1]
+    while shift < length:
+        bx = torch.cat([bx[:, :shift], a[:, shift:] * bx[:, :-shift] + bx[:, shift:]], dim=1)
+        a = torch.cat([a[:, :shift], a[:, shift:] * a[:, :-shift]], dim=1)
+        shift *= 2
+    return bx, bx[:, -1]
+
+
+def _rec_apply(p: RecParams, x: torch.Tensor, cfg: ModelConfig,
+               h0: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence RG-LRU block, x (b, l, d): (x + block output, the last
+    recurrent state (b, r) f32)."""
+    u = L.rms_norm(x, p.ln)
+    xb = u @ p.w_x
+    gate = L.gelu(u @ p.w_gate)
+    # Temporal conv (causal, depthwise).
+    width, length = p.conv_w.shape[0], xb.shape[1]
+    pad = F.pad(xb, (0, 0, width - 1, 0))
+    xb = sum(pad[:, i:i + length, :] * p.conv_w[i] for i in range(width)) + p.conv_b
+    r = torch.sigmoid((xb @ p.w_rg).to(torch.float32) + p.b_rg)
+    i = torch.sigmoid((xb @ p.w_ig).to(torch.float32) + p.b_ig)
+    a = torch.exp(-cfg.rglru_c * _softplus(p.lam) * r)
+    scale = torch.sqrt(torch.clamp_min(1.0 - torch.square(a), 1e-6))
+    h, hlast = _rglru_scan(a, scale * (i * xb.to(torch.float32)), h0)
+    y = h.to(x.dtype) * gate
+    return x + y @ p.w_out, hlast
+
+
+def _rec_block(cfg: ModelConfig, tp: RecParams, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    return _rec_apply(tp, x, cfg)[0]
+
+
+def _attn_block(cfg: ModelConfig, tp: AttnBlock, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    return x + attn.full_attention(tp.attn, L.rms_norm(x, tp.ln), positions,
+                                   window=cfg.sliding_window, rope_theta=cfg.rope_theta)
+
+
+def forward(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Hidden states after the final norm: (b, s, d)."""
+    x = params.embed[batch["tokens"]]
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    b, s = batch["tokens"].shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    for tp, mp in zip(params.temporal, params.mlps):
+        block = _rec_block if isinstance(tp, RecParams) else _attn_block
+        if cfg.remat:
+            x = checkpoint(block, cfg, tp, x, positions, use_reentrant=False)
+            x = checkpoint(_mlp_apply, mp, x, use_reentrant=False)
+        else:
+            x = _mlp_apply(mp, block(cfg, tp, x, positions))
+    return L.rms_norm(x, params.final_norm)
+
+
+def loss(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross-entropy through the tied embedding, f32 scalar."""
+    h = forward(params, batch, cfg)
+    b, s, d = h.shape
+    return L.chunked_cross_entropy(
+        h[:, :-1].reshape(-1, d), params.embed.T, batch["tokens"][:, 1:].reshape(-1),
+        torch.ones((b * (s - 1),), dtype=torch.float32, device=h.device),
+        n_chunks=cfg.loss_chunks, softcap_value=cfg.logit_softcap,
+    )
+
+
 class DecodeCache(NamedTuple):
     kv: tuple[attn.KVCache, ...]         # per-attn-layer KVCache
     rec_h: tuple[torch.Tensor, ...]      # per-rec-layer (b, r) f32 hidden states
@@ -195,8 +286,7 @@ def decode_step(
             new_conv.append(hist[:, 1:, :])
             r_g = torch.sigmoid((xb @ tp.w_rg).to(torch.float32) + tp.b_rg)
             i_g = torch.sigmoid((xb @ tp.w_ig).to(torch.float32) + tp.b_ig)
-            softplus = torch.logaddexp(tp.lam, torch.zeros_like(tp.lam))
-            a = torch.exp(-cfg.rglru_c * softplus * r_g)
+            a = torch.exp(-cfg.rglru_c * _softplus(tp.lam) * r_g)
             scale = torch.sqrt(torch.clamp_min(1.0 - torch.square(a), 1e-6))
             h = a * cache.rec_h[i_rec] + scale * (i_g * xb.to(torch.float32))
             new_h.append(h)

@@ -1,11 +1,16 @@
-"""Dense decoder-only transformer (llama3 / gemma2); the decode path of
+"""Dense decoder-only transformer (llama3 / gemma2 / the internvl2 LM);
+the full-sequence (train, prefill) and decode paths of
 ``repro.models.transformer``.
 
 Per-layer parameters are stacked along a leading layer axis, as in the
-reference; :func:`decode_step` loops over the layers in Python where the
-reference scans.  Handles GQA with optional qk-norm and RoPE, and
-gemma2's extras: attention and logit soft-caps, sandwich post-norms,
-sqrt(d) embedding scaling and alternating local / global windows.
+reference; :func:`forward` and :func:`decode_step` loop over the layers in
+Python where the reference scans, and with ``cfg.remat`` :func:`forward`
+checkpoints every block (non-reentrant ``torch.utils.checkpoint``, the
+reference's per-layer ``jax.checkpoint``).  Handles GQA with optional
+qk-norm and RoPE, gemma2's extras (attention and logit soft-caps,
+sandwich post-norms, sqrt(d) embedding scaling, alternating local /
+global windows), and the VLM's visual patch embeddings written over the
+first ``n_visual_tokens`` positions, masked out of the loss.
 
 Routing of the attention (``models/attention.decode_step``): a layer
 without ``attn_softcap`` runs the ``swa_decode`` kernel on the card, with
@@ -18,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
@@ -91,6 +97,18 @@ def _layer(tree, i: int):
     return L.map_leaves(lambda t: t[i], tree)
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` per-layer slices of a stacked tree, each leaf ``unbind``
+    once: its backward stacks the layers' gradients in one op, where an
+    index per layer would add a zero-filled stacked gradient per layer."""
+    if tree is None:
+        return [None] * n
+    if isinstance(tree, tuple):
+        parts = [_unstack(x, n) for x in tree]
+        return [type(tree)(*(part[i] for part in parts)) for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def init(generator: torch.Generator, cfg: ModelConfig) -> Params:
     """Random params with the reference's distributions and dtypes, drawn
     on the generator's device."""
@@ -126,6 +144,64 @@ def from_numpy(tree, device: torch.device | str | None = None) -> Params:
 def to_numpy(params: Params) -> Params:
     """The inverse of :func:`from_numpy`: host numpy leaves (bf16 as f32)."""
     return L.map_leaves(L.array_from_tensor, params)
+
+
+def _block_apply(cfg: ModelConfig, bp: BlockParams, window: int, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    h = attn.full_attention(
+        bp.attn, L.rms_norm(x, bp.ln1), positions, window=window,
+        attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
+    )
+    if bp.post_attn is not None:
+        h = L.rms_norm(h, bp.post_attn)
+    x = x + h
+    h = L.swiglu(L.rms_norm(x, bp.ln2), bp.w_gate, bp.w_up, bp.w_down,
+                 act=L.gelu if cfg.post_norms else F.silu)
+    if bp.post_mlp is not None:
+        h = L.rms_norm(h, bp.post_mlp)
+    return x + h
+
+
+def _embed_inputs(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
+    x = params.embed[batch["tokens"]]
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if cfg.n_visual_tokens > 0 and "visual_embeds" in batch:
+        vis = batch["visual_embeds"].to(x.dtype)
+        x = torch.cat([vis, x[:, vis.shape[1]:]], dim=1)
+    return x
+
+
+def forward(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Hidden states after the final norm: (b, s, d).  ``batch["tokens"]``
+    (b, s) int; a VLM's ``batch["visual_embeds"]`` (b, nv, d) replace the
+    first nv positions' embeddings."""
+    x = _embed_inputs(cfg, params, batch)
+    b, s = batch["tokens"].shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    for bp, window in zip(_unstack(params.blocks, cfg.n_layers), layer_windows(cfg)):
+        if cfg.remat:
+            x = checkpoint(_block_apply, cfg, bp, window, x, positions, use_reentrant=False)
+        else:
+            x = _block_apply(cfg, bp, window, x, positions)
+    return L.rms_norm(x, params.final_norm)
+
+
+def loss(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross-entropy, f32 scalar (text positions only for a
+    VLM: targets before position ``n_visual_tokens`` are masked)."""
+    h = forward(params, batch, cfg)
+    b, s, d = h.shape
+    unembed = params.unembed if params.unembed is not None else params.embed.T
+    targets = batch["tokens"][:, 1:]
+    mask = torch.ones((b, s - 1), dtype=torch.float32, device=h.device)
+    if cfg.n_visual_tokens > 0:
+        pos = torch.arange(s - 1, device=h.device)[None, :]
+        mask = (pos >= cfg.n_visual_tokens).to(torch.float32) * mask
+    return L.chunked_cross_entropy(
+        h[:, :-1].reshape(-1, d), unembed, targets.reshape(-1), mask.reshape(-1),
+        n_chunks=cfg.loss_chunks, softcap_value=cfg.logit_softcap,
+    )
 
 
 class DecodeCache(NamedTuple):

@@ -8,14 +8,14 @@ the whole E-epoch phase as one fused operator, ``kernels/ops.local_train``
 (the ``local_train_f32`` kernel on the card, ``kernels/ref.local_train_ref``
 on the CPU); ``LocalTrainConfig(fused=False)`` and any other model take
 the legacy path, a Python loop over the steps whose every step is one
-``torch.func.vmap`` of ``grad_and_value(loss_fn)`` over the clients (the
+``torch.func.vmap`` of ``torch.func.grad_and_value(loss_fn)`` over the clients (the
 reference's vmapped per-client ``lax.scan``), fed by the same injected
 minibatch index tables.
 
-Parameter trees are what the reference's are: lists, tuples and dicts of
-tensors, flattened in ``jax.flatten_util.ravel_pytree``'s order (dict
-keys sorted), so the flat deltas index the round's (N, d) buffers the same
-way in both packages.
+Parameter trees are what the reference's are: lists, tuples (NamedTuples
+too) and dicts of tensors, with ``None`` for an absent leaf, flattened in
+``jax.flatten_util.ravel_pytree``'s order (dict keys sorted), so the flat
+deltas index the round's (N, d) buffers the same way in both packages.
 """
 from __future__ import annotations
 
@@ -29,6 +29,8 @@ LossFn = Callable[[Params, torch.Tensor], torch.Tensor]
 
 
 def _leaves(tree: Params) -> Iterator[torch.Tensor]:
+    if tree is None:       # an absent leaf (a language model's untied unembed, ...)
+        return
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k])
@@ -40,6 +42,8 @@ def _leaves(tree: Params) -> Iterator[torch.Tensor]:
 
 
 def _rebuild(tree: Params, leaves: Iterator[torch.Tensor]) -> Params:
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         built = {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
         return {k: built[k] for k in tree}
@@ -49,6 +53,16 @@ def _rebuild(tree: Params, leaves: Iterator[torch.Tensor]) -> Params:
             return parts
         return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
     return next(leaves)
+
+
+def tree_leaves(tree: Params) -> list[torch.Tensor]:
+    """The tensor leaves of ``tree`` in ravel order (``None`` skipped)."""
+    return list(_leaves(tree))
+
+
+def tree_unflatten(like: Params, leaves: Any) -> Params:
+    """``like``'s structure over ``leaves`` (in :func:`tree_leaves` order)."""
+    return _rebuild(like, iter(leaves))
 
 
 def ravel_tree(tree: Params) -> torch.Tensor:
@@ -82,15 +96,32 @@ def proximal_grad(params: Params, anchor: Params, grads: Params, mu: float) -> P
     return _map(lambda g, p, a: g + mu * (p - a), grads, params, anchor)
 
 
+def grad_and_value(loss_fn: LossFn) -> Callable[[Params, Any], tuple]:
+    """``torch.func.grad_and_value(loss_fn)`` by ``torch.autograd.grad``
+    over detached copies of the leaves, so it also takes losses that
+    ``torch.func`` refuses: those running non-reentrant checkpointing
+    (saved-tensor hooks), as a language model's does.  The given params
+    are not marked."""
+    def run(params, batch):
+        with torch.enable_grad():
+            leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
+            loss = loss_fn(_rebuild(params, iter(leaves)), batch)
+            grads = torch.autograd.grad(loss, leaves)
+        return _rebuild(params, iter(grads)), loss.detach()
+
+    return run
+
+
 def local_sgd(
     loss_fn: LossFn,
     params: Params,
-    batches: torch.Tensor,
+    batches: Any,
     lr: float,
 ) -> tuple[Params, torch.Tensor]:
-    """Run SGD over a (nb, bs, ...) batch stream; returns (params, mean
-    loss)."""
-    grad = torch.func.grad_and_value(loss_fn)
+    """Run SGD over a batch stream (a (nb, bs, ...) tensor, or any
+    sequence of batches such as a list of token dicts); returns (params,
+    mean loss).  Gradients by :func:`grad_and_value`."""
+    grad = grad_and_value(loss_fn)
     losses = []
     for batch in batches:
         g, loss = grad(params, batch)

@@ -1425,3 +1425,99 @@ def test_client_mesh_on_the_card_matches_the_unsharded_round(cuda, tmp_path, wor
                 np.testing.assert_allclose(got["metrics"][k].numpy(), v.numpy(), rtol=1e-5)
             else:
                 assert torch.equal(got["metrics"][k], v), k
+
+
+# --- language-model training and the pod family ----------------------------------
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "llama3-8b", "gemma2-27b", "internvl2-26b"])
+def test_lm_train_step_on_the_card_matches_cpu(cuda, arch):
+    """One ``make_train_step`` at REDUCED f32 from the same weights and
+    tokens: loss to rtol 1e-4, every leaf's update (new - old) within 1e-3
+    of the largest update coordinate (lr 1e-2: at 3e-4 the f32 rounding of
+    the new params is ~4e-4 of the update), and the prefill step's last
+    hidden state within 1e-4 of its largest entry."""
+    from repro_torch import configs
+    from repro_torch.models import api, layers
+    from repro_torch.optim import sgd
+    cfg = configs.get(arch, reduced=True).replace(dtype=torch.float32, learning_rate=1e-2)
+    cpu_params = api.init_params(torch.Generator().manual_seed(0), cfg)
+    gpu_params = layers.map_leaves(lambda t: t.to(cuda), cpu_params)
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 48), generator=g)}
+    if cfg.n_visual_tokens:
+        batch["visual_embeds"] = torch.randn((2, cfg.n_visual_tokens, cfg.d_model), generator=g)
+    gpu_batch = {k: v.to(cuda) for k, v in batch.items()}
+    step = api.make_train_step(cfg)
+    new_c, loss_c = step(cpu_params, batch)
+    new_g, loss_g = step(gpu_params, gpu_batch)
+    np.testing.assert_allclose(float(loss_g), float(loss_c), rtol=1e-4)
+    upd = [(b - a, (d.cpu() - c.cpu())) for a, b, c, d in zip(
+        *(sgd.tree_leaves(t) for t in (cpu_params, new_c, gpu_params, new_g)))]
+    biggest = max(float(u.abs().max()) for u, _ in upd)
+    for want, got in upd:
+        assert float((got - want).abs().max()) <= 1e-3 * biggest
+    want_h = api.make_prefill_step(cfg)(cpu_params, batch)
+    got_h = api.make_prefill_step(cfg)(gpu_params, gpu_batch).cpu()
+    assert float((got_h - want_h).abs().max()) <= 1e-4 * float(want_h.abs().max())
+
+
+@pytest.mark.parametrize("mode", ["int8", "topk"])
+def test_pod_step_on_the_card_matches_cpu(cuda, mode):
+    """The 2-pod loop of ``core/mesh_fl`` at REDUCED f32, two steps, on the
+    card and on the CPU: losses to rtol 1e-4, params to atol 1e-5 but
+    where an int8 code rounds the other way (one quantisation step, at
+    most 1e-3 of a leaf's coordinates or two)."""
+    from repro_torch import configs
+    from repro_torch.core import mesh_fl
+    from repro_torch.models import api, layers
+    from repro_torch.optim import sgd
+    cfg = configs.get("llama3-8b", reduced=True).replace(dtype=torch.float32, learning_rate=1e-2)
+    cpu_params = api.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 16),
+                                     generator=torch.Generator().manual_seed(1))}
+    out = {}
+    for dev in ("cpu", cuda):
+        params = layers.map_leaves(lambda t, dev=dev: t.to(dev), cpu_params)
+        step = mesh_fl.make_pod_hfl_train_step(cfg, None, mode=mode, n_pods=2)
+        err, losses = mesh_fl.init_err(params, 2), []
+        for _ in range(2):
+            params, err, loss = step(params, err, {k: v.to(dev) for k, v in batch.items()})
+            losses.append(float(loss))
+        out[str(dev)] = ([p.cpu() for p in sgd.tree_leaves(params)],
+                         [e.cpu() for e in sgd.tree_leaves(err)], losses)
+    (pc, ec, lc), (pg, eg, lg) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    for want, got, e in zip(pc, pg, ec):
+        diff = (got - want).abs()
+        far = diff > 1e-5
+        step_size = 2 * float(e.abs().max()) * 1e-2 + 1e-5
+        assert bool(torch.all(diff <= step_size))
+        assert int(far.sum()) <= max(2, 1e-3 * want.numel())
+
+
+def test_compress_on_the_card_at_a_long_row_matches_plain(cuda):
+    """``ops.compress`` on one row of d = 2^24 + 17 (2,049 blocks, the last
+    17 wide): codes through the (N, nb, 8192) view, recon, new_err and the
+    payload bitwise the plain version's."""
+    d = (1 << 24) + 17
+    g = torch.Generator().manual_seed(0)
+    delta = torch.randn((1, d), generator=g)
+    err = torch.randn((1, d), generator=g) * 0.1
+    want = ops.compress(delta, err, 0.05)
+    before = q8.LAUNCHES["compress_q8"]
+    got = ops.compress(delta.to(cuda), err.to(cuda), 0.05)
+    assert q8.LAUNCHES["compress_q8"] == before + 1
+    for w, x in zip(want, got):
+        assert torch.equal(x.cpu(), w)
+
+
+def test_compressor_wrappers_refuse_d_past_the_int_range(cuda):
+    """The C entries take N and d as int: a row of 2^31 coordinates (a
+    stride-0 view, nothing allocated) is refused before any launch."""
+    big = torch.zeros((1, 1), device=cuda).expand(1, 2 ** 31)
+    before = dict(q8.LAUNCHES)
+    for call in (lambda: q8.compress_blocks(big, big, 410), lambda: q8.quant8_blocks(big),
+                 lambda: tk.topk_ef_blocks(big, big, 410)):
+        with pytest.raises(ValueError, match="below 2\\^31"):
+            call()
+    assert q8.LAUNCHES == before

@@ -351,13 +351,24 @@ def test_unported_paths_raise(data, monkeypatch):
     several devices visible raised until queue-1 item 15's federated half
     was ported: without a process group the engine now runs on its one
     device and shards nothing (``tests/test_torch_mesh.py`` runs it
-    sharded).  ``pod_train_step`` still raises."""
+    sharded).  ``pod_train_step`` raised until queue-1 item 15's pod family
+    was ported: it now runs one pod on the CPU (``tests/test_torch_pod.py``
+    holds it against the reference)."""
+    from repro_torch import configs as tconfigs
+    from repro_torch.core import mesh_fl
+    from repro_torch.models import api as tapi
+
     _, ds_t = data
     eng = _cpu_engine()
     run = eng.run("hfl-async", AsyncFLConfig(base=torch_cfg(), n_events=4), SEEDS, ds_t)
     assert run.losses.shape == (len(SEEDS), 1, 4) and eng.take_log()[0]["batched"]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        eng.pod_train_step(None)
+    lm = tconfigs.get("llama3-8b", reduced=True)
+    params = tapi.init_params(torch.Generator().manual_seed(0), lm)
+    new, err, loss = eng.pod_train_step(lm)(
+        params, mesh_fl.init_err(params, 1),
+        {"tokens": torch.randint(0, lm.vocab_size, (2, 8), generator=torch.Generator())})
+    assert bool(torch.isfinite(loss)) and type(new) is type(params)
+    assert err.embed.shape == (1,) + tuple(params.embed.shape)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     sharding = _cpu_engine(shard_trials=True, shard_clients=True)
     run = sharding.run("hfl-selective", torch_cfg(), SEEDS, ds_t)

@@ -1,5 +1,5 @@
-"""Port parity for LM decode serving (recurrentgemma, llama3, gemma2),
-PyTorch vs JAX.
+"""Port parity for LM decode serving (recurrentgemma, llama3, gemma2, the
+internvl2 LM), PyTorch vs JAX.
 
 The reference's own params (``repro.models.api.init_params``) are carried
 into the port by ``from_numpy`` (bf16 bit for bit), and the same
@@ -39,10 +39,21 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tL
 from repro_torch.models import rglru, transformer
 
-ARCHS = {"recurrentgemma-2b": rglru, "llama3-8b": transformer, "gemma2-27b": transformer}
+ARCHS = {"recurrentgemma-2b": rglru, "llama3-8b": transformer, "gemma2-27b": transformer,
+         "internvl2-26b": transformer}
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 REL_TOL = {"f32": 2e-5, "bf16": 4e-2}
 ATTN_TOL = dict(atol=2e-5, rtol=1e-4)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One PyTorch thread, as the other workers of a parallel run share
+    the cores (these models' ops are small)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _np(x):

@@ -25,7 +25,11 @@ Jobs (tuples, first item the kind):
   ``x_r`` (:func:`rank_update`) weighted by r + 1, two-level over pairs
   of ranks (intra ``{2i, 2i+1}``, inter ``{j, j+2}``) at W = 4, flat
   over the whole mesh at any W;
-* ``("ring", w)``: ``aggregation.ring_mix`` of ``x_r`` with weight w.
+* ``("ring", w)``: ``aggregation.ring_mix`` of ``x_r`` with weight w;
+* ``("pod", cfg, params, batch, kw, steps)``: ``steps`` steps of
+  ``mesh_fl.make_pod_hfl_train_step(cfg, mesh, **kw)`` (rank r is pod r)
+  from ``params`` and zero error buffers; gives the flat params, this
+  rank's flat error buffers and the losses.
 """
 from __future__ import annotations
 
@@ -38,11 +42,12 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from repro_torch.core import aggregation as agg
-from repro_torch.core import flat_fl, hfl
+from repro_torch.core import flat_fl, hfl, mesh_fl
 from repro_torch.engine import Engine
 from repro_torch.kernels import fused_agg, local_train
 from repro_torch.launch import sharding
 from repro_torch.models import autoencoder as ae
+from repro_torch.optim import sgd
 
 
 def rank_update(rank: int) -> torch.Tensor:
@@ -96,6 +101,16 @@ def run_job(job: tuple, mesh: sharding.ClientMesh, device: torch.device) -> dict
                      device=device)
         run = eng.run(method, cfg, seeds, ds, n_deployments=n_dep)
         return {"metrics": {k: v.cpu() for k, v in run.metrics.items()}, "log": eng.take_log()}
+    if kind == "pod":
+        _, cfg, params, batch, kw, steps = job
+        params = sgd.tree_unflatten(params, [p.to(device) for p in sgd.tree_leaves(params)])
+        step = mesh_fl.make_pod_hfl_train_step(cfg, mesh, **kw)
+        err, losses = mesh_fl.init_err(params), []
+        for _ in range(steps):
+            params, err, loss = step(params, err, {k: v.to(device) for k, v in batch.items()})
+            losses.append(loss)
+        return {"params": sgd.ravel_tree(params).cpu(), "err": sgd.ravel_tree(err).cpu(),
+                "losses": torch.stack(losses).cpu()}
     x = rank_update(mesh.rank).to(device)
     if kind == "hier":
         w = torch.tensor(float(mesh.rank + 1), device=device)
