@@ -237,7 +237,38 @@ exits non-zero before the result line:
              of 1,486,901,248 coordinates): ``compress_q8``'s device time
              against its bound, peak memory, and whole-block slices (first,
              middle, last, and the last of the row cut by 4,113, a ragged
-             block) bitwise the plain version.
+             block) bitwise the plain version;
+22. lm-families — the moe, ssm and encdec families and qwen3 (random
+             weights from seeds; cuts are depth only): (a) moe-serve,
+             qwen2-moe-a2.7b uncut (24 layers, 1.43e10 params, bf16),
+             batch 8, 128 prompt + 32 greedy tokens through
+             ``launch/serve`` as phase 15's runs: ms a decode step,
+             tokens/s, peak memory, the device time and idle share of 5
+             profiled steps, ``swa_decode`` launches 24 x 160 and the next
+             step's calls against the plain version; (b) moe-train, the
+             same at full width cut to 12 of 24 layers, 4 x 512 (one
+             dispatch group, capacity 170), bf16, remat, 5 steps: ms a
+             step, tokens/s, peak memory, the router aux; (c)
+             grok-decode, grok-1-314b at full width cut to 2 of 64 layers
+             (d_ff 32,768, GQA groups of 6), 8 x (32 + 16); (d) mamba2-2.7b
+             uncut: ``launch/train production --full`` 4 x 512, 5 steps;
+             decode 8 x (128 + 32) and the decode state's bytes; prefill
+             by ``forward`` at 8 x 256 beside the token-stepped prefill;
+             (e) whisper-medium uncut: ``launch/train production --full``
+             4 x 448 with (4, 1,500, 1,024) frames, 5 steps; decode 8 x
+             (128 + 32) after ``precompute_cross_kv`` (``swa_decode``
+             launches 24 x 160); prefill by ``forward`` at 8 x 128; (f)
+             qwen3-14b at full width cut to 2 of 40 layers, 8 x (128 +
+             32); (g) card vs CPU in f32: one train step (loss 1e-4
+             relative, every update within 1e-3 of its largest coordinate
+             at lr 1e-2) and 16 teacher-forced decode steps (logits within
+             1e-3 of the largest) of qwen2-moe at full width cut to 2
+             layers, mamba2 cut to 2, whisper cut to 2 + 2, and qwen3-14b,
+             qwen3-32b and grok-1 at REDUCED; a MoE's expert ids recorded
+             on both sides, the gates held where no token-slot differs and
+             the error recorded where one does; then, on the card, whisper
+             2 + 2 in f32: decode after ``precompute_cross_kv`` against
+             ``forward``'s logits at 32 positions (1e-3).
 
 Phase 6 also times ``fused_agg`` at robust-200's identity call (N =
 n_fog = 200), at one of its 64-client chunks and at fleet-10k's unchunked
@@ -281,7 +312,8 @@ phase 20 each mesh rank's, beside the phase 8 count in
 ``launches_by_path``; phase 21 adds ``compress_q8``'s launches in the
 federated-LLM example and ``swa_decode``'s in its token-stepped prefill
 check there, and ``compress_q8``'s time at the example's d to its
-``by_shape``).  The last line is
+``by_shape``; phase 22 adds ``swa_decode``'s launches in moe-serve,
+grok-decode, encdec-decode and qwen3-decode, and their calls' errors).  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and power limit, and the
 one before that the ``kernels`` JSON.
 """
@@ -3519,17 +3551,23 @@ def check_swa_on_path(label, api, swa, kref, cfg, params, cache, tok) -> tuple[o
 
 
 def lm_serve(label, api, serve, swa, kref, cfg, dev, batch, prompt_len, new_tokens, name,
-             smi) -> dict:
+             smi, prepare=None) -> dict:
     """Serve ``cfg`` with random weights from seed 0: token-stepped prefill
     of random prompts, greedy decode (``launch/serve``), the ``swa_decode``
     launches of that run (zeroed just before it, read just after), prefill
-    and decode tokens/s, ms per decode step, peak memory; then, continuing
-    from the decode's final cache, one step whose ``swa_decode`` calls are
-    held against the plain version (``check_swa_on_path``), and the device
-    time and idle share of the steps after it."""
+    and decode tokens/s, ms per decode step, peak memory, the cache's
+    bytes; then, continuing from the decode's final cache, one step whose
+    ``swa_decode`` calls are held against the plain version
+    (``check_swa_on_path``), and the device time and idle share of the
+    steps after it.  ``prepare(params, cache) -> cache`` runs before the
+    timed prefill (an enc-dec model's cross K/V)."""
     g = torch.Generator(device=dev).manual_seed(0)
     params = api.init_params(g, cfg)
     cache = api.init_cache(cfg, batch, prompt_len + new_tokens + 1, device=dev)
+    if prepare is not None:
+        cache = prepare(params, cache)
+    from repro_torch.models.layers import leaves
+    cache_bytes = sum(t.numel() * t.element_size() for t in leaves(cache))
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g, device=dev,
                             dtype=torch.int32)
     torch.cuda.synchronize()
@@ -3566,12 +3604,13 @@ def lm_serve(label, api, serve, swa, kref, cfg, dev, batch, prompt_len, new_toke
         decode_step_ms=step_ms, peak_mib=peak_mib, step_device_ms=dev_ms,
         step_swa_device_ms=swa_ms, step_device_ops=ops, idle_share=1.0 - dev_ms / step_ms,
         profile_lengths=[first + 2, first + 1 + PROFILE_STEPS], path_check=path_check,
-        sample=toks[0, :8].tolist(),
+        sample=toks[0, :8].tolist(), cache_bytes=cache_bytes,
     )
     print(f"  {label}: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} {cfg.dtype}, batch "
           f"{batch}, prompt {prompt_len} + {new_tokens} new: prefill {out['prefill_tok_s']:.1f} "
           f"tok/s ({t_prefill:.3f} s), decode {out['decode_tok_s']:.1f} tok/s, {step_ms:.3f} ms "
-          f"per step; peak {peak_mib:.1f} MiB; a decode step: {dev_ms:.3f} ms device time in "
+          f"per step; peak {peak_mib:.1f} MiB, cache {cache_bytes:,} bytes; a decode step: "
+          f"{dev_ms:.3f} ms device time in "
           f"{ops} ops (swa_decode {swa_ms * 1e3:.1f} us), idle share {out['idle_share']:.3f}; "
           f"swa_decode launches {launches}  on {name} ({smi})")
     print(f"  {label}: the next step's {path_check['calls']} swa_decode calls (cache lengths "
@@ -3583,11 +3622,43 @@ def lm_serve(label, api, serve, swa, kref, cfg, dev, batch, prompt_len, new_toke
     return out
 
 
-def card_vs_cpu(label, api, layers, swa, cfg, dev, batch, steps, gate: bool) -> dict:
+class RouteRecorder:
+    """While active, every ``models/moe.top_k`` call's expert ids, copied to
+    the host (a MoE model's routing, to compare two runs slot by slot)."""
+
+    def __init__(self, moe):
+        self.moe, self.ids = moe, []
+
+    def __enter__(self):
+        self.plain = self.moe.top_k
+
+        def record(probs, k):
+            vals, ids = self.plain(probs, k)
+            self.ids.append(ids.cpu())
+            return vals, ids
+
+        self.moe.top_k = record
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.top_k = self.plain
+
+
+def slot_diffs(a: RouteRecorder, b: RouteRecorder) -> int:
+    """Token-slots whose expert id differs between two recorded runs."""
+    check(len(a.ids) == len(b.ids), "the two runs routed a different number of times")
+    return sum(int((x != y).sum()) for x, y in zip(a.ids, b.ids))
+
+
+def card_vs_cpu(label, api, layers, swa, cfg, dev, batch, steps, gate: bool, moe=None) -> dict:
     """Teacher-force the same tokens through the model on the card and on
     the CPU (same weights, drawn on the card from seed 1 and copied):
     max over steps of max |dlogit| / max |logit|, gated at ``LM_GATE``
-    when ``gate``; the card's ``swa_decode`` launches."""
+    when ``gate``; the card's ``swa_decode`` launches.  With ``moe`` (the
+    ``models/moe`` module, for a MoE model) the two runs' expert ids are
+    recorded and counted where they differ; the gate then holds only where
+    none differ (a differing slot is a router near-tie, and the logits
+    after it part), and the error is recorded."""
     gpu_params = api.init_params(torch.Generator(device=dev).manual_seed(1), cfg)
     cpu_params = layers.map_leaves(lambda t: t.cpu(), gpu_params)
     caches = [api.init_cache(cfg, batch, steps + 1, device=dev),
@@ -3596,24 +3667,37 @@ def card_vs_cpu(label, api, layers, swa, cfg, dev, batch, steps, gate: bool) -> 
     toks = torch.randint(0, cfg.vocab_size, (steps, batch, 1),
                          generator=torch.Generator().manual_seed(2), dtype=torch.int32)
     worst, launches = 0.0, 0
+    routes = (RouteRecorder(moe), RouteRecorder(moe)) if moe is not None else None
     for t in range(steps):
         swa.reset_launches()
-        caches[0], got = step(gpu_params, caches[0], toks[t].to(dev))
+        if routes:
+            with routes[0]:
+                caches[0], got = step(gpu_params, caches[0], toks[t].to(dev))
+        else:
+            caches[0], got = step(gpu_params, caches[0], toks[t].to(dev))
         launches += swa.LAUNCHES["swa_decode"]
-        caches[1], want = step(cpu_params, caches[1], toks[t])
+        if routes:
+            with routes[1]:
+                caches[1], want = step(cpu_params, caches[1], toks[t])
+        else:
+            caches[1], want = step(cpu_params, caches[1], toks[t])
         got = got.cpu()
         check(bool(torch.isfinite(got).all()), f"{label}: non-finite logits at step {t}")
         worst = max(worst, float((got - want).abs().max() / want.abs().max()))
-    if gate:
+    diffs = slot_diffs(*routes) if routes else None
+    gated = gate and not diffs
+    if gated:
         check(worst <= LM_GATE, f"{label}: card vs CPU max rel |dlogit| {worst:.3e} > {LM_GATE}")
     print(f"  {label} card vs CPU ({cfg.name}, {cfg.n_layers} layers d={cfg.d_model} {cfg.dtype}, "
           f"batch {batch}, {steps} steps teacher-forced): max |dlogit| / max |logit| "
-          f"{worst:.3e}{' (gate ' + str(LM_GATE) + ')' if gate else ' (recorded)'}; "
-          f"swa_decode launches {launches}")
+          f"{worst:.3e}{' (gate ' + str(LM_GATE) + ')' if gated else ' (recorded)'}; "
+          f"swa_decode launches {launches}"
+          + (f"; expert slots differing {diffs}" if routes else ""))
     del gpu_params, cpu_params, caches
     torch.cuda.empty_cache()
     return dict(max_rel_logit_diff=worst, launches=launches, steps=steps, batch=batch,
-                layers=cfg.n_layers, dtype=str(cfg.dtype))
+                layers=cfg.n_layers, dtype=str(cfg.dtype), expert_slots_differing=diffs,
+                gated=gated)
 
 
 def hybrid_phase(configs, api, layers, serve, rglru, swa, kref, dev, name, smi) -> dict:
@@ -3699,21 +3783,23 @@ FED_TAIL = 4113                 # (f) the row cut by this much leaves an 8,175-w
                                 # (d = 1,486,901,248 is 4,096 past its last whole block)
 
 
-def train_run(label, train, arch, name, smi) -> dict:
-    """``launch/train.main`` production at the published config
-    (``TRAIN_FULL``) on the card: ms a step (the first excluded), tokens/s,
-    peak memory; the losses must be finite."""
+def train_run(label, train, arch, name, smi, argv=TRAIN_FULL) -> dict:
+    """``launch/train.main`` production at the published config (``argv``:
+    ``TRAIN_FULL`` unless given) on the card: ms a step (the first
+    excluded), tokens/s, peak memory; the losses must be finite."""
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    out = train.main(["production", "--arch", arch, *TRAIN_FULL])
+    out = train.main(["production", "--arch", arch, *argv])
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     check(out["finite"], f"{label}: non-finite losses {out['losses']}")
     step_ms = [s * 1e3 for s in out["step_s"]]
     res = dict(arch=arch, losses=out["losses"], step_ms=step_ms,
                ms_per_step=sum(step_ms[1:]) / len(step_ms[1:]), tokens_per_s=out["tokens_per_s"],
                peak_gib=peak_gib)
-    print(f"  {label}: {arch} published config, batch 4 x 512, 5 steps: "
+    shape = dict(zip(argv[1::2], argv[2::2]))
+    print(f"  {label}: {arch} published config, batch {shape['--batch']} x {shape['--seq']}, "
+          f"{shape['--steps']} steps: "
           f"{res['ms_per_step']:.1f} ms a step after the first ({step_ms[0]:.1f} ms), "
           f"{res['tokens_per_s']:.0f} tokens/s, peak {peak_gib:.2f} GiB, losses "
           f"{[round(x, 4) for x in out['losses']]}  on {name} ({smi})")
@@ -3745,11 +3831,14 @@ def checkpoint_on_card(train, configs, api, sgd, CheckpointStore, dev, workdir) 
     return dict(bitwise=same, resumed_at=second["start"])
 
 
-def train_card_vs_cpu(label, api, layers, sgd, cfg, dev) -> dict:
+def train_card_vs_cpu(label, api, layers, sgd, cfg, dev, moe=None) -> dict:
     """One ``make_train_step`` on the card and on the CPU from the same
-    weights (drawn on the card from seed 1, copied) and tokens: loss within
-    ``TRAIN_LOSS_GATE`` relative and every leaf's update (new - old) within
-    ``TRAIN_UPDATE_GATE`` of the largest update coordinate, in f32."""
+    weights (drawn on the card from seed 1, copied) and tokens (and frames,
+    for an enc-dec model): loss within ``TRAIN_LOSS_GATE`` relative and
+    every leaf's update (new - old) within ``TRAIN_UPDATE_GATE`` of the
+    largest update coordinate, in f32.  With ``moe`` a forward on each
+    side records the expert ids, and the gates hold only where no
+    token-slot's id differs (``card_vs_cpu``)."""
     gpu = api.init_params(torch.Generator(device=dev).manual_seed(1), cfg)
     cpu = layers.map_leaves(lambda t: t.cpu(), gpu)
     g = torch.Generator().manual_seed(2)
@@ -3758,6 +3847,18 @@ def train_card_vs_cpu(label, api, layers, sgd, cfg, dev) -> dict:
     if cfg.n_visual_tokens:
         batch["visual_embeds"] = torch.randn((TRAIN_VS_CPU_BATCH, cfg.n_visual_tokens,
                                               cfg.d_model), generator=g).to(cfg.dtype)
+    if cfg.family == "encdec":
+        batch["audio_embeds"] = torch.randn((TRAIN_VS_CPU_BATCH, cfg.n_audio_frames,
+                                             cfg.d_model), generator=g).to(cfg.dtype)
+    diffs = None
+    if moe is not None:
+        routes = (RouteRecorder(moe), RouteRecorder(moe))
+        with torch.no_grad():
+            with routes[0]:
+                moe.forward(gpu, {k: v.to(dev) for k, v in batch.items()}, cfg)
+            with routes[1]:
+                moe.forward(cpu, batch, cfg)
+        diffs = slot_diffs(*routes)
     step = api.make_train_step(cfg)
     new_g, loss_g = step(gpu, {k: v.to(dev) for k, v in batch.items()})
     new_c, loss_c = step(cpu, batch)
@@ -3769,7 +3870,7 @@ def train_card_vs_cpu(label, api, layers, sgd, cfg, dev) -> dict:
         worst = max(worst, float((ug - uc).abs().max()))
         biggest = max(biggest, float(uc.abs().max()))
     upd_rel = worst / biggest
-    gate = cfg.dtype == torch.float32
+    gate = cfg.dtype == torch.float32 and not diffs
     if gate:
         check(math.isfinite(float(loss_g)) and loss_rel <= TRAIN_LOSS_GATE,
               f"{label}: card loss {float(loss_g)} vs CPU {float(loss_c)} ({loss_rel:.3e})")
@@ -3779,11 +3880,13 @@ def train_card_vs_cpu(label, api, layers, sgd, cfg, dev) -> dict:
           f"{cfg.dtype}, batch {TRAIN_VS_CPU_BATCH} x {TRAIN_VS_CPU_SEQ}, lr "
           f"{cfg.learning_rate:g}): loss {float(loss_g):.6f} vs {float(loss_c):.6f} (rel "
           f"{loss_rel:.3e}), update max |diff| / max |update| {upd_rel:.3e}"
-          + (f" (gates {TRAIN_LOSS_GATE}, {TRAIN_UPDATE_GATE})" if gate else " (recorded)"))
+          + (f" (gates {TRAIN_LOSS_GATE}, {TRAIN_UPDATE_GATE})" if gate else " (recorded)")
+          + (f"; expert slots differing {diffs}" if moe is not None else ""))
     del gpu, cpu, new_g, new_c
     torch.cuda.empty_cache()
     return dict(loss_card=float(loss_g), loss_cpu=float(loss_c), loss_rel=loss_rel,
-                update_rel=upd_rel, layers=cfg.n_layers, dtype=str(cfg.dtype))
+                update_rel=upd_rel, layers=cfg.n_layers, dtype=str(cfg.dtype),
+                expert_slots_differing=diffs, gated=gate)
 
 
 def prefill_phase(configs, api, serve, rglru, swa, hybrid_serve, dev, name, smi) -> dict:
@@ -4050,6 +4153,234 @@ def lm_train_phase(mods, hybrid_serve, dev, name, smi, workdir) -> dict:
     out["pods"] = pod_phase(configs, dev, name, smi, workdir)
     out["federated-llm"] = fed_llm_phase(federated_llm, configs, api, sgd, comp, kops, kq8,
                                          kref, lm_batches, dev, name, smi)
+    return out
+
+
+# --- phase 22: lm-families: the moe, ssm and encdec families, and qwen3 ------------
+
+MOE_ARCH, MOE_BATCH, MOE_PROMPT, MOE_NEW = "qwen2-moe-a2.7b", 8, 128, 32          # (a) uncut
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 12, 4, 512, 5  # (b)
+GROK_ARCH, GROK_LAYERS, GROK_BATCH, GROK_PROMPT, GROK_NEW = "grok-1-314b", 2, 8, 32, 16  # (c)
+SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_NEW = "mamba2-2.7b", 8, 128, 32               # (d) uncut
+SSM_PREFILL_BATCH, SSM_PREFILL_SEQ = 8, 256
+ED_ARCH, ED_BATCH, ED_PROMPT, ED_NEW = "whisper-medium", 8, 128, 32               # (e) uncut
+ED_TRAIN = ["--full", "--steps", "5", "--batch", "4", "--seq", "448"]   # whisper's decoder context
+QWEN3_ARCH, QWEN3_LAYERS, QWEN3_BATCH, QWEN3_PROMPT, QWEN3_NEW = "qwen3-14b", 2, 8, 128, 32  # (f)
+# (g) card vs CPU, f32: label -> (arch, layers at full width (an enc-dec model:
+# both stacks) or None for REDUCED).
+FAMILY_VS_CPU = {"qwen2-moe full width": ("qwen2-moe-a2.7b", 2),
+                 "mamba2 full width": ("mamba2-2.7b", 2),
+                 "whisper full width": ("whisper-medium", 2),
+                 "qwen3-14b REDUCED": ("qwen3-14b", None),
+                 "qwen3-32b REDUCED": ("qwen3-32b", None),
+                 "grok-1 REDUCED": ("grok-1-314b", None)}
+FAMILY_VS_CPU_STEPS = 16
+ED_INVARIANT_BATCH, ED_INVARIANT_LEN = 2, 32
+FAMILY_SERVE_RUNS = ("moe-serve", "grok-decode", "encdec-decode", "qwen3-decode")  # on swa_decode
+
+
+def cut_stacks(cfg, layers):
+    """``cut`` of both stacks of an enc-dec model, of the one stack
+    otherwise."""
+    if layers is None or cfg.family != "encdec":
+        return cut(cfg, layers)
+    return cfg.replace(n_layers=layers, n_enc_layers=layers)
+
+
+def draw_batch(cfg, dev, g, batch, seq) -> dict:
+    """Tokens (and an enc-dec model's frames, in its dtype), as
+    ``launch/train`` production draws them."""
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq), generator=g, device=dev,
+                                   dtype=torch.int32)}
+    if cfg.family == "encdec":
+        out["audio_embeds"] = torch.randn((batch, cfg.n_audio_frames, cfg.d_model), generator=g,
+                                          device=dev).to(cfg.dtype)
+    return out
+
+
+def moe_train(label, api, moe, cfg, dev, name, smi) -> dict:
+    """(b) ``make_train_step`` of a MoE cut by depth, driven as
+    ``launch/train`` production drives it (params from seed 0, a fresh
+    batch a step from the run's generator, the loss read back): ms a step
+    after the first, tokens/s, peak memory, finite losses, and the router
+    aux (summed over the layers) of a forward on the last batch."""
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = api.init_params(g, cfg)
+    step = api.make_train_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        batch = draw_batch(cfg, dev, g, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, loss = step(params, batch)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    with torch.no_grad():
+        aux = float(moe.forward(params, batch, cfg)[1])
+    check(all(math.isfinite(x) for x in losses) and math.isfinite(aux),
+          f"{label}: non-finite losses {losses} or aux {aux}")
+    ms = sum(step_ms[1:]) / len(step_ms[1:])
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    cap = moe.capacity(cfg, min(moe.MOE_GROUP, tokens))
+    print(f"  {label}: {cfg.name} at full width, {cfg.n_layers} layers {cfg.dtype} remat, batch "
+          f"{MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ} (capacity {cap}), {MOE_TRAIN_STEPS} steps: "
+          f"{ms:.1f} ms a step after the first ({step_ms[0]:.1f} ms), "
+          f"{tokens / (ms / 1e3):.0f} tokens/s, peak {peak_gib:.2f} GiB, losses "
+          f"{[round(x, 4) for x in losses]}, router aux {aux:.4f}  on {name} ({smi})")
+    del params
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, capacity=cap, losses=losses, step_ms=step_ms,
+                ms_per_step=ms, tokens_per_s=tokens / (ms / 1e3), peak_gib=peak_gib,
+                router_aux=aux)
+
+
+def forward_prefill(label, api, cfg, dev, batch, seq, stepped, name, smi) -> dict:
+    """``make_prefill_step`` of ``cfg`` (seed-0 weights and inputs on the
+    card) at batch x seq: ms a call (3 calls after a first), prompt
+    tokens/s and peak memory, beside ``stepped``, the ``lm_serve`` run's
+    token-stepped prefill."""
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = api.init_params(g, cfg)
+    inputs = draw_batch(cfg, dev, g, batch, seq)
+    prefill = api.make_prefill_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        h = prefill(params, inputs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(h.shape == (batch, cfg.d_model) and bool(torch.isfinite(h.float()).all()),
+          f"{label}: bad last hidden state")
+    ms = sum(times[1:]) / len(times[1:])
+    tok_s = batch * seq / (ms / 1e3)
+    print(f"  {label}: {cfg.name} {cfg.dtype}, batch {batch} x {seq}: make_prefill_step "
+          f"{ms:.2f} ms ({tok_s:.0f} prompt tokens/s; first call {times[0]:.1f} ms), peak "
+          f"{peak_gib:.2f} GiB; token-stepped prefill of {stepped['batch']} x "
+          f"{stepped['prompt_len']}: {stepped['prefill_s'] * 1e3:.1f} ms "
+          f"({stepped['prefill_tok_s']:.0f} tokens/s)  on {name} ({smi})")
+    del params
+    torch.cuda.empty_cache()
+    return dict(batch=batch, seq=seq, ms=ms, first_ms=times[0], prompt_tok_s=tok_s,
+                peak_gib=peak_gib, token_stepped_tok_s=stepped["prefill_tok_s"])
+
+
+def cross_kv_prepare(encdec, cfg, dev, batch):
+    """``lm_serve``'s ``prepare`` for an enc-dec model: random frames
+    (seed 3 on the card) through the encoder into every layer's cross K/V
+    (``precompute_cross_kv``)."""
+    def prepare(params, cache):
+        g = torch.Generator(device=dev).manual_seed(3)
+        audio = torch.randn((batch, cfg.n_audio_frames, cfg.d_model), generator=g,
+                            device=dev).to(cfg.dtype)
+        with torch.no_grad():
+            ck, cv = encdec.precompute_cross_kv(params, encdec.encode(params, audio, cfg), cfg)
+        return cache._replace(cross_k=ck, cross_v=cv)
+    return prepare
+
+
+def encdec_invariant(api, encdec, cfg, dev, name, smi) -> dict:
+    """(g) On the card, f32: teacher-forced decode from the cross K/V of
+    ``precompute_cross_kv`` gives the full-sequence forward's logits (its
+    last hidden states through the tied embedding) at every position,
+    within ``LM_GATE`` of the largest."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    params = api.init_params(g, cfg)
+    batch = draw_batch(cfg, dev, g, ED_INVARIANT_BATCH, ED_INVARIANT_LEN)
+    with torch.no_grad():
+        want = encdec.forward(params, batch, cfg) @ params.embed.T
+        ck, cv = encdec.precompute_cross_kv(
+            params, encdec.encode(params, batch["audio_embeds"], cfg), cfg)
+    cache = api.init_cache(cfg, ED_INVARIANT_BATCH, ED_INVARIANT_LEN, device=dev)
+    cache = cache._replace(cross_k=ck, cross_v=cv)
+    step = api.make_serve_step(cfg)
+    worst = 0.0
+    for t in range(ED_INVARIANT_LEN):
+        cache, logits = step(params, cache, batch["tokens"][:, t:t + 1])
+        w = want[:, t]
+        worst = max(worst, float((logits[:, 0] - w).abs().max() / w.abs().max()))
+    check(worst <= LM_GATE, f"encdec invariant: decode vs forward {worst:.3e} > {LM_GATE}")
+    print(f"  encdec invariant ({cfg.name}, {cfg.n_enc_layers} + {cfg.n_layers} layers d="
+          f"{cfg.d_model} {cfg.dtype}, batch {ED_INVARIANT_BATCH}, {ED_INVARIANT_LEN} positions, "
+          f"{cfg.n_audio_frames} frames): decode after precompute_cross_kv vs forward max "
+          f"|dlogit| / max |logit| {worst:.3e} (gate {LM_GATE})  on {name} ({smi})")
+    del params, cache, ck, cv
+    torch.cuda.empty_cache()
+    return dict(max_rel_logit_diff=worst, positions=ED_INVARIANT_LEN, layers=cfg.n_layers)
+
+
+def lm_family_phase(mods, dev, name, smi) -> dict:
+    """Phase 22: the moe, ssm and encdec families and qwen3; (a)-(g) of
+    the module docstring."""
+    train, configs, api, layers, serve, swa, kref, sgd, moe, encdec = mods
+    out = {}
+    full = configs.get(MOE_ARCH)
+    run = lm_serve("moe-serve", api, serve, swa, kref, full, dev, MOE_BATCH, MOE_PROMPT, MOE_NEW,
+                   name, smi)
+    want = full.n_layers * (MOE_PROMPT + MOE_NEW)
+    check(run["launches"] == want, f"moe-serve: {run['launches']} swa_decode launches, "
+          f"expected {want}")
+    out["moe-serve"] = run
+    out["moe-train"] = moe_train("moe-train", api, moe, cut(full, MOE_TRAIN_LAYERS), dev, name,
+                                 smi)
+    gcfg = cut(configs.get(GROK_ARCH), GROK_LAYERS)
+    run = lm_serve("grok-decode", api, serve, swa, kref, gcfg, dev, GROK_BATCH, GROK_PROMPT,
+                   GROK_NEW, name, smi)
+    want = GROK_LAYERS * (GROK_PROMPT + GROK_NEW)
+    check(run["launches"] == want, f"grok-decode: {run['launches']} swa_decode launches, "
+          f"expected {want}")
+    out["grok-decode"] = run
+
+    out["ssm-train"] = train_run("ssm-train", train, SSM_ARCH, name, smi)
+    scfg = configs.get(SSM_ARCH)
+    run = lm_serve("ssm-decode", api, serve, swa, kref, scfg, dev, SSM_BATCH, SSM_PROMPT,
+                   SSM_NEW, name, smi)
+    check(run["launches"] == 0, "ssm-decode launched swa_decode")
+    out["ssm-decode"] = run
+    out["ssm-prefill"] = forward_prefill("ssm-prefill", api, scfg, dev, SSM_PREFILL_BATCH,
+                                         SSM_PREFILL_SEQ, run, name, smi)
+
+    out["encdec-train"] = train_run("encdec-train", train, ED_ARCH, name, smi, argv=ED_TRAIN)
+    ecfg = configs.get(ED_ARCH)
+    run = lm_serve("encdec-decode", api, serve, swa, kref, ecfg, dev, ED_BATCH, ED_PROMPT, ED_NEW,
+                   name, smi, prepare=cross_kv_prepare(encdec, ecfg, dev, ED_BATCH))
+    want = ecfg.n_layers * (ED_PROMPT + ED_NEW)
+    check(run["launches"] == want, f"encdec-decode: {run['launches']} swa_decode launches, "
+          f"expected {want}")
+    out["encdec-decode"] = run
+    out["encdec-prefill"] = forward_prefill("encdec-prefill", api, ecfg, dev, ED_BATCH,
+                                            ED_PROMPT, run, name, smi)
+
+    qcfg = cut(configs.get(QWEN3_ARCH), QWEN3_LAYERS)
+    run = lm_serve("qwen3-decode", api, serve, swa, kref, qcfg, dev, QWEN3_BATCH, QWEN3_PROMPT,
+                   QWEN3_NEW, name, smi)
+    want = QWEN3_LAYERS * (QWEN3_PROMPT + QWEN3_NEW)
+    check(run["launches"] == want, f"qwen3-decode: {run['launches']} swa_decode launches, "
+          f"expected {want}")
+    out["qwen3-decode"] = run
+
+    vs_cpu = {}
+    for label, (arch, lay) in FAMILY_VS_CPU.items():
+        cfg = cut_stacks(configs.get(arch, reduced=lay is None), lay).replace(
+            dtype=torch.float32, learning_rate=TRAIN_VS_CPU_LR)
+        fam = moe if cfg.family == "moe" else None
+        res = {"train": train_card_vs_cpu(label, api, layers, sgd, cfg, dev, moe=fam),
+               "decode": card_vs_cpu(label, api, layers, swa, cfg, dev, 2, FAMILY_VS_CPU_STEPS,
+                                     gate=True, moe=fam)}
+        want = 0 if cfg.family == "ssm" else cfg.n_layers * FAMILY_VS_CPU_STEPS
+        check(res["decode"]["launches"] == want,
+              f"{label}: {res['decode']['launches']} swa_decode launches, expected {want}")
+        vs_cpu[label] = res
+    out["card_vs_cpu"] = vs_cpu
+    out["encdec_invariant"] = encdec_invariant(
+        api, encdec, cut_stacks(ecfg, 2).replace(dtype=torch.float32), dev, name, smi)
     return out
 
 
@@ -4330,6 +4661,10 @@ def main(argv: list[str]) -> int:
         lm = lm_train_phase((lm_train, lm_configs, lm_api, lm_layers, lm_launch, rglru, swa, kref,
                              sgd, CheckpointStore, comp, kops, kq8, federated_llm, lm_batches),
                             hybrid["hybrid-serve"], dev, name, smi, Path(tmp))
+    phase("22. lm-families (main path): the moe, ssm and encdec families, and qwen3")
+    from repro_torch.models import encdec, moe
+    families = lm_family_phase((lm_train, lm_configs, lm_api, lm_layers, lm_launch, swa, kref, sgd,
+                                moe, encdec), dev, name, smi)
     phase("done")
 
     kernels = []
@@ -4428,15 +4763,16 @@ def main(argv: list[str]) -> int:
         "replaces": replaces,
         "launches": hybrid["hybrid-serve"]["launches"],
         "max_abs_err": max([swa_err["max_abs_err"]] + [
-            run["path_check"]["max_abs_err"] for run in (hybrid["hybrid-serve"],
-                                                         hybrid["hybrid-window"],
-                                                         dense["dense-decode"])]),
+            run["path_check"]["max_abs_err"] for run in (
+                hybrid["hybrid-serve"], hybrid["hybrid-window"], dense["dense-decode"],
+                *(families[k] for k in FAMILY_SERVE_RUNS))]),
         **swa_timing,
         "launches_by_path": {"hybrid-serve": hybrid["hybrid-serve"]["launches"],
                              "hybrid-window": hybrid["hybrid-window"]["launches"],
                              "dense-decode": dense["dense-decode"]["launches"],
                              "lm-train prefill check (token-stepped)":
-                                 lm["prefill"]["swa_launches"]},
+                                 lm["prefill"]["swa_launches"],
+                             **{k: families[k]["launches"] for k in FAMILY_SERVE_RUNS}},
     })
     print(json.dumps({"lm": {"swa_check": swa_err, "hybrid": hybrid, "dense": dense}}))
     print(json.dumps({"flat": flat}))
@@ -4444,8 +4780,10 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"async": async_res}))
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"lm_train": lm}))
+    print(json.dumps({"lm_families": families}))
     print("phase seconds: " + ", ".join(f"{k.split('.')[0]} {v:.1f}" for k, v in PHASE_S.items()
-                                        if k != "done"))
+                                        if k != "done")
+          + f"; script {time.perf_counter() - START:.1f} s  on {name} ({smi})")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

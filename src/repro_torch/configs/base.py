@@ -1,13 +1,12 @@
 """Configuration system: architecture + input-shape configs.
 
-A copy of ``repro.configs.base`` with ``dtype`` a torch dtype, cut to the
-fields of the ported families (dense, vlm, hybrid) and training: the MoE,
-SSM, enc-dec and dry-run fields wait for the slice that ports them
-(ROADMAP queue 1 item 16).  Each ported architecture has a module
-``repro_torch/configs/<id>.py`` exporting ``CONFIG`` (exact published
-spec, source cited) and ``REDUCED`` (the small smoke variant), the
-reference's values of those fields.  ``repro_torch.configs.get(name)``
-resolves either by arch id.
+A copy of ``repro.configs.base`` with ``dtype`` a torch dtype.  Every field
+of the reference is here with its default except ``scan_unroll``, a knob of
+JAX's layer scan (the dry run's cost analysis) that the port, which loops
+over the layers in Python, has no use for.  Each architecture has a module
+``repro_torch/configs/<id>.py`` exporting ``CONFIG`` (exact published spec,
+source cited) and ``REDUCED`` (the small smoke variant), the reference's
+values.  ``repro_torch.configs.get(name)`` resolves either by arch id.
 """
 from __future__ import annotations
 
@@ -20,7 +19,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | hybrid | vlm (the others are not ported)
+    family: str                    # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -39,10 +38,25 @@ class ModelConfig:
     post_norms: bool = False            # gemma2 sandwich norms
     query_scale: float | None = None    # gemma2 query_pre_attn_scalar
     embed_scale: bool = False           # gemma-style sqrt(d) embedding scaling
+    # MoE
+    n_experts: int = 0
+    n_experts_per_tok: int = 0
+    n_shared_experts: int = 0
+    moe_d_ff: int | None = None         # per-expert hidden (defaults to d_ff)
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    # SSM (mamba2)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 64
+    conv_width: int = 4                 # temporal conv of the ssm and recurrent blocks
     # hybrid (recurrentgemma): block pattern, e.g. ("rec", "rec", "attn")
     block_pattern: tuple[str, ...] = ()
     rglru_c: float = 8.0
-    conv_width: int = 4                 # temporal conv of the recurrent block
+    # enc-dec (whisper)
+    n_enc_layers: int = 0
+    n_audio_frames: int = 1500          # conv-frontend output length (stub)
     # vlm
     n_visual_tokens: int = 0            # prefix patch-embedding tokens (stub)
     # numerics
@@ -58,18 +72,48 @@ class ModelConfig:
     def replace(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    @property
+    def moe_hidden(self) -> int:
+        return self.moe_d_ff if self.moe_d_ff is not None else self.d_ff
+
     def param_count(self) -> int:
-        """Approximate parameter count, the reference's formula for the
-        ported families (the recurrent blocks are counted as attention, as
-        there)."""
-        if self.family not in ("dense", "vlm", "hybrid"):
-            raise NotImplementedError(
-                f"the {self.family!r} family is not ported (ROADMAP queue 1 item 16)")
+        """Approximate parameter count, the reference's formula (the
+        recurrent blocks are counted as attention, as there)."""
         d, hd = self.d_model, self.head_dim
         attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
-        per = attn + 3 * d * self.d_ff + 2 * d
+        if self.family == "ssm":
+            d_in = self.ssm_expand * d
+            nh = d_in // self.ssm_head_dim
+            per = (
+                d * (2 * d_in + 2 * self.ssm_state + nh)   # in_proj(z,x,B,C,dt)
+                + self.conv_width * (d_in + 2 * self.ssm_state)
+                + d_in * d                                  # out_proj
+                + d_in + 2 * nh                             # norm, A, D
+            )
+            return self.n_layers * per + 2 * self.vocab_size * d
+        mlp = 3 * d * self.d_ff
+        if self.family == "moe":
+            mlp = 3 * d * self.moe_hidden * (self.n_experts + self.n_shared_experts)
+            mlp += d * self.n_experts                       # router
+        per = attn + mlp + 2 * d
+        total = self.n_layers * per
+        if self.family == "encdec":
+            total += self.n_enc_layers * (attn + 3 * d * self.d_ff + 2 * d)
+            total += self.n_layers * attn                   # cross-attention
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        return self.n_layers * per + emb
+        return total + emb
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: routed top-k + shared only)."""
+        if self.family != "moe":
+            return self.param_count()
+        d = self.d_model
+        dense_like = self.replace(family="dense", d_ff=0).param_count()
+        active_mlp = (
+            3 * d * self.moe_hidden
+            * (self.n_experts_per_tok + self.n_shared_experts)
+        )
+        return dense_like + self.n_layers * active_mlp
 
 
 @dataclasses.dataclass(frozen=True)

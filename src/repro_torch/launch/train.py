@@ -12,7 +12,8 @@ Two entry modes:
 
   production — plain-SGD training of an assigned language model
                (``models/api.make_train_step``) on random token batches
-               drawn on the device; REDUCED config unless ``--full``; with
+               (and an enc-dec model's random frame embeddings) drawn on
+               the device; REDUCED config unless ``--full``; with
                ``--ckpt-dir`` it resumes from the latest checkpoint there
                and saves every ``--ckpt-every`` steps and at the end.
 
@@ -93,6 +94,10 @@ def run_production(args: argparse.Namespace, dev: torch.device) -> dict:
     for i in range(start, start + args.steps):
         batch = {"tokens": torch.randint(0, cfg.vocab_size, (args.batch, args.seq), generator=g,
                                          device=dev, dtype=torch.int32)}
+        if cfg.family == "encdec":
+            batch["audio_embeds"] = torch.randn(
+                (args.batch, cfg.n_audio_frames, cfg.d_model), generator=g, device=dev,
+            ).to(cfg.dtype)
         if cfg.n_visual_tokens > 0:
             batch["visual_embeds"] = torch.randn(
                 (args.batch, cfg.n_visual_tokens, cfg.d_model), generator=g, device=dev,

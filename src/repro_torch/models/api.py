@@ -2,11 +2,11 @@
 train / prefill / serve step builders and the decode cache of
 ``repro.models.api``.
 
-Ported families: ``dense`` and ``vlm`` (``models/transformer``) and
-``hybrid`` (``models/rglru``).  ``moe``, ``ssm`` and ``encdec`` raise
-``NotImplementedError`` (ROADMAP queue 1 item 16), as do the dry-run
-builders (``abstract_params``, ``input_specs``, ...), which are not
-ported.
+Families: ``dense`` and ``vlm`` (``models/transformer``), ``moe``
+(``models/moe``), ``ssm`` (``models/ssm``), ``hybrid`` (``models/rglru``)
+and ``encdec`` (``models/encdec``).  The dry-run builders
+(``abstract_params``, ``input_specs``, ...) are not ported (ROADMAP queue 1
+item 16, the launch tooling).
 
 Gradients come from ``optim/sgd.grad_and_value``, ``torch.autograd.grad``
 over copies of the leaves: ``torch.func.grad`` refuses a loss that runs
@@ -20,7 +20,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rglru, transformer
+from repro_torch.models import encdec, moe, rglru, ssm, transformer
 from repro_torch.optim import sgd
 
 Params = Any
@@ -28,15 +28,16 @@ Params = Any
 _FAMILY = {
     "dense": transformer,
     "vlm": transformer,
+    "moe": moe,
+    "ssm": ssm,
     "hybrid": rglru,
+    "encdec": encdec,
 }
 
 
 def module(cfg: ModelConfig):
     if cfg.family not in _FAMILY:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family ({cfg.name}) is not ported (ROADMAP queue 1 item 16)"
-        )
+        raise ValueError(f"unknown model family {cfg.family!r} ({cfg.name})")
     return _FAMILY[cfg.family]
 
 
@@ -47,8 +48,9 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Params:
 
 def loss_fn(cfg: ModelConfig) -> Callable[[Params, dict], torch.Tensor]:
     """``loss(params, batch) -> f32 scalar``, the family's next-token
-    cross-entropy; ``batch["tokens"]`` (b, s) int (+ a VLM's
-    ``visual_embeds``)."""
+    cross-entropy (plus the router aux loss of a MoE); ``batch["tokens"]``
+    (b, s) int (+ a VLM's ``visual_embeds``, an enc-dec model's
+    ``audio_embeds``)."""
     mod = module(cfg)
     return lambda params, batch: mod.loss(params, batch, cfg)
 
@@ -90,12 +92,16 @@ def make_train_step(cfg: ModelConfig) -> Callable:
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     """Forward-only full-sequence step: ``prefill_step(params, batch) ->
-    the last position's hidden state (b, d)`` after the final norm."""
+    the last position's hidden state (b, d)`` after the final norm (a
+    MoE's forward also returns its aux loss, which is dropped)."""
     mod = module(cfg)
 
     def prefill_step(params: Params, batch: dict) -> torch.Tensor:
         with torch.no_grad():
-            return mod.forward(params, batch, cfg)[:, -1, :]
+            h = mod.forward(params, batch, cfg)
+            if cfg.family == "moe":
+                h = h[0]
+            return h[:, -1, :]
 
     return prefill_step
 

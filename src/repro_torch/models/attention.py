@@ -82,13 +82,20 @@ def full_attention(
     upcasts), soft-capped, masked with ``NEG_INF`` outside the causal
     window (key positions t with q - window < t <= q), softmax in f32 cast
     back to x's dtype before the PV product, as in the reference.  Plain
-    PyTorch, as the reference's plain ``jnp`` is.  ``cross_kv`` is the
-    enc-dec family's cross-attention, not ported."""
-    if cross_kv is not None:
-        raise NotImplementedError(
-            "cross-attention (the encdec family) is not ported (ROADMAP queue 1 item 16)")
+    PyTorch, as the reference's plain ``jnp`` is.
+
+    ``cross_kv = (k, v)``, each (b, t, n_kv, head_dim), is the enc-dec
+    family's cross-attention: q alone is projected (with its q-norm when
+    there is one), k and v are taken as they are (no rope), and neither
+    the causal nor the window mask applies."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, x, positions, rope_theta)
+    if cross_kv is None:
+        q, k, v = _project_qkv(p, x, positions, rope_theta)
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+        if p.q_norm is not None:
+            q = L.rms_norm(q, p.q_norm)
+        k, v = cross_kv
     n_heads, head_dim = q.shape[-2], q.shape[-1]
     n_kv = k.shape[-2]
     g = n_heads // n_kv
@@ -102,9 +109,9 @@ def full_attention(
     qpos = positions[:, :, None]                    # (b, s_q, 1)
     kpos = torch.arange(k.shape[1], device=x.device)[None, None, :]
     mask = torch.ones((b, s, k.shape[1]), dtype=torch.bool, device=x.device)
-    if causal:
+    if causal and cross_kv is None:
         mask &= kpos <= qpos
-    if window is not None:
+    if window is not None and cross_kv is None:
         mask &= kpos > qpos - window
     scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
@@ -129,6 +136,22 @@ def init_cache(
         k=torch.zeros((batch, max_seq, n_kv, head_dim), dtype=dtype, device=device),
         v=torch.zeros((batch, max_seq, n_kv, head_dim), dtype=dtype, device=device),
         length=torch.zeros((batch,), dtype=torch.int32, device=device),
+    )
+
+
+def init_layer_caches(
+    n_layers: int, batch: int, max_seq: int, n_kv: int, head_dim: int,
+    dtype: torch.dtype = torch.bfloat16, device: torch.device | str | None = None,
+) -> KVCache:
+    """``n_layers`` zero caches stacked along a leading layer axis, as the
+    reference broadcasts ``init_cache`` over a model's layers; ``device=None``
+    means the card."""
+    device = _device.resolve(device)
+    shape = (n_layers, batch, max_seq, n_kv, head_dim)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        length=torch.zeros((n_layers, batch), dtype=torch.int32, device=device),
     )
 
 

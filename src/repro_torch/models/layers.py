@@ -11,6 +11,7 @@ tests carry the reference's own params across with ``from_numpy``).
 """
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import numpy as np
@@ -24,11 +25,27 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm in f32 scaled by ``1 + scale``, cast back to x's dtype."""
     xf = x.to(torch.float32)
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
+    return out.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 (biased variance), cast back to x's dtype."""
+    xf = x.to(torch.float32)
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
+    out = (xf - mean) * torch.rsqrt(var + eps)
+    out = out * scale.to(torch.float32) + bias.to(torch.float32)
     return out.to(x.dtype)
 
 
@@ -57,6 +74,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(length: int, dim: int,
+                         device: torch.device | str | None = None) -> torch.Tensor:
+    """Classic transformer sinusoidal table (whisper), (length, dim) f32:
+    sin in the even columns, cos in the odd ones."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / dim))
+    tab = torch.zeros((length, dim), dtype=torch.float32, device=device)
+    tab[:, 0::2] = torch.sin(pos * div)
+    tab[:, 1::2] = torch.cos(pos * div)
+    return tab
+
+
 def dense_init(generator: torch.Generator, shape: tuple[int, ...],
                dtype: torch.dtype = torch.bfloat16, scale: float | None = None) -> torch.Tensor:
     """N(0, 1) * scale in f32 (scale fan_in**-0.5 by default), then cast;
@@ -79,6 +109,12 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     """Gated MLP: down( act(x @ gate) * (x @ up) )."""
     h = act(x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
+             w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
+    """Whisper-style biased GELU MLP (the tanh GELU, as ``jax.nn.gelu``)."""
+    return gelu(x @ w_in + b_in) @ w_out + b_out
 
 
 def _chunk_loss(hc: torch.Tensor, unembed: torch.Tensor, tc: torch.Tensor, mc: torch.Tensor,
@@ -149,3 +185,44 @@ def map_leaves(fn, tree):
         items = [map_leaves(fn, x) for x in tree]
         return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
     return fn(tree)
+
+
+def leaves(tree) -> list:
+    """The tensor leaves of a tree of NamedTuples, tuples and ``None``s,
+    in field order."""
+    if tree is None:
+        return []
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in leaves(t)]
+    return [tree]
+
+
+def stack_layers(make: Callable[[], object], n: int):
+    """``n`` calls of ``make()``, one layer's tree each (NamedTuples with
+    ``None`` leaves), as one tree whose leaves are stacked along a leading
+    layer axis, as the reference's ``jax.vmap``-ed init gives them.  Each
+    layer is copied into the stacked leaves as it is made, so no more
+    than one layer's tree exists beside them."""
+    first = make()
+    out = map_leaves(lambda t: t.new_empty((n, *t.shape)), first)
+    for i in range(n):
+        for o, t in zip(leaves(out), leaves(first if i == 0 else make())):
+            o[i].copy_(t)
+    return out
+
+
+def layer_slice(tree, i: int):
+    """Layer ``i``'s slice (views) of a stacked tree."""
+    return map_leaves(lambda t: t[i], tree)
+
+
+def unstack_layers(tree, n: int) -> list:
+    """The ``n`` per-layer slices of a stacked tree, each leaf ``unbind``
+    once: its backward stacks the layers' gradients in one op, where an
+    index per layer would add a zero-filled stacked gradient per layer."""
+    if tree is None:
+        return [None] * n
+    if isinstance(tree, tuple):
+        parts = [unstack_layers(x, n) for x in tree]
+        return [type(tree)(*(part[i] for part in parts)) for i in range(n)]
+    return list(torch.unbind(tree, 0))

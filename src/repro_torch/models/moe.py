@@ -1,0 +1,265 @@
+"""Mixture-of-Experts decoder (qwen2-moe / grok-1); the full-sequence
+(train, prefill) and decode paths of ``repro.models.moe``.
+
+Routing is GShard/Switch-style capacity-based dispatch expressed as
+einsums: tokens are processed in groups of at most ``MOE_GROUP``, each
+group dispatches at most ``capacity`` tokens per expert, and the (group,
+tokens, experts, capacity) one-hot tensors stay bounded because capacity
+scales with the group size, not the global token count.  Expert FFN
+weights are stacked (E, ...).  Shared experts (qwen2-moe: 4 always-on) are
+a single fused swiglu of n_shared * moe_hidden width; grok-1 has none (its
+``shared_*`` leaves are None).  The router aux (load-balance) loss follows
+Switch: E * sum_e f_e * P_e.
+
+The dispatch is the reference's bookkeeping op for op, since who is
+dropped at capacity depends on it: the top k come from a stable
+descending sort (the lower expert id first among equal probabilities, as
+``jax.lax.top_k``; ``torch.topk`` orders ties otherwise), and the position
+one-hot is a comparison with ``arange(capacity)`` (``jax.nn.one_hot``
+gives a zero row for a position at or past capacity, where
+``F.one_hot`` raises).  The expert products are plain PyTorch, as the
+reference's plain einsums are.
+
+Per-layer parameters are stacked along a leading layer axis and the
+layers run in a Python loop (``cfg.remat`` checkpoints each block).  The
+decode's self-attention has no window and no soft-cap, so it takes the
+"global" window (``transformer.GLOBAL_WINDOW``) and runs the
+``swa_decode`` kernel on the card (``models/attention.decode_step``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import device as _device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import GLOBAL_WINDOW
+
+MOE_GROUP = 2048  # dispatch group size (tokens)
+
+
+class MoEMLP(NamedTuple):
+    w_router: torch.Tensor              # (d, E) f32
+    w_gate: torch.Tensor                # (E, d, ff_e)
+    w_up: torch.Tensor                  # (E, d, ff_e)
+    w_down: torch.Tensor                # (E, ff_e, d)
+    shared_gate: torch.Tensor | None    # (d, ff_s)
+    shared_up: torch.Tensor | None
+    shared_down: torch.Tensor | None
+
+
+class BlockParams(NamedTuple):
+    ln1: torch.Tensor
+    attn: attn.AttnParams
+    ln2: torch.Tensor
+    mlp: MoEMLP
+
+
+class Params(NamedTuple):
+    embed: torch.Tensor
+    blocks: BlockParams              # leaves stacked (n_layers, ...)
+    final_norm: torch.Tensor
+    unembed: torch.Tensor
+
+
+def _init_mlp(g: torch.Generator, cfg: ModelConfig) -> MoEMLP:
+    d, ffe, e = cfg.d_model, cfg.moe_hidden, cfg.n_experts
+    shared = cfg.n_shared_experts > 0
+    ffs = cfg.moe_hidden * cfg.n_shared_experts
+    return MoEMLP(
+        w_router=L.dense_init(g, (d, e), torch.float32),
+        w_gate=L.dense_init(g, (e, d, ffe), cfg.dtype, scale=d ** -0.5),
+        w_up=L.dense_init(g, (e, d, ffe), cfg.dtype, scale=d ** -0.5),
+        w_down=L.dense_init(g, (e, ffe, d), cfg.dtype, scale=ffe ** -0.5),
+        shared_gate=L.dense_init(g, (d, ffs), cfg.dtype) if shared else None,
+        shared_up=L.dense_init(g, (d, ffs), cfg.dtype) if shared else None,
+        shared_down=L.dense_init(g, (ffs, d), cfg.dtype) if shared else None,
+    )
+
+
+def _init_block(g: torch.Generator, cfg: ModelConfig) -> BlockParams:
+    d = cfg.d_model
+    return BlockParams(
+        ln1=torch.zeros((d,), dtype=cfg.dtype, device=g.device),
+        attn=attn.init(g, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.qk_norm, cfg.dtype),
+        ln2=torch.zeros((d,), dtype=cfg.dtype, device=g.device),
+        mlp=_init_mlp(g, cfg),
+    )
+
+
+def init(generator: torch.Generator, cfg: ModelConfig) -> Params:
+    """Random params with the reference's distributions and dtypes, drawn
+    on the generator's device."""
+    embed = L.embed_init(generator, cfg.vocab_size, cfg.d_model, cfg.dtype)
+    blocks = L.stack_layers(lambda: _init_block(generator, cfg), cfg.n_layers)
+    return Params(
+        embed=embed,
+        blocks=blocks,
+        final_norm=torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=generator.device),
+        unembed=L.dense_init(generator, (cfg.d_model, cfg.vocab_size), cfg.dtype),
+    )
+
+
+def from_numpy(tree, device: torch.device | str | None = None) -> Params:
+    """The reference's ``Params`` with numpy leaves (``jax.tree.map(
+    np.asarray, params)``) -> the port's on ``device``, bit for bit."""
+    dev = _device.resolve(device)
+
+    def t(a):
+        return None if a is None else L.tensor_from_array(a, dev)
+
+    b = tree.blocks
+    blocks = BlockParams(ln1=t(b.ln1), attn=attn.AttnParams(*(t(a) for a in b.attn)),
+                         ln2=t(b.ln2), mlp=MoEMLP(*(t(a) for a in b.mlp)))
+    return Params(embed=t(tree.embed), blocks=blocks, final_norm=t(tree.final_norm),
+                  unembed=t(tree.unembed))
+
+
+def to_numpy(params: Params) -> Params:
+    """The inverse of :func:`from_numpy`: host numpy leaves (bf16 as f32)."""
+    return L.map_leaves(L.array_from_tensor, params)
+
+
+def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: the k largest values and their
+    indices, the lower index first among equal values."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def capacity(cfg: ModelConfig, g_size: int) -> int:
+    """Tokens an expert takes per dispatch group, the reference's Python
+    float arithmetic."""
+    return max(1, int(cfg.capacity_factor * cfg.n_experts_per_tok * g_size / cfg.n_experts))
+
+
+def route(mlp: MoEMLP, xg: torch.Tensor, cfg: ModelConfig):
+    """The router of ``moe_apply`` over (g, t, d) groups: (dispatch (g, t,
+    E, C) f32 0/1, combine (g, t, E, C) f32 gate weights, aux loss).
+    Slot-major priority: every token's first choice is queued before any
+    second choice."""
+    n_groups, g_size, _ = xg.shape
+    logits = torch.einsum("gtd,de->gte", xg.to(torch.float32), mlp.w_router)
+    probs = torch.softmax(logits, dim=-1)                  # (g, t, E)
+    k, e = cfg.n_experts_per_tok, cfg.n_experts
+    topv, topi = top_k(probs, k)                            # (g, t, k)
+    topv = topv / torch.clamp_min(torch.sum(topv, dim=-1, keepdim=True), 1e-9)
+
+    # Aux load-balance loss (Switch): E * sum_e f_e P_e.
+    me = torch.mean(probs, dim=(0, 1))                      # (E,)
+    onehot_top = F.one_hot(topi, e).to(torch.float32)       # (g, t, k, E)
+    fe = torch.mean(torch.sum(onehot_top, dim=2), dim=(0, 1)) / k
+    aux = e * torch.sum(fe * me)
+
+    cap = capacity(cfg, g_size)
+    sel = onehot_top.permute(0, 2, 1, 3)                    # (g, k, t, E)
+    sel_flat = sel.reshape(n_groups, k * g_size, e)
+    pos = torch.cumsum(sel_flat, dim=1) - sel_flat          # rank in queue
+    keep = (pos < cap).to(torch.float32) * sel_flat
+    slots = torch.arange(cap, dtype=torch.float32, device=xg.device)
+    pos_oh = (pos[..., None] == slots).to(torch.float32) * keep[..., None]
+    disp = pos_oh.reshape(n_groups, k, g_size, e, cap)
+
+    gates = topv.permute(0, 2, 1)                           # (g, k, t)
+    combine = torch.einsum("gktec,gkt->gtec", disp, gates)  # (g, t, E, C)
+    dispatch = torch.sum(disp, dim=1)                       # (g, t, E, C)
+    return dispatch, combine, aux
+
+
+def moe_apply(mlp: MoEMLP, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-dispatch MoE over (..., d) tokens; returns (out, aux_loss).
+    More than ``MOE_GROUP`` tokens must be a whole number of groups, as the
+    reference's reshape requires."""
+    orig_shape = x.shape
+    d = orig_shape[-1]
+    flat = x.reshape(-1, d)
+    t = flat.shape[0]
+    g_size = min(MOE_GROUP, t)
+    if t % g_size:
+        raise ValueError(f"{t} tokens are not a whole number of {g_size}-token MoE groups")
+    xg = flat.reshape(t // g_size, g_size, d)
+    dispatch, combine, aux = route(mlp, xg, cfg)
+    expert_in = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xg)
+    hg = F.silu(torch.einsum("gecd,edf->gecf", expert_in, mlp.w_gate))
+    hu = torch.einsum("gecd,edf->gecf", expert_in, mlp.w_up)
+    expert_out = torch.einsum("gecf,efd->gecd", hg * hu, mlp.w_down)
+    out = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), expert_out)
+    if mlp.shared_gate is not None:
+        out = out + L.swiglu(xg, mlp.shared_gate, mlp.shared_up, mlp.shared_down)
+    return out.reshape(orig_shape), aux
+
+
+def _block_apply(cfg: ModelConfig, bp: BlockParams, x: torch.Tensor,
+                 positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    h = attn.full_attention(bp.attn, L.rms_norm(x, bp.ln1), positions,
+                            rope_theta=cfg.rope_theta)
+    x = x + h
+    h, aux = moe_apply(bp.mlp, L.rms_norm(x, bp.ln2), cfg)
+    return x + h, aux
+
+
+def forward(params: Params, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hidden states after the final norm (b, s, d), the router aux loss
+    summed over the layers, f32)."""
+    x = params.embed[batch["tokens"]]
+    b, s = batch["tokens"].shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    auxes = []
+    for bp in L.unstack_layers(params.blocks, cfg.n_layers):
+        if cfg.remat:
+            x, aux = checkpoint(_block_apply, cfg, bp, x, positions, use_reentrant=False)
+        else:
+            x, aux = _block_apply(cfg, bp, x, positions)
+        auxes.append(aux)
+    return L.rms_norm(x, params.final_norm), torch.sum(torch.stack(auxes))
+
+
+def loss(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross-entropy plus ``router_aux_coef`` x the aux loss."""
+    h, aux = forward(params, batch, cfg)
+    b, s, d = h.shape
+    ce = L.chunked_cross_entropy(
+        h[:, :-1].reshape(-1, d), params.unembed, batch["tokens"][:, 1:].reshape(-1),
+        torch.ones((b * (s - 1),), dtype=torch.float32, device=h.device),
+        n_chunks=cfg.loss_chunks,
+    )
+    return ce + cfg.router_aux_coef * aux
+
+
+class DecodeCache(NamedTuple):
+    kv: attn.KVCache        # leaves stacked (n_layers, ...)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, long_context: bool = False,
+               device: torch.device | str | None = None) -> DecodeCache:
+    """Zero caches, one per layer, stacked (``long_context`` changes
+    nothing, as in the reference)."""
+    return DecodeCache(kv=attn.init_layer_caches(cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
+                                                 cfg.head_dim, cfg.dtype, device))
+
+
+def decode_step(params: Params, cache: DecodeCache, tokens: torch.Tensor, cfg: ModelConfig,
+                long_context: bool = False) -> tuple[DecodeCache, torch.Tensor]:
+    """Serve one token for the whole batch; returns (cache, logits (b, 1,
+    vocab) f32).  The batch is one dispatch group, so capacity is often 1
+    and tokens that pick the same expert are dropped, as in the
+    reference."""
+    x = params.embed[tokens]
+    lengths = []
+    for i in range(cfg.n_layers):
+        bp = L.layer_slice(params.blocks, i)
+        kv = attn.KVCache(cache.kv.k[i], cache.kv.v[i], cache.kv.length[i])
+        kv, h = attn.decode_step(bp.attn, kv, L.rms_norm(x, bp.ln1), window=GLOBAL_WINDOW,
+                                 rope_theta=cfg.rope_theta)
+        lengths.append(kv.length)
+        x = x + h
+        h, _ = moe_apply(bp.mlp, L.rms_norm(x, bp.ln2), cfg)
+        x = x + h
+    h = L.rms_norm(x, params.final_norm)
+    logits = (h @ params.unembed).to(torch.float32)
+    return DecodeCache(kv=attn.KVCache(cache.kv.k, cache.kv.v, torch.stack(lengths))), logits

@@ -148,11 +148,6 @@ def _mlp_apply(p: MLPParams, x: torch.Tensor) -> torch.Tensor:
     return x + L.swiglu(L.rms_norm(x, p.ln), p.w_gate, p.w_up, p.w_down, act=L.gelu)
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``: logaddexp(x, 0)."""
-    return torch.logaddexp(x, torch.zeros_like(x))
-
-
 def _rglru_scan(a: torch.Tensor, bx: torch.Tensor,
                 h0: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """h_t = a_t h_{t-1} + bx_t over axis 1; a, bx: (b, l, r).  Returns
@@ -187,7 +182,7 @@ def _rec_apply(p: RecParams, x: torch.Tensor, cfg: ModelConfig,
     xb = sum(pad[:, i:i + length, :] * p.conv_w[i] for i in range(width)) + p.conv_b
     r = torch.sigmoid((xb @ p.w_rg).to(torch.float32) + p.b_rg)
     i = torch.sigmoid((xb @ p.w_ig).to(torch.float32) + p.b_ig)
-    a = torch.exp(-cfg.rglru_c * _softplus(p.lam) * r)
+    a = torch.exp(-cfg.rglru_c * L.softplus(p.lam) * r)
     scale = torch.sqrt(torch.clamp_min(1.0 - torch.square(a), 1e-6))
     h, hlast = _rglru_scan(a, scale * (i * xb.to(torch.float32)), h0)
     y = h.to(x.dtype) * gate
@@ -286,7 +281,7 @@ def decode_step(
             new_conv.append(hist[:, 1:, :])
             r_g = torch.sigmoid((xb @ tp.w_rg).to(torch.float32) + tp.b_rg)
             i_g = torch.sigmoid((xb @ tp.w_ig).to(torch.float32) + tp.b_ig)
-            a = torch.exp(-cfg.rglru_c * _softplus(tp.lam) * r_g)
+            a = torch.exp(-cfg.rglru_c * L.softplus(tp.lam) * r_g)
             scale = torch.sqrt(torch.clamp_min(1.0 - torch.square(a), 1e-6))
             h = a * cache.rec_h[i_rec] + scale * (i_g * xb.to(torch.float32))
             new_h.append(h)

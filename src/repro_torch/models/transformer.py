@@ -83,37 +83,11 @@ def _init_block(g: torch.Generator, cfg: ModelConfig) -> BlockParams:
     )
 
 
-def _stack(trees):
-    first = trees[0]
-    if first is None:
-        return None
-    if isinstance(first, tuple):
-        return type(first)(*(_stack([t[i] for t in trees]) for i in range(len(first))))
-    return torch.stack(trees)
-
-
-def _layer(tree, i: int):
-    """Layer ``i``'s slice (views) of a stacked tree."""
-    return L.map_leaves(lambda t: t[i], tree)
-
-
-def _unstack(tree, n: int) -> list:
-    """The ``n`` per-layer slices of a stacked tree, each leaf ``unbind``
-    once: its backward stacks the layers' gradients in one op, where an
-    index per layer would add a zero-filled stacked gradient per layer."""
-    if tree is None:
-        return [None] * n
-    if isinstance(tree, tuple):
-        parts = [_unstack(x, n) for x in tree]
-        return [type(tree)(*(part[i] for part in parts)) for i in range(n)]
-    return list(torch.unbind(tree, 0))
-
-
 def init(generator: torch.Generator, cfg: ModelConfig) -> Params:
     """Random params with the reference's distributions and dtypes, drawn
     on the generator's device."""
     embed = L.embed_init(generator, cfg.vocab_size, cfg.d_model, cfg.dtype)
-    blocks = _stack([_init_block(generator, cfg) for _ in range(cfg.n_layers)])
+    blocks = L.stack_layers(lambda: _init_block(generator, cfg), cfg.n_layers)
     return Params(
         embed=embed,
         blocks=blocks,
@@ -179,7 +153,7 @@ def forward(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     x = _embed_inputs(cfg, params, batch)
     b, s = batch["tokens"].shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    for bp, window in zip(_unstack(params.blocks, cfg.n_layers), layer_windows(cfg)):
+    for bp, window in zip(L.unstack_layers(params.blocks, cfg.n_layers), layer_windows(cfg)):
         if cfg.remat:
             x = checkpoint(_block_apply, cfg, bp, window, x, positions, use_reentrant=False)
         else:
@@ -212,17 +186,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, long_context: bool = 
                device: torch.device | str | None = None) -> DecodeCache:
     """Zero caches, one per layer, stacked; with ``long_context`` only
     ``min(max_seq, long_context_window)`` positions."""
-    dev = _device.resolve(device)
     if long_context:
         max_seq = min(max_seq, cfg.long_context_window)
-    n = cfg.n_layers
-    return DecodeCache(kv=attn.KVCache(
-        k=torch.zeros((n, batch, max_seq, cfg.n_kv_heads, cfg.head_dim), dtype=cfg.dtype,
-                      device=dev),
-        v=torch.zeros((n, batch, max_seq, cfg.n_kv_heads, cfg.head_dim), dtype=cfg.dtype,
-                      device=dev),
-        length=torch.zeros((n, batch), dtype=torch.int32, device=dev),
-    ))
+    return DecodeCache(kv=attn.init_layer_caches(cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
+                                                 cfg.head_dim, cfg.dtype, device))
 
 
 def decode_step(
@@ -241,7 +208,7 @@ def decode_step(
     act = L.gelu if cfg.post_norms else F.silu
     lengths = []
     for i, window in enumerate(layer_windows(cfg, long_context=long_context)):
-        bp = _layer(params.blocks, i)
+        bp = L.layer_slice(params.blocks, i)
         kv = attn.KVCache(cache.kv.k[i], cache.kv.v[i], cache.kv.length[i])
         kv, h = attn.decode_step(
             bp.attn, kv, L.rms_norm(x, bp.ln1), window=window,

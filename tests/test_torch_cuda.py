@@ -1521,3 +1521,69 @@ def test_compressor_wrappers_refuse_d_past_the_int_range(cuda):
         with pytest.raises(ValueError, match="below 2\\^31"):
             call()
     assert q8.LAUNCHES == before
+
+
+# --- the moe, ssm and encdec families, and qwen3 ------------------------------------
+
+NEW_LM_ARCHS = ["qwen3-14b", "qwen3-32b", "qwen2-moe-a2.7b", "grok-1-314b", "mamba2-2.7b",
+                "whisper-medium"]
+
+
+def _lm_batch(cfg, b, s, seed):
+    g = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g)}
+    if cfg.family == "encdec":
+        batch["audio_embeds"] = torch.randn((b, cfg.n_audio_frames, cfg.d_model), generator=g)
+    return batch
+
+
+@pytest.mark.parametrize("arch", NEW_LM_ARCHS)
+def test_new_lm_families_on_the_card_match_cpu(cuda, arch):
+    """REDUCED f32 from the same weights and inputs on the card and on the
+    CPU: one train step (loss to rtol 1e-4, every update within 1e-3 of
+    the largest update coordinate at lr 1e-2), the prefill step (1e-4 of
+    its largest), and 32 teacher-forced decode steps (logits within 1e-3
+    of the largest CPU logit; whisper from ``precompute_cross_kv``), with
+    one ``swa_decode`` launch per self-attention layer and step (none for
+    mamba2)."""
+    from repro_torch import configs
+    from repro_torch.kernels import swa_attention as swa
+    from repro_torch.models import api, layers
+    from repro_torch.optim import sgd
+    cfg = configs.get(arch, reduced=True).replace(dtype=torch.float32, learning_rate=1e-2)
+    cpu_params = api.init_params(torch.Generator().manual_seed(0), cfg)
+    gpu_params = layers.map_leaves(lambda t: t.to(cuda), cpu_params)
+    batch = _lm_batch(cfg, 2, 32, 1)
+    gpu_batch = {k: v.to(cuda) for k, v in batch.items()}
+    step = api.make_train_step(cfg)
+    new_c, loss_c = step(cpu_params, batch)
+    new_g, loss_g = step(gpu_params, gpu_batch)
+    np.testing.assert_allclose(float(loss_g), float(loss_c), rtol=1e-4)
+    upd = [(b - a, (d.cpu() - c.cpu())) for a, b, c, d in zip(
+        *(sgd.tree_leaves(t) for t in (cpu_params, new_c, gpu_params, new_g)))]
+    biggest = max(float(u.abs().max()) for u, _ in upd)
+    for want, got in upd:
+        assert float((got - want).abs().max()) <= 1e-3 * biggest
+    want_h = api.make_prefill_step(cfg)(cpu_params, batch)
+    got_h = api.make_prefill_step(cfg)(gpu_params, gpu_batch).cpu()
+    assert float((got_h - want_h).abs().max()) <= 1e-4 * float(want_h.abs().max())
+
+    steps, mod = 32, api.module(cfg)
+    caches = {"cpu": api.init_cache(cfg, 2, steps + 1, device="cpu"),
+              "cuda": api.init_cache(cfg, 2, steps + 1, device=cuda)}
+    if cfg.family == "encdec":
+        for dev, params, b in (("cpu", cpu_params, batch), ("cuda", gpu_params, gpu_batch)):
+            with torch.no_grad():
+                ck, cv = mod.precompute_cross_kv(params, mod.encode(params, b["audio_embeds"],
+                                                                     cfg), cfg)
+            caches[dev] = caches[dev]._replace(cross_k=ck, cross_v=cv)
+    serve = api.make_serve_step(cfg)
+    swa.reset_launches()
+    for t in range(steps):
+        tok = batch["tokens"][:, t:t + 1]
+        caches["cpu"], want = serve(cpu_params, caches["cpu"], tok)
+        caches["cuda"], got = serve(gpu_params, caches["cuda"], tok.to(cuda))
+        err = float(torch.max(torch.abs(got.cpu() - want)))
+        assert err <= 1e-3 * float(torch.max(torch.abs(want))), (t, err)
+    n_attn = 0 if cfg.family == "ssm" else cfg.n_layers
+    assert swa.LAUNCHES["swa_decode"] == n_attn * steps

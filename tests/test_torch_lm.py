@@ -350,7 +350,13 @@ def test_serve_main_on_cpu(arch, capsys):
 
 
 def test_unported_archs_and_families_raise():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tconfigs.get("qwen2-moe-a2.7b")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tapi.module(tconfigs.get("llama3-8b", reduced=True).replace(family="moe"))
+    """Every family of the reference is ported: only an arch or a family
+    that the reference does not have raises."""
+    with pytest.raises(ValueError, match="unknown arch"):
+        tconfigs.get("qwen2-moe-a9b")
+    with pytest.raises(ValueError, match="unknown model family"):
+        tapi.module(tconfigs.get("llama3-8b", reduced=True).replace(family="rnn"))
+    for family in ("dense", "vlm", "moe", "ssm", "hybrid", "encdec"):
+        cfg = tconfigs.get("llama3-8b", reduced=True).replace(family=family)
+        assert tapi.module(cfg).__name__ == japi.module(cfg).__name__.replace("repro.",
+                                                                               "repro_torch.")
