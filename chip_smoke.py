@@ -268,7 +268,28 @@ exits non-zero before the result line:
              on both sides, the gates held where no token-slot differs and
              the error recorded where one does; then, on the card, whisper
              2 + 2 in f32: decode after ``precompute_cross_kv`` against
-             ``forward``'s logits at 32 positions (1e-3).
+             ``forward``'s logits at 32 positions (1e-3);
+23. launch-tooling — (a) the four examples of ``repro_torch.examples`` on
+             the card at the reference's defaults: ``quickstart`` (four
+             methods, 24 sensors), ``train_iout_hfl`` (10 rounds on SMD's
+             surrogate, checkpoints kept 2), ``serve_anomaly`` (6 rounds,
+             a hot-swap: swaps >= 1) and ``load_replay --duration 4
+             --int8``, each with every counter zeroed just before it and
+             read just after: ``local_train_f32`` and ``fused_agg`` launched
+             by the three training examples, ``fused_score_f32`` by
+             ``serve_anomaly`` and ``load_replay``, ``fused_score_q8`` by
+             ``load_replay``; (b) three ``sgd.adam`` steps of llama3-8b
+             REDUCED in f32 on the card against the CPU (each leaf within
+             1e-6 of its largest value); (c) the dry run
+             (``launch/dryrun.dryrun_one`` on a one-chip plan) of phase
+             21's dense-train (llama3-8b uncut, 4 x 512, bf16, remat) and
+             phase 22's grok-decode (2 of 64 layers, 8 x (32 + 16)): its
+             parameter bytes equal to the bytes those phases held on the
+             card, its planned peak beside their ``max_memory_allocated``,
+             and the roofline's bound and dominant term (``launch/
+             roofline`` on the H100's figures) beside their measured step,
+             with the model-FLOP share 6 (train) or 2 (decode) x N x tokens
+             / (step s x 989.4 TFLOP/s).
 
 Phase 6 also times ``fused_agg`` at robust-200's identity call (N =
 n_fog = 200), at one of its 64-client chunks and at fleet-10k's unchunked
@@ -313,7 +334,9 @@ phase 20 each mesh rank's, beside the phase 8 count in
 federated-LLM example and ``swa_decode``'s in its token-stepped prefill
 check there, and ``compress_q8``'s time at the example's d to its
 ``by_shape``; phase 22 adds ``swa_decode``'s launches in moe-serve,
-grok-decode, encdec-decode and qwen3-decode, and their calls' errors).  The last line is
+grok-decode, encdec-decode and qwen3-decode, and their calls' errors;
+phase 23 adds each score and training kernel's launches in its four
+examples).  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and power limit, and the
 one before that the ``kernels`` JSON.
 """
@@ -3568,6 +3591,7 @@ def lm_serve(label, api, serve, swa, kref, cfg, dev, batch, prompt_len, new_toke
         cache = prepare(params, cache)
     from repro_torch.models.layers import leaves
     cache_bytes = sum(t.numel() * t.element_size() for t in leaves(cache))
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g, device=dev,
                             dtype=torch.int32)
     torch.cuda.synchronize()
@@ -3604,7 +3628,7 @@ def lm_serve(label, api, serve, swa, kref, cfg, dev, batch, prompt_len, new_toke
         decode_step_ms=step_ms, peak_mib=peak_mib, step_device_ms=dev_ms,
         step_swa_device_ms=swa_ms, step_device_ops=ops, idle_share=1.0 - dev_ms / step_ms,
         profile_lengths=[first + 2, first + 1 + PROFILE_STEPS], path_check=path_check,
-        sample=toks[0, :8].tolist(), cache_bytes=cache_bytes,
+        sample=toks[0, :8].tolist(), cache_bytes=cache_bytes, param_bytes=param_bytes,
     )
     print(f"  {label}: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} {cfg.dtype}, batch "
           f"{batch}, prompt {prompt_len} + {new_tokens} new: prefill {out['prefill_tok_s']:.1f} "
@@ -3796,7 +3820,7 @@ def train_run(label, train, arch, name, smi, argv=TRAIN_FULL) -> dict:
     step_ms = [s * 1e3 for s in out["step_s"]]
     res = dict(arch=arch, losses=out["losses"], step_ms=step_ms,
                ms_per_step=sum(step_ms[1:]) / len(step_ms[1:]), tokens_per_s=out["tokens_per_s"],
-               peak_gib=peak_gib)
+               peak_gib=peak_gib, param_bytes=out["param_bytes"])
     shape = dict(zip(argv[1::2], argv[2::2]))
     print(f"  {label}: {arch} published config, batch {shape['--batch']} x {shape['--seq']}, "
           f"{shape['--steps']} steps: "
@@ -4384,6 +4408,167 @@ def lm_family_phase(mods, dev, name, smi) -> dict:
     return out
 
 
+# --- phase 23: launch-tooling: the examples, sgd.adam, the dry run beside the card ----
+
+EXAMPLE_ARGV = {"quickstart": [], "train_iout_hfl": [], "serve_anomaly": [],
+                "load_replay": ["--duration", "4", "--int8"]}     # the reference's defaults
+EXAMPLE_KERNELS = {"quickstart": ("local_train_f32", "fused_agg"),
+                   "train_iout_hfl": ("local_train_f32", "fused_agg"),
+                   "serve_anomaly": ("local_train_f32", "fused_agg", "fused_score_f32"),
+                   "load_replay": ("fused_score_f32", "fused_score_q8")}
+ADAM_STEPS, ADAM_GATE = 3, 1e-6     # card vs CPU, each leaf within 1e-6 of its largest value
+
+
+def run_example(label, mod, argv, counters, dev, workdir) -> tuple[dict, dict]:
+    """``mod.main(argv)`` on the card, every counter zeroed just before and
+    read just after; returns (its result, the launches of each kernel)."""
+    if label in ("train_iout_hfl", "serve_anomaly"):
+        argv = argv + ["--ckpt-dir", str(workdir / label)]
+    for _, reset in counters.values():
+        reset()
+    t0 = time.perf_counter()
+    out = mod.main(argv, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {k: c[k] for k, (c, _) in counters.items()}
+    for k in EXAMPLE_KERNELS[label]:
+        check(counts[k] > 0, f"{label}: {k} was not launched")
+    return out, dict(launches=counts, seconds=seconds)
+
+
+def examples_phase(examples, counters, dev, name, smi, workdir) -> dict:
+    """(a): the four examples at the reference's defaults on the card."""
+    res = {}
+    out, info = run_example("quickstart", examples["quickstart"], EXAMPLE_ARGV["quickstart"],
+                            counters, dev, workdir)
+    check(tuple(out) == ("fedavg", "hfl-nocoop", "hfl-selective", "hfl-nearest"),
+          f"quickstart: methods {tuple(out)}")
+    for m, r in out.items():
+        check(0.0 <= r.f1 <= 1.0 and 0.0 < r.participation <= 1.0 and math.isfinite(r.e_total),
+              f"quickstart: {m} f1 {r.f1} participation {r.participation} e_total {r.e_total}")
+    res["quickstart"] = dict(info, methods={m: dict(f1=r.f1, participation=r.participation,
+                                                     e_total=r.e_total, e_f2f=r.e_f2f)
+                                             for m, r in out.items()})
+    out, info = run_example("train_iout_hfl", examples["train_iout_hfl"],
+                            EXAMPLE_ARGV["train_iout_hfl"], counters, dev, workdir)
+    check(len(out["rounds"]) == 10 and all(math.isfinite(r["loss"]) for r in out["rounds"]),
+          f"train_iout_hfl: rounds {out['rounds']}")
+    check(len(out["checkpoints"]) == 2 and 0.0 <= out["f1"] <= 1.0,
+          f"train_iout_hfl: checkpoints {out['checkpoints']}, PA-F1 {out['f1']}")
+    res["train_iout_hfl"] = dict(info, source=out["source"], pa_f1=out["f1"],
+                                 last_loss=out["rounds"][-1]["loss"],
+                                 participation=out["rounds"][-1]["participation"])
+    out, info = run_example("serve_anomaly", examples["serve_anomaly"],
+                            EXAMPLE_ARGV["serve_anomaly"], counters, dev, workdir)
+    check(out["swapped"] is True and out["service"]["swaps"] >= 1,
+          f"serve_anomaly: swapped {out['swapped']}, swaps {out['service']['swaps']}")
+    check(out["mean_abs_error_shift"] > 0.0 and 0.0 <= out["f1"] <= 1.0,
+          f"serve_anomaly: error shift {out['mean_abs_error_shift']}, f1 {out['f1']}")
+    res["serve_anomaly"] = dict(info, swaps=out["service"]["swaps"], f1=out["f1"],
+                                served_round=out["served_round"],
+                                compiles=out["service"]["compiles"])
+    out, info = run_example("load_replay", examples["load_replay"], EXAMPLE_ARGV["load_replay"],
+                            counters, dev, workdir)
+    for key in ("fixed", "adaptive_bucketed", "adaptive_bucketed_int8"):
+        check(out[key]["completed"] == out["trace"]["n_events"],
+              f"load_replay {key}: {out[key]['completed']} of {out['trace']['n_events']} done")
+    res["load_replay"] = dict(info, p99_speedup=out["p99_speedup"], **{
+        f"{k}_p99_ms": out[k]["e2e_p99_ms"]
+        for k in ("fixed", "adaptive_bucketed", "adaptive_bucketed_int8")})
+    for label, r in res.items():
+        fields = {k: v for k, v in r.items() if k not in ("launches", "seconds", "methods")}
+        print(f"  {label}: {r['seconds']:.2f} s, launches "
+              f"{ {k: n for k, n in r['launches'].items() if n} }, {json.dumps(fields)}"
+              f"  on {name} ({smi})")
+    for m, r in res["quickstart"]["methods"].items():
+        print(f"    quickstart {m:14s} F1 {r['f1']:.3f}  participation {r['participation']:.2f}"
+              f"  E_total {r['e_total']:.3f} J (f2f {r['e_f2f']:.3f})")
+    return res
+
+
+def adam_on_card(sgd, configs, api, dev) -> dict:
+    """(b): ``sgd.adam`` steps on the card and on the CPU from the same f32
+    tree (llama3-8b REDUCED) and normal gradients: each leaf within
+    ``ADAM_GATE`` of its largest magnitude."""
+    cfg = configs.get("llama3-8b", reduced=True).replace(dtype=torch.float32)
+    g = torch.Generator().manual_seed(23)
+    cpu = api.init_params(g, cfg)
+    from repro_torch.models.layers import map_leaves
+    grads = [map_leaves(lambda t: torch.randn(t.shape, generator=g), cpu)
+             for _ in range(ADAM_STEPS)]
+    gpu = map_leaves(lambda t: t.to(dev), cpu)
+    sc, sg = sgd.adam_init(cpu), sgd.adam_init(gpu)
+    for gr in grads:
+        cpu, sc = sgd.adam(cpu, gr, sc, 1e-2, weight_decay=0.01)
+        gpu, sg = sgd.adam(gpu, map_leaves(lambda t: t.to(dev), gr), sg, 1e-2, weight_decay=0.01)
+    torch.cuda.synchronize()
+    worst = max(float((b.cpu() - a).abs().max()) / float(a.abs().max())
+                for a, b in zip(sgd.tree_leaves(cpu), sgd.tree_leaves(gpu)))
+    check(worst <= ADAM_GATE and int(sg.count) == ADAM_STEPS,
+          f"adam: card vs CPU {worst:.3e} of the largest value (gate {ADAM_GATE})")
+    n = sum(t.numel() for t in sgd.tree_leaves(cpu))
+    print(f"  adam: {ADAM_STEPS} steps of {n:,} f32 params, card vs CPU max |diff| / max |p| "
+          f"{worst:.3e} (gate {ADAM_GATE})")
+    return dict(steps=ADAM_STEPS, params=n, max_rel_err=worst)
+
+
+def dryrun_vs_card(label, dryrun, roofline, cfg, shape, run, step_ms, peak_bytes, name, smi):
+    """(c): the dry run of one card cell on a one-chip plan against that
+    cell's own run: the params' bytes exactly; the planned peak beside the
+    measured one; the roofline's bound beside the measured step."""
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16, make_host_mesh
+    rec = dryrun.dryrun_one(cfg.name, label, cfg=cfg, shape=shape, mesh=make_host_mesh())
+    row = roofline.analyse(rec)
+    check(rec["param_bytes"] == run["param_bytes"],
+          f"{label}: dry run {rec['param_bytes']:,} param bytes, the card held "
+          f"{run['param_bytes']:,}")
+    step_s = step_ms / 1e3
+    out = dict(param_bytes=rec["param_bytes"], dryrun_s=rec["compile_s"], flops=rec["flops"],
+               bytes_accessed=rec["bytes_accessed"], peak_bytes=rec["memory"]["peak_bytes"],
+               measured_peak_bytes=peak_bytes, bound_s=row["bound_s"], dominant=row["dominant"],
+               t_compute_s=row["t_compute_s"], t_memory_s=row["t_memory_s"], peak=row["peak"],
+               model_flops=rec["model_flops"], useful_ratio=row["useful_ratio"],
+               step_s=step_s, bound_share=row["bound_s"] / step_s,
+               model_flop_share=rec["model_flops"] / (step_s * PEAK_FLOPS_BF16))
+    print(f"  {label}: dry run ({rec['compile_s']} s on the host) {rec['param_bytes']:,} param "
+          f"bytes = the card's; peak {rec['memory']['peak_bytes'] / 2 ** 30:.2f} GiB planned, "
+          f"{peak_bytes / 2 ** 30:.2f} GiB max_memory_allocated; {rec['flops']:.4e} FLOP, "
+          f"{rec['bytes_accessed']:.4e} bytes (unfused); roofline bound {row['bound_s'] * 1e3:.3f}"
+          f" ms ({row['dominant']}; compute {row['t_compute_s'] * 1e3:.3f} ms at {row['peak']}, "
+          f"memory {row['t_memory_s'] * 1e3:.3f} ms) against {step_ms:.3f} ms measured: share "
+          f"{out['bound_share']:.3f}; model-FLOP share {out['model_flop_share']:.4f} "
+          f"(model FLOPs {rec['model_flops']:.4e})  on {name} ({smi})")
+    return out
+
+
+def example_launches(tooling, kname) -> int:
+    """``kname``'s launches over phase 23's four examples."""
+    return sum(r["launches"].get(kname, 0) for r in tooling["examples"].values())
+
+
+def launch_tooling_phase(mods, counters, lm, families, dev, name, smi, workdir) -> dict:
+    """Phase 23: (a)-(c) of the module docstring."""
+    examples, sgd, configs, api, dryrun, roofline, shape_config = mods
+    t0 = time.perf_counter()
+    out = {"examples": examples_phase(examples, counters, dev, name, smi, workdir),
+           "adam": adam_on_card(sgd, configs, api, dev)}
+    dense = configs.get(DENSE_TRAIN_ARCH)
+    shape = dict(zip(TRAIN_FULL[1::2], TRAIN_FULL[2::2]))
+    run = lm["dense-train"]
+    out["dense-train"] = dryrun_vs_card(
+        "dense-train", dryrun, roofline, dense,
+        shape_config("dense-train", int(shape["--seq"]), int(shape["--batch"]), "train"),
+        run, run["ms_per_step"], run["peak_gib"] * 2 ** 30, name, smi)
+    run = families["grok-decode"]
+    out["grok-decode"] = dryrun_vs_card(
+        "grok-decode", dryrun, roofline, cut(configs.get(GROK_ARCH), GROK_LAYERS),
+        shape_config("grok-decode", GROK_PROMPT + GROK_NEW + 1, GROK_BATCH, "decode"),
+        run, run["decode_step_ms"], run["peak_mib"] * 2 ** 20, name, smi)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 23 took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv: list[str]) -> int:
     timing_only = argv == ["--timing"]
     if argv and not timing_only:
@@ -4665,6 +4850,19 @@ def main(argv: list[str]) -> int:
     from repro_torch.models import encdec, moe
     families = lm_family_phase((lm_train, lm_configs, lm_api, lm_layers, lm_launch, swa, kref, sgd,
                                 moe, encdec), dev, name, smi)
+    phase("23. launch-tooling (main path): the examples, sgd.adam, the dry run beside the card")
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.examples import load_replay, quickstart, serve_anomaly, train_iout_hfl
+    from repro_torch.launch import dryrun, roofline
+    example_mods = {"quickstart": quickstart, "train_iout_hfl": train_iout_hfl,
+                    "serve_anomaly": serve_anomaly, "load_replay": load_replay}
+    example_counters = {**{k: v for k, v in kernel_counters(lt, fa, ra, kq8, tk).items()
+                           if k in ("local_train_f32", "fused_agg")},
+                        **{k: (fs.LAUNCHES, fs.reset_launches) for k in KERNELS}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT / "build") as tmp:
+        tooling = launch_tooling_phase(
+            (example_mods, sgd, lm_configs, lm_api, dryrun, roofline, ShapeConfig),
+            example_counters, lm, families, dev, name, smi, Path(tmp))
     phase("done")
 
     kernels = []
@@ -4685,6 +4883,8 @@ def main(argv: list[str]) -> int:
             "call_ms": head["call_ms"],
             "rows": HEADLINE_ROWS,
             "by_rows": {str(r): v for r, v in rows_table[kname].items()},
+            "launches_by_path": {"serve-200 + load-mmpp": main_path_launches[kname],
+                                 "examples": example_launches(tooling, kname)},
         })
     for key, entry in engine["kernels"].items():       # the folded shapes' checks
         kname = key.split(" @ ")[0]
@@ -4721,7 +4921,8 @@ def main(argv: list[str]) -> int:
                 "train-200": launches[kname],
                 "engine-200": engine["cells"]["engine-200"]["launches"][kname],
                 "async-200 sweep": async_res["launches"]["sweep (3 cells)"][kname],
-                "mesh-200 per gloo rank (W=2)": mesh["gloo_two_ranks"]["launches_per_rank"][kname]}
+                "mesh-200 per gloo rank (W=2)": mesh["gloo_two_ranks"]["launches_per_rank"][kname],
+                "examples": example_launches(tooling, kname)}
         if kname in ("wire_emit", "wire_agg"):
             kernels[-1]["launches_by_path"] = {
                 "fleet-10k": launches[kname],
@@ -4781,6 +4982,7 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"lm_train": lm}))
     print(json.dumps({"lm_families": families}))
+    print(json.dumps({"launch_tooling": tooling}))
     print("phase seconds: " + ", ".join(f"{k.split('.')[0]} {v:.1f}" for k, v in PHASE_S.items()
                                         if k != "done")
           + f"; script {time.perf_counter() - START:.1f} s  on {name} ({smi})")

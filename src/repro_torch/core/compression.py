@@ -148,6 +148,14 @@ def compress_update(
 
 
 
+def init_error(params: Any) -> torch.Tensor:
+    """Zero error-feedback buffer of the flattened parameter count (the
+    params' ``ravel_pytree`` order and dtype), on their device."""
+    from repro_torch.optim.sgd import ravel_tree
+
+    return torch.zeros_like(ravel_tree(params))
+
+
 def compression_ratio(d: int, cfg: CompressorConfig) -> float:
     """Effective ratio rho vs uncompressed 32-bit transmission (Sec. V-C)."""
     return payload_bits(d, cfg) / (32.0 * d)

@@ -31,7 +31,7 @@ mesh, as in the reference.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -44,7 +44,7 @@ from repro_torch.core import faults as flt
 from repro_torch.core import topology as topo
 from repro_torch.core.hfl import (
     HFLConfig, HFLState, RoundDraws, RoundMetrics, check_draws, check_mesh, client_rows,
-    run_rounds, stack_metrics, start, start_trials, train_windows,
+    init_state, run_rounds, stack_metrics, start, start_trials, train_windows,
 )
 from repro_torch.data.synthetic import SensorDataset
 from repro_torch.kernels import ops as kops
@@ -235,6 +235,15 @@ def train_flat(
                       cfg.rounds)
 
 
+class ScaffoldTrainState(NamedTuple):
+    """SCAFFOLD's round state: the hierarchical round's state (its params,
+    battery, deployment, drift carry and the adaptive colluders' last
+    delta; ``err`` and ``server`` unused) and the control variates."""
+
+    fl: HFLState
+    ctrl: scf.ScaffoldState
+
+
 def train_scaffold(
     init_params: Params,
     loss_fn: LossFn,
@@ -259,23 +268,22 @@ def train_scaffold(
     n = ds.train.shape[0]
     params = [{k: v.to(dev) for k, v in layer.items()} for layer in init_params]
     dep, draws = dep.to(dev), draws.to(dev)
-    battery = torch.full((n,), cfg.energy.e_init_j, dtype=torch.float32, device=dev)
-    prev_delta = torch.zeros_like(ae.ravel(params))
-    assoc_ok = torch.zeros((n,), dtype=torch.bool, device=dev)
-    ctrl = scf.init_state(params, n)
+    state = ScaffoldTrainState(fl=init_state(params, dep, cfg), ctrl=scf.init_state(params, n))
     steps = cfg.local_epochs * (ds.train.shape[1] // cfg.batch_size)
     per_round = []
     for t in range(cfg.rounds):
+        st, ctrl = state
         mobility, batches, crash, erase, byz_noise = draws.round(t)
         _check_fault_draws(cfg, crash, erase)
         if tuple(batches.shape) != (n, steps, cfg.batch_size):
             raise ValueError(f"index table {tuple(batches.shape)} does not match {n} clients, "
                              f"{steps} steps of {cfg.batch_size} rows")
-        dep, fa, assoc_ok, active = _gateway_round(cfg, dep, assoc_ok, battery, t, mobility, crash)
+        dep, fa, assoc_ok, active = _gateway_round(cfg, st.dep, st.assoc_ok, st.battery, t,
+                                                   mobility, crash)
         active_f = active.to(torch.float32)
-        flat0 = ae.ravel(params)
+        flat0 = ae.ravel(st.params)
         theta, new_ci, losses = scf.scaffold_clients(
-            loss_fn, params, train_windows(ds, cfg, t), batches, cfg.lr,
+            loss_fn, st.params, train_windows(ds, cfg, t), batches, cfg.lr,
             ctrl.c_global, ctrl.c_local)
         deltas = theta - flat0
         dcs = new_ci - ctrl.c_local
@@ -286,7 +294,7 @@ def train_scaffold(
         weights = ds.n_samples * delivered_f
         if fault_path:
             if fault_on:
-                deltas = flt.corrupt_deltas(deltas, fl, prev_delta=prev_delta,
+                deltas = flt.corrupt_deltas(deltas, fl, prev_delta=st.prev_delta,
                                             noise=byz_noise)
             finite = ~flt.nonfinite_rows(deltas)
             n_nonfinite = torch.sum(delivered & ~finite).to(torch.int32)
@@ -310,7 +318,7 @@ def train_scaffold(
 
         l_u = comp.payload_bits(flat0.shape[0], cfg.compressor)
         e_up = torch.where(active, en.tx_energy_j(l_u, fa.dist_m, cfg.channel, cfg.energy), 0.0)
-        battery, _ = en.battery_step(battery, e_up, cfg.energy)
+        battery, _ = en.battery_step(st.battery, e_up, cfg.energy)
         zero = torch.zeros((), dtype=torch.float32, device=active.device)
         per_round.append(RoundMetrics(
             loss=torch.sum(losses * active_f) / torch.clamp_min(torch.sum(active_f), 1.0),
@@ -327,9 +335,12 @@ def train_scaffold(
             global_finite=torch.all(torch.isfinite(new_flat)),
         ))
         # Adaptive colluders observe the realised global movement.
-        prev_delta = mean_delta if adaptive else prev_delta
-        params = ae.unravel(new_flat, params)
-    return params, stack_metrics(per_round)
+        state = ScaffoldTrainState(
+            fl=st._replace(params=ae.unravel(new_flat, st.params), battery=battery, dep=dep,
+                           assoc_ok=assoc_ok,
+                           prev_delta=mean_delta if adaptive else st.prev_delta, t=t + 1),
+            ctrl=ctrl)
+    return state.fl.params, stack_metrics(per_round)
 
 
 def train_centralised(

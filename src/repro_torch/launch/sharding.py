@@ -15,11 +15,31 @@ zeros is exact, so every rank holds the same bits.
 
 Each rank calls ``torch.cuda.set_device(local_rank)`` before its first
 launch: ``device.default_device()`` is then that rank's card.
+
+Beside it, the reference's logical-axis rules (MaxText style, with a
+divisibility fallback) for the language models.  Each family exposes an
+``axes(cfg)`` tree whose leaves are tuples of logical dimension names
+(``None`` for an absent leaf); :func:`resolve_spec` maps one onto a mesh:
+
+  model axis  <- first divisible logical dim in MODEL_PRIORITY
+  data axis   <- "batch" when divisible (jointly with "pod" on multi-pod
+                 meshes), else "embed" (FSDP), else "cache_seq"
+  pod axis    <- only ever combined with "batch": parameters stay
+                 replicated across pods
+
+A dim never gets an axis it is not divisible by, and a mesh axis is used
+at most once per tensor.  A spec is a plain tuple, one entry per dim
+(``None``, ``"model"``, ``"data"`` or ``("pod", "data")``): it compares
+equal to the reference's ``PartitionSpec``.  :func:`to_placements` turns
+one into DTensor placements over a ``DeviceMesh``; :func:`use_mesh`
+installs the ambient mesh that ``models/layers.shard_hint`` reads.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
-from typing import Any
+from typing import Any, Iterator
 
 import torch
 import torch.distributed as dist
@@ -77,3 +97,170 @@ def client_mesh(group: Any = None) -> ClientMesh:
         raise RuntimeError("client_mesh needs an initialised torch.distributed process group "
                            "(torch.distributed.init_process_group, or torchrun)")
     return ClientMesh(group, dist.get_rank(group), dist.get_world_size(group))
+
+
+# Order matters: prefer the big compute dims, fall back to head_dim.
+# "seq_shard" is an activation-only logical name (sequence-parallel
+# attention for indivisible head counts; ``layers.shard_hint`` callers).
+MODEL_PRIORITY = (
+    "ff",
+    "vocab",
+    "heads",
+    "kv_heads",
+    "inner",
+    "inner_proj",
+    "inner_conv",
+    "ssm_heads",
+    "experts",
+    "head_dim",
+    "seq_shard",
+)
+
+DATA_PRIORITY = ("batch", "embed", "cache_seq", "tokens")
+
+
+def resolve_spec(logical: tuple[str | None, ...] | None, shape: tuple[int, ...],
+                 mesh: Any) -> tuple:
+    """One leaf's logical axes -> its spec on ``mesh`` (anything with
+    ``.shape``, a dict of axis sizes, and ``.axis_names``; ``launch/mesh``'s
+    ``AbstractMesh``).  ``None`` (a replicated leaf) gives ``()``."""
+    if logical is None:
+        return ()
+    if len(logical) != len(shape):
+        raise ValueError(f"logical axes {logical} do not match the shape {tuple(shape)}")
+    assignment: list[Any] = [None] * len(shape)
+    has_pod = "pod" in mesh.axis_names
+    model_n = mesh.shape["model"]
+    data_n = mesh.shape["data"]
+    pod_n = mesh.shape["pod"] if has_pod else 1
+
+    for name in MODEL_PRIORITY:
+        i = next((i for i, ax in enumerate(logical)
+                  if ax == name and shape[i] % model_n == 0 and shape[i] > 0), None)
+        if i is not None:
+            assignment[i] = "model"
+            break
+
+    placed = False
+    for name in DATA_PRIORITY:
+        for i, ax in enumerate(logical):
+            if ax != name or assignment[i] is not None or shape[i] == 0:
+                continue
+            if name == "batch" and has_pod and shape[i] % (pod_n * data_n) == 0:
+                assignment[i] = ("pod", "data")
+                placed = True
+            elif shape[i] % data_n == 0:
+                assignment[i] = "data"
+                placed = True
+            if placed:
+                break
+        if placed:
+            break
+    return tuple(assignment)
+
+
+def is_axes_leaf(x: Any) -> bool:
+    """A logical-axes tuple: a plain tuple of names and ``None``s.  A
+    NamedTuple (a block of axes) is a node, whatever its fields hold."""
+    return (isinstance(x, tuple) and not hasattr(x, "_fields")
+            and all(isinstance(e, (str, type(None))) for e in x))
+
+
+def map_axes(fn, abstract: Any, axes_tree: Any) -> Any:
+    """``fn(leaf, logical)`` over the tensor leaves of ``abstract`` (a tree
+    of NamedTuples, tuples and ``None``s) paired with the logical tuples of
+    ``axes_tree``, as a tree of ``abstract``'s structure.  A ``None``
+    param pairs with ``None`` axes and stays ``None``; any other mismatch
+    raises ``ValueError``."""
+    if abstract is None:
+        if axes_tree is not None:
+            raise ValueError(f"axes {axes_tree} for an absent leaf")
+        return None
+    if isinstance(abstract, torch.Tensor):
+        if not is_axes_leaf(axes_tree):
+            raise ValueError(f"a tensor of shape {tuple(abstract.shape)} paired with "
+                             f"{axes_tree!r}, not a logical-axes tuple")
+        return fn(abstract, axes_tree)
+    if isinstance(abstract, tuple):
+        if (not isinstance(axes_tree, tuple) or is_axes_leaf(axes_tree)
+                or len(axes_tree) != len(abstract)):
+            raise ValueError(f"axes tree mismatch: {type(abstract).__name__} of "
+                             f"{len(abstract)} paired with {axes_tree!r}")
+        items = [map_axes(fn, a, x) for a, x in zip(abstract, axes_tree)]
+        return type(abstract)(*items) if hasattr(abstract, "_fields") else tuple(items)
+    raise TypeError(f"unexpected node {type(abstract).__name__} in a param tree")
+
+
+def tree_shardings(abstract: Any, axes_tree: Any, mesh: Any) -> Any:
+    """The spec of every leaf of ``abstract`` (tensors, meta tensors
+    included) on ``mesh``, as a tree of ``abstract``'s structure whose
+    leaves are spec tuples."""
+    return map_axes(lambda leaf, logical: resolve_spec(logical, tuple(leaf.shape), mesh),
+                    abstract, axes_tree)
+
+
+def batch_shardings(specs: dict[str, torch.Tensor], mesh: Any) -> dict[str, tuple]:
+    """Input batches: the leading (batch) dim over (pod, data)."""
+    return {k: resolve_spec(("batch",) + (None,) * (v.dim() - 1), tuple(v.shape), mesh)
+            for k, v in specs.items()}
+
+
+def spec_devices(spec: tuple, mesh: Any) -> int:
+    """How many ways ``spec`` splits a leaf: the product of the sizes of
+    the mesh axes it names."""
+    n = 1
+    for entry in spec:
+        for name in (entry if isinstance(entry, tuple) else (entry,)):
+            if name is not None:
+                n *= mesh.shape[name]
+    return n
+
+
+def to_placements(spec: tuple, device_mesh: Any) -> tuple:
+    """``spec`` as DTensor placements over ``device_mesh`` (its
+    ``mesh_dim_names``): ``Shard(i)`` on each mesh dim that tensor dim
+    ``i`` names (both "pod" and "data" for a joint batch dim, pod the
+    major), ``Replicate()`` on the rest."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = device_mesh.mesh_dim_names
+    out = []
+    for name in names:
+        dims = [i for i, entry in enumerate(spec)
+                if entry == name or (isinstance(entry, tuple) and name in entry)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    unknown = {n for e in spec for n in (e if isinstance(e, tuple) else (e,))
+               if n is not None and n not in names}
+    if unknown:
+        raise ValueError(f"spec {spec} names mesh axes {sorted(unknown)} that {names} lacks")
+    return tuple(out)
+
+
+@dataclasses.dataclass
+class MeshScope:
+    """The ambient mesh installed by :func:`use_mesh`, and the activation
+    hints resolved against it (``models/layers.shard_hint``)."""
+
+    mesh: Any
+    hints: int = 0
+
+
+_AMBIENT: contextvars.ContextVar[MeshScope | None] = contextvars.ContextVar(
+    "repro_torch_ambient_mesh", default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Any) -> Iterator[MeshScope]:
+    """Install ``mesh`` as the ambient mesh for the block (what the
+    reference's ``jax.sharding.set_mesh`` does for its dry run)."""
+    scope = MeshScope(mesh)
+    token = _AMBIENT.set(scope)
+    try:
+        yield scope
+    finally:
+        _AMBIENT.reset(token)
+
+
+def ambient() -> MeshScope | None:
+    """The :class:`MeshScope` of the innermost :func:`use_mesh`, or None."""
+    return _AMBIENT.get()

@@ -38,6 +38,7 @@ from repro_torch.checkpoint import CheckpointStore
 from repro_torch.data.synthetic import SyntheticConfig, generate, normalize
 from repro_torch.launch import experiment as exp
 from repro_torch.models import api
+from repro_torch.models import layers as L
 
 
 def run_federated(args: argparse.Namespace, dev: torch.device) -> dict:
@@ -81,6 +82,7 @@ def run_production(args: argparse.Namespace, dev: torch.device) -> dict:
     cfg = configs.get(args.arch, reduced=not args.full)
     g = torch.Generator(device=dev).manual_seed(args.seed)
     params = api.init_params(g, cfg)
+    param_bytes = sum(t.numel() * t.element_size() for t in L.leaves(params))
     step = api.make_train_step(cfg)
 
     store = CheckpointStore(args.ckpt_dir) if args.ckpt_dir else None
@@ -124,6 +126,7 @@ def run_production(args: argparse.Namespace, dev: torch.device) -> dict:
         "losses": losses,
         "step_s": step_s,
         "tokens_per_s": args.batch * args.seq * len(later) / sum(later),
+        "param_bytes": param_bytes,
         "wall_s": round(wall, 1),
         "finite": all(math.isfinite(x) for x in losses),
     }
@@ -132,8 +135,8 @@ def run_production(args: argparse.Namespace, dev: torch.device) -> dict:
 def main(argv: list[str] | None = None, device: torch.device | str | None = None) -> dict:
     """Run the launcher; ``argv`` defaults to ``sys.argv[1:]``.
     ``device=None`` (and no ``--device``) means the card.  Prints and
-    returns the summary (``production`` adds each step's seconds and the
-    tokens/s of the steps after the first)."""
+    returns the summary (``production`` adds each step's seconds, the
+    tokens/s of the steps after the first and the params' bytes)."""
     ap = argparse.ArgumentParser(description=__doc__)
     sub = ap.add_subparsers(dest="mode", required=True)
 

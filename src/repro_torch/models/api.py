@@ -1,12 +1,14 @@
 """Model API over the ported language-model families: init, loss, the
-train / prefill / serve step builders and the decode cache of
-``repro.models.api``.
+train / prefill / serve step builders, the decode cache and the dry run's
+abstract inputs of ``repro.models.api``.
 
 Families: ``dense`` and ``vlm`` (``models/transformer``), ``moe``
 (``models/moe``), ``ssm`` (``models/ssm``), ``hybrid`` (``models/rglru``)
 and ``encdec`` (``models/encdec``).  The dry-run builders
-(``abstract_params``, ``input_specs``, ...) are not ported (ROADMAP queue 1
-item 16, the launch tooling).
+(:func:`abstract_params`, :func:`abstract_cache`, :func:`input_specs`) give
+``device="meta"`` tensors, shapes and dtypes without storage: the family's
+own init runs under ``FakeTensorMode``, so nothing is allocated even for
+grok-1's 3.2e11 parameters.
 
 Gradients come from ``optim/sgd.grad_and_value``, ``torch.autograd.grad``
 over copies of the leaves: ``torch.func.grad`` refuses a loss that runs
@@ -18,9 +20,11 @@ from __future__ import annotations
 from typing import Any, Callable
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec, moe, rglru, ssm, transformer
+from repro_torch.models import layers as L
 from repro_torch.optim import sgd
 
 Params = Any
@@ -44,6 +48,24 @@ def module(cfg: ModelConfig):
 def init_params(generator: torch.Generator, cfg: ModelConfig) -> Params:
     """Random params drawn on the generator's device."""
     return module(cfg).init(generator, cfg)
+
+
+def _meta(tree):
+    return L.map_leaves(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), tree)
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The params' shapes and dtypes as ``meta`` tensors, allocating
+    nothing: the family's init runs under ``FakeTensorMode`` with a CPU
+    generator (a generator on ``meta`` is refused)."""
+    with FakeTensorMode():
+        params = init_params(torch.Generator(), cfg)
+    return _meta(params)
+
+
+def param_axes(cfg: ModelConfig) -> Params:
+    """Logical sharding axes of the params (``launch/sharding``)."""
+    return module(cfg).axes(cfg)
 
 
 def loss_fn(cfg: ModelConfig) -> Callable[[Params, dict], torch.Tensor]:
@@ -120,3 +142,39 @@ def make_serve_step(cfg: ModelConfig, long_context: bool = False) -> Callable:
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, long_context: bool = False,
                device: torch.device | str | None = None):
     return module(cfg).init_cache(cfg, batch, max_seq, long_context, device=device)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int, long_context: bool = False):
+    """The decode cache's shapes and dtypes as ``meta`` tensors, allocating
+    nothing (:func:`init_cache` under ``FakeTensorMode``)."""
+    with FakeTensorMode():
+        cache = init_cache(cfg, batch, max_seq, long_context, device="cpu")
+    return _meta(cache)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, torch.Tensor]:
+    """``meta`` stand-ins for every model input of this shape.  train and
+    prefill: the token batch (b, s) int32, plus an enc-dec model's
+    ``audio_embeds`` and a VLM's ``visual_embeds``; decode: one new token a
+    sequence (the cache is a separate argument, :func:`abstract_cache`)."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": torch.empty((b, s), dtype=torch.int32, device="meta")}
+        if cfg.family == "encdec":
+            specs["audio_embeds"] = torch.empty((b, cfg.n_audio_frames, cfg.d_model),
+                                                dtype=cfg.dtype, device="meta")
+        if cfg.n_visual_tokens > 0:
+            specs["visual_embeds"] = torch.empty((b, cfg.n_visual_tokens, cfg.d_model),
+                                                 dtype=cfg.dtype, device="meta")
+        return specs
+    return {"tokens": torch.empty((b, 1), dtype=torch.int32, device="meta")}
+
+
+def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether (arch, shape) is runnable, and why not."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, (
+            "full-attention architecture without a sub-quadratic variant; "
+            "long_500k decode skipped (DESIGN.md §5)"
+        )
+    return True, ""

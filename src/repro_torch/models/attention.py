@@ -51,6 +51,24 @@ def init(
     )
 
 
+def axes(qk_norm: bool = False) -> AttnParams:
+    """Logical sharding axes matching :class:`AttnParams` (tuples of logical
+    dimension names, ``None`` for an absent leaf; ``launch/sharding``)."""
+    return AttnParams(
+        wq=("embed", "heads", "head_dim"),
+        wk=("embed", "kv_heads", "head_dim"),
+        wv=("embed", "kv_heads", "head_dim"),
+        wo=("heads", "head_dim", "embed"),
+        q_norm=("head_dim",) if qk_norm else None,
+        k_norm=("head_dim",) if qk_norm else None,
+    )
+
+
+def layer_axes(qk_norm: bool = False) -> AttnParams:
+    """:func:`axes` with a leading ``"layers"`` axis, for stacked blocks."""
+    return AttnParams(*(None if a is None else ("layers",) + a for a in axes(qk_norm)))
+
+
 def _project_qkv(
     p: AttnParams, x: torch.Tensor, positions: torch.Tensor,
     rope_theta: float | None,
@@ -64,6 +82,11 @@ def _project_qkv(
     if rope_theta is not None:  # None => absolute-position models (whisper)
         q = L.apply_rope(q, positions, rope_theta)
         k = L.apply_rope(k, positions, rope_theta)
+    # The reference's activation anchors after rope: heads when divisible,
+    # else the query sequence; head_dim is deliberately not offered.
+    q = L.shard_hint(q, ("batch", "seq_shard", "heads", None))
+    k = L.shard_hint(k, ("batch", None, "kv_heads", None))
+    v = L.shard_hint(v, ("batch", None, "kv_heads", None))
     return q, k, v
 
 

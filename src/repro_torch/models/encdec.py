@@ -102,6 +102,27 @@ def init(generator: torch.Generator, cfg: ModelConfig) -> Params:
     )
 
 
+def axes(cfg: ModelConfig) -> Params:
+    """Logical sharding axes, the structure of :class:`Params`."""
+    a = attn.layer_axes(False)
+    return Params(
+        enc_blocks=EncBlock(
+            ln1=("layers", "embed"), attn=a, ln2=("layers", "embed"),
+            w_gate=("layers", "embed", "ff"), w_up=("layers", "embed", "ff"),
+            w_down=("layers", "ff", "embed"),
+        ),
+        enc_final=("embed",),
+        embed=("vocab", "embed"),
+        dec_blocks=DecBlock(
+            ln1=("layers", "embed"), self_attn=a, ln_x=("layers", "embed"),
+            cross_attn=a, ln2=("layers", "embed"),
+            w_gate=("layers", "embed", "ff"), w_up=("layers", "embed", "ff"),
+            w_down=("layers", "ff", "embed"),
+        ),
+        final_norm=("embed",),
+    )
+
+
 def from_numpy(tree, device: torch.device | str | None = None) -> Params:
     """The reference's ``Params`` with numpy leaves (``jax.tree.map(
     np.asarray, params)``) -> the port's on ``device``, bit for bit."""

@@ -3,8 +3,7 @@ of ``repro.models.layers``.
 
 Plain functions over tensors; the compute dtype is the params' (bf16 for
 the published configs) with f32 norms, softmax and logits, as in the
-reference.  ``shard_hint`` is not ported (the logical-axis rules wait
-with the launch tooling, ROADMAP queue 1 item 16).  Initialisers draw
+reference.  Initialisers draw
 from a ``torch.Generator``, on its device, with the reference's
 distributions and dtypes (not its numbers: threefry is not reproduced;
 tests carry the reference's own params across with ``from_numpy``).
@@ -18,6 +17,25 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.launch import sharding
+
+
+def shard_hint(x: torch.Tensor, logical: tuple[str | None, ...]) -> torch.Tensor:
+    """The reference's activation-sharding anchor: ``x``'s logical
+    dimension names resolved against the ambient mesh
+    (``launch/sharding.use_mesh``, which the dry run installs) by the
+    parameter rules, so a hint that does not fit ``x`` raises as the
+    reference's does; the hint is counted on the mesh's scope.  Returns
+    ``x`` untouched: PyTorch has no activation-sharding constraint outside
+    DTensor, and the models run on plain tensors.  Without an ambient mesh,
+    or on a one-device mesh, nothing is resolved."""
+    scope = sharding.ambient()
+    if scope is None or not scope.mesh.axis_names or scope.mesh.size <= 1:
+        return x
+    sharding.resolve_spec(logical, tuple(x.shape), scope.mesh)
+    scope.hints += 1
+    return x
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -108,7 +126,8 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            act: Callable[[torch.Tensor], torch.Tensor] = F.silu) -> torch.Tensor:
     """Gated MLP: down( act(x @ gate) * (x @ up) )."""
     h = act(x @ w_gate) * (x @ w_up)
-    return h @ w_down
+    h = shard_hint(h, ("batch",) + (None,) * (h.dim() - 2) + ("ff",))
+    return shard_hint(h @ w_down, ("batch",) + (None,) * (x.dim() - 1))
 
 
 def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,

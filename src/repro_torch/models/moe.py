@@ -105,6 +105,30 @@ def init(generator: torch.Generator, cfg: ModelConfig) -> Params:
     )
 
 
+def axes(cfg: ModelConfig) -> Params:
+    """Logical sharding axes, the structure of :class:`Params`."""
+    shared = cfg.n_shared_experts > 0
+    return Params(
+        embed=("vocab", "embed"),
+        blocks=BlockParams(
+            ln1=("layers", "embed"),
+            attn=attn.layer_axes(cfg.qk_norm),
+            ln2=("layers", "embed"),
+            mlp=MoEMLP(
+                w_router=("layers", "embed", "experts"),
+                w_gate=("layers", "experts", "embed", "ff"),
+                w_up=("layers", "experts", "embed", "ff"),
+                w_down=("layers", "experts", "ff", "embed"),
+                shared_gate=("layers", "embed", "ff") if shared else None,
+                shared_up=("layers", "embed", "ff") if shared else None,
+                shared_down=("layers", "ff", "embed") if shared else None,
+            ),
+        ),
+        final_norm=("embed",),
+        unembed=("embed", "vocab"),
+    )
+
+
 def from_numpy(tree, device: torch.device | str | None = None) -> Params:
     """The reference's ``Params`` with numpy leaves (``jax.tree.map(
     np.asarray, params)``) -> the port's on ``device``, bit for bit."""

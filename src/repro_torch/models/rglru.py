@@ -118,6 +118,27 @@ def init(generator: torch.Generator, cfg: ModelConfig) -> Params:
     )
 
 
+def axes(cfg: ModelConfig) -> Params:
+    """Logical sharding axes, the structure of :class:`Params`."""
+    rec_ax = RecParams(
+        ln=("embed",), w_x=("embed", "inner"), w_gate=("embed", "inner"),
+        conv_w=(None, "inner"), conv_b=("inner",),
+        w_rg=("inner", "inner2"), b_rg=("inner",),
+        w_ig=("inner", "inner2"), b_ig=("inner",),
+        lam=("inner",), w_out=("inner", "embed"),
+    )
+    attn_ax = AttnBlock(ln=("embed",), attn=attn.axes(False))
+    mlp_ax = MLPParams(ln=("embed",), w_gate=("embed", "ff"), w_up=("embed", "ff"),
+                       w_down=("ff", "embed"))
+    pat = pattern(cfg)
+    return Params(
+        embed=("vocab", "embed"),
+        temporal=tuple(rec_ax if p == "rec" else attn_ax for p in pat),
+        mlps=tuple(mlp_ax for _ in pat),
+        final_norm=("embed",),
+    )
+
+
 def from_numpy(tree: Any, device: torch.device | str | None = None) -> Params:
     """The reference's ``Params`` with numpy leaves (``jax.tree.map(
     np.asarray, params)``) -> the port's on ``device``, bit for bit."""
@@ -180,8 +201,12 @@ def _rec_apply(p: RecParams, x: torch.Tensor, cfg: ModelConfig,
     width, length = p.conv_w.shape[0], xb.shape[1]
     pad = F.pad(xb, (0, 0, width - 1, 0))
     xb = sum(pad[:, i:i + length, :] * p.conv_w[i] for i in range(width)) + p.conv_b
-    r = torch.sigmoid((xb @ p.w_rg).to(torch.float32) + p.b_rg)
-    i = torch.sigmoid((xb @ p.w_ig).to(torch.float32) + p.b_ig)
+    # The reference anchors the square gate maps' outputs to the inner
+    # shard (a reduce-scatter instead of a replicated all-reduce).
+    r = torch.sigmoid(L.shard_hint((xb @ p.w_rg).to(torch.float32), ("batch", None, "inner"))
+                      + p.b_rg)
+    i = torch.sigmoid(L.shard_hint((xb @ p.w_ig).to(torch.float32), ("batch", None, "inner"))
+                      + p.b_ig)
     a = torch.exp(-cfg.rglru_c * L.softplus(p.lam) * r)
     scale = torch.sqrt(torch.clamp_min(1.0 - torch.square(a), 1e-6))
     h, hlast = _rglru_scan(a, scale * (i * xb.to(torch.float32)), h0)

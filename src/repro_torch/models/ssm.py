@@ -86,6 +86,25 @@ def init(generator: torch.Generator, cfg: ModelConfig) -> Params:
     )
 
 
+def axes(cfg: ModelConfig) -> Params:
+    """Logical sharding axes, the structure of :class:`Params`."""
+    return Params(
+        embed=("vocab", "embed"),
+        blocks=BlockParams(
+            ln=("layers", "embed"),
+            in_proj=("layers", "embed", "inner_proj"),
+            conv_w=("layers", None, "inner_conv"),
+            conv_b=("layers", "inner_conv"),
+            a_log=("layers", "ssm_heads"),
+            d_skip=("layers", "ssm_heads"),
+            dt_bias=("layers", "ssm_heads"),
+            gate_norm=("layers", "inner"),
+            out_proj=("layers", "inner", "embed"),
+        ),
+        final_norm=("embed",),
+    )
+
+
 def from_numpy(tree, device: torch.device | str | None = None) -> Params:
     """The reference's ``Params`` with numpy leaves (``jax.tree.map(
     np.asarray, params)``) -> the port's on ``device``, bit for bit."""
@@ -234,6 +253,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, long_context: bool = 
         conv_state=torch.zeros((cfg.n_layers, batch, cfg.conv_width - 1, d_in + 2 * n),
                                dtype=cfg.dtype, device=dev),
         length=torch.zeros((batch,), dtype=torch.int32, device=dev),
+    )
+
+
+def cache_axes(cfg: ModelConfig) -> DecodeCache:
+    """Logical sharding axes of :class:`DecodeCache`."""
+    return DecodeCache(
+        ssm_state=("layers", "batch", "ssm_heads", None, None),
+        conv_state=("layers", "batch", None, "inner_conv"),
+        length=("batch",),
     )
 
 

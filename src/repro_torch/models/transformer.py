@@ -97,6 +97,25 @@ def init(generator: torch.Generator, cfg: ModelConfig) -> Params:
     )
 
 
+def axes(cfg: ModelConfig) -> Params:
+    """Logical sharding axes, the structure of :class:`Params`."""
+    return Params(
+        embed=("vocab", "embed"),
+        blocks=BlockParams(
+            ln1=("layers", "embed"),
+            attn=attn.layer_axes(cfg.qk_norm),
+            post_attn=("layers", "embed") if cfg.post_norms else None,
+            ln2=("layers", "embed"),
+            w_gate=("layers", "embed", "ff"),
+            w_up=("layers", "embed", "ff"),
+            w_down=("layers", "ff", "embed"),
+            post_mlp=("layers", "embed") if cfg.post_norms else None,
+        ),
+        final_norm=("embed",),
+        unembed=None if cfg.tie_embeddings else ("embed", "vocab"),
+    )
+
+
 def from_numpy(tree, device: torch.device | str | None = None) -> Params:
     """The reference's ``Params`` with numpy leaves (``jax.tree.map(
     np.asarray, params)``) -> the port's on ``device``, bit for bit."""
@@ -154,6 +173,9 @@ def forward(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     b, s = batch["tokens"].shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     for bp, window in zip(L.unstack_layers(params.blocks, cfg.n_layers), layer_windows(cfg)):
+        # The reference pins the residual stream to batch sharding at
+        # every layer boundary.
+        x = L.shard_hint(x, ("batch", None, None))
         if cfg.remat:
             x = checkpoint(_block_apply, cfg, bp, window, x, positions, use_reentrant=False)
         else:
@@ -190,6 +212,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, long_context: bool = 
         max_seq = min(max_seq, cfg.long_context_window)
     return DecodeCache(kv=attn.init_layer_caches(cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
                                                  cfg.head_dim, cfg.dtype, device))
+
+
+def cache_axes(cfg: ModelConfig) -> DecodeCache:
+    """Logical sharding axes of :class:`DecodeCache`."""
+    kv = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+    return DecodeCache(kv=attn.KVCache(k=kv, v=kv, length=("layers", "batch")))
 
 
 def decode_step(

@@ -1,8 +1,9 @@
 """Optimisers for local client training (Eq. 12).
 
-Plain SGD, FedProx's proximal SGD (Li et al., MLSys'20) and the E-epoch
-local-training drivers used by the federated rounds and the centralised
-oracle.  :func:`make_client_solver` returns a BATCHED solver (all clients
+Plain SGD, FedProx's proximal SGD (Li et al., MLSys'20), Adam over a
+param tree (:func:`adam`, the reference's, with no caller in either
+package's round loops) and the E-epoch local-training drivers used by
+the federated rounds and the centralised oracle.  :func:`make_client_solver` returns a BATCHED solver (all clients
 at once): for the paper autoencoder trained with its own loss it runs
 the whole E-epoch phase as one fused operator, ``kernels/ops.local_train``
 (the ``local_train_f32`` kernel on the card, ``kernels/ref.local_train_ref``
@@ -20,7 +21,7 @@ deltas index the round's (N, d) buffers the same way in both packages.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Iterator
+from typing import Any, Callable, Iterator, NamedTuple
 
 import torch
 
@@ -261,3 +262,47 @@ def make_client_solver(
         return theta - anchor, losses
 
     return clients_fn
+
+
+class AdamState(NamedTuple):
+    mu: Params
+    nu: Params
+    count: torch.Tensor       # () int32
+
+
+def adam_init(params: Params) -> AdamState:
+    """Zero first and second moments shaped as ``params``, count 0."""
+    leaves = list(_leaves(params))
+    dev = leaves[0].device if leaves else None
+    return AdamState(_map(torch.zeros_like, params), _map(torch.zeros_like, params),
+                     torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def adam(
+    params: Params,
+    grads: Params,
+    state: AdamState,
+    lr: float,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    weight_decay: float = 0.0,
+) -> tuple[Params, AdamState]:
+    """One Adam step over a param tree, the reference's update in its
+    order: the moments, then the bias corrections ``1 / (1 - b**count)``
+    in f32, then ``lr * mhat / (sqrt(vhat) + eps)`` (plus ``lr *
+    weight_decay * p``) subtracted.  Returns new params and state."""
+    count = state.count + 1
+    mu = _map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
+    nu = _map(lambda v, g: b2 * v + (1 - b2) * torch.square(g), state.nu, grads)
+    c = count.to(torch.float32)
+    mhat_scale = 1.0 / (1.0 - torch.pow(b1, c))
+    vhat_scale = 1.0 / (1.0 - torch.pow(b2, c))
+
+    def upd(p, m, v):
+        step = lr * (m * mhat_scale) / (torch.sqrt(v * vhat_scale) + eps)
+        if weight_decay:
+            step = step + lr * weight_decay * p
+        return p - step
+
+    return _map(upd, params, mu, nu), AdamState(mu, nu, count)

@@ -1587,3 +1587,78 @@ def test_new_lm_families_on_the_card_match_cpu(cuda, arch):
         assert err <= 1e-3 * float(torch.max(torch.abs(want))), (t, err)
     n_attn = 0 if cfg.family == "ssm" else cfg.n_layers
     assert swa.LAUNCHES["swa_decode"] == n_attn * steps
+
+
+EXAMPLE_RUNS = {   # example -> (argv at a small size, the kernels its path launches)
+    "quickstart": ([], ("local_train_f32", "fused_agg")),
+    "train_iout_hfl": (["--rounds", "2", "--local-epochs", "1"],
+                       ("local_train_f32", "fused_agg")),
+    "serve_anomaly": (["--rounds", "4", "--n-sensors", "8", "--train-len", "48",
+                       "--batch-rows", "256"], ("local_train_f32", "fused_agg", "fused_score_f32")),
+    "load_replay": (["--duration", "1", "--int8"], ("fused_score_f32", "fused_score_q8")),
+}
+
+
+@pytest.mark.parametrize("name", list(EXAMPLE_RUNS))
+def test_examples_on_the_card_launch_their_kernels(cuda, tmp_path, name):
+    """Each example of ``repro_torch.examples`` on the card at a small
+    size: its fields, and every kernel of its path launched."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    argv, kernels = EXAMPLE_RUNS[name]
+    if name in ("train_iout_hfl", "serve_anomaly"):
+        argv = argv + ["--ckpt-dir", str(tmp_path)]
+    counters = {"local_train_f32": lt.LAUNCHES, "fused_agg": fa.LAUNCHES,
+                "fused_score_f32": fs.LAUNCHES, "fused_score_q8": fs.LAUNCHES}
+    for reset in (lt.reset_launches, fa.reset_launches, fs.reset_launches):
+        reset()
+    out = mod.main(argv, device=cuda)
+    for k in kernels:
+        assert counters[k][k] > 0, k
+    if name == "serve_anomaly":
+        assert out["service"]["swaps"] >= 1 and out["swapped"] is True
+        assert 0.0 <= out["f1"] <= 1.0 and out["mean_abs_error_shift"] > 0.0
+    elif name == "load_replay":
+        assert out["fixed"]["e2e_p99_ms"] > 0 and "adaptive_bucketed_int8" in out
+    elif name == "quickstart":
+        assert all(0.0 <= r.f1 <= 1.0 for r in out.values())
+    else:
+        assert len(out["rounds"]) == 2 and 0.0 <= out["f1"] <= 1.0
+
+
+def test_adam_on_the_card_matches_cpu(cuda):
+    """Three ``sgd.adam`` steps on the card and on the CPU from the same f32
+    tree and gradients: every leaf within 1e-6 of its largest magnitude."""
+    from repro_torch.optim import sgd
+    g = torch.Generator().manual_seed(3)
+    cpu = ae.init(g, 32, (16, 8, 16), device="cpu")
+    grads = [ae.init(g, 32, (16, 8, 16), device="cpu") for _ in range(3)]
+    gpu = [{k: v.to(cuda) for k, v in layer.items()} for layer in cpu]
+    sc, sg = sgd.adam_init(cpu), sgd.adam_init(gpu)
+    for gr in grads:
+        cpu, sc = sgd.adam(cpu, gr, sc, 1e-2, weight_decay=0.01)
+        gpu, sg = sgd.adam(gpu, [{k: v.to(cuda) for k, v in layer.items()} for layer in gr], sg,
+                           1e-2, weight_decay=0.01)
+    assert int(sg.count) == 3
+    for a, b in zip(sgd.tree_leaves(cpu), sgd.tree_leaves(gpu)):
+        assert float((b.cpu() - a).abs().max()) <= 1e-6 * float(a.abs().max())
+
+
+def test_dryrun_param_bytes_equal_an_allocated_model(cuda):
+    """The dry run's parameter bytes (nothing allocated) against llama3-8b
+    at full width cut to 2 layers allocated on the card."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api, layers
+    cfg = configs.get("llama3-8b").replace(n_layers=2)
+    shape = ShapeConfig("card-train", 128, 2, "train")
+    rec = dryrun.dryrun_one("llama3-8b", shape.name, cfg=cfg, shape=shape, mesh=make_host_mesh())
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    params = api.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    held = sum(t.numel() * t.element_size() for t in layers.leaves(params))
+    assert rec["param_bytes"] == held
+    assert torch.cuda.memory_allocated() - before >= held
+    del params
