@@ -174,7 +174,8 @@ exits non-zero before the result line:
              ``mmpp_trace(1047, ...)``), robust-200's attack under trimmed
              0.45 on cell (0.5, 0.25): each Engine call's launches n_events
              x one event's (1 ``local_train_f32``, 2 ``fused_agg``, + 1
-             ``robust_agg`` under attack) for its 3 folded trials; sim s
+             ``robust_agg`` under attack) for all its folded trials (the
+             sweep's 3 cells x 3 seeds too: one call); sim s
              per merge, ``speedup_vs_sync``, F1, staleness per cell; cell
              (0.5, 0.25)'s seed-0 trial (60 events) on the card against
              the CPU (merges, launches, arrivals, erasures
@@ -289,7 +290,22 @@ exits non-zero before the result line:
              and the roofline's bound and dominant term (``launch/
              roofline`` on the H100's figures) beside their measured step,
              with the model-FLOP share 6 (train) or 2 (decode) x N x tokens
-             / (step s x 989.4 TFLOP/s).
+             / (step s x 989.4 TFLOP/s);
+24. sweep-200 — ``Engine.sweep`` at train-200's width, each shape class
+             one batched call over its cells' trials: (a) wind x shipping
+             x eta_ea, 8 cells x seeds 0-1 (one class, B = 16); (b) the
+             robustness benchmark's attack grid (mean / trimmed 0.45 /
+             median x byz_frac 0, 0.25 x erasure 0, 0.3; 3 classes of 4
+             cells); (c) the Fig. 6 N = 200 audit (four methods x
+             compressed / dense, a method and payload a cell, seeds 0-2);
+             (d) phase 19's three staleness cells at 20 events.  Each class launches
+             as one of its cells does, each cell equals its own
+             ``Engine.run`` / ``Engine.audit`` on the card (counters
+             exactly, energies rtol=1e-5, losses 1e-4 and F1 1e-3; 1% and
+             0.02 for the async and robust cells), the (a) and (b) calls'
+             own kernel inputs are held to the plain versions, and the
+             seconds of each sweep against its cells one after another,
+             ms per trial-round and the device idle share are printed.
 
 Phase 6 also times ``fused_agg`` at robust-200's identity call (N =
 n_fog = 200), at one of its 64-client chunks and at fleet-10k's unchunked
@@ -336,7 +352,7 @@ check there, and ``compress_q8``'s time at the example's d to its
 ``by_shape``; phase 22 adds ``swa_decode``'s launches in moe-serve,
 grok-decode, encdec-decode and qwen3-decode, and their calls' errors;
 phase 23 adds each score and training kernel's launches in its four
-examples).  The last line is
+examples, phase 24 each training kernel's in one sweep class).  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and power limit, and the
 one before that the ``kernels`` JSON.
 """
@@ -547,16 +563,20 @@ def call_ms(fn, n: int) -> float:
 PROFILE_TRIES = 3     # traces of one measurement before an empty one fails the run
 
 
-def device_events(run) -> list:
+def device_events(run, host: bool = True) -> list:
     """The device activities of torch.profiler's CUPTI trace of ``run()``
-    (which ends in a ``torch.cuda.synchronize``).  A trace that comes back
-    without device activity is taken again, up to ``PROFILE_TRIES``
-    traces; the run fails when none recorded any."""
+    (which ends in a ``torch.cuda.synchronize``); ``host=False`` traces the
+    device alone (no host op events to collect: far less to process for a
+    long run).  A trace that comes back without device activity is taken
+    again, up to ``PROFILE_TRIES`` traces; the run fails when none
+    recorded any."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [
+        ProfilerActivity.CUDA]
     for attempt in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             run()
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if dev:
@@ -566,18 +586,20 @@ def device_events(run) -> list:
     check(False, "torch.profiler recorded no device time")
 
 
-def device_ms(fn, n: int) -> tuple[float, float]:
+def device_ms(fn, n: int, warm: bool = True, host: bool = True) -> tuple[float, float]:
     """(device ms per call, device activities per call) over ``n`` calls,
-    from torch.profiler's CUPTI trace (:func:`device_events`)."""
-    fn()
-    torch.cuda.synchronize()
+    from torch.profiler's CUPTI trace (:func:`device_events`, ``host`` as
+    there), after one untraced warm-up call unless ``warm`` is False."""
+    if warm:
+        fn()
+        torch.cuda.synchronize()
 
     def run():
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
 
-    dev = device_events(run)
+    dev = device_events(run, host)
     return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / n, len(dev) / n
 
 
@@ -2518,8 +2540,9 @@ def async_engine_cell(eng, exp, ds, run, label, counters, cfgs, robust=False) ->
     """One Engine call on the card over ``cfgs``' cells and
     ``ASYNC_SEEDS``, every count zeroed just before it and read just
     after, checked against one trial's per event: each event one
-    ``local_train_f32`` and one ``fused_agg`` call (two launches) for its
-    folded trials, plus one ``robust_agg`` with the trimmed reduce.  Then
+    ``local_train_f32`` and one ``fused_agg`` call (two launches) for all
+    its folded trials, the cells' too (a sweep's class is one call), plus
+    one ``robust_agg`` with the trimmed reduce.  Then
     each cell's trials (s, 0) against sequential card trials
     (:func:`async_vs_sequential`).  Returns (the result, its launches, the
     worst relative differences over its cells, the call's seconds)."""
@@ -2536,8 +2559,7 @@ def async_engine_cell(eng, exp, ds, run, label, counters, cfgs, robust=False) ->
     per_cell = {k: v for k, v in (("local_train_f32", n_events), ("fused_agg", 2 * n_events),
                                   ("robust_agg", n_events if robust else 0)) if v}
     got = {k: launches[k] for k in ASYNC_PATH if launches[k]}
-    want = {k: len(cfgs) * v for k, v in per_cell.items()}
-    check(got == want, f"{label}: launched {got}, one trial per cell launches {want}")
+    check(got == per_cell, f"{label}: launched {got}, one cell launches {per_cell}")
     cells = [out.cell(i) for i in range(len(cfgs))] if hasattr(out, "cell") else [out.metrics]
     worst: dict[str, float] = {}
     for i, (cfg, metrics) in enumerate(zip(cfgs, cells)):
@@ -2579,53 +2601,53 @@ class KernelCalls:
             setattr(mod, name, launch)
 
 
-def check_async_kernels(calls, kref, ra, ae, dev) -> dict:
-    """The three kernels on the inputs that the async robust cell's
-    Engine call gave them (B = 3 trials folded: 600 clients, theta (3, d),
-    60 fogs), each output held against its plain version on the same
-    inputs: ``local_train_f32``'s first event (deltas rtol=1e-4 /
-    atol=1e-6, loss rtol=1e-5); ``fused_agg``'s first event on 600
-    identity segments (thresholds and new_err bitwise, fog sums bitwise
-    the client-order fold and within rtol=1e-5 / atol=1e-4); and every
-    event's ``robust_agg`` merge input (the per-client means, the folded
-    ``cli_fog`` of the latest arrivals, ``cli_w`` with the zero weights of
-    clients that did not arrive) at rtol=1e-5 / atol=1e-6, member lists
-    equal.  Returns the max |diff| per kernel and what the inputs held."""
+def check_recorded_kernels(calls, kref, ra, ae, dev, label) -> dict:
+    """The kernels on the inputs that an Engine call gave them
+    (:class:`KernelCalls`), each output held against its plain version on
+    the same inputs: ``local_train_f32``'s first call (deltas rtol=1e-4 /
+    atol=1e-6, loss rtol=1e-5); ``fused_agg``'s first call (thresholds
+    and new_err bitwise, fog sums bitwise the client-order fold and within
+    rtol=1e-5 / atol=1e-4); and every ``robust_agg`` call (for the async
+    family the merge input: the per-client means, the folded ``cli_fog``
+    of the latest arrivals, ``cli_w`` with the zero weights of clients
+    that did not arrive) at rtol=1e-5 / atol=1e-6, member lists equal.
+    Returns the max |diff| per kernel recorded and what the inputs held."""
     (deltas, loss), (x, idx, theta, dims, lr, mu) = calls["train_clients"][0]
     layers = ae.unravel(theta, ae.init(torch.Generator().manual_seed(0), D, HIDDEN, device=dev))
     d_ref, l_ref = kref.local_train_ref(x, idx, tuple(p["w"] for p in layers),
                                         tuple(p["b"] for p in layers), lr, mu)
-    err = {"local_train_f32": close_on_device(deltas, d_ref, 1e-4, 1e-6,
-                                              f"async local_train, theta {tuple(theta.shape)}")}
-    close_on_device(loss, l_ref, 1e-5, 0.0, "async local_train loss")
+    err = {"local_train_f32": close_on_device(
+        deltas, d_ref, 1e-4, 1e-6, f"{label} local_train, theta {tuple(theta.shape)}")}
+    close_on_device(loss, l_ref, 1e-5, 0.0, f"{label} local_train loss")
     (fs_k, ne_k, thr_k), args = calls["compress_aggregate_blocks"][0]
     fs_r, ne_r, thr_r = kref.compress_aggregate_ref(*args)
     n_rows, n_seg = int(args[0].shape[0]), int(args[4])
     check(torch.equal(thr_k, thr_r) and torch.equal(ne_k, ne_r),
-          f"async fused_agg thresholds or new_err differ bitwise on {n_seg} identity segments")
+          f"{label} fused_agg thresholds or new_err differ bitwise on {n_seg} segments")
     check(torch.equal(fs_k, kref.dense_fold_ref(*args)),
-          "async fused_agg fog sums differ from the client-order fold")
-    err["fused_agg"] = max(close_on_device(ne_k, ne_r, 0.0, 1e-5, "async fused_agg new_err"),
-                           close_on_device(fs_k, fs_r, 1e-5, 1e-4, "async fused_agg fog sums"))
-    err["robust_agg"], members, zeros = 0.0, 0, 0
+          f"{label} fused_agg fog sums differ from the client-order fold")
+    err["fused_agg"] = max(
+        close_on_device(ne_k, ne_r, 0.0, 1e-5, f"{label} fused_agg new_err"),
+        close_on_device(fs_k, fs_r, 1e-5, 1e-4, f"{label} fused_agg fog sums"))
+    members, zeros, n_fog = 0, 0, 0
     for i, (out, (recon, fog_id, weights, n_fog, beta, mode)) in enumerate(
             calls["robust_aggregate_blocks"]):
         want, _ = kref.robust_aggregate_ref(recon, fog_id, weights, n_fog, beta, mode)
-        err["robust_agg"] = max(err["robust_agg"], close_on_device(
-            out, want, 1e-5, 1e-6, f"async robust_agg {mode} {beta} event {i}, {n_fog} fogs"))
-        check_member_lists(ra, fog_id, weights, n_fog, f"async merge input of event {i}")
+        err["robust_agg"] = max(err.get("robust_agg", 0.0), close_on_device(
+            out, want, 1e-5, 1e-6, f"{label} robust_agg {mode} {beta} call {i}, {n_fog} fogs"))
+        check_member_lists(ra, fog_id, weights, n_fog, f"{label} robust_agg input of call {i}")
         held = int((weights > 0).sum())
         if held > members:
             members, zeros = held, int((weights == 0).sum())
-    n_merge = len(calls["robust_aggregate_blocks"])
-    print(f"  the async robust cell's own kernel inputs vs the plain versions: local_train_f32 "
+    n_robust = len(calls["robust_aggregate_blocks"])
+    print(f"  {label}'s own kernel inputs vs the plain versions: local_train_f32 "
           f"N={int(x.shape[0])} theta {tuple(theta.shape)} max|delta diff|="
-          f"{err['local_train_f32']:.3e}; fused_agg N={n_rows} on {n_seg} identity segments, "
-          f"thresholds, new_err and the fold equal, max|diff|={err['fused_agg']:.3e}; robust_agg "
-          f"on {n_merge} events' merge inputs into {n_fog} folded fogs (fullest {members} rows "
-          f"of weight > 0, {zeros} of weight 0), member lists equal, "
-          f"max|diff|={err['robust_agg']:.3e}  ok")
-    return dict(max_abs_err=err, robust_events=n_merge, fullest_members=members,
+          f"{err['local_train_f32']:.3e}; fused_agg N={n_rows} into {n_seg} segments, "
+          f"thresholds, new_err and the fold equal, max|diff|={err['fused_agg']:.3e}"
+          + (f"; robust_agg on {n_robust} calls' inputs into {n_fog} folded fogs (fullest "
+             f"{members} rows of weight > 0, {zeros} of weight 0), member lists equal, "
+             f"max|diff|={err['robust_agg']:.3e}" if n_robust else "") + "  ok")
+    return dict(max_abs_err=err, robust_calls=n_robust, fullest_members=members,
                 fullest_zero_weight=zeros)
 
 
@@ -2770,7 +2792,7 @@ def async_fleet(mods, train_ds, counters, training, dev, name, smi) -> dict:
     seeds 0-2, its sync baseline and its MMPP replay cell; robust-200's
     attack under trimmed 0.45 on cell (0.5, 0.25), with the kernels'
     inputs of that call held against their plain versions
-    (:func:`check_async_kernels`); every Engine trial (s, 0) against its
+    (:func:`check_recorded_kernels`); every Engine trial (s, 0) against its
     sequential card trial; cell (0.5, 0.25)'s trial on the card against
     its CPU twin; ms per event, device ops, idle share and host syncs per
     event (:func:`time_async_events`)."""
@@ -2841,7 +2863,8 @@ def async_fleet(mods, train_ds, counters, training, dev, name, smi) -> dict:
         check(all(bool(torch.isfinite(v).all()) for v in run.metrics.values()),
               "non-finite async metrics")
         check(run["f1"].device == dev, "an async cell did not run on the card")
-    kernel_checks = check_async_kernels(recorded.calls, kref, ra, ae, dev)
+    kernel_checks = check_recorded_kernels(recorded.calls, kref, ra, ae, dev,
+                                           "the async robust cell")
     cells_s = sync_wall + sweep_wall + mm_wall + robust_wall
     print(f"  sync baseline (sync_limit, {ROUNDS} events, seeds {ASYNC_SEEDS}): {sync_s:.3f} sim s per "
           f"round, F1 {float(sync_run['f1'].mean()):.4f}; launches {sync_l}")
@@ -4569,6 +4592,231 @@ def launch_tooling_phase(mods, counters, lm, families, dev, name, smi, workdir) 
     return out
 
 
+# --- phase 24: sweep-200, Engine.sweep's shape classes as one call each ----------
+
+SWEEP_SEEDS = (0, 1)                        # (a), (b): 2 seeds x 1 deployment a cell
+SWEEP_PHYSICS = tuple((w, s, e) for w in (3.0, 8.0) for s in (0.2, 0.7) for e in (0.25, 0.4))
+SWEEP_ROBUST = tuple((r, b, p) for r in ("mean", "trimmed", "median") for b in (0.0, 0.25)
+                     for p in (0.0, 0.3))   # robustness_bench's attack grid
+SWEEP_AUDIT_METHODS = ("hfl-nocoop", "hfl-selective", "hfl-nearest", "fedprox")
+SWEEP_AUDIT_SEEDS = (0, 1, 2)               # fig6_energy's N = 200 audit
+SWEEP_COUNTS = (("participation", "sensor-rounds"), ("coop_links", "rounds"),
+                ("erased_total", None), ("nonfinite_total", None), ("nonfinite_rounds", None),
+                ("merges", None))
+
+
+def hold_cell(got, want, label, n, t, loose, chaotic=False) -> dict:
+    """A sweep cell's (S, P) metrics against its own Engine call's:
+    counters exactly (participation as sensor-rounds, links as a count a
+    round), energies rtol=1e-5, losses rtol=1e-4 and F1 within 1e-3, or
+    1% and 0.02 for the async and robust cells (``loose``: their fog sums
+    add in no fixed order on the card).  A ``chaotic`` cell (the mean
+    reduce under Gaussian colluders, whose model diverges) has its losses
+    and F1 recorded, not gated: a sum over a larger trial axis reduces in
+    another order on the card, and the divergence amplifies that one-ulp
+    difference.  Returns the worst differences."""
+    worst = {}
+    for key, per in SWEEP_COUNTS:
+        if key not in want:
+            continue
+        scale = {"sensor-rounds": n * t, "rounds": t, None: 1}[per]
+        check(torch.equal(torch.round(got[key].double() * scale),
+                          torch.round(want[key].double() * scale)),
+              f"{label}: {key} {got[key].tolist()} vs {want[key].tolist()}")
+    for key in ("e_total", "e_s2f", "e_f2f", "e_f2g"):
+        a, b = got[key].double(), want[key].double()
+        rel = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+        check(rel <= 1e-5, f"{label}: {key} differs by {rel:.3e} (rtol 1e-5)")
+        worst[key] = rel
+    if "losses" in want:
+        a, b = got["losses"].double(), want["losses"].double()
+        tag = "chaotic " if chaotic else ""
+        worst[tag + "losses"] = float(((a - b).abs() / b.abs()).max())
+        worst[tag + "f1"] = float((got["f1"] - want["f1"]).abs().max())
+        if not chaotic:
+            check(worst["losses"] <= (0.01 if loose else 1e-4),
+                  f"{label}: losses differ by {worst['losses']:.3e}")
+            check(worst["f1"] <= (0.02 if loose else 1e-3),
+                  f"{label}: F1 differs by {worst['f1']:.3e}")
+    return worst
+
+
+def sweep_part(eng, label, method, cfgs, seeds, run_one, counters, n, t, loose, dev, name, smi,
+               ds=None, family="run", record=None, chaotic=()) -> dict:
+    """One part of phase 24: ``Engine.sweep`` over ``cfgs`` on the card,
+    every count zeroed just before it and read just after, then each cell
+    by its own Engine call (``run_one(i)``) one after another: every
+    class's launches must equal one of its cells', and every cell its own
+    call's metrics (:func:`hold_cell`; the cells in ``chaotic`` also run
+    twice, to show the card repeats a call bitwise).  Then the sweep once
+    more, timed against the cells (the first call bears the warm-up), and
+    once under torch.profiler for the device idle share.  ``record`` (a
+    :class:`KernelCalls`) keeps the first sweep's kernel inputs."""
+    def sweep():
+        return eng.sweep(method, cfgs, seeds, ds, family=family)
+
+    start = time.perf_counter()
+    for _, reset in counters.values():
+        reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if record is not None:
+        with record:
+            sw = sweep()
+    else:
+        sw = sweep()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    logs = eng.take_log()
+    check(len(logs) == sw.n_classes, f"{label}: {len(logs)} calls for {sw.n_classes} classes")
+    total = {k: launches_of[k] for k, (launches_of, _) in counters.items() if launches_of[k]}
+    check(sum(sum(e["launches"].values()) for e in logs) == sum(total.values()),
+          f"{label}: the Engine's log disagrees with the launch counters {total}")
+    class_of = {i: c for c, info in enumerate(sw.classes) for i in info["indices"]}
+    cells_s, cells_call_s, worst = 0.0, 0.0, {}
+    for i in range(len(cfgs)):
+        for _, reset in counters.values():
+            reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = run_one(i)
+        torch.cuda.synchronize()
+        cells_s += time.perf_counter() - t0
+        (one,) = eng.take_log()
+        cells_call_s += one["wall_s"]
+        check(logs[class_of[i]]["launches"] == one["launches"],
+              f"{label}: class {class_of[i]} launched {logs[class_of[i]]['launches']}, its cell "
+              f"{i} alone {one['launches']}")
+        got = sw.cell(i)
+        check(all(bool(torch.isfinite(v).all()) for v in got.values()),
+              f"{label} cell {i}: non-finite metrics")
+        check(got["e_total"].device == dev, f"{label} did not run on the card")
+        for k, v in hold_cell(got, want, f"{label} cell {i}", n, t, loose,
+                              i in chaotic).items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        if i in chaotic:
+            again = run_one(i)
+            eng.take_log()
+            worst["chaotic cell run twice, max |dloss|"] = max(
+                worst.get("chaotic cell run twice, max |dloss|", 0.0),
+                float((again["losses"] - want["losses"]).abs().max()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    call_s = sum(e["wall_s"] for e in eng.take_log())   # the calls, without the host's draws
+    dev_ms, ops = device_ms(sweep, 1, warm=False, host=False)   # the timed call warmed it
+    eng.take_log()
+    trials = len(cfgs) * len(seeds)
+    out = dict(cells=len(cfgs), classes=[list(c["indices"]) for c in sw.classes],
+               knobs=[c["knobs"] for c in sw.classes], trials=trials,
+               launches_per_class=[e["launches"] for e in logs], first_call_s=first,
+               sweep_s=wall, cells_one_after_another_s=cells_s, speedup=cells_s / wall,
+               calls_s=call_s, cells_calls_s=cells_call_s, calls_speedup=cells_call_s / call_s,
+               trial_round_ms=wall * 1e3 / (trials * t),
+               call_trial_round_ms=call_s * 1e3 / (trials * t), device_ms=dev_ms,
+               device_ops=ops, idle_share=max(0.0, 1.0 - dev_ms / (wall * 1e3)),
+               call_idle_share=max(0.0, 1.0 - dev_ms / (call_s * 1e3)), worst=worst,
+               part_s=time.perf_counter() - start)
+    print(f"  {label}: {len(cfgs)} cells x {len(seeds)} seeds in {sw.n_classes} class(es) "
+          f"{out['classes']} (knobs {out['knobs']}), one call each: {wall:.3f} s (first call "
+          f"{first:.3f} s) against "
+          f"{cells_s:.3f} s cell by cell by Engine.{'run' if family == 'run' else 'audit'} "
+          f"(x{out['speedup']:.2f}); the Engine calls alone (the host's draws of the "
+          f"trials' inputs left out) {call_s:.3f} s against {cells_call_s:.3f} s "
+          f"(x{out['calls_speedup']:.2f}); {out['trial_round_ms']:.3f} ms per trial-"
+          f"{'event' if method == 'hfl-async' else 'round'} ({out['call_trial_round_ms']:.3f} in "
+          f"the call); device {dev_ms:.1f} ms in {ops} ops, idle share "
+          f"{out['idle_share']:.3f} ({out['call_idle_share']:.3f} of the call); launches per class "
+          f"{out['launches_per_class']} (one cell's each)  on {name} ({smi})")
+    print(f"    every cell vs its own call: counters equal; max rel "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f"; the part took {out['part_s']:.1f} s")
+    return out
+
+
+def sweep_phase(mods, train_ds, counters, dev, name, smi) -> dict:
+    """Phase 24: sweep-200.  ``Engine.sweep`` at train-200's width (N =
+    200, M = 20, window 256, E = 5, batch 32, T = 20, rho_s 0.05 int8),
+    each shape class one batched call: (a) a physics grid (wind x
+    shipping x eta_ea, 8 cells x seeds 0-1: one class of B = 16, 3,200
+    clients a ``local_train_f32`` launch); (b) ``robustness_bench``'s
+    attack grid (mean / trimmed 0.45 / median x byz_frac 0, 0.25 x
+    erasure 0, 0.3, gauss x 20; 3 classes of 4 cells, B = 8); (c)
+    ``fig6_energy``'s N = 200 audit (hfl-nocoop, hfl-selective,
+    hfl-nearest, fedprox x compressed / dense, a method and a payload per
+    cell, seeds 0-2: one class); (d) phase 19's three async staleness
+    cells at ``ASYNC_TIME_EVENTS`` events (seeds 0-2, one class; phase 19
+    holds their 60-event sweep, one call too, to sequential trials).  Every class launches as one cell does,
+    every cell equals its own ``Engine.run`` / ``Engine.audit``, and the
+    folded calls' own ``local_train_f32``, ``fused_agg`` and
+    ``robust_agg`` inputs (one round of (a) and of (b)) are held to the
+    plain versions (:func:`check_recorded_kernels`); the seconds of each
+    sweep against its cells one after another, ms per trial-round and the
+    device idle share are recorded."""
+    Engine, exp, async_fl, ch, en, FaultConfig, comp, lt, fa, ra, kref, ae = mods
+    cfg = exp.make_config(TRAIN_N, TRAIN_FOG, ROUNDS)
+    eng = Engine()
+    eng.take_log()
+    out = {}
+
+    physics = [cfg.replace(channel=ch.ChannelParams(wind_m_s=w, shipping=s),
+                           energy=en.EnergyParams(eta_ea=e)) for w, s, e in SWEEP_PHYSICS]
+    rec_a = KernelCalls(lt, fa, ra)
+    out["physics"] = sweep_part(
+        eng, "(a) physics grid", "hfl-selective", physics, SWEEP_SEEDS,
+        lambda i: eng.run("hfl-selective", physics[i], SWEEP_SEEDS, train_ds).metrics,
+        counters, TRAIN_N, ROUNDS, False, dev, name, smi, ds=train_ds, record=rec_a)
+    check(out["physics"]["launches_per_class"] == [{"local_train_f32": ROUNDS,
+                                                    "fused_agg": 2 * ROUNDS}],
+          f"(a) launched {out['physics']['launches_per_class']}")
+    out["physics"]["kernel_checks"] = check_recorded_kernels(rec_a.calls, kref, ra, ae, dev,
+                                                             "(a) the physics class")
+
+    robust = [cfg.replace(robust=r, trim_frac=ROBUST_TRIM if r == "trimmed" else 0.0,
+                          faults=FaultConfig(erasure_prob=p, byz_frac=b, byz_scale=20.0,
+                                             byz_mode="gauss"))
+              for r, b, p in SWEEP_ROBUST]
+    rec_b = KernelCalls(lt, fa, ra)
+    out["robust"] = sweep_part(
+        eng, "(b) attack grid", "hfl-selective", robust, SWEEP_SEEDS,
+        lambda i: eng.run("hfl-selective", robust[i], SWEEP_SEEDS, train_ds).metrics,
+        counters, TRAIN_N, ROUNDS, True, dev, name, smi, ds=train_ds, record=rec_b,
+        chaotic=tuple(i for i, (r, b, _) in enumerate(SWEEP_ROBUST) if r == "mean" and b > 0))
+    check(len(out["robust"]["classes"]) == 3 and all(
+        e.get("robust_agg", 0) == (ROUNDS if i else 0)
+        for i, e in enumerate(out["robust"]["launches_per_class"])),
+        f"(b) classes {out['robust']['classes']}, launches {out['robust']['launches_per_class']}")
+    first_of = {}      # the first robust_agg call of each robust class
+    for call in rec_b.calls["robust_aggregate_blocks"]:
+        first_of.setdefault(call[1][-1], call)
+    rec_b.calls["robust_aggregate_blocks"] = list(first_of.values())
+    out["robust"]["kernel_checks"] = check_recorded_kernels(rec_b.calls, kref, ra, ae, dev,
+                                                            "(b) the attack grid")
+
+    compressed, dense = comp.CompressorConfig(rho_s=0.05, quant_bits=8), comp.CompressorConfig(
+        rho_s=1.0, quant_bits=32)
+    audit = [(m, cfg.replace(compressor=c)) for m in SWEEP_AUDIT_METHODS
+             for c in (compressed, dense)]
+    methods = [m for m, _ in audit]
+    out["audit"] = sweep_part(
+        eng, "(c) energy audit", methods, [c for _, c in audit], SWEEP_AUDIT_SEEDS,
+        lambda i: eng.audit(methods[i], audit[i][1], SWEEP_AUDIT_SEEDS),
+        counters, TRAIN_N, ROUNDS, False, dev, name, smi, family="audit")
+    check(len(out["audit"]["classes"]) == 1, f"(c) split into {out['audit']['classes']}")
+
+    cells = [async_cell(async_fl, cfg, a, f, n_events=ASYNC_TIME_EVENTS) for a, f in ASYNC_CELLS]
+    out["async"] = sweep_part(
+        eng, "(d) async staleness", "hfl-async", cells, ASYNC_SEEDS,
+        lambda i: eng.run("hfl-async", cells[i], ASYNC_SEEDS, train_ds).metrics,
+        counters, TRAIN_N, ASYNC_TIME_EVENTS, True, dev, name, smi, ds=train_ds)
+    check(out["async"]["launches_per_class"] == [{"local_train_f32": ASYNC_TIME_EVENTS,
+                                                  "fused_agg": 2 * ASYNC_TIME_EVENTS}],
+          f"(d) launched {out['async']['launches_per_class']}")
+    return out
+
+
 def main(argv: list[str]) -> int:
     timing_only = argv == ["--timing"]
     if argv and not timing_only:
@@ -4863,6 +5111,10 @@ def main(argv: list[str]) -> int:
         tooling = launch_tooling_phase(
             (example_mods, sgd, lm_configs, lm_api, dryrun, roofline, ShapeConfig),
             example_counters, lm, families, dev, name, smi, Path(tmp))
+    phase("24. sweep-200 (main path): Engine.sweep, each shape class one batched call")
+    from repro_torch.core import energy as en
+    sweep = sweep_phase((Engine, exp, async_fl, ch, en, FaultConfig, comp, lt, fa, ra, kref, ae),
+                        train_ds, kernel_counters(lt, fa, ra, kq8, tk), dev, name, smi)
     phase("done")
 
     kernels = []
@@ -4893,6 +5145,9 @@ def main(argv: list[str]) -> int:
         train_err[kname] = max(train_err[kname], e)
     for kname, e in mesh["kernel_max_abs_err"].items():   # a mesh rank's shapes
         train_err[kname] = max(train_err[kname], e)
+    for part in ("physics", "robust"):                    # the folded sweep classes' inputs
+        for kname, e in sweep[part]["kernel_checks"]["max_abs_err"].items():
+            train_err[kname] = max(train_err[kname], e)
     launches = dict(training["launches"])
     launches["robust_agg"] = robust["launches"]["robust_agg"]
     launches.update({k: fleet["chunked"]["launches"][k] for k in ("wire_emit", "wire_agg")})
@@ -4922,7 +5177,11 @@ def main(argv: list[str]) -> int:
                 "engine-200": engine["cells"]["engine-200"]["launches"][kname],
                 "async-200 sweep": async_res["launches"]["sweep (3 cells)"][kname],
                 "mesh-200 per gloo rank (W=2)": mesh["gloo_two_ranks"]["launches_per_rank"][kname],
-                "examples": example_launches(tooling, kname)}
+                "examples": example_launches(tooling, kname),
+                "sweep-200 physics (8 cells, B=16, one call)":
+                    sweep["physics"]["launches_per_class"][0][kname],
+                "sweep-200 async (3 cells, one call)":
+                    sweep["async"]["launches_per_class"][0][kname]}
         if kname in ("wire_emit", "wire_agg"):
             kernels[-1]["launches_by_path"] = {
                 "fleet-10k": launches[kname],
@@ -4931,7 +5190,9 @@ def main(argv: list[str]) -> int:
             kernels[-1]["launches_by_path"] = {
                 "robust-200": launches[kname],
                 "engine robust": engine["cells"]["robust trimmed"]["launches"][kname],
-                "async robust": async_res["launches"]["robust"][kname]}
+                "async robust": async_res["launches"]["robust"][kname],
+                "sweep-200 trimmed class (4 cells, B=8, one call)":
+                    sweep["robust"]["launches_per_class"][1][kname]}
         if kname == "fused_agg":
             by_shape["66,000 identity fogs"] = identity
         if kname == "compress_q8":
@@ -4983,6 +5244,7 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"lm_train": lm}))
     print(json.dumps({"lm_families": families}))
     print(json.dumps({"launch_tooling": tooling}))
+    print(json.dumps({"sweep": sweep}))
     print("phase seconds: " + ", ".join(f"{k.split('.')[0]} {v:.1f}" for k, v in PHASE_S.items()
                                         if k != "done")
           + f"; script {time.perf_counter() - START:.1f} s  on {name} ({smi})")

@@ -89,7 +89,8 @@ def _chunked_compress_and_accumulate(
         e = min(s + chunk, n)
         dc, ec, fc, wc = deltas[s:e], err[s:e], fog_id[s:e], weights[s:e]
         if k_frac is None:
-            part, part_w, new_err[s:e] = compress_and_accumulate(dc, ec, fc, wc, n_fog, cfg)
+            part, part_w, new_err[s:e] = compress_and_accumulate(
+                dc, ec, fc, wc, n_fog, comp.for_rows(cfg, s, e))
             fog_sum += part
             fog_weight += part_w
             continue
@@ -207,7 +208,7 @@ def client_compress(
         ids = torch.arange(e - s, dtype=torch.int32, device=deltas.device)
         ones = torch.ones((e - s,), dtype=torch.float32, device=deltas.device)
         recon[s:e], _, new_err[s:e] = compress_and_accumulate(
-            deltas[s:e], err[s:e], ids, ones, e - s, cfg)
+            deltas[s:e], err[s:e], ids, ones, e - s, comp.for_rows(cfg, s, e))
     return recon, new_err
 
 

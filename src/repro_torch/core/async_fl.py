@@ -56,6 +56,7 @@ import torch
 
 from repro_torch.core import aggregation as agg
 from repro_torch.core import association as assoc
+from repro_torch.core import channel as ch
 from repro_torch.core import compression as comp
 from repro_torch.core import cooperation as coop
 from repro_torch.core import energy as en
@@ -87,7 +88,12 @@ class AsyncFLConfig:
     versions.  ``arrival_delay_s``: a float adds seconds to the physics
     clock (compute + Eq. 21 uplink latency); an (N,) tensor REPLACES it
     with replayed per-client launch-to-arrival delays (energy stays
-    physics-based)."""
+    physics-based).
+
+    In a config sweep (``Engine.sweep``) ``buffer_k``, ``fog_k``,
+    ``alpha``, the timeouts and ``tau_max`` may be (B,) tensors of
+    per-trial values (besides the base config's knobs), and a replayed
+    ``arrival_delay_s`` a (B, N) tensor, trial b's delays in row b."""
 
     base: hfl.HFLConfig = hfl.HFLConfig()
     n_events: int = 40                   # fog ticks to simulate
@@ -195,7 +201,7 @@ def init_state(params: Params, dep: topo.Deployment, acfg: AsyncFLConfig) -> Asy
     return AsyncState(
         params=ae.unravel(flat.clone(), params),
         err=zeros((n, d)),
-        battery=torch.full(lead + (n,), cfg.energy.e_init_j, dtype=torch.float32, device=dev),
+        battery=hfl.per_client(cfg.energy.e_init_j, lead, n, dev),
         dep=dep,
         server=server._replace(step=zeros((), torch.int32)),
         version=zeros((), torch.int32),
@@ -220,9 +226,10 @@ def init_state(params: Params, dep: topo.Deployment, acfg: AsyncFLConfig) -> Asy
     )
 
 
-def _f32(v: Any) -> float:
-    """A config float as the f32 value the reference computes with."""
-    return float(np.float32(v))
+def _f32(v: Any) -> Any:
+    """A config float as the f32 value the reference computes with; a
+    (B,) tensor of per-trial values (f32 already) as it is."""
+    return v if isinstance(v, torch.Tensor) else float(np.float32(v))
 
 
 def make_event_fn(
@@ -234,14 +241,19 @@ def make_event_fn(
     crash=None, erase=None, byz_noise=None) -> (state, metrics)``, one fog
     tick on ``ds``'s device, with ``hfl.make_round_fn``'s arguments (the
     fault draws with the fault layer on).  With ``ds`` stacked for B
-    trials every argument and metric leads with B."""
+    trials every argument and metric leads with B, and ``acfg`` may carry
+    (B,) knobs (:class:`AsyncFLConfig`), copied to the device once here."""
+    dev = ds.train.device
+    host = acfg.base                                         # the knobs' host values
+    schedule = hfl.reassoc_schedule(host.drift, acfg.n_events, dev)
+    acfg = hfl.knobs_to(acfg, dev)
     cfg = acfg.base
     n_fog = cfg.deployment.n_fog
     fl = cfg.faults
     fault_on = fl.is_active
     dr = cfg.drift
     drift_on = dr.is_active
-    cadence = np.float32(max(dr.reassoc_every, 1.0))
+    cadence = None if schedule is not None else np.float32(max(dr.reassoc_every, 1.0))
     adaptive = fault_on and fl.byz_mode == "adaptive"
     robust = cfg.robust != "mean"
     clients_fn = make_client_solver(
@@ -250,19 +262,30 @@ def make_event_fn(
     )
     lead = tuple(ds.train.shape[:-3])                        # () or (B,)
     b_n, (n, window, dim) = math.prod(lead), ds.train.shape[-3:]
-    dev = ds.train.device
     fog_base = torch.arange(b_n, dtype=torch.int32, device=dev)[:, None] * n_fog
     flops = en.autoencoder_flops(dim, (16, 8, 16), window, cfg.local_epochs)
     # The reference's f32 quotient; every clock sum below is in f32, in its order.
-    lat_comp = _f32(np.float32(flops) / np.float32(cfg.compute_rate_flops))
-    e_comp = float(en.compute_energy_j(flops, cfg.energy))
+    rate = host.compute_rate_flops
+    if isinstance(rate, torch.Tensor):
+        lat_comp = (torch.tensor(np.float32(flops)) / rate.detach().cpu()).to(dev)
+    else:
+        lat_comp = _f32(np.float32(flops) / np.float32(rate))
+    _, e_comp = hfl.compute_cost(host, flops, dev)
+    compressor = comp.per_row(cfg.compressor, n)            # a global rho_s per folded row
+    # A float adds to the physics clock; an (N,) or (B, N) tensor replays
+    # the whole launch-to-arrival time.
     delay = torch.as_tensor(acfg.arrival_delay_s, dtype=torch.float32)
     replay = delay.dim() > 0
     delay = delay.to(dev) if replay else _f32(delay)
-    fog_k = max(_f32(acfg.fog_k), 1.0)
+    fog_k = (torch.clamp_min(acfg.fog_k, 1.0) if isinstance(acfg.fog_k, torch.Tensor)
+             else max(_f32(acfg.fog_k), 1.0))
     buffer_k, alpha = _f32(acfg.buffer_k), _f32(acfg.alpha)
     timeout_s, fog_timeout_s, tau_max = (_f32(acfg.timeout_s), _f32(acfg.fog_timeout_s),
                                          _f32(acfg.tau_max))
+
+    def upto(x: torch.Tensor, cap: Any) -> torch.Tensor:
+        """``x`` clamped from above by a number or a (B,) knob."""
+        return torch.minimum(x, cap) if isinstance(cap, torch.Tensor) else torch.clamp(x, max=cap)
 
     def folded(ids: torch.Tensor) -> torch.Tensor:
         """Fog ids (..., N) on the folded fog axis of B * M fogs, flat."""
@@ -291,13 +314,12 @@ def make_event_fn(
         if drift_on:
             # The re-association cadence counts fog ticks (tick 0 always
             # refreshes), decided on the host in the reference's f32.
-            if np.mod(np.float32(state.tick), cadence) < 0.5:
-                fresh = assoc.nearest_feasible_fog(dep, cfg.channel)
-                assoc_fog, assoc_ok = fresh.fog_id, fresh.participates
+            assoc_fog, assoc_ok = hfl.refresh_assoc(dep, cfg.channel, schedule, cadence,
+                                                    state.tick, assoc_fog, assoc_ok)
             fa = assoc.assigned_fog_association(dep, cfg.channel, assoc_fog, assoc_ok)
         else:
             fa = assoc.nearest_feasible_fog(dep, cfg.channel)
-        alive = state.battery > cfg.energy.e_min_j
+        alive = state.battery > ch.per_trial(cfg.energy.e_min_j, state.battery)
         active = fa.participates & alive
         if fault_on:
             # A crashed client cannot launch; what it already sent travels on.
@@ -320,7 +342,7 @@ def make_event_fn(
             deltas = flt.corrupt_deltas(deltas, fl, prev_delta=state.prev_delta, noise=byz_noise)
         n_nonfinite = torch.sum(launch & flt.nonfinite_rows(deltas), dim=-1, dtype=torch.int32)
         recon, new_err = agg.client_compress(deltas.reshape(b_n * n, d),
-                                             state.err.reshape(b_n * n, d), cfg.compressor,
+                                             state.err.reshape(b_n * n, d), compressor,
                                              chunk=cfg.client_chunk)
         new_err = torch.where(launch[..., None], new_err.view(lead + (n, d)), state.err)
         inflight = torch.where(launch[..., None], recon.view(lead + (n, d)), state.inflight)
@@ -335,7 +357,8 @@ def make_event_fn(
             arr_t_new = state.t_now[..., None] + up_eff
         else:
             up_eff = up_lat
-            arr_t_new = (state.t_now + lat_comp)[..., None] + up_lat + delay
+            arr_t_new = ((state.t_now + lat_comp)[..., None] + up_lat
+                         + ch.per_trial(delay, up_lat))
         arrive_t = torch.where(launch, arr_t_new, state.arrive_t)
         uplink_lat = torch.where(launch, up_eff, state.uplink_lat)
         base_version = torch.where(launch, state.version[..., None], state.base_version)
@@ -344,13 +367,13 @@ def make_event_fn(
 
         # Uplink + compute energy are spent at launch.
         e_up = torch.where(launch, en.tx_energy_j(l_u, fa.dist_m, cfg.channel, cfg.energy), 0.0)
-        spent = e_up + torch.where(launch, e_comp, 0.0)
+        spent = e_up + torch.where(launch, ch.per_trial(e_comp, launch), 0.0)
         battery, _ = en.battery_step(state.battery, spent, cfg.energy)
 
         # --- fog tick: the fog_k-th arrival in flight or the timeout -----
         busy_t = torch.where(busy, arrive_t, NEVER_S)
         n_busy = torch.sum(busy, dim=-1)
-        k_fog = torch.clamp(torch.clamp_min(n_busy, 1).to(torch.float32), max=fog_k).long()
+        k_fog = upto(torch.clamp_min(n_busy, 1).to(torch.float32), fog_k).long()
         t_kth = torch.gather(torch.sort(busy_t, dim=-1).values, -1, (k_fog - 1)[..., None])[..., 0]
         t_tick = torch.minimum(t_kth, state.t_now + fog_timeout_s)
         # Nothing in flight: the clock holds; and it never runs backwards
@@ -371,8 +394,8 @@ def make_event_fn(
 
         # --- fold arrivals into the fog buffers --------------------------
         tau = (state.version[..., None] - base_version).to(torch.float32)
-        w_tau = torch.pow(1.0 + tau, -alpha)
-        w_tau = torch.where(tau <= tau_max, w_tau, 0.0)
+        w_tau = torch.pow(1.0 + tau, ch.per_trial(-alpha, tau))
+        w_tau = torch.where(tau <= ch.per_trial(tau_max, tau), w_tau, 0.0)
         w = ds.n_samples * w_tau * ok_f
         fog_sum = state.fog_sum + fold(inflight * w[..., None], launch_fog)
         fog_w = state.fog_w + fold(w, launch_fog)
@@ -392,7 +415,7 @@ def make_event_fn(
         # --- global merge trigger ----------------------------------------
         # buffer_k clamps to what can still arrive.
         reachable = pending + torch.sum(busy, dim=-1, dtype=torch.int32)
-        k_glob = torch.clamp(torch.clamp_min(reachable, 1).to(torch.float32), max=buffer_k)
+        k_glob = upto(torch.clamp_min(reachable, 1).to(torch.float32), buffer_k)
         merge = ((pending.to(torch.float32) >= k_glob)
                  | (t_tick - state.t_last_merge >= timeout_s))
 

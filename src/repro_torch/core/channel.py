@@ -10,6 +10,12 @@ quantities are f32 tensors, as in ``repro.core.channel``:
 
 Functions of the parameters alone return 0-d CPU tensors, which combine
 with tensors on any device.
+
+Every parameter may also be a (B,) tensor of per-trial values (a config
+sweep's knob, ``Engine.sweep``): a function of the parameters alone then
+returns (B,), and :func:`per_trial` views such a value as (B, 1, ...)
+against a (B, N) or (B, N, M) operand.  A Python float keeps the
+arithmetic of a one-trial config exactly as it was.
 """
 from __future__ import annotations
 
@@ -46,6 +52,15 @@ def f32(x: Any) -> torch.Tensor:
     return torch.as_tensor(x, dtype=F32)
 
 
+def per_trial(knob: Any, operand: torch.Tensor) -> Any:
+    """``knob`` ready to meet ``operand``: a (B,) tensor of per-trial
+    values viewed as (B, 1, ...) to the operand's rank; a number, a 0-d
+    tensor, or a (B,) tensor against a (B,) or 0-d operand as it is."""
+    if isinstance(knob, torch.Tensor) and knob.dim() == 1 and operand.dim() > 1:
+        return knob.view((-1,) + (1,) * (operand.dim() - 1))
+    return knob
+
+
 def thorp_absorption_db_per_km(f_khz: Any) -> torch.Tensor:
     """Thorp absorption coefficient alpha(f) in dB/km, f in kHz (Eq. 2)."""
     f2 = torch.square(f32(f_khz))
@@ -56,8 +71,8 @@ def transmission_loss_db(dist_m: Any, f_khz: float, spreading_k: float = 1.5) ->
     """Large-scale transmission loss TL(d, f) in dB (Eq. 1); ``dist_m`` is
     clipped at the 1 m source-level reference distance."""
     d = torch.clamp_min(f32(dist_m), 1.0)
-    alpha = thorp_absorption_db_per_km(f_khz)
-    return 10.0 * spreading_k * torch.log10(d) + alpha * d / 1000.0
+    alpha = per_trial(thorp_absorption_db_per_km(f_khz), d)
+    return 10.0 * per_trial(spreading_k, d) * torch.log10(d) + alpha * d / 1000.0
 
 
 def wenz_noise_psd_db(f_khz: float, wind_m_s: float = 5.0, shipping: float = 0.5) -> torch.Tensor:
@@ -69,8 +84,16 @@ def wenz_noise_psd_db(f_khz: float, wind_m_s: float = 5.0, shipping: float = 0.5
     n_ship = 40.0 + 20.0 * (shipping - 0.5) + 26.0 * logf - 60.0 * torch.log10(f + 0.03)
     n_wind = 50.0 + 7.5 * torch.sqrt(f32(wind_m_s)) + 20.0 * logf - 40.0 * torch.log10(f + 0.4)
     n_therm = -15.0 + 20.0 * logf
-    stacked = torch.stack([n_turb, n_ship, n_wind, n_therm])
-    return 10.0 * torch.log10(torch.sum(torch.pow(10.0, stacked / 10.0), dim=0))
+    parts = (n_turb, n_ship, n_wind, n_therm)
+    if len({p.device for p in parts}) == 1:
+        stacked = torch.stack(torch.broadcast_tensors(*parts))
+        return 10.0 * torch.log10(torch.sum(torch.pow(10.0, stacked / 10.0), dim=0))
+    # A (B,) knob on the card beside the CPU scalars: the same four terms
+    # added in order, with no copy of a scalar to the card.
+    total = torch.pow(10.0, n_turb / 10.0)
+    for p in parts[1:]:
+        total = total + torch.pow(10.0, p / 10.0)
+    return 10.0 * torch.log10(total)
 
 
 def noise_level_db(params: ChannelParams) -> torch.Tensor:
@@ -82,25 +105,27 @@ def noise_level_db(params: ChannelParams) -> torch.Tensor:
 def snr_db(sl_db: Any, dist_m: Any, params: ChannelParams) -> torch.Tensor:
     """Receiver SNR via the passive sonar equation (Eq. 4), DI = 0."""
     tl = transmission_loss_db(dist_m, params.freq_khz, params.spreading_k)
-    nl = noise_level_db(params)
-    return sl_db - tl - nl - params.impl_loss_db
+    nl = per_trial(noise_level_db(params), tl)
+    return sl_db - tl - nl - per_trial(params.impl_loss_db, tl)
 
 
 def min_source_level_db(dist_m: Any, params: ChannelParams) -> torch.Tensor:
     """Minimum source level to hit gamma_tgt at distance d (Eq. 5)."""
     tl = transmission_loss_db(dist_m, params.freq_khz, params.spreading_k)
-    nl = noise_level_db(params)
-    return params.gamma_tgt_db + tl + nl + params.impl_loss_db
+    nl = per_trial(noise_level_db(params), tl)
+    return per_trial(params.gamma_tgt_db, tl) + tl + nl + per_trial(params.impl_loss_db, tl)
 
 
 def feasible(dist_m: Any, params: ChannelParams) -> torch.Tensor:
     """Capped-source-level feasibility SL_min <= SL_max (Eq. 6). Boolean."""
-    return min_source_level_db(dist_m, params) <= params.sl_max_db
+    sl = min_source_level_db(dist_m, params)
+    return sl <= per_trial(params.sl_max_db, sl)
 
 
 def shannon_rate_bps(params: ChannelParams) -> torch.Tensor:
     """Shannon-type link rate at the target operating SNR (Sec. III-D)."""
-    gamma_lin = 10.0 ** (params.gamma_tgt_db / 10.0)
+    g = params.gamma_tgt_db
+    gamma_lin = torch.pow(10.0, g / 10.0) if isinstance(g, torch.Tensor) else 10.0 ** (g / 10.0)
     return params.bandwidth_hz * torch.log2(f32(1.0 + gamma_lin))
 
 

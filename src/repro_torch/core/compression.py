@@ -34,18 +34,33 @@ from repro_torch.kernels.ops import BLOCK_ELEMS
 class CompressorConfig:
     """Compression knobs.  ``fused=False`` compresses each client on its
     own (:func:`compress_update`) before a dense fog sum: the legacy
-    two-pass pipeline, kept as the fused path's equivalence baseline."""
+    two-pass pipeline, kept as the fused path's equivalence baseline.
 
-    rho_s: float = 0.05          # sparsification ratio (1.0 = dense)
+    In a config sweep (``Engine.sweep``) a ``global`` compressor's
+    ``rho_s`` may be a tensor of per-trial (or, inside the round, per-row)
+    values; ``sparse`` then pins the ``rho_s < 1`` predicate, as the
+    reference's static aux does (None: derive it from ``rho_s``).  The
+    blockwise kernels take ``rho_s`` as a scalar, so there it stays a
+    number."""
+
+    rho_s: float | torch.Tensor = 0.05   # sparsification ratio (1.0 = dense)
     quant_bits: int = 8          # post-sparsification bit-width (32 = none)
     mode: str = "blockwise"      # "blockwise" | "global"
     fused: bool = True           # fuse compression into fog aggregation
+    sparse: bool | None = None   # pinned rho_s < 1 predicate (None = derive)
 
     def replace(self, **kw: Any) -> "CompressorConfig":
+        # A new rho_s re-derives the predicate unless the caller pins it.
+        if "rho_s" in kw and "sparse" not in kw:
+            kw["sparse"] = None
         return dataclasses.replace(self, **kw)
 
     @property
     def is_sparse(self) -> bool:
+        if self.sparse is not None:
+            return self.sparse
+        if isinstance(self.rho_s, torch.Tensor):
+            return bool(torch.all(self.rho_s < 1.0))
         return self.rho_s < 1.0
 
     @property
@@ -61,8 +76,27 @@ def payload_bits(d: int, cfg: CompressorConfig) -> float:
     if not cfg.is_sparse:
         return bits * d  # quantise-only: no index overhead
     b_idx = math.ceil(math.log2(max(d, 2)))
+    if isinstance(cfg.rho_s, torch.Tensor):
+        # Per-trial ratios: the same count in f32, as the reference traces it.
+        return torch.clamp_min(torch.round(cfg.rho_s * d), 1.0) * (bits + b_idx)
     k = max(1.0, round(cfg.rho_s * d))
     return k * (bits + b_idx)
+
+
+def for_rows(cfg: CompressorConfig, start: int, stop: int) -> CompressorConfig:
+    """``cfg`` for rows [start, stop) of a batch whose ``rho_s`` is a
+    tensor with a value per row; a number stays as it is."""
+    if not isinstance(cfg.rho_s, torch.Tensor):
+        return cfg
+    return cfg.replace(rho_s=cfg.rho_s[start:stop], sparse=cfg.is_sparse)
+
+
+def per_row(cfg: CompressorConfig, rows_per_trial: int) -> CompressorConfig:
+    """``cfg`` for B trials' rows folded trial-major, ``rows_per_trial``
+    each: a (B,) tensor ``rho_s`` repeated to a value per row."""
+    if not isinstance(cfg.rho_s, torch.Tensor):
+        return cfg
+    return cfg.replace(rho_s=cfg.rho_s.repeat_interleave(rows_per_trial), sparse=cfg.is_sparse)
 
 
 def blockwise_k_frac(d: int, rho_s: float) -> float:
@@ -92,11 +126,18 @@ def validate_blockwise_bits(quant_bits: int) -> None:
         )
 
 
-def _global_topk_ef(v: torch.Tensor, k: int) -> torch.Tensor:
+def _global_topk_ef(v: torch.Tensor, k: int | torch.Tensor) -> torch.Tensor:
     """Exact Top-K by magnitude over the last axis (ties at the k-th
-    magnitude are all kept, as the ``>=`` mask of the reference does)."""
+    magnitude are all kept, as the ``>=`` mask of the reference does).  A
+    tensor ``k`` gives each row of (rows, d) its own count: the k-th
+    largest magnitude is read out of a full descending sort, the same
+    threshold ``topk`` gives."""
     absv = torch.abs(v)
-    kth = torch.topk(absv, k, dim=-1).values[..., -1:]
+    if isinstance(k, torch.Tensor):
+        srt = torch.sort(absv, dim=-1, descending=True).values
+        kth = torch.gather(srt, -1, (k.to(torch.int64) - 1)[:, None])
+    else:
+        kth = torch.topk(absv, k, dim=-1).values[..., -1:]
     return torch.where(absv >= kth, v, 0.0)
 
 
@@ -128,7 +169,11 @@ def compress_update(
         return delta, err
     if cfg.mode == "global":
         v = delta + err
-        if cfg.is_sparse:
+        if cfg.is_sparse and isinstance(cfg.rho_s, torch.Tensor):
+            rho = cfg.rho_s.to(v.device)
+            rho = rho.repeat_interleave(v.shape[0] // rho.numel())   # a value per row
+            sparse = _global_topk_ef(v, torch.clamp_min(torch.round(rho * v.shape[-1]), 1.0))
+        elif cfg.is_sparse:
             k = max(1, int(round(cfg.rho_s * v.shape[-1])))
             sparse = _global_topk_ef(v, k)
         else:

@@ -17,9 +17,11 @@ Semantics (threaded through the round loop of ``core/hfl.py``):
   ``1 + covariate_shift * round`` inside the loop.
 
 The reference's ``repro.core.drift.DriftConfig`` is a pytree whose rates
-can be traced through a batched sweep; the port has no traced sweeps, so
-this is a plain frozen dataclass with the same fields, validation and
-``is_active`` rule.
+can be traced through a batched sweep.  Here it is a plain frozen
+dataclass with the same fields, validation and ``is_active`` rule; in a
+config sweep (``Engine.sweep``) a rate may be a (B,) tensor of per-trial
+values, which the validation lets pass as the reference lets a traced
+one.
 """
 from __future__ import annotations
 
@@ -27,6 +29,11 @@ import dataclasses
 from typing import Any
 
 _RATE_FIELDS = ("sensor_current_m_s", "reassoc_every", "covariate_shift")
+
+
+def _concrete(x: Any) -> bool:
+    """A plain number (not a tensor of per-trial values)."""
+    return isinstance(x, (int, float))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,10 +47,10 @@ class DriftConfig:
     active: bool | None = None
 
     def __post_init__(self) -> None:
-        if self.sensor_current_m_s < 0:
+        if _concrete(self.sensor_current_m_s) and self.sensor_current_m_s < 0:
             raise ValueError(
                 f"sensor_current_m_s must be >= 0, got {self.sensor_current_m_s!r}")
-        if self.reassoc_every < 1:
+        if _concrete(self.reassoc_every) and self.reassoc_every < 1:
             raise ValueError(f"reassoc_every must be >= 1 round, got {self.reassoc_every!r}")
 
     def replace(self, **kw: Any) -> "DriftConfig":
@@ -55,9 +62,11 @@ class DriftConfig:
     @property
     def is_active(self) -> bool:
         """The drift-layer switch: a pinned value wins; otherwise a nonzero
-        rate or a cadence other than 1 turns the layer on.  Off, the round
-        is exactly the drift-free one."""
+        rate, a cadence other than 1 or any per-trial (tensor) rate turns
+        the layer on.  Off, the round is exactly the drift-free one."""
         if self.active is not None:
             return self.active
-        return (self.sensor_current_m_s != 0.0 or self.covariate_shift != 0.0
-                or self.reassoc_every != 1.0)
+        rates = (self.sensor_current_m_s, self.covariate_shift)
+        if any(not _concrete(r) or r != 0.0 for r in rates):
+            return True
+        return not _concrete(self.reassoc_every) or self.reassoc_every != 1.0

@@ -2,7 +2,8 @@
 
 All functions broadcast over link tensors.  Infeasible links (SL_min >
 SL_max) get ``inf`` energy so downstream argmin/feasibility masks compose
-naturally.
+naturally.  As in ``core/channel``, every parameter and a payload size
+may be a (B,) tensor of per-trial values against (B, ...) link tensors.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ def acoustic_power_w(sl_min_db: torch.Tensor) -> torch.Tensor:
 
 def electrical_tx_power_w(sl_min_db: torch.Tensor, eparams: EnergyParams) -> torch.Tensor:
     """Electrical transmit power P_tx = P_ac / eta_ea (Sec. III-D)."""
-    return acoustic_power_w(sl_min_db) / eparams.eta_ea
+    return acoustic_power_w(sl_min_db) / ch.per_trial(eparams.eta_ea, sl_min_db)
 
 
 def tx_energy_j(
@@ -48,9 +49,10 @@ def tx_energy_j(
     power-controlled to gamma_tgt; infeasible links return ``inf``."""
     sl_min = ch.min_source_level_db(dist_m, cparams)
     p_tx = electrical_tx_power_w(sl_min, eparams)
-    rate = ch.shannon_rate_bps(cparams)
-    e = (p_tx + eparams.p_circuit_tx_w) * ch.f32(bits) / rate
-    return torch.where(sl_min <= cparams.sl_max_db, e, math.inf)
+    rate = ch.per_trial(ch.shannon_rate_bps(cparams), sl_min)
+    p_circ = ch.per_trial(eparams.p_circuit_tx_w, sl_min)
+    e = (p_tx + p_circ) * ch.per_trial(ch.f32(bits), sl_min) / rate
+    return torch.where(sl_min <= ch.per_trial(cparams.sl_max_db, sl_min), e, math.inf)
 
 
 def rx_energy_j(bits: Any, cparams: ch.ChannelParams, eparams: EnergyParams) -> torch.Tensor:
@@ -67,7 +69,8 @@ def compute_energy_j(flops: Any, eparams: EnergyParams) -> torch.Tensor:
 def link_latency_s(bits: Any, dist_m: Any, cparams: ch.ChannelParams) -> torch.Tensor:
     """Per-link latency tau = d/c_s + L/R (Eq. 21 inner term)."""
     rate = ch.shannon_rate_bps(cparams)
-    return ch.propagation_delay_s(dist_m) + ch.f32(bits) / rate
+    delay = ch.propagation_delay_s(dist_m)
+    return delay + ch.per_trial(ch.f32(bits) / rate, delay)
 
 
 def battery_step(
@@ -76,8 +79,11 @@ def battery_step(
     """One round of battery depletion (Sec. IV-C): (new residual floored at
     the reserve, alive mask of Eq. 25)."""
     new = residual_j - spent_j
-    alive = new >= eparams.e_min_j
-    return torch.clamp_min(new, eparams.e_min_j), alive
+    floor = ch.per_trial(eparams.e_min_j, new)
+    alive = new >= floor
+    if isinstance(floor, torch.Tensor):
+        return torch.maximum(new, floor), alive
+    return torch.clamp_min(new, floor), alive
 
 
 def autoencoder_flops(d_in: int, hidden: tuple[int, ...], n_samples: int, epochs: int) -> int:

@@ -21,6 +21,9 @@ Randomness is an argument: the crash and erasure draws are f32 uniforms
 and the ``gauss`` noise f32 normals, injected by the caller
 (``hfl.RoundDraws``).  The f32 thresholds and scales are CPU scalars, so
 a round on the card copies nothing to it (a copy would sync the host).
+In a config sweep (``Engine.sweep``) the probabilities, ``byz_frac`` and
+``byz_scale`` may instead be (B,) tensors of per-trial values on the
+draws' device, each trial compared and scaled with its own.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ import dataclasses
 from typing import Any
 
 import torch
+
+from repro_torch.core.channel import per_trial
 
 BYZ_MODES = ("none", "sign_flip", "gauss", "inflate", "adaptive")
 
@@ -49,7 +54,7 @@ class FaultConfig:
             raise ValueError(f"byz_mode must be one of {BYZ_MODES}, got {self.byz_mode!r}")
         for name in ("erasure_prob", "crash_prob", "byz_frac"):
             v = getattr(self, name)
-            if not 0.0 <= v <= 1.0:
+            if isinstance(v, (int, float)) and not 0.0 <= v <= 1.0:
                 raise ValueError(f"{name} must be a probability in [0, 1], got {v!r}")
 
     def replace(self, **kw: Any) -> "FaultConfig":
@@ -64,22 +69,28 @@ class FaultConfig:
     @property
     def is_active(self) -> bool:
         """Whether the round loop runs the fault layer: a pinned value
-        wins; otherwise any Byzantine mode or any nonzero probability.
-        When False the round is exactly the fault-free round."""
+        wins; otherwise any Byzantine mode, any nonzero probability or any
+        per-trial (tensor) one.  When False the round is exactly the
+        fault-free round."""
         if self.active is not None:
             return self.active
         if self.byz_mode != "none":
             return True
-        return any(p > 0.0 for p in (self.erasure_prob, self.crash_prob, self.byz_frac))
+        return any(isinstance(p, torch.Tensor) or p > 0.0
+                   for p in (self.erasure_prob, self.crash_prob, self.byz_frac))
 
 
 def byzantine_mask(
-    n: int, byz_frac: float, device: torch.device | str | None = None,
+    n: int, byz_frac: Any, device: torch.device | str | None = None,
 ) -> torch.Tensor:
     """(N,) bool: client i is Byzantine when ``(i + 0.5) / n < byz_frac``
-    in f32, the first ``ceil(byz_frac * n - 1/2)`` clients."""
+    in f32, the first ``ceil(byz_frac * n - 1/2)`` clients; (B, N) for a
+    (B,) tensor of per-trial fractions, each trial's own first clients."""
+    pos = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) / n
+    if isinstance(byz_frac, torch.Tensor):
+        return pos < byz_frac[..., None]
     frac = torch.tensor(byz_frac, dtype=torch.float32)      # a CPU scalar: no copy to the card
-    return (torch.arange(n, dtype=torch.float32, device=device) + 0.5) / n < frac
+    return pos < frac
 
 
 def corrupt_deltas(
@@ -96,7 +107,8 @@ def corrupt_deltas(
     if cfg.byz_mode == "none":
         return deltas
     mask = byzantine_mask(deltas.shape[-2], cfg.byz_frac, deltas.device)
-    scale = torch.tensor(cfg.byz_scale, dtype=torch.float32)   # a CPU scalar: no copy to the card
+    scale = (per_trial(cfg.byz_scale, deltas) if isinstance(cfg.byz_scale, torch.Tensor)
+             else torch.tensor(cfg.byz_scale, dtype=torch.float32))  # CPU scalar: no copy
     if cfg.byz_mode == "sign_flip":
         attacked = -scale * deltas
     elif cfg.byz_mode == "gauss":
@@ -110,21 +122,30 @@ def corrupt_deltas(
         mu = torch.mean(deltas, dim=-2)
         sigma = torch.std(deltas, dim=-2, correction=0)
         dirn = torch.where(prev_delta == 0.0, torch.sign(mu), torch.sign(prev_delta))
-        attacked = torch.broadcast_to((mu - scale * sigma * dirn).unsqueeze(-2), deltas.shape)
+        s_mu = scale[..., 0] if isinstance(cfg.byz_scale, torch.Tensor) else scale
+        attacked = torch.broadcast_to((mu - s_mu * sigma * dirn).unsqueeze(-2), deltas.shape)
     else:  # inflate
         attacked = scale * deltas
-    return torch.where(mask[:, None], attacked, deltas)
+    return torch.where(mask[..., None], attacked, deltas)
 
 
-def draw_crash(uniform: torch.Tensor, crash_prob: float) -> torch.Tensor:
+def _threshold(uniform: torch.Tensor, prob: Any) -> torch.Tensor:
+    """``uniform < prob``: a (B,) tensor of per-trial probabilities against
+    (B, N) uniforms, else a CPU scalar."""
+    if isinstance(prob, torch.Tensor):
+        return uniform < per_trial(prob, uniform)
+    return uniform < torch.tensor(prob, dtype=torch.float32)
+
+
+def draw_crash(uniform: torch.Tensor, crash_prob: Any) -> torch.Tensor:
     """(N,) bool crash mask from (N,) f32 uniforms in [0, 1)."""
-    return uniform < torch.tensor(crash_prob, dtype=torch.float32)
+    return _threshold(uniform, crash_prob)
 
 
-def draw_erasure(uniform: torch.Tensor, erasure_prob: float) -> torch.Tensor:
+def draw_erasure(uniform: torch.Tensor, erasure_prob: Any) -> torch.Tensor:
     """(N,) bool packet-erasure mask from (N,) f32 uniforms, applied after
     SNR feasibility."""
-    return uniform < torch.tensor(erasure_prob, dtype=torch.float32)
+    return _threshold(uniform, erasure_prob)
 
 
 def nonfinite_rows(deltas: torch.Tensor) -> torch.Tensor:

@@ -38,13 +38,15 @@ import torch
 
 from repro_torch.core import aggregation as agg
 from repro_torch.core import association as assoc
+from repro_torch.core import channel as ch
 from repro_torch.core import compression as comp
 from repro_torch.core import energy as en
 from repro_torch.core import faults as flt
 from repro_torch.core import topology as topo
 from repro_torch.core.hfl import (
     HFLConfig, HFLState, RoundDraws, RoundMetrics, check_draws, check_mesh, client_rows,
-    init_state, run_rounds, stack_metrics, start, start_trials, train_windows,
+    compute_cost, init_state, knobs_to, reassoc_schedule, run_rounds, stack_metrics, start,
+    start_trials, train_windows,
 )
 from repro_torch.data.synthetic import SensorDataset
 from repro_torch.kernels import ops as kops
@@ -58,12 +60,13 @@ LossFn = Callable[[Params, torch.Tensor], torch.Tensor]
 
 
 def _gateway_round(cfg: HFLConfig, dep, assoc_ok, battery, t: int, mobility: torch.Tensor,
-                   crash: torch.Tensor | None):
+                   crash: torch.Tensor | None, schedule: torch.Tensor | None = None):
     """What every flat round does first: the fog walk, the sensors' drift,
     the direct-link association (refreshed every ``reassoc_every`` rounds
-    with drift on, as ``core/hfl`` does) and the round's active set, for
-    one trial or with leading trial axes.  Returns (dep, association,
-    assoc_ok, active)."""
+    with drift on, as ``core/hfl`` does: per trial by ``schedule``
+    (``hfl.reassoc_schedule``) for a (B,) cadence) and the round's active
+    set, for one trial or with leading trial axes.  Returns (dep,
+    association, assoc_ok, active)."""
     if cfg.fog_mobility:
         dep = topo.gauss_markov_step(mobility, dep, cfg.deployment)
     dr = cfg.drift
@@ -71,12 +74,15 @@ def _gateway_round(cfg: HFLConfig, dep, assoc_ok, battery, t: int, mobility: tor
         dep = topo.current_advection_step(dep, cfg.deployment, dr.sensor_current_m_s)
         # Frozen round membership, live gateway physics, decided on the
         # host in the reference's f32 arithmetic (round 0 always refreshes).
-        if np.mod(np.float32(t), np.float32(max(dr.reassoc_every, 1.0))) < 0.5:
+        if schedule is not None:
+            fresh = assoc.flat_association(dep, cfg.channel).participates
+            assoc_ok = torch.where(schedule[t][:, None], fresh, assoc_ok)
+        elif np.mod(np.float32(t), np.float32(max(dr.reassoc_every, 1.0))) < 0.5:
             assoc_ok = assoc.flat_association(dep, cfg.channel).participates
         fa = assoc.assigned_flat_association(dep, cfg.channel, assoc_ok)
     else:
         fa = assoc.flat_association(dep, cfg.channel)
-    active = fa.participates & (battery > cfg.energy.e_min_j)
+    active = fa.participates & (battery > ch.per_trial(cfg.energy.e_min_j, battery))
     if cfg.faults.is_active:
         # Crashed clients drop out like a dead battery.
         active = active & ~flt.draw_crash(crash, cfg.faults.crash_prob)
@@ -104,8 +110,12 @@ def make_flat_round_fn(
     cluster: compression and the weighted mean (or the robust reduce) run
     with one fog a trial, the B * N folded clients into B fogs, trial b's
     gateway fog b.  ``client_mesh`` slices the clients as in
-    ``core/hfl.make_round_fn``, with its refusals."""
+    ``core/hfl.make_round_fn``, with its refusals, and the (B,) knobs
+    of a swept config likewise."""
     check_mesh(cfg, ds.train.shape[-3], client_mesh)
+    host = cfg                                               # the knobs' host values
+    schedule = reassoc_schedule(host.drift, host.rounds, ds.train.device)
+    cfg = knobs_to(cfg, ds.train.device)
     fl = cfg.faults
     fault_on = fl.is_active
     adaptive = fault_on and fl.byz_mode == "adaptive"
@@ -119,15 +129,15 @@ def make_flat_round_fn(
     n_loc = rows.stop - rows.start
     gateway_id = torch.arange(b_n * n_loc, dtype=torch.int32, device=ds.train.device) // n_loc
     flops = en.autoencoder_flops(dim, (16, 8, 16), window, cfg.local_epochs)
-    lat_comp = flops / cfg.compute_rate_flops
-    e_comp = float(en.compute_energy_j(flops, cfg.energy))
+    lat_comp, e_comp = compute_cost(host, flops, ds.train.device)
+    compressor = comp.per_row(cfg.compressor, n_loc)        # a global rho_s per folded row
 
     def round_fn(state: HFLState, mobility: torch.Tensor, batches: torch.Tensor,
                  crash: torch.Tensor | None = None, erase: torch.Tensor | None = None,
                  byz_noise: torch.Tensor | None = None):
         _check_fault_draws(cfg, crash, erase)
         dep, fa, assoc_ok, active = _gateway_round(cfg, state.dep, state.assoc_ok, state.battery,
-                                                   state.t, mobility, crash)
+                                                   state.t, mobility, crash, schedule)
         flat0 = ae.ravel(state.params)                          # (..., d)
         d = flat0.shape[-1]
         active_f = active.to(torch.float32)
@@ -151,7 +161,7 @@ def make_flat_round_fn(
             n_nonfinite = torch.zeros(lead, dtype=torch.int32, device=deltas.device)
             losses = client_mesh.gather_rows(losses, n)
         folded = (deltas.reshape(b_n * n_loc, d), state.err.reshape(b_n * n_loc, d), gateway_id,
-                  weights[..., rows].reshape(-1), b_n, cfg.compressor)
+                  weights[..., rows].reshape(-1), b_n, compressor)
         if cfg.robust == "mean":
             mean_delta, _, new_err = agg.compress_and_aggregate(
                 *folded, axis=client_mesh, chunk=cfg.client_chunk)
@@ -174,8 +184,9 @@ def make_flat_round_fn(
         e_total = torch.sum(e_up, dim=-1)
         lat_up = torch.amax(torch.where(
             active, en.link_latency_s(l_u, fa.dist_m, cfg.channel), 0.0), dim=-1)
-        battery, _ = en.battery_step(state.battery, e_up + torch.where(active, e_comp, 0.0),
-                                     cfg.energy)
+        battery, _ = en.battery_step(
+            state.battery, e_up + torch.where(active, ch.per_trial(e_comp, active), 0.0),
+            cfg.energy)
         zero = torch.zeros(lead, dtype=torch.float32, device=active.device)
         metrics = RoundMetrics(
             loss=(torch.sum(losses * active_f, dim=-1)

@@ -76,7 +76,16 @@ LossFn = Callable[[Params, torch.Tensor], torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class HFLConfig:
-    """Round-loop configuration: the reference's fields."""
+    """Round-loop configuration: the reference's fields.
+
+    A config sweep (``Engine.sweep``) runs the cells of one shape class as
+    B trials of one config whose swept knobs (the reference's pytree
+    leaves: ``lr``, ``prox_mu``, ``server_lr``, ``compute_rate_flops``,
+    ``trim_frac``, a global compressor's ``rho_s`` and the ``channel``,
+    ``energy``, ``faults`` and ``drift`` numbers) are (B,) f32 tensors of
+    per-trial values, on the host: :func:`make_round_fn` and its siblings
+    copy them to the device once (:func:`knobs_to`).  A one-trial config
+    keeps its floats."""
 
     rule: coop.CoopRule = coop.CoopRule.SELECTIVE
     rounds: int = 20
@@ -105,7 +114,7 @@ class HFLConfig:
     def __post_init__(self) -> None:
         if self.robust not in ("mean", "trimmed", "median"):
             raise ValueError(f"robust must be 'mean', 'trimmed' or 'median', got {self.robust!r}")
-        if not 0.0 <= self.trim_frac < 0.5:
+        if isinstance(self.trim_frac, (int, float)) and not 0.0 <= self.trim_frac < 0.5:
             raise ValueError("trim_frac cuts a weight fraction from EACH end and must be in "
                              f"[0, 0.5), got {self.trim_frac!r}")
         cc = self.client_chunk
@@ -208,6 +217,78 @@ def draw_rounds(
                         for xs in (noise, batches, crash, erase, byz)))
 
 
+def knobs_to(cfg: Any, device: torch.device | str) -> Any:
+    """``cfg`` (any config dataclass, nested ones included) with every
+    tensor knob on ``device``; ``cfg`` itself when nothing moves."""
+    changes = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if isinstance(v, torch.Tensor):
+            w = v.to(device)
+        elif dataclasses.is_dataclass(v) and not isinstance(v, type):
+            w = knobs_to(v, device)
+        else:
+            continue
+        if w is not v:
+            changes[f.name] = w
+    return dataclasses.replace(cfg, **changes) if changes else cfg
+
+
+def select_trials(cfg: Any, idx: torch.Tensor) -> Any:
+    """``cfg`` for the trials ``idx`` of a swept config: every tensor knob
+    indexed on its leading trial axis."""
+    changes = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if isinstance(v, torch.Tensor):
+            changes[f.name] = v[idx.to(v.device)]
+        elif dataclasses.is_dataclass(v) and not isinstance(v, type):
+            changes[f.name] = select_trials(v, idx)
+    return dataclasses.replace(cfg, **changes) if changes else cfg
+
+
+def per_client(value: Any, lead: tuple[int, ...], n: int, device: torch.device) -> torch.Tensor:
+    """A (lead + (n,)) f32 tensor of ``value``: a number everywhere, or a
+    (B,) tensor's trial b in row b."""
+    if isinstance(value, torch.Tensor):
+        v = value.to(device=device, dtype=torch.float32)
+        return v.view(-1, 1).expand(lead + (n,)).contiguous()
+    return torch.full(lead + (n,), value, dtype=torch.float32, device=device)
+
+
+def compute_cost(cfg: HFLConfig, flops: int, device: torch.device) -> tuple[Any, Any]:
+    """(compute latency, compute energy) of a client's local training:
+    Python floats for a one-trial config, as before; with per-trial
+    ``compute_rate_flops`` / ``eps_op_j`` knobs (B,) f32 tensors on
+    ``device``, each trial's the value its one-trial config gives (the
+    latency divided in f64 on the host, then rounded to f32).  ``cfg``'s
+    knobs are the host copies (a card copy would be read back)."""
+    rate, eps = cfg.compute_rate_flops, cfg.energy.eps_op_j
+    if isinstance(rate, torch.Tensor):
+        lat = (flops / rate.detach().cpu().to(torch.float64)).to(torch.float32).to(device)
+    else:
+        lat = flops / rate
+    if isinstance(eps, torch.Tensor):
+        e = en.compute_energy_j(flops, en.EnergyParams(eps_op_j=eps.to(device)))
+    else:
+        e = float(en.compute_energy_j(flops, cfg.energy))    # the f32 value, on the host
+    return lat, e
+
+
+def reassoc_schedule(drift: drf.DriftConfig, steps: int, device: torch.device):
+    """The drift layer's re-association refreshes of ``steps`` rounds as a
+    (steps, B) bool tensor on ``device`` when ``reassoc_every`` is a (B,)
+    knob, built on the host from its values in the reference's f32
+    arithmetic (``t mod max(k, 1) < 0.5``); None for a number, which the
+    round decides on the host as before."""
+    k = drift.reassoc_every
+    if not isinstance(k, torch.Tensor):
+        return None
+    cad = np.maximum(k.detach().cpu().numpy().astype(np.float32), np.float32(1.0))
+    t = np.arange(steps, dtype=np.float32)[:, None]
+    return torch.from_numpy(np.mod(t, cad[None, :]) < 0.5).to(device)
+
+
 def client_rows(client_mesh: Any, n: int) -> slice:
     """The clients of ``n`` this process trains: all of them, or its rank's
     slice of a client mesh (which raises unless the mesh size divides
@@ -244,7 +325,7 @@ def init_state(params: Params, dep: topo.Deployment, cfg: HFLConfig,
         params=ae.unravel(flat.clone(), params),
         err=torch.zeros(lead + (rows.stop - rows.start, flat.shape[-1]), dtype=flat.dtype,
                         device=dev),
-        battery=torch.full(lead + (n,), cfg.energy.e_init_j, dtype=torch.float32, device=dev),
+        battery=per_client(cfg.energy.e_init_j, lead, n, dev),
         dep=dep,
         server=srv.init_state(tuple(flat.shape), dev),
         prev_delta=torch.zeros_like(flat),
@@ -310,14 +391,22 @@ def make_round_fn(
     Fault injection, a robust reduce, the drift layer and a sensor count
     the mesh size does not divide raise ``ValueError``, as in the
     reference; ``n_nonfinite`` is 0 under a mesh (the isfinite guard in
-    ``compress_and_accumulate`` still zeroes such rows)."""
+    ``compress_and_accumulate`` still zeroes such rows).
+
+    ``cfg`` may carry (B,) knobs (:class:`HFLConfig`), trial b's values
+    for trial b: they go to the device once here, and the rounds read them
+    per trial with no read back from the card."""
     check_mesh(cfg, ds.train.shape[-3], client_mesh)
+    dev = ds.train.device
+    host = cfg                                               # the knobs' host values
+    schedule = reassoc_schedule(host.drift, host.rounds, dev)
+    cfg = knobs_to(cfg, dev)
     n_fog = cfg.deployment.n_fog
     fl = cfg.faults
     fault_on = fl.is_active          # off: exactly the fault-free round
     dr = cfg.drift
     drift_on = dr.is_active          # off: exactly the drift-free round
-    cadence = np.float32(max(dr.reassoc_every, 1.0))
+    cadence = None if schedule is not None else np.float32(max(dr.reassoc_every, 1.0))
     adaptive = fault_on and fl.byz_mode == "adaptive"
     clients_fn = make_client_solver(
         loss_fn, batch_size=cfg.batch_size, epochs=cfg.local_epochs,
@@ -331,8 +420,8 @@ def make_round_fn(
     fog_base = torch.arange(b_n, dtype=torch.int32, device=ds.train.device)[:, None] * n_fog
     # As in the reference, the compute cost counts the paper's hidden widths.
     flops = en.autoencoder_flops(dim, (16, 8, 16), window, cfg.local_epochs)
-    lat_comp = flops / cfg.compute_rate_flops
-    e_comp = float(en.compute_energy_j(flops, cfg.energy))   # the f32 value, on the host
+    lat_comp, e_comp = compute_cost(host, flops, dev)
+    compressor = comp.per_row(cfg.compressor, n_loc)        # a global rho_s per folded row
 
     def round_fn(state: HFLState, mobility: torch.Tensor, batches: torch.Tensor,
                  crash: torch.Tensor | None = None, erase: torch.Tensor | None = None,
@@ -351,13 +440,12 @@ def make_round_fn(
             # Stale assignment, live physics: the carried assignment is
             # refreshed every ``reassoc_every`` rounds (round 0 always), in
             # the reference's f32 arithmetic, decided on the host.
-            if np.mod(np.float32(state.t), cadence) < 0.5:
-                fresh = assoc.nearest_feasible_fog(dep, cfg.channel)
-                assoc_fog, assoc_ok = fresh.fog_id, fresh.participates
+            assoc_fog, assoc_ok = refresh_assoc(dep, cfg.channel, schedule, cadence, state.t,
+                                                assoc_fog, assoc_ok)
             fa = assoc.assigned_fog_association(dep, cfg.channel, assoc_fog, assoc_ok)
         else:
             fa = assoc.nearest_feasible_fog(dep, cfg.channel)
-        alive = state.battery > cfg.energy.e_min_j
+        alive = state.battery > ch.per_trial(cfg.energy.e_min_j, state.battery)
         active = fa.participates & alive
         if fault_on:
             # Crashed clients drop out like a dead battery: no training, no
@@ -395,7 +483,7 @@ def make_round_fn(
             losses = client_mesh.gather_rows(losses, n)
         fog_id = fa.fog_id[..., rows] if b_n == 1 else fa.fog_id[..., rows] + fog_base
         folded = (deltas.reshape(b_n * n_loc, d), state.err.reshape(b_n * n_loc, d),
-                  fog_id.reshape(-1), weights[..., rows].reshape(-1), b_n * n_fog, cfg.compressor)
+                  fog_id.reshape(-1), weights[..., rows].reshape(-1), b_n * n_fog, compressor)
         if cfg.robust == "mean":
             fog_delta, fog_weight, new_err = agg.compress_and_aggregate(
                 *folded, axis=client_mesh, chunk=cfg.client_chunk)
@@ -431,7 +519,7 @@ def make_round_fn(
             l_u, l_full, active, fa.dist_m, decision, fog_active,
             fa.fog_gateway_dist_m, cfg.channel,
         )
-        spent = e_up + torch.where(active, e_comp, 0.0)
+        spent = e_up + torch.where(active, ch.per_trial(e_comp, active), 0.0)
         battery, _ = en.battery_step(state.battery, spent, cfg.energy)
 
         metrics = RoundMetrics(
@@ -457,13 +545,35 @@ def make_round_fn(
     return round_fn
 
 
+def refresh_assoc(dep: topo.Deployment, channel: ch.ChannelParams, schedule, cadence,
+                  t: int, assoc_fog: torch.Tensor, assoc_ok: torch.Tensor):
+    """The drift layer's carried assignment after round ``t``'s refresh:
+    with a (B,) cadence each trial takes the fresh nearest-feasible-fog
+    assignment where its ``schedule`` row says so (:func:`reassoc_schedule`),
+    else the host decides for every trial, as it did before."""
+    if schedule is not None:
+        fresh = assoc.nearest_feasible_fog(dep, channel)
+        now = schedule[t][:, None]
+        return (torch.where(now, fresh.fog_id, assoc_fog),
+                torch.where(now, fresh.participates, assoc_ok))
+    if np.mod(np.float32(t), cadence) < 0.5:
+        fresh = assoc.nearest_feasible_fog(dep, channel)
+        return fresh.fog_id, fresh.participates
+    return assoc_fog, assoc_ok
+
+
 def train_windows(ds: SensorDataset, cfg: HFLConfig, t: int) -> torch.Tensor:
     """Round ``t``'s client windows: with the drift layer on, scaled by the
     covariate shift ``1 + covariate_shift * t`` in f32 as the reference
-    computes it (a factor of exactly 1 leaves them as they are)."""
+    computes it (a factor of exactly 1 leaves them as they are); a (B,)
+    ``covariate_shift`` on the data's device scales trial b by its own."""
     if not cfg.drift.is_active:
         return ds.train
-    scale = np.float32(1.0) + np.float32(cfg.drift.covariate_shift) * np.float32(t)
+    shift = cfg.drift.covariate_shift
+    if isinstance(shift, torch.Tensor):
+        scale = 1.0 + shift * float(np.float32(t))
+        return ds.train * scale.view((-1,) + (1,) * (ds.train.dim() - 1))
+    scale = np.float32(1.0) + np.float32(shift) * np.float32(t)
     return ds.train if scale == 1.0 else ds.train * float(scale)
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import numpy as np
 import torch
@@ -117,7 +118,7 @@ def _reflect(pos: torch.Tensor, params: DeploymentParams,
 
 
 def current_advection_step(
-    dep: Deployment, params: DeploymentParams, speed_m_s: float,
+    dep: Deployment, params: DeploymentParams, speed_m_s: Any,
 ) -> Deployment:
     """Advect the SENSORS one round interval in a depth-sheared current.
 
@@ -127,11 +128,13 @@ def current_advection_step(
     ``z * (f32(2 pi) * f32(1 / depth_m))``, the arithmetic XLA gives the
     reference's jitted ``2 pi z / depth_m`` (a true division rounds apart
     on most depths).  Positions reflect into the sensor stratum as the fog
-    walk's do into theirs.
+    walk's do into theirs.  ``speed_m_s`` may be a (B,) tensor, one speed
+    a trial of (B, N, 3) positions.
     """
     rate = float(np.float32(2.0 * math.pi) * (np.float32(1.0) / np.float32(params.depth_m)))
-    s = float(np.float32(speed_m_s))
     z = dep.sensor_pos[..., 2]
+    s = (speed_m_s.view((-1,) + (1,) * (z.dim() - 1)) if isinstance(speed_m_s, torch.Tensor)
+         else float(np.float32(speed_m_s)))
     phase = z * rate
     vel = torch.stack([s * torch.cos(phase), s * torch.sin(phase), torch.zeros_like(z)], dim=-1)
     pos, _ = _reflect(dep.sensor_pos + vel * params.round_interval_s, params,

@@ -39,6 +39,22 @@ trials the same way, an event for a round: one ``local_train_f32``, one
 ``fused_agg`` and, with a robust reduce, one ``robust_agg`` call an event
 for the whole cell.  Results come back with leading (S, P) axes.
 
+Config sweeps
+-------------
+``Engine.sweep`` groups a config grid into shape classes, as the
+reference's engine does on its kernel backend: cells whose configs differ
+only in the reference's swept leaves (the channel and energy physics,
+``server_lr``, ``compute_rate_flops``, the fault probabilities, the drift
+rates, the async knobs, a global compressor's ``rho_s``) share a class,
+unless they differ in a knob the kernels take as a scalar (``rho_s`` of a
+blockwise compressor, ``lr`` / ``prox_mu`` of the fused local solver,
+``trim_frac`` of a robust reduce).  A class of C cells is ONE
+``batched_trial_metrics`` (or ``audit_trials``) call over B = C * S * P
+trials: trial (c, s, j) draws what ``Engine.run(cfgs[c], ...)`` draws for
+(s, j), and each knob the cells differ in becomes a (B,) f32 tensor of
+per-trial values (:func:`_fold`), so a class launches each kernel as
+often as one of its cells.
+
 Compressor default
 ------------------
 Unless constructed with ``compressor="keep"``, the engine rewrites sparse
@@ -84,8 +100,10 @@ import torch.distributed as dist
 from repro_torch import device as _device
 from repro_torch.core import aggregation as agg
 from repro_torch.core import async_fl
+from repro_torch.core import channel as ch
 from repro_torch.core import compression as comp
 from repro_torch.core import drift as drf
+from repro_torch.core import energy as en
 from repro_torch.core import faults as flt
 from repro_torch.core import hfl
 from repro_torch.core import participation as part
@@ -139,45 +157,154 @@ def _tensor_key(x: torch.Tensor, content: bool) -> tuple:
     return shape + (hashlib.sha1(t.numpy().tobytes()).hexdigest(),) if content else shape
 
 
-def _structure(x: Any) -> Any:
-    """A config's static structure: every float leaf blanked (a swept
-    knob), a tensor leaf (``AsyncFLConfig.arrival_delay_s``) kept as its
-    shape, every other field kept (enums, counts, modes, flags, widths)."""
-    return _map_leaves(x, lambda v: None if isinstance(v, float) else (
-        _tensor_key(v, False) if isinstance(v, torch.Tensor) else v))
-
-
 def _cfg_key(x: Any) -> Any:
     """A config as a hashable cache key: a tensor leaf by its shape and
     its bytes, never by the tensor object."""
     return _map_leaves(x, lambda v: _tensor_key(v, True) if isinstance(v, torch.Tensor) else v)
 
 
-def _float_leaves(x: Any, path: str = "") -> dict[str, Any]:
-    """Every float or tensor leaf of a config by its dotted path."""
-    if dataclasses.is_dataclass(x):
-        out: dict[str, Any] = {}
-        for f in dataclasses.fields(x):
-            out.update(_float_leaves(getattr(x, f.name), f"{path}{f.name}."))
-        return out
-    if isinstance(x, tuple):
-        out = {}
-        for i, v in enumerate(x):
-            out.update(_float_leaves(v, f"{path}{i}."))
-        return out
-    return {path[:-1]: x} if isinstance(x, (float, torch.Tensor)) else {}
+# The reference's pytree leaves (``repro/core/hfl.py`` ``_HFL_LEAF_FIELDS``,
+# ``faults.py``, ``drift.py``, ``async_fl.py``, ``compression.py``, and every
+# ``ChannelParams`` / ``EnergyParams`` field): a number there is a knob that
+# a sweep's cells may differ in and still share a class, one value per
+# trial.  Every other field is static (the reference's aux data), and so
+# are ``sparse`` / ``active``, which enter as the derived predicates below.
+_ALL = "all"
+_KNOBS: dict[type, Any] = {
+    hfl.HFLConfig: ("lr", "prox_mu", "server_lr", "compute_rate_flops", "compressor", "channel",
+                    "energy", "trim_frac", "faults", "drift"),
+    comp.CompressorConfig: ("rho_s",),
+    ch.ChannelParams: _ALL,
+    en.EnergyParams: _ALL,
+    flt.FaultConfig: ("erasure_prob", "crash_prob", "byz_frac", "byz_scale"),
+    drf.DriftConfig: ("sensor_current_m_s", "reassoc_every", "covariate_shift"),
+    async_fl.AsyncFLConfig: ("base", "buffer_k", "fog_k", "alpha", "timeout_s", "fog_timeout_s",
+                             "tau_max", "arrival_delay_s"),
+}
+_DERIVED: dict[type, tuple[str, str]] = {   # (pinned field, the static predicate it pins)
+    comp.CompressorConfig: ("sparse", "is_sparse"),
+    flt.FaultConfig: ("active", "is_active"),
+    drf.DriftConfig: ("active", "is_active"),
+}
 
 
-def _grid(out: dict[str, Any], s_n: int, p_n: int) -> dict[str, Any]:
-    """Leading B = S * P axis -> (S, P); ``params`` layers alike."""
-    grid = {}
-    for k, v in out.items():
-        if k == "params":
-            grid[k] = [{n: t.reshape((s_n, p_n) + tuple(t.shape[1:])) for n, t in layer.items()}
-                       for layer in v]
+def _is_knob(x: Any, name: str) -> bool:
+    knobs = _KNOBS.get(type(x), ())
+    return knobs == _ALL or name in knobs
+
+
+def _signature(x: Any) -> Any:
+    """A config's shape-class signature, the reference's leaf / aux split:
+    a number in a knob field blanked, a tensor knob (a replayed
+    ``arrival_delay_s``) kept as its shape, every static field kept
+    (enums, counts, modes, flags, the deployment), and the derived
+    ``is_sparse`` / ``is_active`` predicates in place of their pins."""
+    pinned, derived = _DERIVED.get(type(x), (None, None))
+    parts: list[Any] = [type(x).__name__]
+    for f in dataclasses.fields(x):
+        v = getattr(x, f.name)
+        if f.name == pinned:
+            continue
+        if not _is_knob(x, f.name):
+            parts.append((f.name, _cfg_key(v)))
+        elif dataclasses.is_dataclass(v):
+            parts.append((f.name, _signature(v)))
+        elif isinstance(v, torch.Tensor):
+            parts.append((f.name, _tensor_key(v, False)))
         else:
-            grid[k] = v.reshape((s_n, p_n) + tuple(v.shape[1:]))
-    return grid
+            parts.append((f.name, None))
+    if derived is not None:
+        parts.append((derived, getattr(x, derived)))
+    return tuple(parts)
+
+
+def _static_knobs(cfg: Any) -> tuple:
+    """Knobs a class must share although they are the reference's leaves:
+    what the port's kernels take as scalars (the reference's
+    ``Engine._kernel_static_knobs`` for a kernel-backed config, on every
+    device: the plain versions take the same scalars) — ``rho_s`` of a
+    sparse blockwise compressor (``fused_agg``, the wire pair,
+    ``compress_q8``, ``topk_ef``), ``lr`` and ``prox_mu`` of the fused
+    local solver (``local_train_f32``), ``trim_frac`` of a robust reduce
+    (``robust_agg``) — and a number ``arrival_delay_s``, which the async
+    event tells from a replayed (N,) clock by its rank."""
+    base = _base_cfg(cfg)
+    knobs: dict[str, float] = {}
+    cc = base.compressor
+    if cc.enabled and cc.is_sparse and cc.mode == "blockwise":
+        knobs["rho_s"] = float(cc.rho_s)
+    if base.local_solver.fused:
+        knobs["lr"] = float(base.lr)
+        knobs["prox_mu"] = float(base.prox_mu)
+    if base.robust != "mean":
+        knobs["trim_frac"] = float(base.trim_frac)
+    if isinstance(cfg, async_fl.AsyncFLConfig) and not isinstance(cfg.arrival_delay_s,
+                                                                  torch.Tensor):
+        knobs["arrival_delay_s"] = float(cfg.arrival_delay_s)
+    return tuple(sorted(knobs.items()))
+
+
+def _knob_leaves(x: Any, path: str = "") -> dict[str, Any]:
+    """Every knob leaf of a config (:data:`_KNOBS`) by its dotted path."""
+    out: dict[str, Any] = {}
+    for f in dataclasses.fields(x):
+        v = getattr(x, f.name)
+        if not _is_knob(x, f.name):
+            continue
+        if dataclasses.is_dataclass(v):
+            out.update(_knob_leaves(v, f"{path}{f.name}."))
+        else:
+            out[f"{path}{f.name}"] = v
+    return out
+
+
+def _same(vals: Sequence[Any]) -> bool:
+    if isinstance(vals[0], torch.Tensor):
+        return all(_tensor_key(v, True) == _tensor_key(vals[0], True) for v in vals)
+    return all(v == vals[0] for v in vals)
+
+
+def _fold(cells: Sequence[Any], reps: int) -> tuple[Any, list[str]]:
+    """A class's C cells as one config of B = C * reps trials (cell c's
+    trials are rows c * reps .. (c + 1) * reps - 1): each knob the cells
+    differ in becomes a (B,) f32 CPU tensor of per-trial values (a
+    replayed (N,) ``arrival_delay_s`` a (B, N) one), every other field is
+    the first cell's, so a knob all cells share keeps its number and its
+    arithmetic.  A nested config that takes tensors has its predicate
+    pinned (``sparse`` / ``active``).  Returns (config, swept paths)."""
+    rep, changes, swept = cells[0], {}, []
+    for f in dataclasses.fields(rep):
+        if not _is_knob(rep, f.name):
+            continue
+        vals = [getattr(c, f.name) for c in cells]
+        if dataclasses.is_dataclass(vals[0]):
+            sub, paths = _fold(vals, reps)
+            if paths:
+                changes[f.name] = sub
+                swept += [f"{f.name}.{p}" for p in paths]
+        elif not _same(vals):
+            if isinstance(vals[0], torch.Tensor):
+                t = torch.stack([v.detach().to("cpu", torch.float32) for v in vals])
+            else:
+                t = torch.tensor([float(v) for v in vals], dtype=torch.float32)
+            changes[f.name] = t.repeat_interleave(reps, dim=0)
+            swept.append(f.name)
+    if not changes:
+        return rep, []
+    pinned, derived = _DERIVED.get(type(rep), (None, None))
+    if pinned is not None:
+        changes[pinned] = getattr(rep, derived)
+    return dataclasses.replace(rep, **changes), swept
+
+
+def _grid(out: dict[str, Any], *lead: int) -> dict[str, Any]:
+    """Leading B axis -> ``lead`` ((S, P), or (C, S, P) for a sweep
+    class); ``params`` layers alike."""
+    def split(t):
+        return t.reshape(lead + tuple(t.shape[1:]))
+
+    return {k: [{n: split(t) for n, t in layer.items()} for layer in v] if k == "params"
+            else split(v) for k, v in out.items()}
 
 
 def _shapes(per_seed: Sequence[SensorDataset]) -> tuple:
@@ -261,9 +388,9 @@ class Engine:
       are);
     * ``sweep`` — ``run``/``audit`` over a whole CONFIG GRID: cells are
       grouped into shape-classes (identical static structure — enums,
-      counts, compressor mode/bits, deployment geometry), one trial
-      function per class, its cells one after another, each a batched
-      (S, P) call: a ``(C, S, P)`` grid;
+      counts, compressor mode/bits, deployment geometry — and kernel
+      scalars), each class ONE batched call over its cells' trials with
+      per-trial knobs: a ``(C, S, P)`` grid;
     * ``audit`` — the training-free energy/participation replay of either
       family at paper scale, all trials at once;
     * ``reachability`` — the geometry-only Fig. 5 study;
@@ -459,24 +586,62 @@ class Engine:
             point_adjusted=self.point_adjusted, client_mesh=client_mesh,
             return_params=return_params, device=dev)
 
-    def _run_cell(self, fn, method, cfg, keys, per_seed: list[SensorDataset], dev,
-                  trial_mesh: Any = None):
-        """Draw every trial of the (S, P) grid on the host, then run them
-        in one batched call: (metrics (S, P, ...), wall, launches).  With
-        ``trial_mesh`` this rank draws and runs only its rows of seeds, and
-        the grid is put back together on every rank."""
+    def _run_class(self, fn, method, cells, keys, per_cell_ds, dev, trial_mesh: Any = None):
+        """A shape class of C cells as ONE batched call over B = C * S * P
+        trials: trial (c, s, j) takes what ``Engine.run(cells[c], ...)``
+        draws for (s, j), the cells' datasets fold with the trials, and the
+        knobs the cells differ in become (B,) values (:func:`_fold`);
+        SCAFFOLD and the oracle get each trial's own config.  The draws
+        (``experiment.draw_trial``) read only what the class signature
+        holds (counts, the deployment, the fault layer's on/off and mode,
+        the data shapes), so the (S, P) grid is drawn once and every cell
+        takes it, as the reference's config axis shares its keys.  With
+        ``trial_mesh`` this rank runs its rows of seeds of every cell.
+        Returns (metrics (C, S, P, ...), wall, launches, swept knob
+        paths)."""
         s_n = len(keys)
         if trial_mesh is not None:
             mine = trial_mesh.rows(s_n)
-            keys, per_seed = keys[mine], per_seed[mine]
-        inputs = self._draw(keys, lambda s, g: exp.draw_trial(g, per_seed[s], cfg, self.hidden,
-                                                              method))
-        ds_list = [per_seed[s] for s, row in enumerate(keys) for _ in row]
-        out, wall, launches = self._timed_call(dev, fn, inputs, ds_list, cfg)
-        out = _grid(out, len(keys), len(keys[0]))
+            keys, per_cell_ds = keys[mine], [one[mine] for one in per_cell_ds]
+        reps = len(keys) * len(keys[0])
+        drawn = self._draw(keys, lambda s, g: exp.draw_trial(g, per_cell_ds[0][s], cells[0],
+                                                             self.hidden, method))
+        inputs = drawn * len(cells)
+        ds_list = [per_seed[s] for per_seed in per_cell_ds for s, row in enumerate(keys)
+                   for _ in row]
+        folded, swept = _fold(cells, reps)
+        if method in exp.UNBATCHED:
+            folded = [cfg for cfg in cells for _ in range(reps)]
+        out, wall, launches = self._timed_call(dev, fn, inputs, ds_list, folded)
+        out = _grid(out, len(cells), len(keys), len(keys[0]))
         if trial_mesh is not None:
-            out = agg.tree_map(lambda t: trial_mesh.gather_rows(t, s_n, dim=0), out)
-        return out, wall, launches
+            out = agg.tree_map(lambda t: trial_mesh.gather_rows(t, s_n, dim=1), out)
+        return out, wall, launches, swept
+
+    def _audit_class(self, fn, methods, cells, resolved, keys, d, dev):
+        """An audit class of C cells as ONE batched call over B = C * S * P
+        trials, each trial with its cell's method and payload bits (the
+        resolved compressor's, ``l_u``) and the knobs the cells differ in
+        as (B,) values; the (S, P) grid's deployments and mobility are
+        drawn once for the class (they read only its deployment and round
+        count).  Returns (metrics (C, S, P), wall, launches, swept
+        knob paths)."""
+        s_n, p_n = len(keys), len(keys[0])
+        reps = s_n * p_n
+        dep, mobility = self._audit_draws(cells[0], keys, dev)    # the class's draws, once
+        dep = topo.Deployment(*(getattr(dep, f.name).repeat((len(cells),) + (1,) * (
+            getattr(dep, f.name).dim() - 1)) for f in dataclasses.fields(topo.Deployment)))
+        mobility = mobility.repeat(1, len(cells), 1, 1)
+        bits = [float(comp.payload_bits(d, r.compressor)) for r in resolved]
+        l_u = (bits[0] if _same(bits)
+               else torch.tensor(bits, dtype=torch.float32).repeat_interleave(reps))
+        folded, swept = _fold(cells, reps)
+        per_trial = [m for m in methods for _ in range(reps)]
+        out, wall, launches = self._timed_call(dev, fn, per_trial, folded, dep, mobility,
+                                               l_u=l_u)
+        if isinstance(l_u, torch.Tensor):
+            swept = swept + ["l_u"]
+        return _grid(out, len(cells), s_n, p_n), wall, launches, swept
 
     def run(
         self,
@@ -518,7 +683,10 @@ class Engine:
                      client_mesh.size if client_mesh is not None else 0, return_params)
         fn, fresh = self._get_program(cache_key, lambda: self._run_program(
             method, dev, return_params, client_mesh))
-        out, wall, launches = self._run_cell(fn, method, cfg, keys, per_seed, dev, trial_mesh)
+        out, wall, launches, _ = self._run_class(fn, method, [cfg], keys, [per_seed], dev,
+                                                 trial_mesh)
+        out = {k: v[0] if k != "params" else [{n: t[0] for n, t in layer.items()} for layer in v]
+               for k, v in out.items()}
         if store is not None:
             params = out.pop("params")
             store.publish(_base_cfg(cfg).rounds if publish_step is None else publish_step,
@@ -578,10 +746,12 @@ class Engine:
 
     @staticmethod
     def stack_configs(cfgs: Sequence[hfl.HFLConfig]) -> dict[str, torch.Tensor]:
-        """Stack same-shape-class configs: every float leaf (a swept knob),
-        by its dotted field path, as a (C,) f32 tensor; a tensor leaf (the
-        replayed ``arrival_delay_s``) as (C, ...)."""
-        leaves = [_float_leaves(c) for c in cfgs]
+        """Stack same-shape-class configs: every knob leaf (the
+        reference's pytree leaves), by its dotted field path, as a (C,)
+        f32 tensor; a tensor leaf (the replayed ``arrival_delay_s``) as
+        (C, ...).  ``sweep`` repeats the knobs the cells differ in S * P
+        times into the (B,) values of its one call."""
+        leaves = [_knob_leaves(c) for c in cfgs]
         return {k: torch.stack([torch.as_tensor(lv[k], dtype=torch.float32) for lv in leaves])
                 for k in leaves[0]}
 
@@ -617,19 +787,23 @@ class Engine:
         self, cfgs: Sequence[hfl.HFLConfig], family: str,
         ds_shapes: Sequence[tuple] | None,
     ) -> tuple[list[hfl.HFLConfig], dict]:
-        """Group sweep cells into shape-classes.
+        """Group sweep cells into shape-classes, as the reference's
+        ``Engine._sweep_classes`` does on its kernel backend.
 
-        The signature is the config's static structure (every field but
-        the float knobs: rule enum, round/epoch/event counts, compressor
-        mode/bits/flags, deployment geometry, the shape of a replayed
-        ``arrival_delay_s``) plus, for per-cell datasets, the data shapes.
-        Mixed enums/static shapes never share a class.
+        The signature is the config's static structure (:func:`_signature`:
+        rule enum, round/epoch/event counts, compressor mode/bits/flags,
+        deployment geometry, the fault and drift layers' on/off, the shape
+        of a replayed ``arrival_delay_s``), plus for ``run`` the knobs the
+        kernels take as scalars (:func:`_static_knobs`) and, for per-cell
+        datasets, the data shapes.  Mixed enums/static shapes never share a
+        class.
         """
         norm, groups = [], {}
         for i, rcfg in enumerate(cfgs):
             ncfg = self._audit_normal(rcfg) if family == "audit" else rcfg
             norm.append(ncfg)
-            sig = (_structure(ncfg), ds_shapes[i] if ds_shapes is not None else None)
+            sig = (_signature(ncfg), _static_knobs(rcfg) if family == "run" else (),
+                   ds_shapes[i] if ds_shapes is not None else None)
             groups.setdefault(sig, []).append(i)
         return norm, groups
 
@@ -645,19 +819,24 @@ class Engine:
         d: int = 1352,
         label: str | None = None,
     ) -> SweepRun:
-        """Evaluate a whole config grid: ONE trial function per
-        shape-class, its cells run one after another, each as one batched
-        call over the (seed, deployment) trial grid.
+        """Evaluate a whole config grid: ONE batched call per
+        shape-class (:meth:`_sweep_classes`) over its cells' (seed,
+        deployment) trials, the knobs the cells differ in as per-trial
+        values (:meth:`_run_class`, :meth:`_audit_class`).
 
         ``family="run"`` trains and evaluates (``ds`` required: one
         dataset/callable shared by every cell, or a length-C sequence of
         per-cell datasets, each in any form ``Engine.run`` accepts);
         ``family="audit"`` replays the training-free energy accounting
         (``d`` = model size; ``ds`` ignored), and ``method`` may then be a
-        length-C sequence.
+        length-C sequence: each trial takes its cell's method and payload.
+        With ``shard_trials`` under a process group, rank r runs its rows
+        of seeds of every cell.
 
         Returns a :class:`SweepRun` with metric leaves shaped (C, S, P);
-        cell ``i`` equals ``Engine.run(cfgs[i], ...)`` / ``Engine.audit``.
+        cell ``i`` equals ``Engine.run(cfgs[i], ...)`` / ``Engine.audit``
+        (to float tolerance: a plain product or sum over a larger trial
+        axis may reassociate).
         """
         if family not in ("run", "audit"):
             raise ValueError(f"family must be run|audit, got {family!r}")
@@ -707,29 +886,21 @@ class Engine:
             if family == "run":
                 fn, fresh = self._get_program(
                     cache_key, lambda: self._run_program(uniq[0], dev, False))
+                out, wall, launches, swept = self._run_class(
+                    fn, uniq[0], [norm[i] for i in idxs], keys, [stacked_ds[i] for i in idxs],
+                    dev, trial_mesh)
             else:
                 fn, fresh = self._get_program(
-                    cache_key, lambda: functools.partial(exp.audit_trial, d=d))
-            wall, launches = 0.0, {}
-            for i in idxs:
-                if family == "run":
-                    out, w, ln = self._run_cell(fn, uniq[0], norm[i], keys, stacked_ds[i], dev,
-                                                trial_mesh)
-                else:
-                    dep, mobility = self._audit_draws(norm[i], keys, dev)
-                    l_u = float(comp.payload_bits(d, rcfgs[i].compressor))
-                    out, w, ln = self._timed_call(dev, fn, methods[i], norm[i], dep, mobility,
-                                                  l_u=l_u)
-                    out = _grid(out, s_n, p_n)
-                per_cfg[i] = out
-                wall += w
-                for k, v in ln.items():
-                    launches[k] = launches.get(k, 0) + v
-            stacked_knobs = self.stack_configs([norm[i] for i in idxs])
+                    cache_key, lambda: functools.partial(exp.audit_trials, d=d))
+                out, wall, launches, swept = self._audit_class(
+                    fn, [methods[i] for i in idxs], [norm[i] for i in idxs],
+                    [rcfgs[i] for i in idxs], keys, d, dev)
+            for pos, i in enumerate(idxs):
+                per_cfg[i] = {k: v[pos] for k, v in out.items()}
             info = dict(
                 indices=tuple(idxs), n_cells=len(idxs), wall_s=wall, fresh_compile=fresh,
                 compressor=_describe_compressor(_base_cfg(rep).compressor, dev),
-                knobs=sorted(k for k, v in stacked_knobs.items() if bool((v != v[0]).any())),
+                knobs=sorted(swept),
             )
             classes.append(info)
             wall_total += wall

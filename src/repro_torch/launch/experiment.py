@@ -226,7 +226,7 @@ def batched_trial_metrics(
     method: str,
     inputs: Sequence[TrialInputs],
     ds: SensorDataset | Sequence[SensorDataset],
-    cfg: hfl.HFLConfig,
+    cfg: hfl.HFLConfig | Sequence[hfl.HFLConfig],
     *,
     percentile: float = 99.0,
     point_adjusted: bool = False,
@@ -246,7 +246,11 @@ def batched_trial_metrics(
     chunked wire pair excepted: ceil(B * N / chunk) launches a round); the
     evaluation takes a threshold and an F1 per trial.  SCAFFOLD and the
     centralised oracle run their trials one after another.  ``client_mesh``
-    slices the hierarchical and flat rounds' clients (:func:`trial_metrics`)."""
+    slices the hierarchical and flat rounds' clients (:func:`trial_metrics`).
+
+    ``cfg`` may carry (B,) knobs, trial b's values for trial b (a config
+    sweep's cells folded into the trials, ``Engine.sweep``); SCAFFOLD and
+    the oracle take a config per trial instead (a length-B sequence)."""
     _check_method(method)
     dev = _device.resolve(device)
     b_n = len(inputs)
@@ -259,9 +263,13 @@ def batched_trial_metrics(
     for one in per_trial:          # each distinct dataset goes to the device once
         on_dev.setdefault(id(one), _dataset_to(one, dev))
     stacked = hfl.stack_datasets([on_dev[id(one)] for one in per_trial])
+    if not isinstance(cfg, hfl.HFLConfig | async_fl.AsyncFLConfig):
+        if method not in UNBATCHED or len(cfg) != b_n:
+            raise ValueError("a config per trial is for scaffold and centralised, one per trial")
     if method in UNBATCHED:
-        runs = [_one_trial(method, on_dev[id(one)], cfg, inp)
-                for one, inp in zip(per_trial, inputs)]
+        cfgs = [cfg] * b_n if isinstance(cfg, hfl.HFLConfig) else list(cfg)
+        runs = [_one_trial(method, on_dev[id(one)], c, inp)
+                for one, c, inp in zip(per_trial, cfgs, inputs)]
         params = [{k: torch.stack([p[i][k] for p, _ in runs]) for k in layer}
                   for i, layer in enumerate(runs[0][0])]
         out = {k: torch.stack([m[k] for _, m in runs]) for k in runs[0][1]}
@@ -388,15 +396,20 @@ def audit_trial(
     over ``cfg.rounds`` rounds WITHOUT training (see :func:`audit_method`);
     returns summed energies, mean participation and mean coop links.  A
     deployment with leading trial axes (``Deployment.stack``) and mobility
-    (T, B, M, 3) replay B trials at once, each value (B,)."""
+    (T, B, M, 3) replay B trials at once, each value (B,); ``cfg`` may
+    then carry (B,) knobs and ``l_u`` be a (B,) tensor of per-trial
+    payloads."""
     if method in ("fedavg", "fedprox", "fedadam", "scaffold"):
         kind = "flat"
     elif method in _RULES:
         kind = "hfl"
     else:
         raise ValueError(f"audit unsupported for {method!r}")
+    cfg = hfl.knobs_to(cfg, dep.fog_pos.device)
     if l_u is None:
         l_u = comp.payload_bits(d, cfg.compressor)
+    elif isinstance(l_u, torch.Tensor):
+        l_u = l_u.to(dep.fog_pos.device)
     l_full = 32.0 * d
     zero = torch.zeros(dep.fog_pos.shape[:-2], device=dep.fog_pos.device)
     rows = []
@@ -433,6 +446,35 @@ def audit_trial(
     total["participation"] = torch.mean(m["participation"], dim=0)
     total["coop_links"] = torch.mean(m["coop_links"], dim=0)
     return total
+
+
+def audit_trials(
+    methods: Sequence[str],
+    cfg: hfl.HFLConfig,
+    dep: topo.Deployment,
+    mobility: torch.Tensor,
+    d: int = 1352,
+    l_u: float | torch.Tensor | None = None,
+) -> dict[str, torch.Tensor]:
+    """:func:`audit_trial` of B trials (leading trial axis) whose methods
+    differ: ``methods[b]`` is trial b's.  Each distinct method replays its
+    own trials once (a gather of their deployments, mobility, knobs and
+    payloads ``l_u`` (B,)), and the results go back in trial order."""
+    uniq = tuple(dict.fromkeys(methods))
+    if len(uniq) == 1:
+        return audit_trial(uniq[0], cfg, dep, mobility, d, l_u)
+    dev = dep.fog_pos.device
+    out: dict[str, torch.Tensor] = {}
+    for m in uniq:
+        idx = torch.tensor([b for b, mb in enumerate(methods) if mb == m], device=dev)
+        part = audit_trial(
+            m, hfl.select_trials(cfg, idx),
+            topo.Deployment(*(t[idx] for t in (dep.sensor_pos, dep.fog_pos, dep.fog_vel,
+                                                dep.gateway_pos))),
+            mobility[:, idx], d, l_u.to(dev)[idx] if isinstance(l_u, torch.Tensor) else l_u)
+        for k, v in part.items():
+            out.setdefault(k, torch.zeros((len(methods),), dtype=v.dtype, device=dev))[idx] = v
+    return out
 
 
 def audit_method(

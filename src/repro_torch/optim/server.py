@@ -11,6 +11,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.channel import per_trial
+
 
 class ServerOptState(NamedTuple):
     m: torch.Tensor       # (d,) or (B, d) first moment
@@ -37,12 +39,13 @@ def adam_update(
     b2: float = 0.99,
     eps: float = 1e-8,
 ) -> tuple[torch.Tensor, ServerOptState]:
-    """One FedAdam step; returns (parameter increment, new state)."""
+    """One FedAdam step; returns (parameter increment, new state).  ``lr``
+    may be a (B,) tensor, each trial of (B, d) moments its own rate."""
     step = state.step + 1
     m = b1 * state.m + (1.0 - b1) * pseudo_grad
     v = b2 * state.v + (1.0 - b2) * torch.square(pseudo_grad)
     t = step.to(torch.float32)
     mhat = m / (1.0 - torch.pow(b1, t))
     vhat = v / (1.0 - torch.pow(b2, t))
-    incr = lr * mhat / (torch.sqrt(vhat) + eps)
+    incr = per_trial(lr, mhat) * mhat / (torch.sqrt(vhat) + eps)
     return incr, ServerOptState(m, v, step)

@@ -154,7 +154,7 @@ def clients_sgd(
     params: Params,
     data: torch.Tensor,        # (N, window, ...) per-client windows
     idx: torch.Tensor,         # (N, steps, bs) minibatch row indices
-    lr: float,
+    lr: float | torch.Tensor,  # a number, or (N, 1) per client
     correct: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
     theta0: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -233,7 +233,9 @@ def make_client_solver(
     N clients are B runs of N / B, run b starting from trial b's params
     (one launch for all the trials).  The paper autoencoder with
     ``solver.fused`` takes the fused operator; anything else the scan,
-    proximal when ``prox_mu != 0``."""
+    proximal when ``prox_mu != 0``.  The scan also takes ``lr`` and
+    ``prox_mu`` as (B,) tensors, run b stepping with trial b's values (the
+    fused operator takes them as scalars)."""
     from repro_torch.kernels import ops as kops
     from repro_torch.models import autoencoder as ae
 
@@ -252,12 +254,17 @@ def make_client_solver(
             anchor = flat.repeat_interleave(data.shape[0] // flat.shape[0], dim=0)
         else:
             like, anchor = params, ravel_tree(params)
-        correct = None
-        if prox_mu != 0.0:
-            def correct(g, theta):
-                return g + prox_mu * (theta - anchor)
+        def rows(x):       # a (B,) knob as a (N, 1) value per client row
+            if not isinstance(x, torch.Tensor):
+                return x
+            return x.to(data.device).repeat_interleave(data.shape[0] // x.numel())[:, None]
 
-        theta, losses = clients_sgd(loss_fn, like, data, idx, lr, correct,
+        correct, mu = None, rows(prox_mu)
+        if isinstance(mu, torch.Tensor) or mu != 0.0:
+            def correct(g, theta):
+                return g + mu * (theta - anchor)
+
+        theta, losses = clients_sgd(loss_fn, like, data, idx, rows(lr), correct,
                                     anchor if stacked else None)
         return theta - anchor, losses
 

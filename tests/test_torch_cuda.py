@@ -582,6 +582,54 @@ def test_engine_run_on_the_card_launches_as_one_trial(cuda, method, kw):
         assert abs(float(run["f1"][s, 0]) - float(seq["f1"])) <= 1e-3
 
 
+def _sweep_grid(name):
+    from repro_torch.core.async_fl import AsyncFLConfig
+    from repro_torch.core.channel import ChannelParams
+
+    base = exp.make_config(n_sensors=12, n_fog=3, rounds=3, local_epochs=1)
+    if name == "physics":
+        return "hfl-selective", [base.replace(channel=ChannelParams(wind_m_s=w, shipping=s))
+                                 for w in (3.0, 8.0) for s in (0.2, 0.7)]
+    if name == "robust":
+        return "hfl-selective", [base.replace(
+            robust="trimmed", trim_frac=0.45, faults=FaultConfig(
+                byz_mode="gauss", byz_frac=b, byz_scale=20.0, erasure_prob=p))
+            for b in (0.0, 0.25) for p in (0.0, 0.3)]
+    return "hfl-async", [AsyncFLConfig(base=base, n_events=8, alpha=a, buffer_k=k)
+                         for a in (0.0, 0.5) for k in (2.0, 6.0)]
+
+
+@pytest.mark.parametrize("name", ["physics", "robust", "async"])
+def test_sweep_class_on_the_card_is_one_call_equal_to_its_cells(cuda, name):
+    """A sweep class of 4 cells x 2 seeds is one call on the card that
+    launches each kernel as often as one of its cells, and each cell
+    agrees with its own ``Engine.run`` (counters exactly, energies rtol
+    1e-5, losses rtol 1e-4, or 1e-2 for the async and robust cells)."""
+    method, cfgs = _sweep_grid(name)
+    ds = normalize(generate(torch.Generator().manual_seed(0), SyntheticConfig(
+        n_sensors=12, train_len=48, val_len=24, test_len=48), device="cpu"))
+    eng = Engine()
+    sw = eng.sweep(method, cfgs, (0, 1), ds)
+    torch.cuda.synchronize()
+    (log,) = eng.take_log()
+    assert sw.n_classes == 1 and log["n_cells"] == 4 and sw["f1"].device.type == "cuda"
+    loose = 1e-2 if name in ("robust", "async") else 1e-4
+    for i, cfg in enumerate(cfgs):
+        run = eng.run(method, cfg, (0, 1), ds)
+        torch.cuda.synchronize()
+        (one,) = eng.take_log()
+        assert log["launches"] == one["launches"] and one["launches"]["local_train_f32"] > 0
+        got = sw.cell(i)
+        for key in ("coop_links", "erased_total", "nonfinite_total", "merges"):
+            if key in run.metrics:
+                assert torch.equal(got[key], run[key]), key
+        for key in ("participation", "e_total", "e_s2f", "e_f2f", "e_f2g"):
+            np.testing.assert_allclose(got[key].cpu().numpy(), run[key].cpu().numpy(),
+                                       rtol=1e-5, err_msg=key)
+        np.testing.assert_allclose(got["losses"].cpu().numpy(), run.losses.cpu().numpy(),
+                                   rtol=loose)
+
+
 def _recon_case(n, d, layout, device, seed=0):
     """Real compressed reconstructions (blockwise rho_s 0.05 int8 through
     the fused_agg kernel): most members tie at exactly 0 in most columns.

@@ -33,6 +33,7 @@ from repro import engine as jeng
 from repro.kernels import ops as jops
 from repro_torch import engine as teng
 from repro_torch.checkpoint import CheckpointStore
+from repro_torch.core import channel as tch
 from repro_torch.core import compression as tcomp
 from repro_torch.core.async_fl import AsyncFLConfig
 from repro_torch.core import participation as tpart
@@ -291,20 +292,27 @@ def test_participation_helpers():
 
 
 def test_sweep_classes_and_cells_equal_run(data):
+    """A channel knob co-batches (one call over both cells' trials); an
+    ``lr`` cell forms its own class, as on the reference's kernel backend
+    (``local_train_f32`` takes ``lr`` as a scalar); a round count splits.
+    Folding leaves each trial's arithmetic as it was, so every cell equals
+    its ``Engine.run`` bit for bit."""
     _, ds_t = data
-    cfgs = [torch_cfg(), torch_cfg(lr=0.02), torch_cfg(rounds=2)]
+    cfgs = [torch_cfg(), torch_cfg(channel=tch.ChannelParams(wind_m_s=8.0)),
+            torch_cfg(rounds=2), torch_cfg(lr=0.02)]
     eng = _cpu_engine()
     sw = eng.sweep("hfl-selective", cfgs, SEEDS, ds_t, n_deployments=P)
-    assert sw.n_classes == 2 and sw.compiled_programs == 2
-    assert [c["indices"] for c in sw.classes] == [(0, 1), (2,)]
-    assert sw.classes[0]["knobs"] == ["lr"]
-    assert isinstance(sw["losses"], tuple) and sw["f1"].shape == (3, len(SEEDS), P)
+    assert sw.n_classes == 3 and sw.compiled_programs == 3
+    assert [c["indices"] for c in sw.classes] == [(0, 1), (2,), (3,)]
+    assert sw.classes[0]["knobs"] == ["channel.wind_m_s"]
+    assert isinstance(sw["losses"], tuple) and sw["f1"].shape == (4, len(SEEDS), P)
     for i, cfg in enumerate(cfgs):
         run = eng.run("hfl-selective", cfg, SEEDS, ds_t, n_deployments=P)
         for k, v in run.metrics.items():
             np.testing.assert_array_equal(sw.cell(i)[k].numpy(), v.numpy(), err_msg=k)
     stacked = teng.Engine.stack_configs(cfgs[:2])
-    np.testing.assert_allclose(stacked["lr"].numpy(), [0.01, 0.02])
+    np.testing.assert_allclose(stacked["channel.wind_m_s"].numpy(), [5.0, 8.0])
+    np.testing.assert_allclose(stacked["lr"].numpy(), [0.01, 0.01])
 
 
 def test_audit_sweep_takes_a_method_per_cell():

@@ -21,6 +21,9 @@ Jobs (tuples, first item the kind):
   ``Engine(shard_clients=True)`` (mode ``"clients"``) or
   ``Engine(shard_trials=True)`` (``"trials"``) ``.run``; gives the
   metrics and the log entry;
+* ``("sweep", method, cfgs, seeds, n_deployments, ds)``:
+  ``Engine(shard_trials=True).sweep``; gives the (C, S, P) metrics and
+  the log entries;
 * ``("hier",)``: ``aggregation.hierarchical_mean`` of rank r's update
   ``x_r`` (:func:`rank_update`) weighted by r + 1, two-level over pairs
   of ranks (intra ``{2i, 2i+1}``, inter ``{j, j+2}``) at W = 4, flat
@@ -101,6 +104,11 @@ def run_job(job: tuple, mesh: sharding.ClientMesh, device: torch.device) -> dict
                      device=device)
         run = eng.run(method, cfg, seeds, ds, n_deployments=n_dep)
         return {"metrics": {k: v.cpu() for k, v in run.metrics.items()}, "log": eng.take_log()}
+    if kind == "sweep":
+        _, method, cfgs, seeds, n_dep, ds = job
+        eng = Engine(shard_trials=True, device=device)
+        sw = eng.sweep(method, cfgs, seeds, ds, n_deployments=n_dep)
+        return {"metrics": {k: v.cpu() for k, v in sw.metrics.items()}, "log": eng.take_log()}
     if kind == "pod":
         _, cfg, params, batch, kw, steps = job
         params = sgd.tree_unflatten(params, [p.to(device) for p in sgd.tree_leaves(params)])
