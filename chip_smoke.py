@@ -305,7 +305,28 @@ exits non-zero before the result line:
              0.02 for the async and robust cells), the (a) and (b) calls'
              own kernel inputs are held to the plain versions, and the
              seconds of each sweep against its cells one after another,
-             ms per trial-round and the device idle share are printed.
+             ms per trial-round and the device idle share are printed;
+25. data-axis — the reference's ``data`` mesh axis, gloo ranks spawned on
+             the one card (``mesh_rank``): (a) hybrid-train as 2 ranks
+             (``launch/train.main production --full``, recurrentgemma-2b
+             uncut, 4 x 512, 3 steps, data-parallel over the ranks' group):
+             both ranks' params the same bits (``leaf_digests``), losses
+             within 2^-8 relative of phase 21's one-process run; ms a step,
+             the share of it in the f32 mean-reductions and the peak a
+             rank; (b) recurrentgemma-2b at full width cut to 3 layers, f32,
+             lr 1e-2, 2 ranks against one process on the whole batch:
+             params the same bits on both ranks, loss to rtol 1e-5,
+             gradients and update within 1e-4 of their largest; (c) the
+             pod step over ``pod_data_mesh(2)``, 2 pods x 2 data ranks (4
+             ranks) at llama3-8b REDUCED f32, int8 and topk, E = 1 and 2:
+             the four ranks' params the same bits, a pod's data ranks'
+             error buffers the same bits, params and error buffers within
+             neighbouring int8 codes (at most 1e-3 of a leaf's
+             coordinates, or two) of the one-process 2-pod loop; (d)
+             qwen2-moe at full width cut to 2 layers, f32, 8 x 512 (one
+             2,048-token dispatch group a rank), lr 1e-1, 2 ranks against
+             one process, (b)'s gates where no expert slot differs.  No
+             kernel is on these paths.
 
 Phase 6 also times ``fused_agg`` at robust-200's identity call (N =
 n_fog = 200), at one of its 64-client chunks and at fleet-10k's unchunked
@@ -352,7 +373,8 @@ check there, and ``compress_q8``'s time at the example's d to its
 ``by_shape``; phase 22 adds ``swa_decode``'s launches in moe-serve,
 grok-decode, encdec-decode and qwen3-decode, and their calls' errors;
 phase 23 adds each score and training kernel's launches in its four
-examples, phase 24 each training kernel's in one sweep class).  The last line is
+examples, phase 24 each training kernel's in one sweep class; phase 25
+launches none).  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and power limit, and the
 one before that the ``kernels`` JSON.
 """
@@ -2927,6 +2949,10 @@ def mesh_rank(rank: int, world: int, backend: str, workdir: str) -> None:
     dist.init_process_group(backend, init_method=f"file://{work / 'rendezvous'}",
                             world_size=world, rank=rank)
     try:
+        if "wait_for" in spec:   # started early: the context is made, the jobs wait
+            torch.ones(1, device=dev).sum().item()
+            while not Path(spec["wait_for"]).exists():
+                time.sleep(0.2)
         mesh = sharding.client_mesh()
         out = {}
         for job in spec["jobs"]:
@@ -3098,26 +3124,42 @@ MESH_JOBS = {"train": mesh_train_job, "short": mesh_train_job, "trial": mesh_tri
              "time": mesh_time_job, "fleet": mesh_fleet_job, "engine": mesh_engine_job}
 
 
-def spawn_mesh(jobs, world, backend, spec, workdir: Path) -> list[dict]:
-    """Run ``jobs`` on ``world`` spawned ranks (``mesh_rank``); each rank's
-    results.  A rank that raises, or ranks that outlive
-    ``MESH_TIMEOUT_S``, fail the phase; every rank is stopped."""
+def start_mesh(jobs, world, backend, spec, workdir: Path):
+    """Start ``world`` spawned ranks (``mesh_rank``) on ``jobs``; their
+    process context, for :func:`join_mesh`."""
     import torch.multiprocessing as mp
     workdir.mkdir(parents=True)
     torch.save({**spec, "jobs": jobs}, workdir / "jobs.pt")
-    ctx = mp.start_processes(mesh_rank, args=(world, backend, str(workdir)), nprocs=world,
-                             join=False, start_method="spawn")
-    deadline = time.monotonic() + MESH_TIMEOUT_S
+    return mp.start_processes(mesh_rank, args=(world, backend, str(workdir)), nprocs=world,
+                              join=False, start_method="spawn")
+
+
+def stop_mesh(ctx) -> None:
+    for p in ctx.processes:
+        if p.is_alive():
+            p.terminate()
+        p.join(10)
+
+
+def join_mesh(ctx, workdir: Path, timeout_s: float = MESH_TIMEOUT_S) -> list[dict]:
+    """Each rank's results of :func:`start_mesh`'s ranks.  A rank that
+    raises, or ranks that outlive ``timeout_s``, fail the phase; every
+    rank is stopped."""
+    deadline = time.monotonic() + timeout_s
     try:
         while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
             check(time.monotonic() < deadline,
-                  f"{world} {backend} ranks did not finish in {MESH_TIMEOUT_S} s")
+                  f"{len(ctx.processes)} ranks did not finish in {timeout_s} s")
     finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.terminate()
-            p.join(10)
-    return [torch.load(workdir / f"rank{r}.pt", weights_only=False) for r in range(world)]
+        stop_mesh(ctx)
+    return [torch.load(workdir / f"rank{r}.pt", weights_only=False)
+            for r in range(len(ctx.processes))]
+
+
+def spawn_mesh(jobs, world, backend, spec, workdir: Path) -> list[dict]:
+    """Run ``jobs`` on ``world`` spawned ranks (``mesh_rank``); each rank's
+    results (:func:`join_mesh`)."""
+    return join_mesh(start_mesh(jobs, world, backend, spec, workdir), workdir)
 
 
 def mesh_kernels(dev, lt, fa, kops, kref, ae, ds, inputs) -> dict:
@@ -4817,6 +4859,327 @@ def sweep_phase(mods, train_ds, counters, dev, name, smi) -> dict:
     return out
 
 
+# --- phase 25: data-axis: data-parallel production training, in-pod data ranks ------
+
+DATA_WORLD = 2                  # (a), (b), (d): two gloo ranks sharing the one card
+DATA_TIMEOUT_S = 420.0          # the ranks of (a), (b) and (d)
+DATA_TRAIN_STEPS = 3            # (a) hybrid-train, uncut, as the ranks
+DATA_TRAIN = ["--full", "--steps", str(DATA_TRAIN_STEPS), "--batch", "4", "--seq", "512"]
+# (a)'s losses against phase 21's one-process hybrid-train (TRAIN_FULL: the
+# same seed, hence the same weights and batches).  A rank's forward is the
+# same bf16 arithmetic on half the rows, so a loss moves only where a GEMM on
+# 1,024 rows accumulates in another order than on 2,048 and a bf16 output
+# rounds to its neighbour (at most 2^-8 of it); the update is the same
+# formula of f32-summed gradients.  The loss, a mean over 2,048 tokens of
+# such outputs, stays within one bf16 ulp (2^-8) relative.
+DATA_LOSS_GATE = 2.0 ** -8
+DATA_F32_LAYERS = 3             # (b) recurrentgemma-2b at TRAIN_VS_CPU's cut, f32
+DATA_MOE_ARCH, DATA_MOE_LAYERS, DATA_MOE_BATCH, DATA_MOE_SEQ = "qwen2-moe-a2.7b", 2, 8, 512
+DATA_GRAD_GATE, DATA_UPDATE_GATE = 1e-4, 1e-4   # (b), (d): the train-step rule
+# (d) takes lr 1e-1: a MoE's gradients are small enough that at 1e-2 one f32
+# ulp of |p| comes near 1e-4 of its largest update (1.2e-4 at REDUCED on the
+# CPU), and the rule is there to measure the step, not the params' rounding.
+DATA_MOE_LR = 1e-1
+DATA_POD_WORLD, DATA_POD_DATA = 4, 2            # (c) 2 pods x 2 data ranks, gloo, one card
+DATA_FLIP_SHARE = 1e-3          # (c) neighbouring int8 codes: <= 1e-3 of a leaf's, or two
+DIGEST_CHUNK = 1 << 26
+
+
+def leaf_digests(sgd, params) -> list[int]:
+    """One int64 a leaf that moves with any of its bits: the sum of its
+    bit patterns (integers of the leaf's width) times position weights 1 ..
+    65,521, in chunks on the leaf's device (the sum wraps alike on every
+    rank).  Two ranks' leaves are the same bits when their digests are."""
+    out = []
+    for p in sgd.tree_leaves(params):
+        bits = p.reshape(-1).view({2: torch.int16, 4: torch.int32}[p.element_size()])
+        h = torch.zeros((), dtype=torch.int64, device=p.device)
+        for s in range(0, bits.numel(), DIGEST_CHUNK):
+            b = bits[s:s + DIGEST_CHUNK].to(torch.int64)
+            h += (b * (torch.arange(s, s + b.numel(), device=p.device) % 65521 + 1)).sum()
+        out.append(int(h))
+    return out
+
+
+def data_train_job(job, spec, mesh, dev) -> dict:
+    """(a) ``launch/train.main`` production of ``job``'s arch and argv under
+    the ranks' group (data-parallel over it), with every
+    ``ClientMesh.mean_`` timed between two synchronisations: the losses,
+    ms a step, ms a step in the reductions, this rank's peak memory and
+    the digests of its last params."""
+    from repro_torch.launch import sharding
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.optim import sgd
+    kept, spent, reduce_s = {}, [], []
+    plain_make, plain_mean = api.make_train_step, sharding.ClientMesh.mean_
+
+    def make(cfg, data=None):
+        step = plain_make(cfg, data)
+
+        def recorded(params, batch):
+            n = len(spent)
+            out = step(params, batch)
+            reduce_s.append(sum(spent[n:]))
+            kept["params"] = out[0]
+            return out
+        return recorded
+
+    def timed_mean(self, t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_mean(self, t)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    api.make_train_step, sharding.ClientMesh.mean_ = make, timed_mean
+    try:
+        out = train.main(["production", "--arch", job[1], *job[2]])
+    finally:
+        api.make_train_step, sharding.ClientMesh.mean_ = plain_make, plain_mean
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    digests = leaf_digests(sgd, kept.pop("params"))
+    torch.cuda.empty_cache()
+    if mesh.rank == 0 and "a_done" in spec:
+        Path(spec["a_done"]).touch()
+    return dict(losses=out["losses"], step_ms=[x * 1e3 for x in out["step_s"]],
+                reduce_ms=[x * 1e3 for x in reduce_s], reductions_per_step=len(spent) / len(
+                    reduce_s), peak_gib=peak_gib, digests=digests, data_ranks=out["data_ranks"],
+                tokens_per_s=out["tokens_per_s"], param_bytes=out["param_bytes"],
+                seconds=time.perf_counter() - t0)
+
+
+def data_step_job(job, spec, mesh, dev) -> dict:
+    """(b), (d) One data-parallel ``make_train_step`` of ``job``'s config
+    (weights from seed 1 on the card, tokens from seed 2) on this rank's
+    rows, the f32 gradients it reduced kept (``ClientMesh.mean_``
+    recorded); rank 0 then takes the one-process gradient and step on the
+    whole batch and gives the largest differences relative to their
+    largest coordinates.  With a MoE, each forward's expert ids
+    (``RouteRecorder``)."""
+    from repro_torch.launch import sharding
+    from repro_torch.models import api
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim import sgd
+    _, cfg, b, s = job
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    params = api.init_params(torch.Generator(device=dev).manual_seed(1), cfg)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=torch.Generator(
+        ).manual_seed(2), dtype=torch.int32).to(dev)}
+    mine = {k: v[mesh.rows(b)] for k, v in batch.items()}
+    out = {"ids": {}}
+    if cfg.family == "moe":
+        with torch.no_grad():
+            for key, part in (("rank", mine), ("whole", batch)):
+                if key == "rank" or mesh.rank == 0:
+                    with RouteRecorder(moe_mod) as rec:
+                        moe_mod.forward(params, part, cfg)
+                    out["ids"][key] = rec.ids
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reduced, plain_mean = [], sharding.ClientMesh.mean_
+
+    def kept(self, t):
+        reduced.append(plain_mean(self, t))
+        return reduced[-1]
+
+    sharding.ClientMesh.mean_ = kept
+    try:
+        new, step_loss = api.make_train_step(cfg, mesh)(params, mine)
+    finally:
+        sharding.ClientMesh.mean_ = plain_mean
+    n = len(sgd.tree_leaves(params))
+    grads = reduced[-1 - n:-1]     # (a MoE's aux means,) the leaves' means, the loss's
+    out.update(step_loss=float(step_loss), digests=leaf_digests(sgd, new),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if mesh.rank == 0:
+        want, want_loss = sgd.grad_and_value(api.loss_fn(cfg))(params, batch)
+        pairs = list(zip(grads, sgd.tree_leaves(want)))
+        out["grad_rel"] = (max(float((a - w).abs().max()) for a, w in pairs)
+                           / max(float(w.abs().max()) for _, w in pairs))
+        del pairs, want, grads
+        want_new, _ = api.make_train_step(cfg)(params, batch)
+        worst, biggest = 0.0, 0.0
+        for p, n, w in zip(*(sgd.tree_leaves(t) for t in (params, new, want_new))):
+            uw = w.float() - p.float()
+            worst = max(worst, float(((n.float() - p.float()) - uw).abs().max()))
+            biggest = max(biggest, float(uw.abs().max()))
+        out.update(update_rel=worst / biggest, want_loss=float(want_loss))
+        del want_new
+    del params, new
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def pod_data_job(job, spec, mesh, dev) -> dict:
+    """(c) ``pod_job`` over ``sharding.pod_data_mesh(DATA_POD_DATA)``."""
+    from repro_torch.launch import sharding
+    return pod_job(job, spec, sharding.pod_data_mesh(DATA_POD_DATA), dev)
+
+
+MESH_JOBS.update({"data_train": data_train_job, "data_step": data_step_job,
+                  "pod_data": pod_data_job})
+
+
+def close_but_flips(got, want, step, share) -> int:
+    """Coordinates of ``got`` more than 1e-5 from ``want``; each must be
+    within one quantisation ``step`` (neighbouring int8 codes), and at most
+    ``share`` of them or two."""
+    diff = (got - want).abs()
+    far = diff > 1e-5
+    n = int(far.sum())
+    check(bool((diff[far] <= 1.001 * step + 1e-5).all()),
+          f"a coordinate {float(diff.max()):.3e} apart, beyond one step {step:.3e}")
+    check(n <= max(2, share * got.numel()), f"{n} of {got.numel()} coordinates apart")
+    return n
+
+
+def data_parity_line(label, cfg, got, ranks, gated, extra="") -> None:
+    """Print and gate (b) / (d): the ranks' params the same bits, the loss
+    to rtol 1e-5 and the gradients and update at the train-step rule."""
+    check(all(r["digests"] == ranks[0]["digests"] for r in ranks),
+          f"{label}: the ranks' params differ")
+    check(all(r["step_loss"] == ranks[0]["step_loss"] for r in ranks),
+          f"{label}: the ranks' losses differ")
+    rel = abs(got["step_loss"] - got["want_loss"]) / abs(got["want_loss"])
+    if gated:
+        check(rel <= 1e-5, f"{label}: loss {got['step_loss']} vs one process "
+              f"{got['want_loss']} ({rel:.3e})")
+        check(got["grad_rel"] <= DATA_GRAD_GATE, f"{label}: gradients {got['grad_rel']:.3e}")
+        check(got["update_rel"] <= DATA_UPDATE_GATE, f"{label}: update {got['update_rel']:.3e}")
+    print(f"  {label}: {cfg.name} at full width, {cfg.n_layers} layers f32, lr "
+          f"{cfg.learning_rate:g}, {DATA_WORLD} ranks vs one process: ranks' params the same "
+          f"bits; loss {got['step_loss']:.6f} vs {got['want_loss']:.6f} (rel {rel:.3e}), "
+          f"gradients {got['grad_rel']:.3e}, update {got['update_rel']:.3e} of their largest"
+          + (f" (gates 1e-5, {DATA_GRAD_GATE}, {DATA_UPDATE_GATE})" if gated else " (recorded)")
+          + f"; peak {max(r['peak_gib'] for r in ranks):.2f} GiB a rank{extra}")
+
+
+def data_axis_phase(configs, sgd, hybrid_train, dev, name, smi, workdir) -> dict:
+    """Phase 25: the reference's ``data`` mesh axis; (a)-(d) of the
+    module docstring."""
+    t0 = time.perf_counter()
+    f32 = dict(dtype=torch.float32, learning_rate=TRAIN_VS_CPU_LR)
+    b_cfg = cut(configs.get(HYBRID_TRAIN_ARCH), DATA_F32_LAYERS).replace(**f32)
+    d_cfg = cut(configs.get(DATA_MOE_ARCH), DATA_MOE_LAYERS).replace(
+        dtype=torch.float32, learning_rate=DATA_MOE_LR)
+    jobs = [("data_train", HYBRID_TRAIN_ARCH, DATA_TRAIN),
+            ("data_step:f32", b_cfg, TRAIN_VS_CPU_BATCH, TRAIN_VS_CPU_SEQ),
+            ("data_step:moe", d_cfg, DATA_MOE_BATCH, DATA_MOE_SEQ)]
+    torch.cuda.empty_cache()
+    small = configs.get(POD_ARCH, reduced=True).replace(**f32)
+    cases = [(m, e) for m in ("int8", "topk") for e in (1, 2)]
+    # (c)'s ranks start beside (a)'s but run their jobs only once (a) has
+    # ended (its rank 0 leaves ``a_done``): they then share the card and the
+    # host with (b) and (d), which report only their gates, while (a)'s
+    # times are taken with (c)'s ranks asleep.
+    a_done = workdir / "a_done"
+    two = start_mesh(jobs, DATA_WORLD, "gloo", {"a_done": str(a_done)}, workdir / "data")
+    try:
+        four = start_mesh([(f"pod_data:{m}-e{e}", small, dict(mode=m, local_epochs=e), True)
+                           for m, e in cases], DATA_POD_WORLD, "gloo",
+                          {"wait_for": str(a_done)}, workdir / "pod_data")
+        try:
+            ranks = join_mesh(two, workdir / "data", DATA_TIMEOUT_S)
+            pods = join_mesh(four, workdir / "pod_data", DATA_TIMEOUT_S)
+        finally:
+            stop_mesh(four)
+    finally:
+        stop_mesh(two)
+    out = {}
+
+    a = [r["data_train"] for r in ranks]
+    check(all(r["data_ranks"] == DATA_WORLD for r in a), "(a) did not run data-parallel")
+    check(all(r["digests"] == a[0]["digests"] for r in a), "(a) the ranks' params differ")
+    check(all(r["losses"] == a[0]["losses"] for r in a), "(a) the ranks' losses differ")
+    one = hybrid_train["losses"][:DATA_TRAIN_STEPS]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a[0]["losses"], one))
+    check(all(math.isfinite(x) for x in a[0]["losses"]) and rel <= DATA_LOSS_GATE,
+          f"(a) losses {a[0]['losses']} vs one process {one} ({rel:.3e} > {DATA_LOSS_GATE})")
+    step_ms = [sum(r["step_ms"][i] for r in a) / len(a) for i in range(DATA_TRAIN_STEPS)]
+    reduce_ms = [sum(r["reduce_ms"][i] for r in a) / len(a) for i in range(DATA_TRAIN_STEPS)]
+    ms = sum(step_ms[1:]) / len(step_ms[1:])
+    share = sum(reduce_ms[1:]) / sum(step_ms[1:])
+    peak = max(r["peak_gib"] for r in a)
+    out["a"] = dict(losses=a[0]["losses"], one_process_losses=one, loss_rel=rel, step_ms=step_ms,
+                    ms_per_step=ms, reduce_ms=reduce_ms, reduce_share=share, peak_gib_a_rank=peak,
+                    reductions_per_step=a[0]["reductions_per_step"],
+                    f32_grad_bytes=2 * a[0]["param_bytes"],
+                    one_process_ms_per_step=hybrid_train["ms_per_step"],
+                    one_process_peak_gib=hybrid_train["peak_gib"], seconds=a[0]["seconds"])
+    print(f"  (a) hybrid-train as {DATA_WORLD} gloo ranks on the card: {HYBRID_TRAIN_ARCH} "
+          f"published config, batch 4 x 512 (2 rows a rank), {DATA_TRAIN_STEPS} steps: "
+          f"{ms:.1f} ms a step after the first ({step_ms[0]:.1f} ms), "
+          f"{sum(reduce_ms[1:]) / len(reduce_ms[1:]):.1f} ms of it in "
+          f"{a[0]['reductions_per_step']:.0f} mean-reductions (share {share:.3f}, "
+          f"{2 * a[0]['param_bytes'] / 1e9:.2f} GB of f32 gradients a step), peak {peak:.2f} GiB "
+          f"a rank; ranks' params the same bits; losses {[round(x, 5) for x in a[0]['losses']]} "
+          f"vs one process (phase 21) {[round(x, 5) for x in one]} (max rel {rel:.3e}, gate "
+          f"2^-8); one process {hybrid_train['ms_per_step']:.1f} ms a step, peak "
+          f"{hybrid_train['peak_gib']:.2f} GiB  on {name} ({smi})")
+
+    b = [r["data_step:f32"] for r in ranks]
+    data_parity_line("(b) f32 parity", b_cfg, b[0], b, True)
+    out["b"] = {k: b[0][k] for k in ("step_loss", "want_loss", "grad_rel", "update_rel",
+                                     "seconds")}
+    out["b"]["peak_gib_a_rank"] = max(r["peak_gib"] for r in b)
+
+    d = [r["data_step:moe"] for r in ranks]
+    whole = d[0]["ids"]["whole"]
+    diffs = sum(int((r["ids"]["rank"][i][0] != whole[i][k]).sum())
+                for k, r in enumerate(d) for i in range(len(whole)))
+    data_parity_line("(d) MoE", d_cfg, d[0], d, diffs == 0,
+                     f"; expert slots differing {diffs} ({DATA_MOE_BATCH} x {DATA_MOE_SEQ}, "
+                     f"one {DATA_MOE_BATCH * DATA_MOE_SEQ // DATA_WORLD}-token group a rank)")
+    out["d"] = {k: d[0][k] for k in ("step_loss", "want_loss", "grad_rel", "update_rel",
+                                     "seconds")}
+    out["d"].update(expert_slots_differing=diffs, gated=diffs == 0,
+                    peak_gib_a_rank=max(r["peak_gib"] for r in d))
+
+    out["c"] = {}
+    for m, e in cases:
+        got = [r[f"pod_data:{m}-e{e}"] for r in pods]
+        check(all(torch.equal(r["params"], got[0]["params"]) for r in got),
+              f"(c) {m} E={e}: the four ranks' params differ")
+        for p in range(DATA_POD_WORLD // DATA_POD_DATA):
+            pair = got[p * DATA_POD_DATA:(p + 1) * DATA_POD_DATA]
+            check(all(all(torch.equal(x, y) for x, y in zip(r["err"], pair[0]["err"]))
+                      for r in pair), f"(c) {m} E={e}: pod {p}'s data ranks' errors differ")
+        loop = pod_job(("pod:loop", small, dict(mode=m, local_epochs=e, n_pods=2), True), {},
+                       None, dev)
+        off, apart = 0, 0
+        for i, err in enumerate(loop["err"]):
+            n = err[0].numel()
+            qstep = 2 * float(err.abs().max()) + 1e-30
+            apart += close_but_flips(got[0]["params"][off:off + n], loop["params"][off:off + n],
+                                     qstep * (TRAIN_VS_CPU_LR if e == 1 else 1.0),
+                                     DATA_FLIP_SHARE)
+            for p in range(2):
+                close_but_flips(got[p * DATA_POD_DATA]["err"][i].reshape(-1),
+                                err[p].reshape(-1), qstep, DATA_FLIP_SHARE)
+            off += n
+        rel = max(abs(x - y) / abs(y) for x, y in zip(got[0]["losses"], loop["losses"]))
+        check(rel <= 1e-5, f"(c) {m} E={e}: losses {got[0]['losses']} vs {loop['losses']}")
+        out["c"][f"{m} E={e}"] = dict(losses=got[0]["losses"], loop_losses=loop["losses"],
+                                      params_apart=apart, d=off,
+                                      step_ms=got[0]["step_ms"])
+        print(f"  (c) pods 2 x {DATA_POD_DATA} data ranks ({DATA_POD_WORLD} gloo ranks on the "
+              f"card), {small.name} f32 {m} E={e}: the four ranks' params the same bits, each "
+              f"pod's data ranks' error buffers the same bits; vs the one-process 2-pod loop "
+              f"{apart} of {off:,} params a neighbouring code apart, losses rel {rel:.2e}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 25 took {out['seconds']:.1f} s: on rank 0 (a) {a[0]['seconds']:.1f}, (b) "
+          f"{b[0]['seconds']:.1f}, (d) {d[0]['seconds']:.1f}; the ranks' start and (c), "
+          f"beside (b) and (d), the rest")
+    return out
+
+
 def main(argv: list[str]) -> int:
     timing_only = argv == ["--timing"]
     if argv and not timing_only:
@@ -5115,6 +5478,10 @@ def main(argv: list[str]) -> int:
     from repro_torch.core import energy as en
     sweep = sweep_phase((Engine, exp, async_fl, ch, en, FaultConfig, comp, lt, fa, ra, kref, ae),
                         train_ds, kernel_counters(lt, fa, ra, kq8, tk), dev, name, smi)
+    phase("25. data-axis (main path): data-parallel production training, in-pod data ranks")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT / "build") as tmp:
+        data_axis = data_axis_phase(lm_configs, sgd, lm["hybrid-train"], dev, name, smi,
+                                    Path(tmp))
     phase("done")
 
     kernels = []
@@ -5245,6 +5612,7 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"lm_families": families}))
     print(json.dumps({"launch_tooling": tooling}))
     print(json.dumps({"sweep": sweep}))
+    print(json.dumps({"data_axis": data_axis}))
     print("phase seconds: " + ", ".join(f"{k.split('.')[0]} {v:.1f}" for k, v in PHASE_S.items()
                                         if k != "done")
           + f"; script {time.perf_counter() - START:.1f} s  on {name} ({smi})")

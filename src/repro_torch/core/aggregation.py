@@ -245,10 +245,17 @@ def cooperative_mix(fog_models: torch.Tensor, decision: CoopDecision) -> torch.T
     """Cooperative fog mixing (Eq. 15, K = 1): theta~_m = alpha_mm theta_m
     + alpha_mj theta_j; non-cooperating fogs have partner m and weights
     (1, 0), the identity.  ``fog_models`` (..., M, d) and the decision's
-    (..., M) leaves may carry leading trial axes."""
+    (..., M) leaves may carry leading trial axes.
+
+    The sum is one fused multiply-add, fma(alpha_mm, theta_m, alpha_mj
+    theta_j): the partner product is rounded first, then the own product
+    is added to it in one rounding, the contraction the reference's jitted
+    round makes.  Rounding both products before the sum leaves an ulp
+    where the reference leaves none, which FedAdam's first steps turn into
+    an O(``server_lr``) move."""
     peer = torch.take_along_dim(fog_models, decision.partner[..., None], dim=-2)
-    return (decision.self_weight[..., None] * fog_models
-            + decision.partner_weight[..., None] * peer)
+    return torch.addcmul(decision.partner_weight[..., None] * peer,
+                         decision.self_weight[..., None], fog_models)
 
 
 def global_aggregate(
@@ -267,10 +274,23 @@ def weighted_mean(
 ) -> torch.Tensor:
     """Weighted average over the rows of ``updates`` (..., R, d) by
     ``weights`` (..., R) (FedAvg, Eq. 11), per trial of the leading axes;
-    the same zero-total-weight rule as :func:`global_aggregate`."""
+    the same zero-total-weight rule as :func:`global_aggregate`.
+
+    On the card each trial of the leading axes is its own (1, R) x (R, d)
+    product: cuBLAS picks a batched product's reduction order by the batch
+    count, so a trial's mean would move with the trials folded beside it
+    (an ``Engine.sweep`` cell would part from its own ``Engine.run``).  On
+    the CPU the batched product is each trial's own already, and its fma
+    order is the reference's."""
     total = torch.sum(weights, dim=-1)
     w = weights / torch.clamp_min(total, 1e-12)[..., None]
-    out = torch.matmul(w.unsqueeze(-2), updates).squeeze(-2)
+    if updates.is_cuda and updates.dim() > 2:
+        rows_w = w.reshape(-1, 1, w.shape[-1])
+        rows_u = updates.reshape(-1, *updates.shape[-2:])
+        out = torch.cat([torch.matmul(a, b) for a, b in zip(rows_w, rows_u)])
+        out = out.reshape(updates.shape[:-2] + updates.shape[-1:])
+    else:
+        out = torch.matmul(w.unsqueeze(-2), updates).squeeze(-2)
     if prev is None:
         return out
     return torch.where((total > 0.0)[..., None], out, prev)

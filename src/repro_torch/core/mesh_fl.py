@@ -30,6 +30,15 @@ error-feedback leaves shaped (n_pods, ...).  Both sum the pods in pod
 order from the same decoded buffers, so they give the same bits, and
 every rank's params are bitwise equal.
 
+With a ``launch/sharding.PodDataMesh`` (the reference's ``("pod",
+"data")`` axes) each pod is D ranks: rank (p, r) takes slot r of pod p's
+rows, and its gradient (or each of the E > 1 passes' gradients) and loss
+are mean-reduced in f32 over pod p's ``data`` group, as the reference's
+in-pod collectives are.  The encode then runs on the same bits on the
+pod's D ranks, so their error-feedback buffers are the same (the
+reference's ``err`` is sharded over ``pod`` alone), and the gather runs
+over the ``pod`` group.  D = 1 is the one-axis mesh, bit for bit.
+
 Cross-pod traffic drops from 4 d bytes a pod (a dense f32 all-reduce) to
 d + 4 bytes a leaf (``int8``) or about rho_s d 5 bytes (``topk``).
 """
@@ -41,6 +50,7 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
+from repro_torch.launch import sharding
 from repro_torch.models import api
 from repro_torch.optim import sgd
 
@@ -139,11 +149,13 @@ class _Wire:
             self.scales.append(self.scales[-1] + (1 if mode == "int8" else nb))
 
     def encode(self, updates: list[torch.Tensor], errs: list[torch.Tensor],
-               loss: torch.Tensor) -> tuple[_Payload, list[torch.Tensor]]:
-        """EF + compression of one pod's leaves: (payload, new error leaves)."""
+               loss: torch.Tensor, data: Any = None) -> tuple[_Payload, list[torch.Tensor]]:
+        """EF + compression of one pod's leaves: (payload, new error leaves).
+        With ``data`` (the pod's data group) each update leaf is first
+        mean-reduced over the group in f32, one leaf at a time."""
         codes, scales, idxs, new_errs = [], [], [], []
         for g, e in zip(updates, errs):
-            v = g.to(torch.float32) + e
+            v = (g.to(torch.float32) if data is None else data.mean_(g)) + e
             if self.mode == "int8":
                 scale = torch.amax(torch.abs(v)).reshape(1) * (1.0 / 127.0)
                 safe = torch.where(scale > 0, scale, 1.0)
@@ -216,8 +228,9 @@ def make_pod_hfl_train_step(
     """Compressed hierarchical train step of a language model (module doc).
 
     ``mesh``: a ``launch/sharding.ClientMesh`` whose ranks are the pods
-    (``n_pods`` is then its size), or None for ``n_pods`` pods looped on
-    one device.  Returns ``step(params, err, batch) -> (params', err',
+    (``n_pods`` is then its size), a ``launch/sharding.PodDataMesh`` (P
+    pods of D data ranks: the module doc), or None for ``n_pods`` pods
+    looped on one device.  Returns ``step(params, err, batch) -> (params', err',
     loss)``: ``batch`` the whole batch (every tensor's rows split evenly
     over the pods), ``err`` from :func:`init_err` (params-shaped on a
     rank, (n_pods, ...) leaves without a mesh), ``loss`` the mean of the
@@ -230,39 +243,53 @@ def make_pod_hfl_train_step(
     is 0), as the reference's arithmetic does.  The E > 1 passes run on an
     f32 copy of the params: in bf16, |lr g| < |p| 2^-9 would round to
     nothing."""
-    lfn = api.loss_fn(cfg)
+    pods, data = ((mesh.pod, mesh.data) if isinstance(mesh, sharding.PodDataMesh)
+                  else (mesh, None))
+    if data is not None and data.size == 1:
+        data = None
+    n_data = 1 if data is None else data.size
+    lfn = api.loss_fn(cfg, data)
     lr = cfg.learning_rate
-    if mesh is not None:
-        n_pods = mesh.size
+    if pods is not None:
+        n_pods = pods.size
 
     def pod_update(params, pb):
-        """(loss, the pod's update leaves): a gradient, or an E-pass delta."""
+        """(loss, the pod's update leaves): a gradient (this rank's share of
+        the pod's, reduced in ``encode``), or an E-pass delta (each pass
+        reduced over the pod's data ranks)."""
         if local_epochs == 1:
             grads, loss = sgd.grad_and_value(lfn)(params, pb)
+            if data is not None:
+                loss = data.mean_(loss.clone())
             return loss, sgd.tree_leaves(grads)
         p32 = sgd.tree_unflatten(params, [
             p.to(torch.float32) if p.is_floating_point() else p
             for p in sgd.tree_leaves(params)])
-        p1, loss = sgd.local_sgd(lfn, p32, [pb] * local_epochs, lr)
+        p1, loss = sgd.local_sgd(lfn, p32, [pb] * local_epochs, lr, data)
         return loss, [a - b for a, b in zip(sgd.tree_leaves(p1), sgd.tree_leaves(p32))]
 
-    def rows(batch, p):
+    def rows(batch, p, r=0):
+        """Slot r (of ``n_data``) of pod p's rows."""
         n = next(iter(batch.values())).shape[0]
-        if n % n_pods:
-            raise ValueError(f"batch of {n} rows does not split over {n_pods} pods")
-        per = n // n_pods
-        return {k: v[p * per:(p + 1) * per] for k, v in batch.items()}
+        if n % (n_pods * n_data):
+            raise ValueError(f"batch of {n} rows does not split over {n_pods} pods"
+                             + (f" of {n_data} data ranks" if n_data > 1 else ""))
+        per = n // (n_pods * n_data)
+        at = (p * n_data + r) * per
+        return {k: v[at:at + per] for k, v in batch.items()}
 
     def step(params, err, batch):
         leaves = sgd.tree_leaves(params)
         wire = _Wire([tuple(p.shape) for p in leaves], mode, rho_s)
         err_leaves = sgd.tree_leaves(err)
-        if mesh is not None:
-            loss, upd = pod_update(params, rows(batch, mesh.rank))
-            pay, new_err = wire.encode(upd, err_leaves, loss)
+        if pods is not None:
+            loss, upd = pod_update(params, rows(batch, pods.rank,
+                                                0 if data is None else data.rank))
+            pay, new_err = wire.encode(upd, err_leaves, loss,
+                                       data if local_epochs == 1 else None)
             del upd
-            parts = [_gather(mesh, pay.codes), _gather(mesh, pay.scales),
-                     _gather(mesh, pay.idx) if pay.idx is not None else [None] * n_pods]
+            parts = [_gather(pods, pay.codes), _gather(pods, pay.scales),
+                     _gather(pods, pay.idx) if pay.idx is not None else [None] * n_pods]
             pays = [_Payload(*part) for part in zip(*parts)]
         else:
             pays, errs = [], []

@@ -1032,7 +1032,8 @@ class Engine:
         """The pod family's compressed step (``core/mesh_fl``), built once
         per key and cached: ``step(params, err, batch) -> (params', err',
         loss)``.  ``mesh`` is a ``launch/sharding.ClientMesh`` whose ranks
-        are the pods; ``None`` means one pod on the engine's device (err
+        are the pods, or a ``launch/sharding.PodDataMesh`` (pods of data
+        ranks); ``None`` means one pod on the engine's device (err
         from ``mesh_fl.init_err(params, 1)``).  ``local_epochs > 1`` runs E
         local passes per pod (delta exchange)."""
         from repro_torch.core import mesh_fl

@@ -16,6 +16,14 @@ zeros is exact, so every rank holds the same bits.
 Each rank calls ``torch.cuda.set_device(local_rank)`` before its first
 launch: ``device.default_device()`` is then that rank's card.
 
+The same ``ClientMesh`` is the reference's ``data`` axis of language-model
+training (``models/api.make_train_step(cfg, data=)``, ``launch/train``):
+each rank holds an equal share of the batch and ``ClientMesh.mean_`` takes
+the f32 mean of a gradient over the group.  :class:`PodDataMesh` is the
+reference's ``("pod", "data")`` mesh of the pod step (``core/mesh_fl``):
+rank ``p * D + r`` is data rank r of pod p, with one ``ClientMesh`` a
+axis (:func:`pod_data_mesh`).
+
 Beside it, the reference's logical-axis rules (MaxText style, with a
 divisibility fallback) for the language models.  Each family exposes an
 ``axes(cfg)`` tree whose leaves are tuples of logical dimension names
@@ -78,6 +86,14 @@ class ClientMesh:
             t.copy_(buf)
         return t
 
+    def mean_(self, t: torch.Tensor) -> torch.Tensor:
+        """The f32 mean of ``t`` over the group: summed in f32 by
+        :meth:`sum_`, then divided by the group's size.  An f32 ``t`` is
+        reduced in place and returned; any other dtype gives a new f32
+        tensor (a bf16 gradient is never summed in bf16)."""
+        buf = self.sum_(t.to(torch.float32))
+        return buf.div_(self.size)
+
     def gather_rows(self, local: torch.Tensor, n: int, dim: int = -1) -> torch.Tensor:
         """Every rank's ``local`` slice (this rank's :meth:`rows` of ``n``
         along ``dim``) put together into the whole axis on every rank."""
@@ -97,6 +113,48 @@ def client_mesh(group: Any = None) -> ClientMesh:
         raise RuntimeError("client_mesh needs an initialised torch.distributed process group "
                            "(torch.distributed.init_process_group, or torchrun)")
     return ClientMesh(group, dist.get_rank(group), dist.get_world_size(group))
+
+
+@dataclasses.dataclass(frozen=True)
+class PodDataMesh:
+    """The reference's ``("pod", "data")`` mesh over process groups: rank
+    ``p * D + r`` is data rank r of pod p.  ``data`` is pod p's group,
+    ranks {p D, ..., p D + D - 1} (the cheap in-pod hop: a gradient's
+    mean); ``pod`` is data index r's group, ranks {r, D + r, 2 D + r, ...}
+    (the pods' exchange).  Each is a :class:`ClientMesh` of this rank."""
+
+    pod: ClientMesh
+    data: ClientMesh
+
+    @property
+    def axis_names(self) -> tuple[str, str]:
+        return ("pod", "data")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {"pod": self.pod.size, "data": self.data.size}
+
+
+def pod_data_mesh(n_data: int) -> PodDataMesh:
+    """The :class:`PodDataMesh` of ``n_data`` data ranks a pod over every
+    rank of the default group (W = P ``n_data`` ranks, P pods).  Every
+    rank calls ``dist.new_group`` for every subgroup, in the same order
+    (the data groups, then the pod groups), as ``torch.distributed``
+    requires; an axis that spans every rank is the default group itself.
+    ``n_data=1`` gives the one-axis pod mesh, pod r on rank r."""
+    world = client_mesh()
+    if n_data < 1 or world.size % n_data:
+        raise ValueError(f"{n_data} data ranks a pod do not divide the {world.size} ranks")
+    n_pods = world.size // n_data
+
+    def groups(members: list[list[int]]) -> Any:
+        made = [None if len(m) == world.size else dist.new_group(m) for m in members]
+        return next(g for g, m in zip(made, members) if world.rank in m)
+
+    data = groups([list(range(p * n_data, (p + 1) * n_data)) for p in range(n_pods)])
+    pod = groups([list(range(r, world.size, n_data)) for r in range(n_data)])
+    return PodDataMesh(pod=ClientMesh(pod, world.rank // n_data, n_pods),
+                       data=ClientMesh(data, world.rank % n_data, n_data))
 
 
 # Order matters: prefer the big compute dims, fall back to head_dim.

@@ -20,6 +20,21 @@ Two entry modes:
       PYTHONPATH=src python -m repro_torch.launch.train production \\
           --arch llama3-8b --steps 20 --batch 8 --seq 128
 
+               Data-parallel over every card of a node, one rank a card
+               (the reference's ``data`` mesh axis):
+
+      PYTHONPATH=src torchrun --nproc-per-node <cards> \\
+          -m repro_torch.launch.train production --arch llama3-8b --batch 8
+
+               Under ``torchrun`` the production mode sets each rank's card
+               from ``LOCAL_RANK`` and joins an NCCL group (gloo with
+               ``--device cpu``).  Under any initialised process group of W
+               ranks every rank draws the same global batch from the same
+               seed and trains on its W-th of the rows; the gradients are
+               mean-reduced over the ranks (``models/api.make_train_step``
+               with ``data``), every rank restores a checkpoint, and rank 0
+               alone saves and prints.  W must divide ``--batch``.
+
 Both run on the card unless ``--device cpu`` (or ``device="cpu"``) is
 given.
 """
@@ -28,15 +43,18 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch import device as _device
 from repro_torch.checkpoint import CheckpointStore
 from repro_torch.data.synthetic import SyntheticConfig, generate, normalize
 from repro_torch.launch import experiment as exp
+from repro_torch.launch import sharding
 from repro_torch.models import api
 from repro_torch.models import layers as L
 
@@ -78,18 +96,34 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def data_mesh() -> sharding.ClientMesh | None:
+    """The data mesh of production training: every rank of the default
+    process group when one of several ranks is initialised, else None."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    mesh = sharding.client_mesh()
+    return mesh if mesh.size > 1 else None
+
+
 def run_production(args: argparse.Namespace, dev: torch.device) -> dict:
     cfg = configs.get(args.arch, reduced=not args.full)
+    data = data_mesh()
+    world, rank = (1, 0) if data is None else (data.size, data.rank)
+    if args.batch % world:
+        raise ValueError(f"a batch of {args.batch} rows does not split over {world} data ranks")
+    mine = slice(rank * (args.batch // world), (rank + 1) * (args.batch // world))
     g = torch.Generator(device=dev).manual_seed(args.seed)
     params = api.init_params(g, cfg)
     param_bytes = sum(t.numel() * t.element_size() for t in L.leaves(params))
-    step = api.make_train_step(cfg)
+    step = api.make_train_step(cfg, data)
 
     store = CheckpointStore(args.ckpt_dir) if args.ckpt_dir else None
+    saves = store is not None and rank == 0
     start = 0
     if store is not None and store.latest_step() is not None:
         params, start = store.restore(params)
-        print(f"restored checkpoint at step {start}")
+        if rank == 0:
+            print(f"restored checkpoint at step {start}")
 
     losses, step_s = [], []
     t0 = time.time()
@@ -104,16 +138,20 @@ def run_production(args: argparse.Namespace, dev: torch.device) -> dict:
             batch["visual_embeds"] = torch.randn(
                 (args.batch, cfg.n_visual_tokens, cfg.d_model), generator=g, device=dev,
             ).to(cfg.dtype)
+        if data is not None:    # every rank drew the global batch; this rank's rows
+            batch = {k: v[mine] for k, v in batch.items()}
         _sync(dev)
         ts = time.perf_counter()
         params, loss = step(params, batch)
         losses.append(float(loss))        # reads the loss back: the step has ended
         step_s.append(time.perf_counter() - ts)
-        if store is not None and (i + 1) % args.ckpt_every == 0:
+        if saves and (i + 1) % args.ckpt_every == 0:
             store.save(i + 1, params)
     wall = time.time() - t0
-    if store is not None:
+    if saves:
         store.save(start + args.steps, params)
+    if data is not None:    # every rank returns after rank 0's last save
+        dist.barrier(data.group)
     later = step_s[1:] or step_s
     return {
         "mode": "production",
@@ -121,6 +159,8 @@ def run_production(args: argparse.Namespace, dev: torch.device) -> dict:
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "start": start,
         "steps": args.steps,
+        "data_ranks": world,
+        "rank": rank,
         "loss_first": losses[0],
         "loss_last": losses[-1],
         "losses": losses,
@@ -136,7 +176,14 @@ def main(argv: list[str] | None = None, device: torch.device | str | None = None
     """Run the launcher; ``argv`` defaults to ``sys.argv[1:]``.
     ``device=None`` (and no ``--device``) means the card.  Prints and
     returns the summary (``production`` adds each step's seconds, the
-    tokens/s of the steps after the first and the params' bytes)."""
+    tokens/s of the steps after the first and the params' bytes).
+
+    ``production`` is data-parallel under an initialised process group
+    (the caller's), or under ``torchrun`` (``WORLD_SIZE`` > 1 in the
+    environment), where it sets the card from ``LOCAL_RANK``, joins an
+    NCCL group (gloo for ``--device cpu``) and leaves it at the end.  Two
+    ranks cannot share a card over NCCL: a caller that puts them on one
+    card initialises a gloo group itself.  Only rank 0 prints."""
     ap = argparse.ArgumentParser(description=__doc__)
     sub = ap.add_subparsers(dest="mode", required=True)
 
@@ -164,9 +211,24 @@ def main(argv: list[str] | None = None, device: torch.device | str | None = None
     for p in (fed, prod):
         p.add_argument("--device", default=None, help="cpu, or a CUDA device (default cuda:0)")
     args = ap.parse_args(argv)
-    dev = _device.resolve(device if device is not None else args.device)
-    out = run_federated(args, dev) if args.mode == "federated" else run_production(args, dev)
-    print(json.dumps(out, indent=1))
+    device = device if device is not None else args.device
+    joined = (args.mode == "production" and not dist.is_initialized()
+              and int(os.environ.get("WORLD_SIZE", "1")) > 1)
+    if joined:          # torchrun: one rank a card, the card set before any tensor is made
+        if device is None:
+            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        dist.init_process_group("gloo" if str(device) == "cpu" else "nccl")
+    try:
+        dev = _device.resolve(device)
+        if args.mode == "federated":
+            out = run_federated(args, dev)
+        else:
+            out = run_production(args, dev)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+    if out.get("rank", 0) == 0:
+        print(json.dumps(out, indent=1))
     return out
 
 

@@ -68,12 +68,16 @@ def param_axes(cfg: ModelConfig) -> Params:
     return module(cfg).axes(cfg)
 
 
-def loss_fn(cfg: ModelConfig) -> Callable[[Params, dict], torch.Tensor]:
+def loss_fn(cfg: ModelConfig, data: Any = None) -> Callable[[Params, dict], torch.Tensor]:
     """``loss(params, batch) -> f32 scalar``, the family's next-token
     cross-entropy (plus the router aux loss of a MoE); ``batch["tokens"]``
     (b, s) int (+ a VLM's ``visual_embeds``, an enc-dec model's
-    ``audio_embeds``)."""
+    ``audio_embeds``).  ``data`` (a ``launch/sharding.ClientMesh`` over
+    which the batch is split) reaches only a MoE's loss, whose aux loss
+    is the whole batch's (``models/moe.loss``)."""
     mod = module(cfg)
+    if cfg.family == "moe":
+        return lambda params, batch: mod.loss(params, batch, cfg, data=data)
     return lambda params, batch: mod.loss(params, batch, cfg)
 
 
@@ -94,19 +98,29 @@ def sgd_update(p: torch.Tensor, g: torch.Tensor, step: float) -> torch.Tensor:
     return out
 
 
-def make_train_step(cfg: ModelConfig) -> Callable:
+def make_train_step(cfg: ModelConfig, data: Any = None) -> Callable:
     """Plain-SGD step ``train_step(params, batch) -> (new params, loss)``:
     each leaf ``(p.f32 - lr * g.f32).to(p.dtype)``, as in the reference.
-    The given params are left as they are."""
-    lfn = loss_fn(cfg)
+    The given params are left as they are.
+
+    ``data`` (a ``launch/sharding.ClientMesh``, the reference's ``data``
+    mesh axis) makes the step data-parallel: each rank passes its equal
+    share of the global batch, and each leaf's gradient is mean-reduced
+    over the group in f32 just before its update, one leaf at a time, so
+    no f32 copy of every gradient lives at once.  The loss is the mean
+    over the ranks, and every rank's new params are the same bits."""
+    lfn = loss_fn(cfg, data)
 
     def train_step(params: Params, batch: dict) -> tuple[Params, torch.Tensor]:
         grads, loss = sgd.grad_and_value(lfn)(params, batch)
         grads = sgd.tree_leaves(grads)
         new = []
         for i, p in enumerate(sgd.tree_leaves(params)):
-            new.append(sgd_update(p, grads[i], -cfg.learning_rate))
-            grads[i] = None    # drop each gradient once its leaf is updated
+            g = grads[i] if data is None else data.mean_(grads[i])
+            new.append(sgd_update(p, g, -cfg.learning_rate))
+            grads[i] = g = None    # drop each gradient once its leaf is updated
+        if data is not None:
+            loss = data.mean_(loss.clone())
         return sgd.tree_unflatten(params, new), loss
 
     return train_step

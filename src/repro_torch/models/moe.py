@@ -11,6 +11,14 @@ a single fused swiglu of n_shared * moe_hidden width; grok-1 has none (its
 ``shared_*`` leaves are None).  The router aux (load-balance) loss follows
 Switch: E * sum_e f_e * P_e.
 
+Under a data mesh (``loss(..., data=)``, each rank a share of the batch)
+the aux loss is the whole batch's: each layer's (E,) means f_e and P_e
+are averaged over the ranks before their product (P_e's gradient stays
+the rank's own, so the mean of the ranks' gradients is the whole
+batch's).  A rank's tokens must then be a whole number of ``MOE_GROUP``
+groups: capacity scales with the group size, so a group split over ranks
+would dispatch otherwise than the one-process step.
+
 The dispatch is the reference's bookkeeping op for op, since who is
 dropped at capacity depends on it: the top k come from a stable
 descending sort (the lower expert id first among equal probabilities, as
@@ -167,6 +175,19 @@ def route(mlp: MoEMLP, xg: torch.Tensor, cfg: ModelConfig):
     E, C) f32 0/1, combine (g, t, E, C) f32 gate weights, aux loss).
     Slot-major priority: every token's first choice is queued before any
     second choice."""
+    dispatch, combine, me, fe = _route(mlp, xg, cfg)
+    return dispatch, combine, aux_loss(me, fe, cfg)
+
+
+def aux_loss(me: torch.Tensor, fe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Switch's load-balance loss E * sum_e f_e P_e of the (..., E) means
+    (summed over any leading axes)."""
+    return cfg.n_experts * torch.sum(fe * me, dim=-1)
+
+
+def _route(mlp: MoEMLP, xg: torch.Tensor, cfg: ModelConfig):
+    """:func:`route` with the aux loss's (E,) means instead of the loss:
+    (dispatch, combine, P_e, f_e)."""
     n_groups, g_size, _ = xg.shape
     logits = torch.einsum("gtd,de->gte", xg.to(torch.float32), mlp.w_router)
     probs = torch.softmax(logits, dim=-1)                  # (g, t, E)
@@ -178,7 +199,6 @@ def route(mlp: MoEMLP, xg: torch.Tensor, cfg: ModelConfig):
     me = torch.mean(probs, dim=(0, 1))                      # (E,)
     onehot_top = F.one_hot(topi, e).to(torch.float32)       # (g, t, k, E)
     fe = torch.mean(torch.sum(onehot_top, dim=2), dim=(0, 1)) / k
-    aux = e * torch.sum(fe * me)
 
     cap = capacity(cfg, g_size)
     sel = onehot_top.permute(0, 2, 1, 3)                    # (g, k, t, E)
@@ -192,13 +212,19 @@ def route(mlp: MoEMLP, xg: torch.Tensor, cfg: ModelConfig):
     gates = topv.permute(0, 2, 1)                           # (g, k, t)
     combine = torch.einsum("gktec,gkt->gtec", disp, gates)  # (g, t, E, C)
     dispatch = torch.sum(disp, dim=1)                       # (g, t, E, C)
-    return dispatch, combine, aux
+    return dispatch, combine, me, fe
 
 
 def moe_apply(mlp: MoEMLP, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """Capacity-dispatch MoE over (..., d) tokens; returns (out, aux_loss).
     More than ``MOE_GROUP`` tokens must be a whole number of groups, as the
     reference's reshape requires."""
+    out, me, fe = _moe_apply(mlp, x, cfg)
+    return out, aux_loss(me, fe, cfg)
+
+
+def _moe_apply(mlp: MoEMLP, x: torch.Tensor, cfg: ModelConfig):
+    """:func:`moe_apply` with the aux loss's (E,) means: (out, P_e, f_e)."""
     orig_shape = x.shape
     d = orig_shape[-1]
     flat = x.reshape(-1, d)
@@ -207,7 +233,7 @@ def moe_apply(mlp: MoEMLP, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Ten
     if t % g_size:
         raise ValueError(f"{t} tokens are not a whole number of {g_size}-token MoE groups")
     xg = flat.reshape(t // g_size, g_size, d)
-    dispatch, combine, aux = route(mlp, xg, cfg)
+    dispatch, combine, me, fe = _route(mlp, xg, cfg)
     expert_in = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xg)
     hg = F.silu(torch.einsum("gecd,edf->gecf", expert_in, mlp.w_gate))
     hu = torch.einsum("gecd,edf->gecf", expert_in, mlp.w_up)
@@ -215,37 +241,62 @@ def moe_apply(mlp: MoEMLP, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Ten
     out = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), expert_out)
     if mlp.shared_gate is not None:
         out = out + L.swiglu(xg, mlp.shared_gate, mlp.shared_up, mlp.shared_down)
-    return out.reshape(orig_shape), aux
+    return out.reshape(orig_shape), me, fe
 
 
 def _block_apply(cfg: ModelConfig, bp: BlockParams, x: torch.Tensor,
-                 positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                 positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     h = attn.full_attention(bp.attn, L.rms_norm(x, bp.ln1), positions,
                             rope_theta=cfg.rope_theta)
     x = x + h
-    h, aux = moe_apply(bp.mlp, L.rms_norm(x, bp.ln2), cfg)
-    return x + h, aux
+    h, me, fe = _moe_apply(bp.mlp, L.rms_norm(x, bp.ln2), cfg)
+    return x + h, me, fe
 
 
-def forward(params: Params, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def check_data_groups(tokens: int, data) -> None:
+    """Raise unless a data rank's ``tokens`` are a whole number of
+    ``MOE_GROUP`` dispatch groups (module doc); one rank (or none) always
+    passes."""
+    if data is not None and data.size > 1 and tokens % MOE_GROUP:
+        raise ValueError(
+            f"a data rank's {tokens} tokens are not a whole number of MOE_GROUP "
+            f"({MOE_GROUP})-token dispatch groups: over {data.size} data ranks the MoE "
+            f"dispatch would differ from the one-process step's")
+
+
+def forward(params: Params, batch: dict, cfg: ModelConfig,
+            data=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(hidden states after the final norm (b, s, d), the router aux loss
-    summed over the layers, f32)."""
+    summed over the layers, f32).  With ``data`` (a
+    ``launch/sharding.ClientMesh`` over which the batch is split) the aux
+    loss is the whole batch's (module doc), its means reduced in one
+    ``all_reduce`` outside the checkpointed blocks."""
     x = params.embed[batch["tokens"]]
     b, s = batch["tokens"].shape
+    check_data_groups(b * s, data)
     positions = torch.arange(s, device=x.device).expand(b, s)
-    auxes = []
+    mes, fes = [], []
     for bp in L.unstack_layers(params.blocks, cfg.n_layers):
         if cfg.remat:
-            x, aux = checkpoint(_block_apply, cfg, bp, x, positions, use_reentrant=False)
+            x, me, fe = checkpoint(_block_apply, cfg, bp, x, positions, use_reentrant=False)
         else:
-            x, aux = _block_apply(cfg, bp, x, positions)
-        auxes.append(aux)
-    return L.rms_norm(x, params.final_norm), torch.sum(torch.stack(auxes))
+            x, me, fe = _block_apply(cfg, bp, x, positions)
+        mes.append(me)
+        fes.append(fe)
+    h = L.rms_norm(x, params.final_norm)
+    if data is None or data.size == 1:
+        return h, torch.sum(torch.stack([aux_loss(me, fe, cfg) for me, fe in zip(mes, fes)]))
+    me, fe = torch.stack(mes), torch.stack(fes)                  # (layers, E)
+    both = data.mean_(torch.stack([me.detach(), fe]))
+    me = me + (both[0] - me.detach())      # the batch's P_e, the rank's own gradient
+    return h, torch.sum(aux_loss(me, both[1], cfg))
 
 
-def loss(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Next-token cross-entropy plus ``router_aux_coef`` x the aux loss."""
-    h, aux = forward(params, batch, cfg)
+def loss(params: Params, batch: dict, cfg: ModelConfig, data=None) -> torch.Tensor:
+    """Next-token cross-entropy plus ``router_aux_coef`` x the aux loss;
+    with ``data`` the aux loss is the whole batch's (:func:`forward`), so
+    the mean of the ranks' losses is the one-process loss."""
+    h, aux = forward(params, batch, cfg, data)
     b, s, d = h.shape
     ce = L.chunked_cross_entropy(
         h[:, :-1].reshape(-1, d), params.unembed, batch["tokens"][:, 1:].reshape(-1),

@@ -97,18 +97,28 @@ def proximal_grad(params: Params, anchor: Params, grads: Params, mu: float) -> P
     return _map(lambda g, p, a: g + mu * (p - a), grads, params, anchor)
 
 
-def grad_and_value(loss_fn: LossFn) -> Callable[[Params, Any], tuple]:
+def grad_and_value(loss_fn: LossFn, data: Any = None) -> Callable[[Params, Any], tuple]:
     """``torch.func.grad_and_value(loss_fn)`` by ``torch.autograd.grad``
     over detached copies of the leaves, so it also takes losses that
     ``torch.func`` refuses: those running non-reentrant checkpointing
     (saved-tensor hooks), as a language model's does.  The given params
-    are not marked."""
+    are not marked.
+
+    ``data``, a ``launch/sharding.ClientMesh`` whose ranks each hold an
+    equal share of the batch, makes the result the whole batch's: every
+    gradient leaf and the loss are mean-reduced over the group in f32
+    (``ClientMesh.mean_``), one leaf at a time.  A leaf that is not f32
+    then comes back as an f32 copy."""
     def run(params, batch):
         with torch.enable_grad():
             leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
             loss = loss_fn(_rebuild(params, iter(leaves)), batch)
             grads = torch.autograd.grad(loss, leaves)
-        return _rebuild(params, iter(grads)), loss.detach()
+        loss = loss.detach()
+        if data is not None:
+            grads = [data.mean_(g) for g in grads]
+            loss = data.mean_(loss.clone())
+        return _rebuild(params, iter(grads)), loss
 
     return run
 
@@ -118,11 +128,14 @@ def local_sgd(
     params: Params,
     batches: Any,
     lr: float,
+    data: Any = None,
 ) -> tuple[Params, torch.Tensor]:
     """Run SGD over a batch stream (a (nb, bs, ...) tensor, or any
     sequence of batches such as a list of token dicts); returns (params,
-    mean loss).  Gradients by :func:`grad_and_value`."""
-    grad = grad_and_value(loss_fn)
+    mean loss).  Gradients by :func:`grad_and_value`: with ``data`` each
+    pass's gradient and loss are the mean over the group's shares of the
+    batch, so every rank of the group takes the same steps."""
+    grad = grad_and_value(loss_fn, data)
     losses = []
     for batch in batches:
         g, loss = grad(params, batch)

@@ -1543,6 +1543,70 @@ def test_pod_step_on_the_card_matches_cpu(cuda, mode):
         assert int(far.sum()) <= max(2, 1e-3 * want.numel())
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "llama3-8b"])
+def test_data_parallel_step_on_the_card(cuda, tmp_path, arch):
+    """``make_train_step(cfg, data=mesh)`` as 2 gloo ranks sharing the
+    card (``tests/torch_mesh_ranks.py``), REDUCED f32 at lr 1e-2, each rank
+    on its half of the batch: both ranks' new params the same bits, and
+    against the one-process card step on the whole batch the loss to
+    rtol 1e-5 and every update within 1e-4 of the largest update
+    coordinate (the train-step rule)."""
+    from torch_mesh_ranks import run_ranks
+
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.optim import sgd
+    cfg = configs.get(arch, reduced=True).replace(dtype=torch.float32, learning_rate=1e-2)
+    params = api.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 32), dtype=torch.int32,
+                                     generator=torch.Generator().manual_seed(1))}
+    gpu_params = sgd.tree_unflatten(params, [p.to(cuda) for p in sgd.tree_leaves(params)])
+    new, loss = api.make_train_step(cfg)(gpu_params, {k: v.to(cuda) for k, v in batch.items()})
+    ranks = run_ranks([("step", cfg, params, batch, 1)], 2, tmp_path, device="cuda",
+                      backend="gloo", timeout_s=300.0)
+    a, b = ranks[0][0], ranks[1][0]
+    assert all(torch.equal(x, y) for x, y in zip(a["params"], b["params"]))
+    np.testing.assert_allclose(float(a["losses"][0]), float(loss), rtol=1e-5)
+    upd = [(n.cpu() - p, g - p) for p, n, g in zip(sgd.tree_leaves(params),
+                                                    sgd.tree_leaves(new), a["params"])]
+    biggest = max(float(w.abs().max()) for w, _ in upd)
+    for want, got in upd:
+        assert float((got - want).abs().max()) <= 1e-4 * biggest
+
+
+def test_cooperative_mix_on_the_card_is_one_fma(cuda):
+    """Eq. 15's mix on the card is fma(w_self, theta_m, w_partner
+    theta_peer), bitwise an f64 product plus sum rounded once, as on the
+    CPU."""
+    from repro_torch.core.aggregation import cooperative_mix
+    from repro_torch.core.cooperation import CoopDecision
+
+    g = torch.Generator().manual_seed(0)
+    fog = torch.randn((4, 3, 5000), generator=g)
+    partner = torch.randint(0, 3, (4, 3), generator=g)
+    ws = torch.rand((4, 3), generator=g)
+    dec = CoopDecision(partner, ws, 1.0 - ws, partner != torch.arange(3), torch.zeros((4, 3)))
+    got = cooperative_mix(fog.to(cuda), CoopDecision(*(t.to(cuda) for t in dec))).cpu()
+    pp = (1.0 - ws)[..., None] * torch.take_along_dim(fog, partner[..., None], dim=-2)
+    assert torch.equal(got, (ws[..., None].double() * fog.double() + pp.double()).float())
+
+
+@pytest.mark.parametrize("lead", [(2,), (16,), (4, 2)])
+def test_weighted_mean_on_the_card_is_each_trials_own(cuda, lead):
+    """``aggregation.weighted_mean`` over folded trials on the card: each
+    trial's mean bitwise the mean of its own (R, d) rows, whatever the
+    trials beside it (fog models of train-200's shape, R = 20)."""
+    from repro_torch.core.aggregation import weighted_mean
+
+    g = torch.Generator().manual_seed(0)
+    updates = torch.randn(lead + (20, 1352), generator=g).to(cuda)
+    weights = torch.rand(lead + (20,), generator=g).to(cuda)
+    got = weighted_mean(updates, weights)
+    flat_u, flat_w = updates.reshape(-1, 20, 1352), weights.reshape(-1, 20)
+    for i, row in enumerate(got.reshape(-1, 1352)):
+        assert torch.equal(row, weighted_mean(flat_u[i], flat_w[i]))
+
+
 def test_compress_on_the_card_at_a_long_row_matches_plain(cuda):
     """``ops.compress`` on one row of d = 2^24 + 17 (2,049 blocks, the last
     17 wide): codes through the (N, nb, 8192) view, recon, new_err and the

@@ -233,8 +233,8 @@ def test_train_production_draws_audio_on_cpu(monkeypatch):
     from the run's generator after the tokens."""
     seen, plain = [], tapi.make_train_step
 
-    def recording(cfg):
-        step = plain(cfg)
+    def recording(cfg, data=None):
+        step = plain(cfg, data)
 
         def run(params, batch):
             seen.append({k: (tuple(v.shape), v.dtype) for k, v in batch.items()})

@@ -198,6 +198,45 @@ def test_trial_metrics_match_jax(trials, method):
                                    err_msg=name)
 
 
+# The hfl-adam keys: 12, 15, 29, 33, 39, 40 and 49 parted from the reference
+# (by up to 2.2e-2) while the port rounded both products of Eq. 15's mix
+# before their sum; key 45 sits at 1.08e-5, inside TOL.
+ADAM_KEYS = tuple(range(10, 30)) + (33, 39, 40, 45, 49)
+
+
+@pytest.mark.parametrize("key", ADAM_KEYS)
+def test_hfl_adam_rounds_match_jax(data, key):
+    """FedAdam at the gateway (``server_opt="adam"``) on the reference's
+    draws: per-round params and metrics to ``TOL``.  FedAdam's first steps
+    divide a global delta by about its own size, so an ulp the port's mix
+    left where the reference's is exact 0 became a step of
+    O(``server_lr``); the mix is now the reference's contraction."""
+    both = rounds_both(data, key, jax_cfg(server_opt="adam"), torch_cfg(server_opt="adam"))
+    assert_rounds_match(both)
+
+
+def test_cooperative_mix_is_one_fma_of_the_partner_product():
+    """Eq. 15's mix is fma(w_self, theta_m, w_partner theta_peer) with the
+    partner product rounded first, as the reference's jitted round
+    contracts it: bitwise an f64 product plus sum rounded once, on the
+    CPU.  Rounding both products first (the old mix) differs."""
+    from repro_torch.core.aggregation import cooperative_mix
+    from repro_torch.core.cooperation import CoopDecision
+
+    g = torch.Generator().manual_seed(0)
+    fog = torch.randn((4, M, 500), generator=g)
+    partner = torch.randint(0, M, (4, M), generator=g)
+    ws = torch.rand((4, M), generator=g)
+    wp = (1.0 - ws).to(torch.float32)
+    dec = CoopDecision(partner, ws, wp, partner != torch.arange(M), torch.zeros((4, M)))
+    got = cooperative_mix(fog, dec)
+    peer = torch.take_along_dim(fog, partner[..., None], dim=-2)
+    pp = wp[..., None] * peer
+    want = (ws[..., None].double() * fog.double() + pp.double()).to(torch.float32)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, ws[..., None] * fog + pp)
+
+
 def test_global_mode_compressor_round_matches_jax(data):
     """The exact global Top-K path (``mode="global"``, plain torch.topk)
     for one round."""

@@ -8,12 +8,9 @@ JAX package and against the port's own ``Engine.run``.
   its cell on the same injected draws (``jax_inputs`` of
   ``test_torch_hfl``), at the round pins' tolerances.  ``server_lr`` is
   held per trial against the reference's FedAdam step on the same
-  pseudo-gradients, and its folded rounds bitwise against the port's own
-  cells below: FedAdam turns a one-ulp difference of a global delta whose
-  true value is 0 into a step of O(``server_lr``), and the port's mixing
-  leaves such an ulp where the reference's leaves 0 (about 3 trials in 20
-  of the default ``hfl-adam`` cell, before and after folding), so a round
-  pin of an ``hfl-adam`` trial holds only on some draws.
+  pseudo-gradients, and the folded ``hfl-adam`` cells (``server_lr`` x
+  ``compute_rate_flops``) against the reference's ``hfl.train`` of each
+  cell as the other knobs' cells are.
 * Classes: the port's ``Engine._sweep_classes`` groups
   ``tests/test_sweep.py``'s grids as the reference's does on its kernel
   backend (``use_pallas=True``, a pure-Python call: no Pallas runs).
@@ -163,6 +160,53 @@ def test_folded_trial_params_equal_the_reference(folded_vs_reference, c):
 def test_folded_trial_metrics_equal_the_reference(folded_vs_reference, field):
     want, (_, m) = folded_vs_reference
     for c in range(len(KNOB_CELLS)):
+        assert_metric_matches(field, getattr(m, field)[:, c].numpy(),
+                              np.asarray(getattr(want[c][1], field)))
+
+
+# hfl-adam cells of one class: (server_lr, compute_rate_flops).
+ADAM_CELLS = ((0.01, 1e8), (0.03, 3e7), (0.003, 2e8))
+
+
+@pytest.fixture(scope="module")
+def folded_adam_vs_reference(data):
+    """Each ``hfl-adam`` cell's ``hfl.train`` in the reference on its own
+    key, and the port's one folded ``hfl.train_trials`` of the cells on
+    the reference's draws."""
+    ds, ds_t = data
+    want, inputs, cells = [], [], []
+    for c, (lr, rate) in enumerate(ADAM_CELLS):
+        cfg_j = jexp.make_config(
+            n_sensors=N, n_fog=M, rounds=T, local_epochs=E, server_opt="adam", server_lr=lr,
+            compute_rate_flops=rate,
+            compressor=jcomp.CompressorConfig(rho_s=0.05, quant_bits=8, mode="blockwise"))
+        cfg_t = texp.make_config(N, M, T, local_epochs=E, server_opt="adam", server_lr=lr,
+                                 compute_rate_flops=rate)
+        key = jax.random.key(30 + c)
+        params_j, inp = jax_inputs(key, ds, cfg_j)
+        _, k_train = jax.random.split(key)
+        want.append(jhfl.train(k_train, params_j, jae.loss, ds, cfg_j))
+        inputs.append(inp)
+        cells.append(cfg_t)
+    folded, swept = teng._fold(cells, 1)
+    assert sorted(swept) == ["compute_rate_flops", "server_lr"]
+    got = thfl.train_trials([i.params for i in inputs], tae.loss,
+                            thfl.stack_datasets([ds_t] * len(cells)), folded,
+                            [i.dep for i in inputs], [i.draws for i in inputs])
+    return want, got
+
+
+@pytest.mark.parametrize("c", range(len(ADAM_CELLS)))
+def test_folded_adam_trial_params_equal_the_reference(folded_adam_vs_reference, c):
+    want, (params, _) = folded_adam_vs_reference
+    np.testing.assert_allclose(tae.ravel(params)[c].numpy(),
+                               np.asarray(jax.flatten_util.ravel_pytree(want[c][0])[0]), **TOL)
+
+
+@pytest.mark.parametrize("field", thfl.RoundMetrics._fields)
+def test_folded_adam_trial_metrics_equal_the_reference(folded_adam_vs_reference, field):
+    want, (_, m) = folded_adam_vs_reference
+    for c in range(len(ADAM_CELLS)):
         assert_metric_matches(field, getattr(m, field)[:, c].numpy(),
                               np.asarray(getattr(want[c][1], field)))
 

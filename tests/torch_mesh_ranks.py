@@ -32,7 +32,22 @@ Jobs (tuples, first item the kind):
 * ``("pod", cfg, params, batch, kw, steps)``: ``steps`` steps of
   ``mesh_fl.make_pod_hfl_train_step(cfg, mesh, **kw)`` (rank r is pod r)
   from ``params`` and zero error buffers; gives the flat params, this
-  rank's flat error buffers and the losses.
+  rank's flat error buffers and the losses;
+* ``("pod_data", cfg, params, batch, kw, steps, n_data)``: the same over
+  ``sharding.pod_data_mesh(n_data)`` (W / ``n_data`` pods of ``n_data``
+  data ranks);
+* ``("step", cfg, params, batch, steps)``: ``models/api.make_train_step(
+  cfg, data=mesh)`` on this rank's rows of ``batch`` (``mesh.rows``),
+  ``steps`` steps, after ``optim/sgd.grad_and_value(loss_fn(cfg, mesh),
+  mesh)`` on them; gives the new param leaves, the losses and the reduced
+  gradient leaves (f32);
+* ``("moe_split", cfg, params, batch)``: the same step on rows that split
+  a MoE dispatch group; gives the ``ValueError``'s message;
+* ``("launch", argv)``: ``launch/train.main(argv)`` under the group, with
+  ``CheckpointStore.save`` counted; gives its summary and this rank's
+  saves (or the ``ValueError``'s message);
+* ``("layout", n_data)``: this rank's place in ``sharding.pod_data_mesh(
+  n_data)`` and its rank summed over each axis.
 """
 from __future__ import annotations
 
@@ -49,6 +64,8 @@ from repro_torch.core import flat_fl, hfl, mesh_fl
 from repro_torch.engine import Engine
 from repro_torch.kernels import fused_agg, local_train
 from repro_torch.launch import sharding
+from repro_torch.launch import train as lm_train
+from repro_torch.models import api
 from repro_torch.models import autoencoder as ae
 from repro_torch.optim import sgd
 
@@ -109,16 +126,57 @@ def run_job(job: tuple, mesh: sharding.ClientMesh, device: torch.device) -> dict
         eng = Engine(shard_trials=True, device=device)
         sw = eng.sweep(method, cfgs, seeds, ds, n_deployments=n_dep)
         return {"metrics": {k: v.cpu() for k, v in sw.metrics.items()}, "log": eng.take_log()}
-    if kind == "pod":
-        _, cfg, params, batch, kw, steps = job
+    if kind in ("pod", "pod_data"):
+        _, cfg, params, batch, kw, steps = job[:6]
         params = sgd.tree_unflatten(params, [p.to(device) for p in sgd.tree_leaves(params)])
-        step = mesh_fl.make_pod_hfl_train_step(cfg, mesh, **kw)
+        pods = mesh if kind == "pod" else sharding.pod_data_mesh(job[6])
+        step = mesh_fl.make_pod_hfl_train_step(cfg, pods, **kw)
         err, losses = mesh_fl.init_err(params), []
         for _ in range(steps):
             params, err, loss = step(params, err, {k: v.to(device) for k, v in batch.items()})
             losses.append(loss)
         return {"params": sgd.ravel_tree(params).cpu(), "err": sgd.ravel_tree(err).cpu(),
                 "losses": torch.stack(losses).cpu()}
+    if kind in ("step", "moe_split"):
+        _, cfg, params, batch = job[:4]
+        params = sgd.tree_unflatten(params, [p.to(device) for p in sgd.tree_leaves(params)])
+        rows = mesh.rows(batch["tokens"].shape[0])
+        mine = {k: v[rows].to(device) for k, v in batch.items()}
+        step = api.make_train_step(cfg, mesh)
+        if kind == "moe_split":
+            try:
+                step(params, mine)
+            except ValueError as e:
+                return {"raised": str(e)}
+            return {"raised": None}
+        grads, _ = sgd.grad_and_value(api.loss_fn(cfg, mesh), mesh)(params, mine)
+        losses = []
+        for _ in range(job[4]):
+            params, loss = step(params, mine)
+            losses.append(loss)
+        return {"params": [p.cpu() for p in sgd.tree_leaves(params)],
+                "grads": [g.cpu() for g in sgd.tree_leaves(grads)],
+                "losses": torch.stack(losses).cpu()}
+    if kind == "launch":
+        saves, plain = [], lm_train.CheckpointStore.save
+
+        def counted(self, step, params, _plain=plain):
+            saves.append(step)
+            return _plain(self, step, params)
+        lm_train.CheckpointStore.save = counted
+        try:
+            return {"out": lm_train.main(job[1]), "saves": saves}
+        except ValueError as e:
+            return {"raised": str(e)}
+        finally:
+            lm_train.CheckpointStore.save = plain
+    if kind == "layout":
+        pdm = sharding.pod_data_mesh(job[1])
+        x = torch.tensor([float(mesh.rank)], device=device)
+        return {"pod": (pdm.pod.rank, pdm.pod.size), "data": (pdm.data.rank, pdm.data.size),
+                "shape": pdm.shape, "pod_sum": float(pdm.pod.sum_(x.clone())),
+                "data_sum": float(pdm.data.sum_(x.clone())),
+                "data_mean": pdm.data.mean_(x.to(torch.bfloat16)).cpu()}
     x = rank_update(mesh.rank).to(device)
     if kind == "hier":
         w = torch.tensor(float(mesh.rank + 1), device=device)
