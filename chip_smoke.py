@@ -5,7 +5,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one sm_90 CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``),
 the port's sources beside it (``src/repro_torch``; without them it exits 1)
 and nothing of JAX.  ``python3 chip_smoke.py --timing`` runs phases 1, 2
-and 6 alone and prints their numbers without the result line: a copy of
+and 6 alone (with the three per-client compressors timed on a Gaussian
+row of federated-llm's 1.49e9 coordinates, phase 26's timing, and
+``compress_q8`` on phase 21 (f)'s gradient row) and prints their
+numbers without the result line: a copy of
 the script run from an older checkout times that checkout's kernels the
 same way (the A/B of two kernel designs).  Phases, in order; any failure
 exits non-zero before the result line:
@@ -325,8 +328,24 @@ exits non-zero before the result line:
              coordinates, or two) of the one-process 2-pod loop; (d)
              qwen2-moe at full width cut to 2 layers, f32, 8 x 512 (one
              2,048-token dispatch group a rank), lr 1e-1, 2 ranks against
-             one process, (b)'s gates where no expert slot differs.  No
-             kernel is on these paths.
+             one process, (b)'s gates where no expert slot differs; (e) the
+             same model at 2 x 1,024 and capacity factor 0.25 (one row a
+             rank: one dispatch group spanning both ranks, its queue
+             places taken from the ranks' all-gathered selection counts;
+             most selections dropped), at (b)'s gates whatever its
+             differing expert slots, which are recorded, and with the
+             selections kept over the ranks equal to the one-process
+             forward's where none differs.  No kernel is on these paths;
+26. long-row — the three per-client compressors on one row of 2^31 +
+             8,209 coordinates (262,145 full blocks, one starting at 2^31,
+             then a 17-wide one): ``compression.compress_update`` (the user
+             entry) launching ``compress_q8`` once; then ``compress_q8``,
+             ``quant8`` and ``topk_ef`` each on the row, bitwise their plain
+             versions on whole-block slices (the first block, blocks
+             262,143 and 262,144 on either side of 2^31, the last), timed
+             by CUDA events beside their bytes bounds, each row's outputs
+             freed before the next.  ``--timing`` times the three at
+             federated-llm's row (d = 1,486,901,248) instead.
 
 Phase 6 also times ``fused_agg`` at robust-200's identity call (N =
 n_fog = 200), at one of its 64-client chunks and at fleet-10k's unchunked
@@ -374,7 +393,8 @@ check there, and ``compress_q8``'s time at the example's d to its
 grok-decode, encdec-decode and qwen3-decode, and their calls' errors;
 phase 23 adds each score and training kernel's launches in its four
 examples, phase 24 each training kernel's in one sweep class; phase 25
-launches none).  The last line is
+launches none; phase 26 adds the three compressors' times on its row to
+their ``by_shape``).  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and power limit, and the
 one before that the ``kernels`` JSON.
 """
@@ -3713,24 +3733,31 @@ def lm_serve(label, api, serve, swa, kref, cfg, dev, batch, prompt_len, new_toke
 
 class RouteRecorder:
     """While active, every ``models/moe.top_k`` call's expert ids, copied to
-    the host (a MoE model's routing, to compare two runs slot by slot)."""
+    the host (a MoE model's routing, to compare two runs slot by slot), and
+    every ``models/moe._slot_one_hots`` call's (selections that kept a
+    slot, selections): the dispatch's drops at capacity."""
 
     def __init__(self, moe):
-        self.moe, self.ids = moe, []
+        self.moe, self.ids, self.kept = moe, [], []
 
     def __enter__(self):
-        self.plain = self.moe.top_k
+        self.plain, self.plain_slots = self.moe.top_k, self.moe._slot_one_hots
 
         def record(probs, k):
             vals, ids = self.plain(probs, k)
             self.ids.append(ids.cpu())
             return vals, ids
 
-        self.moe.top_k = record
+        def record_slots(pos, sel, cap):
+            out = self.plain_slots(pos, sel, cap)
+            self.kept.append((int(out.sum()), int(sel.sum())))
+            return out
+
+        self.moe.top_k, self.moe._slot_one_hots = record, record_slots
         return self
 
     def __exit__(self, *exc):
-        self.moe.top_k = self.plain
+        self.moe.top_k, self.moe._slot_one_hots = self.plain, self.plain_slots
 
 
 def slot_diffs(a: RouteRecorder, b: RouteRecorder) -> int:
@@ -4132,6 +4159,23 @@ def pod_phase(configs, dev, name, smi, workdir) -> dict:
     return runs
 
 
+def fed_gradient_row(configs, api, sgd, lm_batches, dev) -> torch.Tensor:
+    """Phase 21 (f)'s row, (1, d) f32: -1e-3 times llama3-8b's gradient at
+    full width cut to 2 layers (weights from seed 0) on one batch of 2 x 32
+    tokens."""
+    cfg = cut(configs.get(POD_ARCH), POD_LAYERS)
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    stream = torch.randint(0, cfg.vocab_size, (4096,), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": lm_batches(torch.Generator().manual_seed(2), stream, 2, 32).to(dev)}
+    grads, _ = sgd.grad_and_value(api.loss_fn(cfg))(params, batch)
+    del params
+    delta = (-1e-3 * sgd.ravel_tree([g.float() for g in sgd.tree_leaves(grads)]))[None]
+    del grads
+    torch.cuda.empty_cache()
+    return delta
+
+
 def fed_llm_phase(federated_llm, configs, api, sgd, comp, kops, kq8, kref, lm_batches, dev,
                   name, smi) -> dict:
     """(f) One ``compress_update`` at llama3-8b full width cut to 2 layers
@@ -4143,16 +4187,7 @@ def fed_llm_phase(federated_llm, configs, api, sgd, comp, kops, kq8, kref, lm_ba
     federated-LLM example at REDUCED on the card against the CPU (f32:
     losses within ``FED_LOSS_GATE`` relative; bf16 recorded; one
     ``compress_q8`` launch a step)."""
-    cfg = cut(configs.get(POD_ARCH), POD_LAYERS)
-    params = api.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
-    stream = torch.randint(0, cfg.vocab_size, (4096,), dtype=torch.int32,
-                           generator=torch.Generator().manual_seed(1))
-    batch = {"tokens": lm_batches(torch.Generator().manual_seed(2), stream, 2, 32).to(dev)}
-    grads, _ = sgd.grad_and_value(api.loss_fn(cfg))(params, batch)
-    del params
-    delta = (-1e-3 * sgd.ravel_tree([g.float() for g in sgd.tree_leaves(grads)]))[None]
-    del grads
-    torch.cuda.empty_cache()
+    delta = fed_gradient_row(configs, api, sgd, lm_batches, dev)
     err = torch.zeros_like(delta)
     d = delta.shape[1]
     cc = comp.CompressorConfig(rho_s=0.05, quant_bits=8)
@@ -4880,6 +4915,11 @@ DATA_GRAD_GATE, DATA_UPDATE_GATE = 1e-4, 1e-4   # (b), (d): the train-step rule
 # ulp of |p| comes near 1e-4 of its largest update (1.2e-4 at REDUCED on the
 # CPU), and the rule is there to measure the step, not the params' rounding.
 DATA_MOE_LR = 1e-1
+DATA_SPLIT_BATCH, DATA_SPLIT_SEQ = 2, 1024      # (e) one row a rank: a group over both
+# (e) runs at capacity 0.25 (34 slots an expert against 136.5 selections on
+# average): most selections are dropped, so which of a rank's tokens keep a
+# slot rests on its places in the group's queue after the other rank's.
+DATA_SPLIT_CAPACITY = 0.25
 DATA_POD_WORLD, DATA_POD_DATA = 4, 2            # (c) 2 pods x 2 data ranks, gloo, one card
 DATA_FLIP_SHARE = 1e-3          # (c) neighbouring int8 codes: <= 1e-3 of a leaf's, or two
 DIGEST_CHUNK = 1 << 26
@@ -4959,8 +4999,10 @@ def data_step_job(job, spec, mesh, dev) -> dict:
     rows, the f32 gradients it reduced kept (``ClientMesh.mean_``
     recorded); rank 0 then takes the one-process gradient and step on the
     whole batch and gives the largest differences relative to their
-    largest coordinates.  With a MoE, each forward's expert ids
-    (``RouteRecorder``)."""
+    largest coordinates.  With a MoE, the expert ids of each forward
+    (``RouteRecorder``): this rank's over the mesh (a layer's routing
+    follows the dispatch of the layers before it) and, on rank 0, the
+    whole batch's in one process."""
     from repro_torch.launch import sharding
     from repro_torch.models import api
     from repro_torch.models import moe as moe_mod
@@ -4972,14 +5014,14 @@ def data_step_job(job, spec, mesh, dev) -> dict:
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=torch.Generator(
         ).manual_seed(2), dtype=torch.int32).to(dev)}
     mine = {k: v[mesh.rows(b)] for k, v in batch.items()}
-    out = {"ids": {}}
+    out = {"ids": {}, "kept": {}}
     if cfg.family == "moe":
         with torch.no_grad():
-            for key, part in (("rank", mine), ("whole", batch)):
+            for key, part, data in (("rank", mine, mesh), ("whole", batch, None)):
                 if key == "rank" or mesh.rank == 0:
                     with RouteRecorder(moe_mod) as rec:
-                        moe_mod.forward(params, part, cfg)
-                    out["ids"][key] = rec.ids
+                        moe_mod.forward(params, part, cfg, data)
+                    out["ids"][key], out["kept"][key] = rec.ids, rec.kept
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reduced, plain_mean = [], sharding.ClientMesh.mean_
@@ -5061,17 +5103,34 @@ def data_parity_line(label, cfg, got, ranks, gated, extra="") -> None:
           + f"; peak {max(r['peak_gib'] for r in ranks):.2f} GiB a rank{extra}")
 
 
+def moe_slot_diffs(ranks) -> int:
+    """Token-slots whose expert id on a rank differs from the one-process
+    forward's on the same token (rank r holds the whole batch's flat tokens
+    [r t, (r + 1) t))."""
+    whole = ranks[0]["ids"]["whole"]
+    diffs = 0
+    for r, got in enumerate(ranks):
+        for mine, want in zip(got["ids"]["rank"], whole):
+            k = mine.shape[-1]
+            mine = mine.reshape(-1, k)
+            diffs += int((mine != want.reshape(-1, k)[r * len(mine):(r + 1) * len(mine)]).sum())
+    return diffs
+
+
 def data_axis_phase(configs, sgd, hybrid_train, dev, name, smi, workdir) -> dict:
-    """Phase 25: the reference's ``data`` mesh axis; (a)-(d) of the
+    """Phase 25: the reference's ``data`` mesh axis; (a)-(e) of the
     module docstring."""
+    from repro_torch.models import moe
     t0 = time.perf_counter()
     f32 = dict(dtype=torch.float32, learning_rate=TRAIN_VS_CPU_LR)
     b_cfg = cut(configs.get(HYBRID_TRAIN_ARCH), DATA_F32_LAYERS).replace(**f32)
     d_cfg = cut(configs.get(DATA_MOE_ARCH), DATA_MOE_LAYERS).replace(
         dtype=torch.float32, learning_rate=DATA_MOE_LR)
+    e_cfg = d_cfg.replace(capacity_factor=DATA_SPLIT_CAPACITY)
     jobs = [("data_train", HYBRID_TRAIN_ARCH, DATA_TRAIN),
             ("data_step:f32", b_cfg, TRAIN_VS_CPU_BATCH, TRAIN_VS_CPU_SEQ),
-            ("data_step:moe", d_cfg, DATA_MOE_BATCH, DATA_MOE_SEQ)]
+            ("data_step:moe", d_cfg, DATA_MOE_BATCH, DATA_MOE_SEQ),
+            ("data_step:moe-split", e_cfg, DATA_SPLIT_BATCH, DATA_SPLIT_SEQ)]
     torch.cuda.empty_cache()
     small = configs.get(POD_ARCH, reduced=True).replace(**f32)
     cases = [(m, e) for m in ("int8", "topk") for e in (1, 2)]
@@ -5130,17 +5189,40 @@ def data_axis_phase(configs, sgd, hybrid_train, dev, name, smi, workdir) -> dict
                                      "seconds")}
     out["b"]["peak_gib_a_rank"] = max(r["peak_gib"] for r in b)
 
-    d = [r["data_step:moe"] for r in ranks]
-    whole = d[0]["ids"]["whole"]
-    diffs = sum(int((r["ids"]["rank"][i][0] != whole[i][k]).sum())
-                for k, r in enumerate(d) for i in range(len(whole)))
-    data_parity_line("(d) MoE", d_cfg, d[0], d, diffs == 0,
-                     f"; expert slots differing {diffs} ({DATA_MOE_BATCH} x {DATA_MOE_SEQ}, "
-                     f"one {DATA_MOE_BATCH * DATA_MOE_SEQ // DATA_WORLD}-token group a rank)")
-    out["d"] = {k: d[0][k] for k in ("step_loss", "want_loss", "grad_rel", "update_rel",
-                                     "seconds")}
-    out["d"].update(expert_slots_differing=diffs, gated=diffs == 0,
-                    peak_gib_a_rank=max(r["peak_gib"] for r in d))
+    # (d) is gated where no expert slot differs (a router near-tie flips a
+    # token's expert); (e) always, its differing slots recorded: the split
+    # dispatch must give the one-process step.  Each forward's selections
+    # that kept a slot are summed over the ranks and held against the
+    # one-process forward's where no slot differs; (e) must drop some, or
+    # its queue places decide nothing.
+    for part, job, p_cfg, (rows, seq), how in (
+            ("d", "data_step:moe", d_cfg, (DATA_MOE_BATCH, DATA_MOE_SEQ),
+             "one {t}-token group a rank"),
+            ("e", "data_step:moe-split", e_cfg, (DATA_SPLIT_BATCH, DATA_SPLIT_SEQ),
+             "{t} tokens a rank, one {g}-token group spanning the ranks")):
+        d = [r[job] for r in ranks]
+        diffs = moe_slot_diffs(d)
+        gated = part == "e" or diffs == 0
+        kept = sum(n for r in d for n, _ in r["kept"]["rank"])
+        want_kept, chosen = (sum(x) for x in zip(*d[0]["kept"]["whole"]))
+        dropped = chosen - want_kept
+        check(diffs != 0 or kept == want_kept, f"({part}) the ranks kept {kept} selections, "
+              f"the one-process forward {want_kept}")
+        check(part == "d" or dropped > 0, f"({part}) no selection was dropped at capacity "
+              f"{moe.capacity(p_cfg, min(rows * seq, moe.MOE_GROUP))}")
+        t = rows * seq // DATA_WORLD
+        label = "(d) MoE" if part == "d" else "(e) MoE, a split group"
+        data_parity_line(label, p_cfg, d[0], d, gated,
+                         f"; expert slots differing {diffs} ({rows} x {seq}, "
+                         f"{how.format(t=t, g=min(rows * seq, moe.MOE_GROUP))}, capacity factor "
+                         f"{p_cfg.capacity_factor:g}); selections kept {kept:,} over the ranks, "
+                         f"{want_kept:,} in one process, of {chosen:,} ({dropped:,} dropped)")
+        out[part] = {k: d[0][k] for k in ("step_loss", "want_loss", "grad_rel", "update_rel",
+                                          "seconds")}
+        out[part].update(expert_slots_differing=diffs, gated=gated, kept_selections=kept,
+                         one_process_kept=want_kept, selections=chosen, dropped=dropped,
+                         capacity_factor=p_cfg.capacity_factor,
+                         peak_gib_a_rank=max(r["peak_gib"] for r in d))
 
     out["c"] = {}
     for m, e in cases:
@@ -5175,9 +5257,109 @@ def data_axis_phase(configs, sgd, hybrid_train, dev, name, smi, workdir) -> dict
               f"{apart} of {off:,} params a neighbouring code apart, losses rel {rel:.2e}")
     out["seconds"] = time.perf_counter() - t0
     print(f"  phase 25 took {out['seconds']:.1f} s: on rank 0 (a) {a[0]['seconds']:.1f}, (b) "
-          f"{b[0]['seconds']:.1f}, (d) {d[0]['seconds']:.1f}; the ranks' start and (c), "
-          f"beside (b) and (d), the rest")
+          f"{b[0]['seconds']:.1f}, (d) {out['d']['seconds']:.1f}, (e) "
+          f"{out['e']['seconds']:.1f}; the ranks' start and (c), beside (b), (d) and (e), the "
+          f"rest")
     return out
+
+
+# --- phase 26: long-row: the per-client compressors on one row past 2^31 -----------
+
+LONG_D = 2 ** 31 + 8209         # 262,145 full blocks (one starts at 2^31), then 17 columns
+LONG_RHO = 0.05
+LONG_CALLS = 3                  # timed calls a kernel after call_ms's warm-up
+FED_ROW_D = 1_486_901_248       # phase 21 (f)'s row: --timing's shape, the parent's too
+
+
+def long_row_phase(dev, kq8, tk, kops, kref, comp, name, smi, d=LONG_D,
+                   check_slices=True) -> dict:
+    """Phase 26 (module docstring) on one row of ``d``; with
+    ``check_slices`` False (``--timing``) the three kernels are only timed.
+    Keys "<kernel> @ 1 x <d>": ms a call by CUDA events, the bytes bound."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(26)
+    delta = torch.randn((1, d), generator=g, device=dev)
+    err = torch.randn((1, d), generator=g, device=dev).mul_(0.1)
+    blk = kops.BLOCK_ELEMS
+    nb = -(-d // blk)
+    k = kops.block_k(comp.blockwise_k_frac(d, LONG_RHO))
+    spans = [(b, min(d, (b + 1) * blk))
+             for b in sorted({max(b, 0) for b in (0, nb - 3, nb - 2, nb - 1)})]
+    out = {}
+    check(d != LONG_D or ((nb - 2) * blk == 2 ** 31 and d - (nb - 1) * blk == 17),
+          f"long-row: d={d:,} does not put a full block at 2^31 and a 17-wide one last")
+    if check_slices:
+        kq8.reset_launches()
+        recon, new_err = comp.compress_update(delta, err, comp.CompressorConfig(
+            rho_s=LONG_RHO, quant_bits=8))
+        torch.cuda.synchronize()
+        check(kq8.LAUNCHES["compress_q8"] == 1 and tuple(recon.shape) == (1, d)
+              and bool(torch.isfinite(recon[:, -blk:]).all()),
+              "long-row: compress_update did not run compress_q8 once on the row")
+        del recon, new_err
+        torch.cuda.empty_cache()
+
+    def slices(kname, ins, got, plain, padded):
+        """``got`` on each span's block bitwise ``plain`` on that block alone
+        (codes past d included where the layout is ``padded``)."""
+        for b, end in spans:
+            want = plain(*(x[:, b * blk:end].contiguous() for x in ins))
+            for gt, wt in zip(got, want):
+                cols = (slice(b, b + 1) if gt.shape[1] == nb
+                        else slice(b * blk, (b + 1) * blk if padded else end))
+                check(torch.equal(gt[:, cols], wt), f"long-row {kname}: block {b} of d={d:,} "
+                      "differs from the plain version")
+
+    runs = (("compress_q8", (delta, err), lambda: kq8.compress_blocks(delta, err, k),
+             lambda x, e: kref.compress_ref(x, e, k), compress_work(1, d, True), False),
+            ("quant8", (delta,), lambda: kq8.quant8_blocks(delta), kref.quant8_ref,
+             quant8_work(1, d), True),
+            ("topk_ef", (delta, err), lambda: tk.topk_ef_blocks(delta, err, k),
+             lambda x, e: kref.blockwise_topk_ef_ref(x, e, k), compress_work(1, d, False), False))
+    for kname, ins, run, plain, work, padded in runs:
+        if check_slices:
+            got = run()
+            slices(kname, ins, got, plain, padded)
+            del got
+            torch.cuda.empty_cache()
+        ms = call_ms(run, LONG_CALLS)
+        bound_ms, bound_by = bound_from(*work)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[f"{kname} @ 1 x {d:,}"] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                                            checked_blocks=[b for b, _ in spans] if check_slices
+                                            else [])
+        print(f"  {kname} on one row of d={d:,} (k={k}): {ms:.3f} ms a call (CUDA events), "
+              f"bound {bound_ms:.3f} ms ({bound_by}, {work[0] / 1e9:.2f} GB)"
+              + (f"; blocks {[b for b, _ in spans]} bitwise the plain version" if check_slices
+                 else "") + f"; peak {peak:.1f} GiB  on {name} ({smi})")
+        torch.cuda.empty_cache()
+    del delta, err
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def time_gradient_row(configs, api, kq8, kops, comp, dev, name, smi) -> dict:
+    """``--timing``'s ``compress_q8`` on phase 21 (f)'s gradient row (the
+    selection's cost rides on the data: this row is slower than a Gaussian
+    one of its d), by CUDA events as phase 21 (f) times it."""
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.optim import sgd
+    delta = fed_gradient_row(configs, api, sgd, lm_batches, dev)
+    err = torch.zeros_like(delta)
+    d = delta.shape[1]
+    check(d == FED_ROW_D, f"phase 21 (f)'s row has d={d:,}, not {FED_ROW_D:,}")
+    k = kops.block_k(comp.blockwise_k_frac(d, LONG_RHO))
+    ms = call_ms(lambda: kq8.compress_blocks(delta, err, k), LONG_CALLS)
+    bound_ms, bound_by = bound_from(*compress_work(1, d, True))
+    print(f"  compress_q8 on phase 21 (f)'s gradient row, d={d:,} (k={k}): {ms:.3f} ms a call "
+          f"(CUDA events), bound {bound_ms:.3f} ms ({bound_by})  on {name} ({smi})")
+    del delta, err
+    torch.cuda.empty_cache()
+    return {f"compress_q8 @ gradient row 1 x {d:,}": dict(ms=ms, bound_ms=bound_ms,
+                                                          bound_by=bound_by)}
 
 
 def main(argv: list[str]) -> int:
@@ -5367,6 +5549,10 @@ def main(argv: list[str]) -> int:
     train_timing.update(time_compress_kernels(dev, kq8, tk, kops, kref, comp, ae, name, smi))
     identity = time_identity_fogs(dev, fa, name, smi)
     if timing_only:
+        train_timing.update(long_row_phase(dev, kq8, tk, kops, kref, comp, name, smi,
+                                           FED_ROW_D, check_slices=False))
+        train_timing.update(time_gradient_row(lm_configs, lm_api, kq8, kops, comp, dev, name,
+                                              smi))
         print(json.dumps({"timing": train_timing, "identity_66k": identity,
                           "launch_floor": floor, "device": name}))
         print(smi)
@@ -5482,6 +5668,8 @@ def main(argv: list[str]) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT / "build") as tmp:
         data_axis = data_axis_phase(lm_configs, sgd, lm["hybrid-train"], dev, name, smi,
                                     Path(tmp))
+    phase("26. long-row: the per-client compressors on one row of 2^31 + 8,209")
+    long_rows = long_row_phase(dev, kq8, tk, kops, kref, comp, name, smi)
     phase("done")
 
     kernels = []
@@ -5535,8 +5723,8 @@ def main(argv: list[str]) -> int:
             "library_ms": None,
             **t,
         })
-        by_shape = {k.split(" @ ")[1]: v for k, v in {**train_timing,
-                                                        **engine["kernels"]}.items()
+        by_shape = {k.split(" @ ")[1]: v for k, v in {**train_timing, **engine["kernels"],
+                                                        **long_rows}.items()
                     if k.startswith(f"{kname} @ ")}
         if kname in ("local_train_f32", "fused_agg"):
             kernels[-1]["launches_by_path"] = {
@@ -5613,6 +5801,7 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"launch_tooling": tooling}))
     print(json.dumps({"sweep": sweep}))
     print(json.dumps({"data_axis": data_axis}))
+    print(json.dumps({"long_rows": long_rows}))
     print("phase seconds: " + ", ".join(f"{k.split('.')[0]} {v:.1f}" for k, v in PHASE_S.items()
                                         if k != "done")
           + f"; script {time.perf_counter() - START:.1f} s  on {name} ({smi})")

@@ -6,7 +6,7 @@ from typing import Callable
 
 import torch
 
-INT_LIMIT = 2 ** 31     # the C entries take N and d as int
+TASK_LIMIT = 2 ** 31    # a launch's (row, block) tasks: its grid and task index are int
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
@@ -31,17 +31,20 @@ def require_cuda(t: torch.Tensor, what: str) -> torch.device:
 
 def rows(x: torch.Tensor, what: str, block: int) -> tuple[torch.device, int, int, int]:
     """(device, N, d, blocks of ``block`` per row) of a CUDA (N, d) input;
-    raises on anything else."""
+    raises on anything else.  A row may hold 2^31 coordinates or more (the
+    C entries take d as a 64-bit integer); the launch takes one task per
+    (row, block), so N x blocks must stay below 2^31."""
     device = require_cuda(x, what)
     if x.dim() != 2:
         raise ValueError(f"the {what} kernel takes (N, d) rows, got {tuple(x.shape)}")
     n, d = (int(s) for s in x.shape)
     if n < 1 or d < 1:
         raise ValueError(f"needs N, d >= 1, got N={n}, d={d}")
-    if n >= INT_LIMIT or d >= INT_LIMIT:
-        raise ValueError(f"the {what} kernel takes N and d below 2^31 (its C entry's int), "
-                         f"got N={n}, d={d}")
-    return device, n, d, -(-d // block)
+    nb = -(-d // block)
+    if n * nb >= TASK_LIMIT:
+        raise ValueError(f"the {what} kernel takes N x blocks below 2^31 (one launch task per "
+                         f"(row, {block}-block), an int index), got N={n} x {nb} blocks")
+    return device, n, d, nb
 
 
 def raise_on(rc: int, what: str, error_string: Callable[[int], bytes]) -> None:

@@ -266,10 +266,15 @@ __device__ __forceinline__ float with_sign(float a, unsigned neg_word, int bit) 
 //                                          index, kept = |v| > hi);
 //   out.block(task, hi, scale)             once per (client, block), task
 //                                          = client * nb + block.
+// d, and a row's and a block's start, are 64-bit: a row may hold 2^31
+// coordinates or more (compress_q8, topk_ef).  Offsets within a block stay
+// int.
 struct SelectArgs {
   const float* delta;                // (N, d)
   const float* err;                  // (N, d)
-  int n, d, k;
+  int n;
+  long long d;
+  int k;
   int n_wide;                        // blocks of each row run by a block team (the first ones)
   int teams;                         // small teams a block
   int lead;                          // the caller's blocks ahead of the teams
@@ -283,14 +288,15 @@ template <int kTeam, int kSlots, class Out>
 __device__ __forceinline__ void select_team(SelectArgs a, int i, int b, int t, int bar,
                                             TeamScratch& sc, float* cand, Out out) {
   using S = TeamShape<kTeam, kSlots>;
-  const int base = b * kBlock;
+  const long long base = static_cast<long long>(b) * kBlock;
   float abs_v[kSlots];                            // |v|
   unsigned neg[S::kWords];                        // v's sign bits
   float amax;
   const float hi = team_threshold<kTeam, kSlots>(
-      a.delta, a.err, static_cast<size_t>(i) * a.d + base, min(kBlock, a.d - base), a.k, t, bar,
-      sc, abs_v, neg, cand, &amax);
-  const int width = opaque(min(kBlock, a.d - base));
+      a.delta, a.err, static_cast<size_t>(i) * a.d + base,
+      static_cast<int>(min(static_cast<long long>(kBlock), a.d - base)), a.k, t, bar, sc, abs_v,
+      neg, cand, &amax);
+  const int width = opaque(static_cast<int>(min(static_cast<long long>(kBlock), a.d - base)));
   const size_t row = opaque(static_cast<size_t>(i) * a.d + base);
   const float scale = out.block_scale(hi, amax);
 #pragma unroll
@@ -344,14 +350,17 @@ using SelectKernel = void (*)(SelectArgs, Out);
 template <class Out>
 int launch_select(const SelectKernel<Out> (&kernels)[4][2], SelectArgs a, int slots,
                   int narrow_grid, cudaStream_t s, Out out) {
-  a.nb = (a.d + kBlock - 1) / kBlock;
+  const long long d = a.d;
+  const long long nb = (d + kBlock - 1) / kBlock;
+  if (d < 1 || nb > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  a.nb = static_cast<int>(nb);
   const long long grid = a.lead + static_cast<long long>(a.n) * a.n_wide + narrow_grid;
   const bool narrow = a.n_wide < a.nb;            // the last block goes to small teams
-  if (a.n < 1 || a.d < 1 || a.k < 1 || a.lead < 0 || a.n_wide < a.nb - 1 || a.n_wide > a.nb ||
+  if (a.n < 1 || a.k < 1 || a.lead < 0 || a.n_wide < a.nb - 1 || a.n_wide > a.nb ||
       a.teams < 1 || a.teams > kThreads / kNarrowTeam || slots < 8 || slots > 32 ||
       slots % 8 != 0 ||
       (narrow ? static_cast<long long>(narrow_grid) * a.teams < a.n ||
-                    a.d - (a.nb - 1) * kBlock > kNarrowTeam * slots
+                    d - (nb - 1) * kBlock > kNarrowTeam * slots
               : narrow_grid != 0) ||
       grid > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -29,6 +29,10 @@
 //   scale is 0.  Writes q int8 (N, nb * 8192), the padding as zeros (the
 //   blocked layout of ref.quant8_ref), and scale (N, nb).
 //
+// A row may hold 2^31 coordinates or more: d, a row's base and a block's
+// start are 64-bit, offsets within a block stay int; the launch takes one
+// task (a CTA or a team) per (row, block), so N x blocks stays below 2^31.
+//
 // Numerics: the division, the q * scale product and v - recon are explicit
 // round-to-nearest intrinsics (no FMA contraction), rint is half to even,
 // and the scale is a product with the f32 reciprocal of 127, as the
@@ -120,15 +124,15 @@ const SelectKernel<CompressOut> kCompressKernels[4][2] = SELECT_KERNELS(compress
 // quant8: one CTA of kQ8Threads per (row, 8192-block); granule g (columns
 // 4g..4g+3 of the block) sits in slot g / kQ8Threads of thread g % kQ8Threads.
 __global__ void __launch_bounds__(kQ8Threads)
-    quant8_kernel(const float* __restrict__ x, int d, int nb, int8_t* __restrict__ q_out,
+    quant8_kernel(const float* __restrict__ x, long long d, int nb, int8_t* __restrict__ q_out,
                   float* __restrict__ scale_out) {
   __shared__ float warp_max[kQ8Warps];
   const int task = blockIdx.x;                    // (row, block)
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int i = task / nb;
-  const int base = (task - i * nb) * kBlock;
-  const int width = min(kBlock, d - base);
+  const long long base = static_cast<long long>(task - i * nb) * kBlock;   // may pass 2^31
+  const int width = d - base < kBlock ? static_cast<int>(d - base) : kBlock;
   const int granules = (width + 3) >> 2;          // real granules, the last maybe partial
   const float* src = x + static_cast<size_t>(i) * d + base;
   const bool aligned = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
@@ -198,8 +202,9 @@ extern "C" {
 // q int8 (n, d), scale (n, nb) with nb = ceil(d / 8192), new_err (n, d);
 // n_wide, slots, teams and narrow_grid from kernels/teams.compress_plan.
 // Returns the cudaError_t of the launch (0 on success).
-int compress_q8(const void* delta, const void* err, int n, int d, int k, int n_wide, int slots,
-                int teams, int narrow_grid, void* q, void* scale, void* new_err, void* stream) {
+int compress_q8(const void* delta, const void* err, int n, long long d, int k, int n_wide,
+                int slots, int teams, int narrow_grid, void* q, void* scale, void* new_err,
+                void* stream) {
   const SelectArgs a{static_cast<const float*>(delta), static_cast<const float*>(err), n, d, k,
                      n_wide, teams, 0, 0};
   const CompressOut out{static_cast<int8_t*>(q), static_cast<float*>(scale),
@@ -210,14 +215,14 @@ int compress_q8(const void* delta, const void* err, int n, int d, int k, int n_w
 
 // q int8 (n, nb * 8192), zeros past d in each row's last block; scale
 // (n, nb).  Returns the cudaError_t of the launch.
-int quant8(const void* x, int n, int d, void* q, void* scale, void* stream) {
+int quant8(const void* x, int n, long long d, void* q, void* scale, void* stream) {
   if (n < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int nb = (d + kBlock - 1) / kBlock;
-  const long long grid = static_cast<long long>(n) * nb;
+  const long long nb = (d + kBlock - 1) / kBlock;
+  const long long grid = static_cast<long long>(n) * nb;   // one CTA a task, an int index
   if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   quant8_kernel<<<static_cast<unsigned>(grid), kQ8Threads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), d, nb, static_cast<int8_t*>(q),
+      static_cast<const float*>(x), d, static_cast<int>(nb), static_cast<int8_t*>(q),
       static_cast<float*>(scale));
   return static_cast<int>(cudaGetLastError());
 }

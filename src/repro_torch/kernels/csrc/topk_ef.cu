@@ -11,7 +11,8 @@
 //   bisection of every compression kernel); sparse = v * [|v| > hi];
 //   new_err = v - sparse, exactly v or 0.  Writes sparse and new_err
 //   (N, d), real coordinates only; equal to
-//   kernels/ref.blockwise_topk_ef_ref bit for bit.
+//   kernels/ref.blockwise_topk_ef_ref bit for bit.  d is 64-bit, so a row
+//   may hold 2^31 coordinates or more (block_select.cuh's SelectArgs).
 //
 // Bound: bytes.  At train-200 (N = 200, d = 1,352) it reads delta and err
 // and writes sparse and new_err, 16 bytes a coordinate: 4.3 MB, ~1.3 us at
@@ -54,8 +55,8 @@ extern "C" {
 
 // sparse and new_err (n, d); n_wide, slots, teams and narrow_grid from
 // kernels/teams.compress_plan.  Returns the cudaError_t of the launch.
-int topk_ef(const void* delta, const void* err, int n, int d, int k, int n_wide, int slots,
-            int teams, int narrow_grid, void* sparse, void* new_err, void* stream) {
+int topk_ef(const void* delta, const void* err, int n, long long d, int k, int n_wide,
+            int slots, int teams, int narrow_grid, void* sparse, void* new_err, void* stream) {
   const SelectArgs a{static_cast<const float*>(delta), static_cast<const float*>(err), n, d, k,
                      n_wide, teams, 0, 0};
   const TopkOut out{static_cast<float*>(sparse), static_cast<float*>(new_err)};

@@ -40,10 +40,10 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("quant8")
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.compress_q8.argtypes = [vp, vp, i, i, i, i, i, i, i, vp, vp, vp, vp]
+        vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64     # d is 64-bit
+        lib.compress_q8.argtypes = [vp, vp, i, i64, i, i, i, i, i, vp, vp, vp, vp]
         lib.compress_q8.restype = i
-        lib.quant8.argtypes = [vp, i, i, vp, vp, vp]
+        lib.quant8.argtypes = [vp, i, i64, vp, vp, vp]
         lib.quant8.restype = i
         lib.quant8_error_string.argtypes = [i]
         lib.quant8_error_string.restype = ctypes.c_char_p

@@ -34,8 +34,8 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("topk_ef")
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.topk_ef.argtypes = [vp, vp, i, i, i, i, i, i, i, vp, vp, vp]
+        vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64     # d is 64-bit
+        lib.topk_ef.argtypes = [vp, vp, i, i64, i, i, i, i, i, vp, vp, vp]
         lib.topk_ef.restype = i
         lib.topk_ef_error_string.argtypes = [i]
         lib.topk_ef_error_string.restype = ctypes.c_char_p

@@ -15,9 +15,15 @@ Under a data mesh (``loss(..., data=)``, each rank a share of the batch)
 the aux loss is the whole batch's: each layer's (E,) means f_e and P_e
 are averaged over the ranks before their product (P_e's gradient stays
 the rank's own, so the mean of the ranks' gradients is the whole
-batch's).  A rank's tokens must then be a whole number of ``MOE_GROUP``
-groups: capacity scales with the group size, so a group split over ranks
-would dispatch otherwise than the one-process step.
+batch's).  The dispatch groups are the whole batch's too, as the
+reference forms them over the global batch: the group size and capacity
+come from the global token count, and rank r holds the global flat
+positions [r t, (r + 1) t) of its t tokens.  Where that splits a group
+(:class:`Split`), each layer all-gathers a small (group parts, k, E) table
+of the ranks' selection counts, from which a rank takes its tokens' places
+in each group's slot-major queue; no activation moves, and each rank runs
+the expert FFN on its own tokens' slots.  A rank whose tokens are whole
+groups runs today's step.
 
 The dispatch is the reference's bookkeeping op for op, since who is
 dropped at capacity depends on it: the top k come from a stable
@@ -185,29 +191,42 @@ def aux_loss(me: torch.Tensor, fe: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     return cfg.n_experts * torch.sum(fe * me, dim=-1)
 
 
+def _router(mlp: MoEMLP, xg: torch.Tensor, cfg: ModelConfig):
+    """The router over (..., t, d) tokens: (gates (..., t, k) normalised,
+    one-hot choices (..., t, k, E) f32, P_e (E,), f_e (E,))."""
+    logits = torch.einsum("...td,de->...te", xg.to(torch.float32), mlp.w_router)
+    probs = torch.softmax(logits, dim=-1)                  # (..., t, E)
+    k, e = cfg.n_experts_per_tok, cfg.n_experts
+    topv, topi = top_k(probs, k)                            # (..., t, k)
+    topv = topv / torch.clamp_min(torch.sum(topv, dim=-1, keepdim=True), 1e-9)
+
+    # Aux load-balance loss (Switch): E * sum_e f_e P_e.
+    lead = tuple(range(probs.dim() - 1))
+    me = torch.mean(probs, dim=lead)                        # (E,)
+    onehot_top = F.one_hot(topi, e).to(torch.float32)       # (..., t, k, E)
+    fe = torch.mean(torch.sum(onehot_top, dim=-2), dim=lead) / k
+    return topv, onehot_top, me, fe
+
+
+def _slot_one_hots(pos: torch.Tensor, sel: torch.Tensor, cap: int) -> torch.Tensor:
+    """(..., C) one-hots of the queue positions ``pos`` of the selections
+    ``sel`` (0/1) that fit under capacity ``cap``; zeros elsewhere."""
+    keep = (pos < cap).to(torch.float32) * sel
+    slots = torch.arange(cap, dtype=torch.float32, device=pos.device)
+    return (pos[..., None] == slots).to(torch.float32) * keep[..., None]
+
+
 def _route(mlp: MoEMLP, xg: torch.Tensor, cfg: ModelConfig):
     """:func:`route` with the aux loss's (E,) means instead of the loss:
     (dispatch, combine, P_e, f_e)."""
     n_groups, g_size, _ = xg.shape
-    logits = torch.einsum("gtd,de->gte", xg.to(torch.float32), mlp.w_router)
-    probs = torch.softmax(logits, dim=-1)                  # (g, t, E)
     k, e = cfg.n_experts_per_tok, cfg.n_experts
-    topv, topi = top_k(probs, k)                            # (g, t, k)
-    topv = topv / torch.clamp_min(torch.sum(topv, dim=-1, keepdim=True), 1e-9)
-
-    # Aux load-balance loss (Switch): E * sum_e f_e P_e.
-    me = torch.mean(probs, dim=(0, 1))                      # (E,)
-    onehot_top = F.one_hot(topi, e).to(torch.float32)       # (g, t, k, E)
-    fe = torch.mean(torch.sum(onehot_top, dim=2), dim=(0, 1)) / k
-
+    topv, onehot_top, me, fe = _router(mlp, xg, cfg)
     cap = capacity(cfg, g_size)
     sel = onehot_top.permute(0, 2, 1, 3)                    # (g, k, t, E)
     sel_flat = sel.reshape(n_groups, k * g_size, e)
     pos = torch.cumsum(sel_flat, dim=1) - sel_flat          # rank in queue
-    keep = (pos < cap).to(torch.float32) * sel_flat
-    slots = torch.arange(cap, dtype=torch.float32, device=xg.device)
-    pos_oh = (pos[..., None] == slots).to(torch.float32) * keep[..., None]
-    disp = pos_oh.reshape(n_groups, k, g_size, e, cap)
+    disp = _slot_one_hots(pos, sel_flat, cap).reshape(n_groups, k, g_size, e, cap)
 
     gates = topv.permute(0, 2, 1)                           # (g, k, t)
     combine = torch.einsum("gktec,gkt->gtec", disp, gates)  # (g, t, E, C)
@@ -234,53 +253,145 @@ def _moe_apply(mlp: MoEMLP, x: torch.Tensor, cfg: ModelConfig):
         raise ValueError(f"{t} tokens are not a whole number of {g_size}-token MoE groups")
     xg = flat.reshape(t // g_size, g_size, d)
     dispatch, combine, me, fe = _route(mlp, xg, cfg)
-    expert_in = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xg)
+    return _experts(mlp, dispatch, combine, xg).reshape(orig_shape), me, fe
+
+
+def _experts(mlp: MoEMLP, dispatch: torch.Tensor, combine: torch.Tensor,
+             xg: torch.Tensor) -> torch.Tensor:
+    """The expert FFNs on (g, t, d) tokens dispatched into (g, t, E, C)
+    slots, combined back with their gates, plus the shared expert: (g, t,
+    d)."""
+    expert_in = torch.einsum("gtec,gtd->gecd", dispatch.to(xg.dtype), xg)
     hg = F.silu(torch.einsum("gecd,edf->gecf", expert_in, mlp.w_gate))
     hu = torch.einsum("gecd,edf->gecf", expert_in, mlp.w_up)
     expert_out = torch.einsum("gecf,efd->gecd", hg * hu, mlp.w_down)
-    out = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), expert_out)
+    out = torch.einsum("gtec,gecd->gtd", combine.to(xg.dtype), expert_out)
     if mlp.shared_gate is not None:
         out = out + L.swiglu(xg, mlp.shared_gate, mlp.shared_up, mlp.shared_down)
-    return out.reshape(orig_shape), me, fe
+    return out
 
 
-def _block_apply(cfg: ModelConfig, bp: BlockParams, x: torch.Tensor,
-                 positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+class Split(NamedTuple):
+    """A data rank's ``tokens`` as parts of the global dispatch groups of
+    ``g_size`` (module doc): rank r of ``mesh`` holds the global flat
+    positions [r tokens, (r + 1) tokens)."""
+    mesh: object              # launch/sharding.ClientMesh of the data ranks
+    g_size: int
+    tokens: int
+
+    def span(self, rank: int) -> tuple[int, int]:
+        """(first global group, groups touched) of ``rank``'s tokens."""
+        start = rank * self.tokens
+        first = start // self.g_size
+        return first, (start + self.tokens - 1) // self.g_size - first + 1
+
+    def parts(self) -> list[tuple[int, int]]:
+        """This rank's (start, stop) local token ranges, one a group."""
+        start = self.mesh.rank * self.tokens
+        first, n = self.span(self.mesh.rank)
+        cuts = [start] + [(first + p) * self.g_size for p in range(1, n)] + [start + self.tokens]
+        return [(a - start, b - start) for a, b in zip(cuts, cuts[1:])]
+
+
+def data_split(tokens: int, data) -> Split | None:
+    """The :class:`Split` of a data rank's ``tokens`` over ``data``, or None
+    when there is no mesh of more than one rank or each rank's tokens are
+    whole groups (then every rank forms its own groups, as today).  A
+    global token count past ``MOE_GROUP`` that is not a whole number of
+    groups raises, as the reference's reshape of the global batch does."""
+    if data is None or data.size == 1:
+        return None
+    total = tokens * data.size
+    g_size = min(MOE_GROUP, total)
+    if total % g_size:
+        raise ValueError(f"{total} tokens over {data.size} data ranks are not a whole number "
+                         f"of {g_size}-token MoE groups")
+    return None if tokens % g_size == 0 else Split(data, g_size, tokens)
+
+
+def _split_bases(split: Split, counts: torch.Tensor) -> torch.Tensor:
+    """Each of this rank's group parts' (k, E) queue offsets: the group's
+    selections at the earlier slots, from every rank, plus those at the
+    same slot from the ranks before this one.  ``counts`` is every rank's
+    (parts, k, E) table, (W, P, k, E), P the most parts a rank holds."""
+    w, n_max = counts.shape[:2]
+    first, n = split.span(split.mesh.rank)
+    spans = [split.span(r) for r in range(w)]
+    # in_group[p, r, q]: rank r's part q is this rank's part p's group.
+    in_group = torch.tensor([[[q < m and f + q == first + p for q in range(n_max)]
+                              for f, m in spans] for p in range(n)], dtype=torch.float32)
+    before = in_group * (torch.arange(w) < split.mesh.rank).to(torch.float32)[None, :, None]
+    c = counts.to(torch.float32)
+    total = torch.einsum("prq,rqke->pke", in_group.to(c.device), c)
+    earlier = torch.einsum("prq,rqke->pke", before.to(c.device), c)
+    return torch.cumsum(total, dim=1) - total + earlier
+
+
+def _split_moe_apply(mlp: MoEMLP, x: torch.Tensor, cfg: ModelConfig, split: Split):
+    """:func:`_moe_apply` on a data rank's tokens whose groups span ranks:
+    the reference's dispatch of the global groups, restricted to this
+    rank's tokens.  One collective (an all-gather of the (parts, k, E)
+    selection counts); under ``cfg.remat`` the checkpointed block runs it
+    again in its recompute, which is sound: every rank recomputes the same
+    layers in the same order, and the counts are integers, with no
+    gradient.  Each group part runs all E x C expert slots, so a group
+    spread over W ranks pays W times its expert FFN."""
+    orig_shape = x.shape
+    d = orig_shape[-1]
+    flat = x.reshape(-1, d)
+    k, e = cfg.n_experts_per_tok, cfg.n_experts
+    cap = capacity(cfg, split.g_size)
+    topv, onehot_top, me, fe = _router(mlp, flat, cfg)      # (t, k), (t, k, E)
+    sel = onehot_top.permute(1, 0, 2)                       # (k, t, E)
+    parts = split.parts()
+    n_max = max(split.span(r)[1] for r in range(split.mesh.size))
+    local = torch.zeros((n_max, k, e), dtype=torch.int32, device=x.device)
+    for p, (a, b) in enumerate(parts):
+        local[p] = torch.sum(sel[:, a:b], dim=1).to(torch.int32)
+    counts = split.mesh.gather_rows(local[None], split.mesh.size, dim=0)   # (W, P, k, E)
+    bases = _split_bases(split, counts)                     # (parts, k, E)
+    outs = []
+    for p, (a, b) in enumerate(parts):
+        s_p = sel[:, a:b]                                   # (k, t_p, E)
+        pos = torch.cumsum(s_p, dim=1) - s_p + bases[p][:, None, :]   # rank in the group's queue
+        disp = _slot_one_hots(pos, s_p, cap)                # (k, t_p, E, C)
+        combine = torch.einsum("ktec,tk->tec", disp, topv[a:b])
+        dispatch = torch.sum(disp, dim=0)                   # (t_p, E, C)
+        outs.append(_experts(mlp, dispatch[None], combine[None], flat[None, a:b])[0])
+    return torch.cat(outs, dim=0).reshape(orig_shape), me, fe
+
+
+def _block_apply(cfg: ModelConfig, bp: BlockParams, x: torch.Tensor, positions: torch.Tensor,
+                 split: Split | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     h = attn.full_attention(bp.attn, L.rms_norm(x, bp.ln1), positions,
                             rope_theta=cfg.rope_theta)
     x = x + h
-    h, me, fe = _moe_apply(bp.mlp, L.rms_norm(x, bp.ln2), cfg)
+    if split is None:
+        h, me, fe = _moe_apply(bp.mlp, L.rms_norm(x, bp.ln2), cfg)
+    else:
+        h, me, fe = _split_moe_apply(bp.mlp, L.rms_norm(x, bp.ln2), cfg, split)
     return x + h, me, fe
-
-
-def check_data_groups(tokens: int, data) -> None:
-    """Raise unless a data rank's ``tokens`` are a whole number of
-    ``MOE_GROUP`` dispatch groups (module doc); one rank (or none) always
-    passes."""
-    if data is not None and data.size > 1 and tokens % MOE_GROUP:
-        raise ValueError(
-            f"a data rank's {tokens} tokens are not a whole number of MOE_GROUP "
-            f"({MOE_GROUP})-token dispatch groups: over {data.size} data ranks the MoE "
-            f"dispatch would differ from the one-process step's")
 
 
 def forward(params: Params, batch: dict, cfg: ModelConfig,
             data=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(hidden states after the final norm (b, s, d), the router aux loss
     summed over the layers, f32).  With ``data`` (a
-    ``launch/sharding.ClientMesh`` over which the batch is split) the aux
-    loss is the whole batch's (module doc), its means reduced in one
-    ``all_reduce`` outside the checkpointed blocks."""
+    ``launch/sharding.ClientMesh`` over which the batch is split) the
+    dispatch groups and the aux loss are the whole batch's (module doc),
+    the aux means reduced in one ``all_reduce`` outside the checkpointed
+    blocks."""
     x = params.embed[batch["tokens"]]
     b, s = batch["tokens"].shape
-    check_data_groups(b * s, data)
+    split = data_split(b * s, data)
     positions = torch.arange(s, device=x.device).expand(b, s)
     mes, fes = [], []
     for bp in L.unstack_layers(params.blocks, cfg.n_layers):
         if cfg.remat:
-            x, me, fe = checkpoint(_block_apply, cfg, bp, x, positions, use_reentrant=False)
+            x, me, fe = checkpoint(_block_apply, cfg, bp, x, positions, split,
+                                   use_reentrant=False)
         else:
-            x, me, fe = _block_apply(cfg, bp, x, positions)
+            x, me, fe = _block_apply(cfg, bp, x, positions, split)
         mes.append(me)
         fes.append(fe)
     h = L.rms_norm(x, params.final_norm)

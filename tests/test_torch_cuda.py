@@ -1623,16 +1623,46 @@ def test_compress_on_the_card_at_a_long_row_matches_plain(cuda):
         assert torch.equal(x.cpu(), w)
 
 
-def test_compressor_wrappers_refuse_d_past_the_int_range(cuda):
-    """The C entries take N and d as int: a row of 2^31 coordinates (a
-    stride-0 view, nothing allocated) is refused before any launch."""
-    big = torch.zeros((1, 1), device=cuda).expand(1, 2 ** 31)
-    before = dict(q8.LAUNCHES)
-    for call in (lambda: q8.compress_blocks(big, big, 410), lambda: q8.quant8_blocks(big),
-                 lambda: tk.topk_ef_blocks(big, big, 410)):
-        with pytest.raises(ValueError, match="below 2\\^31"):
-            call()
-    assert q8.LAUNCHES == before
+LONG_D = 2 ** 31 + 8209       # 262,145 full blocks (one starts at 2^31), then 17 columns
+
+
+def test_compressors_on_the_card_take_a_row_past_two_to_the_31(cuda):
+    """``compress_q8``, ``quant8`` and ``topk_ef`` on one real row of 2^31 +
+    8,209 coordinates (d and a block's start as 64-bit on the card): the
+    first block, blocks 262,143 and 262,144 on either side of 2^31, and
+    the 17-wide last block bitwise the plain versions run on the same
+    blocks.  Each kernel's outputs are freed before the next (topk_ef's
+    row takes ~35 GB with its inputs)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    delta = torch.randn((1, LONG_D), generator=g, device=cuda)
+    err = torch.randn((1, LONG_D), generator=g, device=cuda).mul_(0.1)
+    blk, nb = ops.BLOCK_ELEMS, -(-LONG_D // ops.BLOCK_ELEMS)
+    assert (nb - 2) * blk == 2 ** 31 and LONG_D - (nb - 1) * blk == 17
+    k = ops.block_k(comp.blockwise_k_frac(LONG_D, 0.05))
+    spans = [(b, min(LONG_D, (b + 1) * blk)) for b in (0, nb - 3, nb - 2, nb - 1)]
+
+    def cols(b, end):
+        return slice(b * blk, end)
+
+    q, scale, new_err = q8.compress_blocks(delta, err, k)
+    for b, end in spans:
+        wq, ws, we = ref.compress_ref(delta[:, cols(b, end)].contiguous(),
+                                      err[:, cols(b, end)].contiguous(), k)
+        assert torch.equal(q[:, cols(b, end)], wq) and torch.equal(new_err[:, cols(b, end)], we)
+        assert torch.equal(scale[:, b:b + 1], ws), b
+    del q, scale, new_err
+    q, scale = q8.quant8_blocks(delta)
+    assert q.shape == (1, nb * blk)
+    for b, end in spans:
+        wq, ws = ref.quant8_ref(delta[:, cols(b, end)].contiguous())
+        assert torch.equal(q[:, b * blk:(b + 1) * blk], wq) and torch.equal(scale[:, b:b + 1], ws)
+    del q, scale
+    sparse, new_err = tk.topk_ef_blocks(delta, err, k)
+    for b, end in spans:
+        ws, we = ref.blockwise_topk_ef_ref(delta[:, cols(b, end)].contiguous(),
+                                           err[:, cols(b, end)].contiguous(), k)
+        assert torch.equal(sparse[:, cols(b, end)], ws)
+        assert torch.equal(new_err[:, cols(b, end)], we)
 
 
 # --- the moe, ssm and encdec families, and qwen3 ------------------------------------

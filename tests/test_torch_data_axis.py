@@ -14,7 +14,15 @@ ranks (``tests/torch_mesh_ranks.py``).
   ``api.make_train_step(cfg)`` on the whole batch at the same rule.  Two
   ranks sum two half-batch gradients where one process sums one, so only
   the f32 rounding of the sum differs.
-* A moe batch whose rank share splits a dispatch group raises.
+* MoE dispatch groups that span data ranks (qwen2-moe REDUCED f32 from
+  the reference's params, lr 1e-1): 2 ranks x 1,024 tokens and 4 x 512
+  (one 2,048-token group over the ranks) and 2 x 3,072 (1.5 groups a
+  rank).  The ranks' params, losses and gradients are the same bits, and
+  the step equals the one-process step and the reference's step on the
+  whole batch at the train-step rule.  The pod step over 2 pods x 2 data
+  ranks with a MoE whose pod batch is one group over its two data ranks
+  holds the 2-pod loop within the neighbouring-int8-code rule.  A global
+  token count past one group that is not whole groups raises.
 * ``launch/train.main`` at ``--device cpu`` under 2 ranks: rank 0 alone
   saves, both ranks restore, and its losses equal the one-process run's:
   the first bitwise-close (rtol 1e-6: the same forward, its two halves'
@@ -29,6 +37,9 @@ ranks (``tests/torch_mesh_ranks.py``).
   loop bitwise, as the one-axis mesh is.
 * ``data=None`` and a one-rank mesh give today's bits.
 """
+import functools
+
+import jax
 import numpy as np
 import pytest
 import torch
@@ -37,6 +48,7 @@ import torch_lm_parity as lp
 from test_torch_pod import FLIP_SHARE
 from torch_mesh_ranks import run_ranks
 
+from repro.models import api as japi
 from repro_torch import configs as tconfigs
 from repro_torch.core import mesh_fl
 from repro_torch.launch import sharding
@@ -53,6 +65,13 @@ FAMILIES = {"dense": "llama3-8b", "hybrid": "recurrentgemma-2b", "ssm": "mamba2-
 WITH_REFERENCE = ("dense", "hybrid")
 MOE_ROWS, MOE_SEQ = 4, tmoe.MOE_GROUP // 2     # 2 rows x 1,024 = one group a rank
 MOE_LR = 1e-1
+MOE_ARCH = FAMILIES["moe"]
+# Capacity a quarter of the even share (256 of a 2,048-token group's 1,024
+# choices an expert): tokens are dropped, so a rank's places in a group's
+# queue depend on the ranks before it (and the one-hots stay small).
+MOE_CAPACITY = 0.25
+# Split dispatch groups: case -> (ranks, global batch (rows, seq)).
+MOE_SPLITS = {"2x1024": (2, (4, 512)), "4x512": (4, (4, 512)), "2x3072": (2, (12, 512))}
 POD_ARCH, POD_B, POD_S, POD_STEPS = "llama3-8b", 4, 16, 2
 POD_CASES = [(m, e) for m in ("int8", "topk") for e in (1, 2)]
 LAUNCH = ["production", "--arch", "llama3-8b", "--batch", "2", "--seq", "16",
@@ -103,12 +122,61 @@ def _pod_inputs():
                                                  dtype=torch.int32)}
 
 
-def _pod_loop(cfg, params, batch, mode, local_epochs):
+def _moe_split_inputs(case):
+    """(cfg, the port's params from the reference's, whole batch) of a
+    split-group case."""
+    jcfg, tcfg, _, tp = lp.carry(MOE_ARCH, learning_rate=MOE_LR, capacity_factor=MOE_CAPACITY)
+    b, s = MOE_SPLITS[case][1]
+    return tcfg, tp, lp.batches(jcfg, b=b, s=s, seed=3)[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_reference_step(b, s):
+    """(grad leaves, loss, update leaves) of the reference's step on the
+    whole (b, s) batch, as ``lp.ref_train_step`` at ``MOE_LR``."""
+    jcfg, _, jp, _ = lp.carry(MOE_ARCH, learning_rate=MOE_LR, capacity_factor=MOE_CAPACITY)
+    jb, _ = lp.batches(jcfg, b=b, s=s, seed=3)
+    jloss, jgrads = jax.jit(jax.value_and_grad(japi.loss_fn(jcfg)))(jp, jb)
+    jp2, _ = jax.jit(japi.make_train_step(jcfg))(jp, jb)
+    upd = [np.asarray(a, np.float32) - np.asarray(b, np.float32)
+           for a, b in zip(jax.tree.leaves(jp2), jax.tree.leaves(jp))]
+    return [np.asarray(g) for g in jax.tree.leaves(jgrads)], float(jloss), upd
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_one_process(case):
+    """(grad leaves, loss, update leaves) of the port's one-process step on
+    a split case's whole batch (cases with one batch share it)."""
+    return _moe_one_process_at(MOE_SPLITS[case][1])
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_one_process_at(shape):
+    cfg, params, batch = _moe_split_inputs(next(c for c, (_, b) in MOE_SPLITS.items()
+                                                if b == shape))
+    grads, _ = tsgd.grad_and_value(tapi.loss_fn(cfg))(params, batch)
+    new, loss = tapi.make_train_step(cfg)(params, batch)
+    old = _np(tsgd.tree_leaves(params))
+    return (_np(tsgd.tree_leaves(grads)), float(loss),
+            [n - o for n, o in zip(_np(tsgd.tree_leaves(new)), old)])
+
+
+def _moe_pod_inputs():
+    """A MoE pod step whose pod batch (2 rows x 512) is one dispatch group
+    over the pod's two data ranks."""
+    cfg = _port_cfg(MOE_ARCH).replace(capacity_factor=MOE_CAPACITY)
+    g = torch.Generator().manual_seed(0)
+    params = tapi.init_params(g, cfg)
+    return cfg, params, {"tokens": torch.randint(0, cfg.vocab_size, (4, 512), generator=g,
+                                                 dtype=torch.int32)}
+
+
+def _pod_loop(cfg, params, batch, mode, local_epochs, steps=POD_STEPS):
     """The one-process 2-pod loop: (param leaves, err leaves (2, ...), losses)."""
     step = mesh_fl.make_pod_hfl_train_step(cfg, None, mode=mode, local_epochs=local_epochs,
                                            n_pods=2)
     err, losses = mesh_fl.init_err(params, 2), []
-    for _ in range(POD_STEPS):
+    for _ in range(steps):
         params, err, loss = step(params, err, batch)
         losses.append(loss)
     return params, err, torch.stack(losses)
@@ -122,8 +190,8 @@ def two_ranks(tmp_path_factory):
     mesh layouts."""
     tmp = tmp_path_factory.mktemp("data_axis_w2")
     jobs = [("step",) + _inputs(f) + (1,) for f in FAMILIES]
-    cfg, params, batch = _inputs("moe")
-    jobs.append(("moe_split", cfg, params, {k: v[:2] for k, v in batch.items()}))
+    splits = [c for c, (w, _) in MOE_SPLITS.items() if w == W]
+    jobs += [("step",) + _moe_split_inputs(c) + (1,) for c in splits]
     ckpt = str(tmp / "ckpt")
     jobs += [("launch", LAUNCH + ["--steps", "2", "--ckpt-dir", ckpt]),
              ("launch", LAUNCH + ["--steps", "1", "--ckpt-dir", ckpt]),
@@ -133,7 +201,8 @@ def two_ranks(tmp_path_factory):
              for m, e in POD_CASES]
     jobs += [("layout", 1), ("layout", 2)]
     ranks = run_ranks(jobs, W, tmp / "ranks", timeout_s=TIMEOUT_S)
-    names = [f"step:{f}" for f in FAMILIES] + ["moe_split", "launch", "resume", "ragged"]
+    names = [f"step:{f}" for f in FAMILIES] + [f"split:{c}" for c in splits]
+    names += ["launch", "resume", "ragged"]
     names += [f"pod:{m}:{e}" for m, e in POD_CASES] + ["layout:1", "layout:2"]
     return [dict(zip(names, r)) for r in ranks], tmp
 
@@ -141,14 +210,19 @@ def two_ranks(tmp_path_factory):
 @pytest.fixture(scope="module")
 def four_ranks(tmp_path_factory):
     """One spawn of W = 4 gloo ranks: the pod step over 2 pods x 2 data
-    ranks in every case, and the layouts."""
+    ranks in every case, the MoE pod step at a split group, the MoE step at
+    one group over the four ranks, and the layouts."""
     pcfg, pparams, pbatch = _pod_inputs()
     jobs = [("pod_data", pcfg, pparams, pbatch, dict(mode=m, local_epochs=e), POD_STEPS, 2)
             for m, e in POD_CASES]
+    jobs.append(("pod_data",) + _moe_pod_inputs() + (dict(mode="int8"), 1, 2))
+    splits = [c for c, (w, _) in MOE_SPLITS.items() if w == 4]
+    jobs += [("step",) + _moe_split_inputs(c) + (1,) for c in splits]
     jobs += [("layout", 2), ("layout", 4)]
     ranks = run_ranks(jobs, 4, tmp_path_factory.mktemp("data_axis_w4") / "ranks",
                       timeout_s=TIMEOUT_S)
-    names = [f"pod:{m}:{e}" for m, e in POD_CASES] + ["layout:2", "layout:4"]
+    names = [f"pod:{m}:{e}" for m, e in POD_CASES] + ["pod:moe"]
+    names += [f"split:{c}" for c in splits] + ["layout:2", "layout:4"]
     return [dict(zip(names, r)) for r in ranks]
 
 
@@ -204,20 +278,77 @@ def test_data_ranks_equal_the_reference_step_on_the_whole_batch(two_ranks, famil
     _assert_rule([g - o for g, o in zip(_np(got["params"]), old)], want, "update")
 
 
-def test_a_moe_rank_share_that_splits_a_group_raises(two_ranks):
-    ranks, _ = two_ranks
-    for r in range(W):
-        msg = ranks[r]["moe_split"]["raised"]
-        assert msg is not None and "MOE_GROUP" in msg and f"{MOE_SEQ} tokens" in msg, msg
+# --- MoE dispatch groups over data ranks ---------------------------------------------
+
+def _split_ranks(two_ranks, four_ranks, case):
+    return (two_ranks[0] if MOE_SPLITS[case][0] == W else four_ranks)
 
 
-def test_moe_group_rule_passes_one_rank_and_whole_groups():
-    one = sharding.ClientMesh(None, 0, 1)
-    tmoe.check_data_groups(100, None)
-    tmoe.check_data_groups(100, one)
-    tmoe.check_data_groups(2 * tmoe.MOE_GROUP, sharding.ClientMesh(None, 0, 2))
-    with pytest.raises(ValueError, match="MOE_GROUP"):
-        tmoe.check_data_groups(tmoe.MOE_GROUP + 8, sharding.ClientMesh(None, 0, 2))
+@pytest.mark.parametrize("case", list(MOE_SPLITS))
+def test_split_moe_group_ranks_are_bitwise_equal(two_ranks, four_ranks, case):
+    ranks = _split_ranks(two_ranks, four_ranks, case)
+    first = ranks[0][f"split:{case}"]
+    for r in ranks[1:]:
+        got = r[f"split:{case}"]
+        for key in ("params", "grads"):
+            assert all(torch.equal(x, y) for x, y in zip(got[key], first[key])), key
+        assert torch.equal(got["losses"], first["losses"])
+
+
+@pytest.mark.parametrize("case", list(MOE_SPLITS))
+def test_split_moe_group_equals_one_process_on_the_whole_batch(two_ranks, four_ranks, case):
+    got = _split_ranks(two_ranks, four_ranks, case)[0][f"split:{case}"]
+    grads, loss, update = _moe_one_process(case)
+    np.testing.assert_allclose(float(got["losses"][0]), loss, rtol=1e-5)
+    _assert_rule(_np(got["grads"]), grads, "gradient")
+    _, params, _ = _moe_split_inputs(case)
+    old = _np(tsgd.tree_leaves(params))
+    _assert_rule([g - o for g, o in zip(_np(got["params"]), old)], update, "update")
+
+
+@pytest.mark.parametrize("case", list(MOE_SPLITS))
+def test_split_moe_group_equals_the_reference_step_on_the_whole_batch(two_ranks, four_ranks,
+                                                                      case):
+    got = _split_ranks(two_ranks, four_ranks, case)[0][f"split:{case}"]
+    jg, jl, want = _moe_reference_step(*MOE_SPLITS[case][1])
+    np.testing.assert_allclose(float(got["losses"][0]), jl, rtol=1e-5)
+    _assert_rule(_np(got["grads"]), jg, "gradient")
+    _, params, _ = _moe_split_inputs(case)
+    old = _np(tsgd.tree_leaves(params))
+    _assert_rule([g - o for g, o in zip(_np(got["params"]), old)], want, "update")
+
+
+@pytest.mark.parametrize("ranks,tokens,want", [
+    (2, 1024, (2048, [(0, 1024)])),                   # one group over two ranks
+    (4, 512, (2048, [(0, 512)])),
+    (2, 3072, (2048, [(0, 1024), (1024, 3072)])),     # rank 1: half a group, then one
+    (2, 512, (1024, [(0, 512)])),                     # a global batch under one group
+])
+def test_data_split_parts_of_the_global_groups(ranks, tokens, want):
+    split = tmoe.data_split(tokens, sharding.ClientMesh(None, ranks - 1, ranks))
+    assert (split.g_size, split.parts()) == want
+    first, n = split.span(0)
+    assert first == 0 and sum(b - a for a, b in split.parts()) == tokens
+    assert n == len(tmoe.data_split(tokens, sharding.ClientMesh(None, 0, ranks)).parts())
+
+
+def test_whole_groups_a_rank_and_one_rank_keep_todays_step():
+    """No split: no mesh, one rank, or a rank's tokens whole groups."""
+    assert tmoe.data_split(100, None) is None
+    assert tmoe.data_split(100, sharding.ClientMesh(None, 0, 1)) is None
+    assert tmoe.data_split(2 * tmoe.MOE_GROUP, sharding.ClientMesh(None, 1, 2)) is None
+
+
+def test_a_global_token_count_that_is_not_whole_groups_raises():
+    """Past one group the global count must be whole groups (the
+    reference's reshape); the step raises before any collective."""
+    mesh = sharding.ClientMesh(None, 0, 2)
+    with pytest.raises(ValueError, match="3072 tokens over 2 data ranks"):
+        tmoe.data_split(1536, mesh)
+    cfg, params, _ = _moe_split_inputs("2x3072")
+    mine = {"tokens": torch.zeros((1, 1536), dtype=torch.int32)}     # 1,536 a rank
+    with pytest.raises(ValueError, match="whole number"):
+        tapi.make_train_step(cfg, mesh)(params, mine)
 
 
 # --- the launcher ------------------------------------------------------------------
@@ -320,6 +451,33 @@ def test_pod_step_two_by_two(two_ranks, four_ranks, mode, local_epochs):
     assert off == first["params"].numel()
     two_by_one = two_ranks[0][0][key]
     assert torch.equal(two_by_one["params"], tsgd.ravel_tree(want_p))
+
+
+def test_moe_pod_step_at_a_split_group(four_ranks):
+    """One step of 2 pods x 2 data ranks, each pod's 1,024 tokens one
+    dispatch group over its two ranks: every rank's params the same bits,
+    a pod's ranks' error buffers the same bits, and the 2-pod loop within
+    neighbouring int8 codes."""
+    first = four_ranks[0]["pod:moe"]
+    for r in range(4):
+        assert torch.equal(four_ranks[r]["pod:moe"]["params"], first["params"]), r
+    for p in range(2):
+        assert torch.equal(four_ranks[2 * p]["pod:moe"]["err"],
+                           four_ranks[2 * p + 1]["pod:moe"]["err"])
+    cfg, params, batch = _moe_pod_inputs()
+    want_p, want_e, want_l = _pod_loop(cfg, params, batch, "int8", 1, steps=1)
+    np.testing.assert_allclose(first["losses"].numpy(), want_l.numpy(), rtol=1e-5)
+    off = 0
+    for leaf, e in zip(tsgd.tree_leaves(want_p), tsgd.tree_leaves(want_e)):
+        n = leaf.numel()
+        qstep = float(e.abs().max()) * 2 + 1e-30
+        _assert_close_but_flips(first["params"][off:off + n], leaf.reshape(-1), qstep * LR,
+                                "moe params")
+        for p in range(2):
+            _assert_close_but_flips(four_ranks[2 * p]["pod:moe"]["err"][off:off + n],
+                                    e[p].reshape(-1), qstep, f"moe err pod {p}")
+        off += n
+    assert off == first["params"].numel()
 
 
 # --- no mesh, one rank --------------------------------------------------------------

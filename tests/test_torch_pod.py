@@ -21,6 +21,9 @@ f32(1/127), the product the reference's jitted division computes.
 Two gloo ranks (``tests/torch_mesh_ranks.py``) are bitwise the
 single-process 2-pod loop, in both modes.
 """
+import ctypes
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,6 +44,7 @@ from repro_torch.engine import Engine
 from repro_torch.examples import federated_llm
 from repro_torch.kernels import _launch, ops, ref
 from repro_torch.kernels import quant8 as kq8
+from repro_torch.kernels import topk_ef as ktk
 from repro_torch.models import api as tapi
 from repro_torch.models import transformer
 from repro_torch.optim import sgd as tsgd
@@ -403,13 +407,44 @@ def test_compress_recon_without_an_index_is_bitwise_the_gather():
                            * (8.0 + np.ceil(np.log2(d))))
 
 
-def test_kernel_wrappers_refuse_d_at_or_past_two_to_the_31(monkeypatch):
-    """The C entries take d as int: ``compress_q8``'s wrapper raises
-    before anything is launched (a stride-0 view stands for the row)."""
+WRAPPERS = {
+    "compress_q8": lambda x: kq8.compress_blocks(x, x, 410),
+    "quant8": lambda x: kq8.quant8_blocks(x),
+    "topk_ef": lambda x: ktk.topk_ef_blocks(x, x, 410),
+}
+
+
+@pytest.mark.parametrize("kernel", list(WRAPPERS))
+def test_kernel_wrappers_take_d_at_or_past_two_to_the_31(monkeypatch, kernel):
+    """The C entries take d as a 64-bit integer: a row of 2^31 coordinates
+    (a stride-0 view stands for it) passes the size check and reaches the
+    input checks, which refuse the view for not being contiguous."""
     monkeypatch.setattr(_launch, "require_cuda", lambda t, what: t.device)
-    big = torch.zeros((1, 1)).expand(1, 2 ** 31)
-    with pytest.raises(ValueError, match="below 2\\^31"):
-        kq8.compress_blocks(big, big, 410)
-    ok = torch.zeros((1, 1)).expand(1, 2 ** 31 - 1)
+    big = torch.zeros((1, 1)).expand(1, 2 ** 31 + 8209)
     with pytest.raises(ValueError, match="contiguous"):
-        kq8.compress_blocks(ok, ok, 410)
+        WRAPPERS[kernel](big)
+
+
+@pytest.mark.parametrize("kernel", list(WRAPPERS))
+@pytest.mark.parametrize("shape", [(2 ** 18, 2 ** 26), (2 ** 31, 1)])
+def test_kernel_wrappers_refuse_a_task_count_at_or_past_two_to_the_31(monkeypatch, kernel,
+                                                                     shape):
+    """A launch takes one task per (row, 8192-block), an int index on the
+    card: N x blocks of 2^31 or more raises before anything is launched."""
+    monkeypatch.setattr(_launch, "require_cuda", lambda t, what: t.device)
+    with pytest.raises(ValueError, match="N x blocks below 2\\^31"):
+        WRAPPERS[kernel](torch.zeros((1, 1)).expand(*shape))
+
+
+@pytest.mark.parametrize("lib_mod,entry,d_at", [(kq8, "compress_q8", 3), (kq8, "quant8", 2),
+                                                (ktk, "topk_ef", 3)])
+def test_c_entries_take_d_as_a_64_bit_integer(monkeypatch, lib_mod, entry, d_at):
+    """The wrappers declare d as ``ctypes.c_int64``, so a d past 2^31
+    reaches the C entry whole (a ``c_int`` would wrap it silently)."""
+    fake = types.SimpleNamespace(**{name: types.SimpleNamespace() for name in (
+        "compress_q8", "quant8", "quant8_error_string", "topk_ef", "topk_ef_error_string")})
+    monkeypatch.setattr(lib_mod, "_lib", None)
+    monkeypatch.setattr(lib_mod._build, "load", lambda name: fake)
+    argtypes = getattr(lib_mod._library(), entry).argtypes
+    assert argtypes[d_at] is ctypes.c_int64 and argtypes[d_at - 1] is ctypes.c_int
+    assert argtypes[d_at](2 ** 31 + 8209).value == 2 ** 31 + 8209

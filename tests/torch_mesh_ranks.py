@@ -41,8 +41,6 @@ Jobs (tuples, first item the kind):
   ``steps`` steps, after ``optim/sgd.grad_and_value(loss_fn(cfg, mesh),
   mesh)`` on them; gives the new param leaves, the losses and the reduced
   gradient leaves (f32);
-* ``("moe_split", cfg, params, batch)``: the same step on rows that split
-  a MoE dispatch group; gives the ``ValueError``'s message;
 * ``("launch", argv)``: ``launch/train.main(argv)`` under the group, with
   ``CheckpointStore.save`` counted; gives its summary and this rank's
   saves (or the ``ValueError``'s message);
@@ -137,18 +135,12 @@ def run_job(job: tuple, mesh: sharding.ClientMesh, device: torch.device) -> dict
             losses.append(loss)
         return {"params": sgd.ravel_tree(params).cpu(), "err": sgd.ravel_tree(err).cpu(),
                 "losses": torch.stack(losses).cpu()}
-    if kind in ("step", "moe_split"):
+    if kind == "step":
         _, cfg, params, batch = job[:4]
         params = sgd.tree_unflatten(params, [p.to(device) for p in sgd.tree_leaves(params)])
         rows = mesh.rows(batch["tokens"].shape[0])
         mine = {k: v[rows].to(device) for k, v in batch.items()}
         step = api.make_train_step(cfg, mesh)
-        if kind == "moe_split":
-            try:
-                step(params, mine)
-            except ValueError as e:
-                return {"raised": str(e)}
-            return {"raised": None}
         grads, _ = sgd.grad_and_value(api.loss_fn(cfg, mesh), mesh)(params, mine)
         losses = []
         for _ in range(job[4]):
