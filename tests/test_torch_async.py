@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_hfl import N, TOL, data, jax_cfg, jax_inputs, torch_cfg  # noqa: F401
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro.core import async_fl as jaf
 from repro.core import drift as jdrf
@@ -50,16 +51,6 @@ EXACT = ("merged", "n_launched", "n_arrived", "n_erased", "coop_links", "n_nonfi
          "global_finite")
 COUNTERS = ("nonfinite_total", "erased_total", "nonfinite_rounds", "merges")
 DELAYS = np.random.default_rng(0).permutation(np.linspace(0.5, 3.0, N)).astype(np.float32)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    """Thousands of small ops: beside the other workers of a parallel run,
-    torch's intra-op threads only wait for cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _faults(mod):

@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro.data import benchmarks as jbench
 from repro_torch.data import benchmarks as tbench

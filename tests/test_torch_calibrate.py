@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro.serving import StreamingCalibrator as JaxCalibrator
 from repro.serving import calibrate as jcal

@@ -9,6 +9,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro.checkpoint import CheckpointStore as JaxStore
 from repro.checkpoint import load_pytree as jax_load

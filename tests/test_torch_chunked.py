@@ -28,6 +28,7 @@ import torch
 from test_torch_hfl import (  # noqa: F401  (data is a fixture)
     assert_rounds_match, data, jax_cfg, rounds_both, torch_cfg,
 )
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro.core import aggregation as jagg
 from repro.core import compression as jcomp

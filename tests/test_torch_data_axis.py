@@ -47,6 +47,7 @@ import torch.distributed as dist
 import torch_lm_parity as lp
 from test_torch_pod import FLIP_SHARE
 from torch_mesh_ranks import run_ranks
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro.models import api as japi
 from repro_torch import configs as tconfigs
@@ -76,15 +77,6 @@ POD_ARCH, POD_B, POD_S, POD_STEPS = "llama3-8b", 4, 16, 2
 POD_CASES = [(m, e) for m in ("int8", "topk") for e in (1, 2)]
 LAUNCH = ["production", "--arch", "llama3-8b", "--batch", "2", "--seq", "16",
           "--ckpt-every", "1", "--device", "cpu"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    """Small ops beside the other test workers: one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _port_cfg(arch):

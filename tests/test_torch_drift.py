@@ -42,6 +42,7 @@ from test_torch_hfl import (  # noqa: F401  (data is a fixture)
     TOL, M, N, T, assert_metric_matches, assert_rounds_match, data, jax_cfg, jax_inputs,
     rounds_both, torch_cfg,
 )
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro.core import association as jassoc
 from repro.core import channel as jch

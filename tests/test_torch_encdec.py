@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro.models import api as japi
 from repro.models import attention as jattn
@@ -34,16 +35,6 @@ from torch_lm_parity import (assert_rel, batches, carry, check_bf16_loss, check_
                              check_round_trip_bf16, check_train_step, np32, t2np)
 
 ARCH = "whisper-medium"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    """One PyTorch thread, as the other workers of a parallel run share
-    the cores (these models' ops are small)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # --- layers ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro import engine as jeng
 from repro.kernels import ops as jops
@@ -54,17 +55,6 @@ PORTED = HFL_METHODS + ("fedavg", "fedprox", "fedadam", "scaffold", "centralised
 
 def _cpu_engine(**kw):
     return teng.Engine(device="cpu", **kw)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    """These trials are thousands of small ops.  Beside the other workers
-    of a parallel test run, torch's intra-op threads only wait for cores
-    (tens of times slower than one thread), so the module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # --- against the reference's Engine -----------------------------------------

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro.core import compression as jcomp
 from repro.core import flat_fl as jflat
@@ -34,14 +35,6 @@ from repro_torch.optim import sgd as tsgd
 
 jsgd = importlib.import_module("repro.optim.sgd")   # the package exports a function ``sgd``
 ADAM_TOL = 1e-6     # of each leaf's largest magnitude, f32
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # --- the examples ------------------------------------------------------------

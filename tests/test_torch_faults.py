@@ -32,6 +32,7 @@ import torch
 from test_torch_hfl import (  # noqa: F401  (data is a fixture)
     E, M, N, T, assert_rounds_match, data, jax_cfg, rounds_both, torch_cfg,
 )
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro.core import faults as jflt
 from repro_torch.core import faults as tflt

@@ -28,6 +28,7 @@ from test_torch_drift import _drift_cfgs
 from test_torch_hfl import (  # noqa: F401  (data is a fixture)
     HIDDEN, N, T, TOL, assert_metric_matches, data, jax_cfg, jax_inputs, torch_cfg,
 )
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro.core import aggregation as jagg
 from repro.core import compression as jcomp

@@ -20,6 +20,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_parity import one_intra_op_thread, reference_rounds  # noqa: F401
 
 from repro.checkpoint import CheckpointStore as JaxStore
 from repro.core import compression as jcomp
@@ -109,20 +110,40 @@ def _rounds_through_stores(train_fn, like):
     return params, metrics, per_round
 
 
-def rounds_both(data, seed, cfg_j, cfg_t):
-    """``hfl.train`` in both packages on the reference's draws, publishing
-    every round: (metrics_j, per-round params_j, metrics_t, per-round
-    params_t, final params_t)."""
-    ds, ds_t = data
-    key = jax.random.key(seed)
-    _, k_train = jax.random.split(key)
-    params_j, inputs = jax_inputs(key, ds, cfg_j)
+def reference_through_store(ds, k_train, params_j, cfg_j):
+    """The reference's ``hfl.train(..., store=)``, each round's params read
+    back through the port's store: (metrics, per-round params)."""
     like = tae.from_numpy(params_j, "cpu")
     with tempfile.TemporaryDirectory() as tmp:
         store = JaxStore(tmp, keep=T + 1)
         _, m_j = jhfl.train(k_train, params_j, jae.loss, ds, cfg_j, store=store)
         # The two stores write the same npz keys, so the port reads both.
         rounds_j = [CheckpointStore(tmp).restore(like, s)[0] for s in range(1, T + 1)]
+    return m_j, rounds_j
+
+
+def reference_cached(ds, k_train, params_j, cfg_j):
+    """The same rounds through the compile-once step of
+    ``tests/torch_parity.py``: (metrics, per-round params)."""
+    _, m_j, rounds = reference_rounds(jae.loss, ds, cfg_j).run(k_train, params_j)
+    return m_j, [tae.from_numpy(p, "cpu") for p in rounds]
+
+
+def rounds_both(data, seed, cfg_j, cfg_t, *, cached=True):
+    """``hfl.train`` in both packages on the reference's draws, publishing
+    every round: (metrics_j, per-round params_j, metrics_t, per-round
+    params_t, final params_t).  The reference runs through the compile-once
+    step unless ``cached`` is false (its own ``train`` with a store, for a
+    caller that patches the reference or reads its store)."""
+    ds, ds_t = data
+    key = jax.random.key(seed)
+    _, k_train = jax.random.split(key)
+    params_j, inputs = jax_inputs(key, ds, cfg_j)
+    like = tae.from_numpy(params_j, "cpu")
+    if cached:
+        m_j, rounds_j = reference_cached(ds, k_train, params_j, cfg_j)
+    else:
+        m_j, rounds_j = reference_through_store(ds, k_train, params_j, cfg_j)
     p_t, m_t, rounds_t = _rounds_through_stores(
         lambda store: thfl.train(inputs.params, tae.loss, ds_t, cfg_t, inputs.dep,
                                  inputs.draws, store=store),
@@ -154,7 +175,8 @@ def assert_metric_matches(field, got, want):
 
 @pytest.fixture(scope="module")
 def selective_rounds(data):
-    return rounds_both(data, 2, jax_cfg(), torch_cfg())
+    """Through the reference's store, which the port's store reads."""
+    return rounds_both(data, 2, jax_cfg(), torch_cfg(), cached=False)
 
 
 def test_round_params_match_jax(selective_rounds):
@@ -213,6 +235,52 @@ def test_hfl_adam_rounds_match_jax(data, key):
     O(``server_lr``); the mix is now the reference's contraction."""
     both = rounds_both(data, key, jax_cfg(server_opt="adam"), torch_cfg(server_opt="adam"))
     assert_rounds_match(both)
+
+
+PIN_CASES = {"selective": (2, {}), "adam": (10, dict(server_opt="adam"))}
+
+
+def _bits(x):
+    a = np.ascontiguousarray(np.asarray(x))
+    return a.dtype, a.shape, a.tobytes()
+
+
+@pytest.mark.parametrize("name", list(PIN_CASES))
+def test_cached_reference_rounds_are_its_train_bitwise(data, name):
+    """The compile-once step of ``tests/torch_parity.py`` against the
+    reference's own ``hfl.train(..., store=)`` on the same inputs: every
+    round's params and every ``RoundMetrics`` field bit for bit."""
+    ds, _ = data
+    seed, kw = PIN_CASES[name]
+    cfg = jax_cfg(**kw)
+    key = jax.random.key(seed)
+    _, k_train = jax.random.split(key)
+    params_j, _ = jax_inputs(key, ds, cfg)
+    m_c, rounds_c = reference_cached(ds, k_train, params_j, cfg)
+    m_s, rounds_s = reference_through_store(ds, k_train, params_j, cfg)
+    assert len(rounds_c) == len(rounds_s) == T
+    for pc, ps in zip(rounds_c, rounds_s):
+        assert _bits(tae.ravel(pc).numpy()) == _bits(tae.ravel(ps).numpy())
+    assert m_c._fields == m_s._fields
+    for field in m_c._fields:
+        assert _bits(getattr(m_c, field)) == _bits(getattr(m_s, field)), field
+
+
+def test_cached_reference_compiles_once_a_config(data):
+    """Two keys of one config share the cache's compile of the round.
+    ``init_state``'s battery is weakly typed and a round's output is not,
+    so round 1 and the rounds after it are two programs, as in the
+    reference's own loop; the second key compiles neither again."""
+    ds, _ = data
+    ref = reference_rounds(jae.loss, ds, jax_cfg(server_opt="adam"))
+    traces = []
+    for seed in (10, 11):
+        key = jax.random.key(seed)
+        params_j, _ = jax_inputs(key, ds, ref.cfg)
+        ref.run(jax.random.split(key)[1], params_j)
+        traces.append(ref.traces)
+    assert traces == [2, 2]
+    assert reference_rounds(jae.loss, ds, jax_cfg(server_opt="adam")) is ref
 
 
 def test_cooperative_mix_is_one_fma_of_the_partner_product():
@@ -293,10 +361,10 @@ def test_draw_trial_is_reproducible_and_sized(data):
         (dict(local_solver=LocalTrainConfig(fused=False)), "queue 1 item 5"),
     ],
 )
-def test_unported_options_raise(data, change, match):
-    """An option that raised until its queue-1 item (``match``) was ported
-    now runs: ``fused=False`` takes the legacy client scan, whose round
-    agrees with the fused operator's to the round pins' tolerance."""
+def test_legacy_client_scan_matches_the_fused_operator(data, change, match):
+    """``fused=False`` (ported by queue-1 item ``match``) runs the legacy
+    client scan, whose round agrees with the fused operator's to the round
+    pins' tolerance."""
     _, ds_t = data
     g = torch.Generator().manual_seed(0)
     inputs = texp.draw_trial(g, ds_t, torch_cfg(rounds=1))
@@ -309,15 +377,13 @@ def test_unported_options_raise(data, change, match):
     np.testing.assert_allclose(got["losses"].numpy(), want["losses"].numpy(), **TOL)
 
 
-def test_unported_methods_and_mesh_raise(data):
-    """``hfl-async`` raised until its queue-1 item 13 was ported; it now
-    runs (a plain config takes the async defaults).  An unknown method
-    still raises.  The client mesh raised until queue-1 item 15 was
-    ported (``tests/test_torch_mesh.py`` runs it); it now refuses what the
-    reference refuses, with its ``ValueError``s and in its order (a
-    stand-in mesh, as ``tests/test_drift.py`` uses): fault injection or a
-    robust reduce, then drift, then a sensor count the mesh size does not
-    divide."""
+def test_async_runs_unknown_method_raises_mesh_refuses_as_reference(data):
+    """``hfl-async`` runs on a plain config (which takes the async
+    defaults); an unknown method raises ``ValueError``; the client mesh
+    (``tests/test_torch_mesh.py`` runs it) refuses what the reference
+    refuses, with its ``ValueError``s and in its order (a stand-in mesh, as
+    ``tests/test_drift.py`` uses): fault injection or a robust reduce, then
+    drift, then a sensor count the mesh size does not divide."""
     _, ds_t = data
     g = torch.Generator().manual_seed(0)
     out = texp.trial_metrics("hfl-async", g, ds_t, torch_cfg(), device="cpu")

@@ -23,6 +23,7 @@ import pytest
 import torch
 from test_torch_drift import assert_rounds_match_up_to_code_flips
 from test_torch_hfl import TOL, data, jax_cfg, rounds_both, torch_cfg  # noqa: F401
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro.core import aggregation as jagg
 from repro_torch.core import aggregation as tagg
@@ -57,7 +58,9 @@ def recorded(data):  # noqa: F811
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jagg, "compress_and_accumulate", ref_recorded)
         mp.setattr(tagg, "compress_and_aggregate", port_recorded)
-        both = rounds_both(data, FLIP_KEY, jax_cfg(), torch_cfg())
+        # Not through the compile-once cache: the patched reference must
+        # compile here, and the cache's step must not record.
+        both = rounds_both(data, FLIP_KEY, jax_cfg(), torch_cfg(), cached=False)
     return both, seen
 
 

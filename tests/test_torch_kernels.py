@@ -16,6 +16,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro.kernels import ops as jops
 from repro.models import autoencoder as jae

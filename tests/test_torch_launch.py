@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 from jax.sharding import PartitionSpec as P
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro import configs as jconfigs
 from repro.launch import roofline as jroofline
@@ -44,14 +45,6 @@ MESHES = {"pod": (POD_MESH, tmesh.make_production_mesh()),
           "multipod": (MULTI_MESH, tmesh.make_production_mesh(multi_pod=True))}
 ARCHS = tconfigs.model_archs()
 SHAPES = tuple(tconfigs.SHAPES)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # --- the rules: every case of tests/test_sharding.py, on both meshes' twins ---

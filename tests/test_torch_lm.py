@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro import configs as jconfigs
 from repro.launch import serve as jserve
@@ -44,16 +45,6 @@ ARCHS = {"recurrentgemma-2b": rglru, "llama3-8b": transformer, "gemma2-27b": tra
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 REL_TOL = {"f32": 2e-5, "bf16": 4e-2}
 ATTN_TOL = dict(atol=2e-5, rtol=1e-4)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    """One PyTorch thread, as the other workers of a parallel run share
-    the cores (these models' ops are small)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(x):

@@ -12,6 +12,7 @@ import dataclasses
 import jax.numpy as jnp
 import pytest
 import torch
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro import configs as jconfigs
 from repro_torch import configs as tconfigs
@@ -20,16 +21,6 @@ from torch_lm_parity import (check_bf16_loss, check_decode, check_forward_and_lo
 
 DTYPE = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
 QWEN3 = ["qwen3-14b", "qwen3-32b"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    """One PyTorch thread, as the other workers of a parallel run share
-    the cores (these models' ops are small)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_archs_are_the_reference_archs():

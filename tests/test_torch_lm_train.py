@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro import configs as jconfigs
 from repro.checkpoint import store as jstore
@@ -53,16 +54,6 @@ from repro_torch.optim import sgd as tsgd
 ARCHS = {"recurrentgemma-2b": rglru, "llama3-8b": transformer, "gemma2-27b": transformer,
          "internvl2-26b": transformer}
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    """One PyTorch thread, as the other workers of a parallel run share
-    the cores (these models' ops are small)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(arch, dtype="f32", **kw):

@@ -5,6 +5,7 @@ port's replay harness drives the port's services.
 """
 import numpy as np
 import pytest
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro.loadgen import diurnal_trace as j_diurnal
 from repro.loadgen import gaussian_windows as j_windows

@@ -30,6 +30,7 @@ import pytest
 import torch
 from test_torch_hfl import jax_inputs
 from torch_mesh_ranks import rank_update, run_ranks
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro.core import compression as jcomp
 from repro.core import flat_fl as jflat
@@ -54,15 +55,6 @@ SCENARIOS = {"w4": (4, None), "w2-chunk2": (2, 2), "w1": (1, None)}   # (ranks, 
 FAMILIES = {"hfl": (thfl.train, jhfl.train), "flat": (tflat.train_flat, jflat.train_flat)}
 ENGINE = dict(method="hfl-selective", seeds=(0, 1), n_deployments=2)
 TIMEOUT_S = 90.0
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    """Small ops beside the other test workers: one thread, as the ranks."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro.models import api as japi
 from repro.models import moe as jmoe
@@ -25,16 +26,6 @@ from torch_lm_parity import (REL_TOL, assert_rel, carry, check_bf16_loss, check_
                              t2np)
 
 ARCHS = ["qwen2-moe-a2.7b", "grok-1-314b"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    """One PyTorch thread, as the other workers of a parallel run share
-    the cores (these models' ops are small)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _layer0(arch, **kw):

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 from torch_mesh_ranks import run_ranks
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro import configs as jconfigs
 from repro.core import compression as jcomp
@@ -55,16 +56,6 @@ B, S = 4, 16
 INV127 = np.float32(1.0 / 127.0)
 FLIP_SHARE = 1e-3
 TIMEOUT_S = 120.0
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    """One PyTorch thread, as the other workers of a parallel run share
-    the cores (these models' ops are small)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

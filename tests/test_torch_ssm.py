@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro.models import ssm as jssm
 from repro_torch import configs as tconfigs
@@ -26,16 +27,6 @@ from torch_lm_parity import (assert_rel, batches, carry, cfgs, check_bf16_loss, 
                              check_round_trip_bf16, check_train_step)
 
 ARCH = "mamba2-2.7b"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    """One PyTorch thread, as the other workers of a parallel run share
-    the cores (these models' ops are small)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _ssd_inputs(nc, with_h0, q=16, b=2, h=3, p=8, n=5):

@@ -31,6 +31,7 @@ import pytest
 import torch
 from test_torch_hfl import T, assert_metric_matches, data, jax_inputs  # noqa: F401
 from torch_mesh_ranks import run_ranks
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro import engine as jeng
 from repro.core import channel as jch
@@ -59,15 +60,6 @@ N, M, E = 12, 3, 1
 SEEDS, P = (0, 1), 2
 TOL = dict(rtol=1e-5, atol=1e-5)
 COUNTERS = ("coop_links", "nonfinite_total", "erased_total", "nonfinite_rounds", "merges")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    """Small ops beside the other test workers: one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def assert_cell(got, want, what):

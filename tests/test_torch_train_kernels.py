@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 from jax.flatten_util import ravel_pytree
+from torch_parity import one_intra_op_thread  # noqa: F401
 
 from repro.data.pipeline import multi_epoch_indices as jax_indices
 from repro.kernels import ops as jops
